@@ -1,0 +1,101 @@
+"""Per-device handle of the PyTorch port.
+
+(Counterpart of ``raft_tpu/core/resources.py:346`` ``DeviceResources`` and
+``device_resources()`` at ``:413``; ref: core/device_resources.hpp.) PyTorch
+owns streams and allocation, so the handle holds only what the algorithms
+read: the device, a seeded ``torch.Generator`` on it, and the workspace
+budget that sizes the streamed KNN tile.
+
+Device rule for every entry point of the port: ``device=None`` means the
+device of the tensors passed in, or ``cuda`` when none is a tensor. Without
+a CUDA device that raises :class:`DeviceError` — nothing runs quietly on the
+CPU unless the caller passed ``device="cpu"`` or CPU tensors.
+"""
+
+from __future__ import annotations
+
+import threading
+from typing import Optional
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core.error import DeviceError
+
+# The certified KNN's f32 rescore and its certificate bound assume
+# full-f32 products (knn_fused._err_bound_coeff*): TF32 keeps ~10 mantissa
+# bits and would void both, so the port turns it off for matmuls and cuDNN
+# alike the moment it is imported.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device=None, *tensors) -> torch.device:
+    """The device an entry point runs on (see the module docstring)."""
+    if device is None:
+        for t in tensors:
+            if isinstance(t, torch.Tensor):
+                return t.device
+        device = "cuda"
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise DeviceError(
+            "no CUDA device is available; pass device='cpu' (or CPU "
+            "tensors) to run the plain PyTorch path")
+    return dev
+
+
+def as_f32(a, device: torch.device) -> torch.Tensor:
+    """``a`` (numpy, list or tensor) as a contiguous f32 tensor on
+    ``device``."""
+    if isinstance(a, torch.Tensor):
+        return a.to(device=device, dtype=torch.float32).contiguous()
+    a = np.asarray(a, dtype=np.float32)
+    if not a.flags.writeable:      # e.g. a view of a JAX array
+        a = a.copy()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+class DeviceResources:
+    """The concrete per-device handle.
+
+    ``workspace_limit`` (bytes) bounds the [queries, tile] f32 scratch of
+    the streamed sweeps; the default is a quarter of the card's memory, or
+    1 GiB on the CPU (the reference's fallback)."""
+
+    def __init__(self, device=None, seed: int = 0,
+                 workspace_limit: Optional[int] = None):
+        self.device = resolve_device(device)
+        self.generator = torch.Generator(device=self.device)
+        self.generator.manual_seed(seed)
+        if workspace_limit is None:
+            workspace_limit = 1 << 30
+            if self.device.type == "cuda":
+                props = torch.cuda.get_device_properties(self.device)
+                workspace_limit = props.total_memory // 4
+        self.allocation_limit = int(workspace_limit)
+
+    def sync(self, value=None):
+        """Wait for the device's queued work; returns ``value``."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        return value
+
+
+_default_resources: Optional[DeviceResources] = None
+_default_lock = threading.Lock()
+
+
+def device_resources() -> DeviceResources:
+    """Process-default handle on the CUDA device, created on first use
+    (raises where there is none)."""
+    global _default_resources
+    with _default_lock:
+        if _default_resources is None:
+            _default_resources = DeviceResources()
+        return _default_resources
+
+
+def ensure_resources(res: Optional[DeviceResources]) -> DeviceResources:
+    """``None`` means the process-default handle."""
+    return res if res is not None else device_resources()

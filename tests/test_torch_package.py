@@ -1,0 +1,114 @@
+"""Package rules of the PyTorch port (raft_tpu_torch): it imports neither
+jax nor raft_tpu, its entry points run on the CUDA device unless asked for
+the CPU, and the CPU path never launches a kernel."""
+
+import ast
+import os
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import raft_tpu_torch
+from raft_tpu_torch import distance
+from raft_tpu_torch.core import DeviceError, DeviceResources
+from raft_tpu_torch.distance.knn_fused import knn_fused
+from raft_tpu_torch.ops import fused_l2_topk
+from raft_tpu_torch.random import make_blobs
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PKG = os.path.join(REPO, "raft_tpu_torch")
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "raft_tpu")
+
+
+def test_import_pulls_in_no_jax_and_no_reference():
+    code = ("import sys, raft_tpu_torch, raft_tpu_torch.distance.knn_fused; "
+            "print(sorted(m for m in sys.modules if m.split('.')[0] in "
+            "('jax', 'jaxlib', 'raft_tpu')))")
+    env = dict(os.environ, PYTHONPATH=REPO)
+    out = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=REPO, env=env, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "[]"
+
+
+def test_sources_import_no_jax_and_no_reference():
+    bad = []
+    for root, _, files in os.walk(PKG):
+        for f in files:
+            if not f.endswith(".py"):
+                continue
+            path = os.path.join(root, f)
+            with open(path) as fh:
+                tree = ast.parse(fh.read(), path)
+            for node in ast.walk(tree):
+                if isinstance(node, ast.Import):
+                    bad += [(path, a.name) for a in node.names
+                            if _forbidden(a.name)]
+                elif isinstance(node, ast.ImportFrom) and node.module:
+                    if node.level == 0 and _forbidden(node.module):
+                        bad.append((path, node.module))
+    assert bad == []
+
+
+def test_entry_points_default_to_cuda():
+    y = np.random.default_rng(0).normal(size=(4096, 16)).astype(np.float32)
+    if torch.cuda.is_available():
+        assert distance.prepare_knn_index(y).device.type == "cuda"
+        return
+    with pytest.raises(DeviceError):
+        distance.prepare_knn_index(y)
+    with pytest.raises(DeviceError):
+        knn_fused(y[:8], y, 4)
+    with pytest.raises(DeviceError):
+        DeviceResources()
+    with pytest.raises(DeviceError):
+        make_blobs(None, 0, 100, 4)
+    with pytest.raises(DeviceError):
+        distance.knn(None, y, y[:8], 4)
+    # the same calls on the CPU, by argument
+    assert distance.prepare_knn_index(y, device="cpu").device.type == "cpu"
+    v, i = knn_fused(y[:8], y, 4, device="cpu")
+    assert v.device.type == "cpu" and i.shape == (8, 4)
+    X, labels = make_blobs(None, 0, 100, 4, device="cpu")
+    assert X.shape == (100, 4) and labels.shape == (100,)
+
+
+def test_cpu_path_launches_no_kernel():
+    before = fused_l2_topk.LAUNCHES
+    y = torch.randn(4096, 32, generator=torch.Generator().manual_seed(1))
+    idx = distance.prepare_knn_index(y, passes=1, T=512, g=8)
+    res = DeviceResources(device="cpu")
+    v, i = distance.knn(res, idx, y[:16], 5, certify="f32")
+    assert torch.equal(i[:, 0], torch.arange(16, dtype=torch.int32))
+    assert fused_l2_topk.LAUNCHES == before == 0
+
+
+def test_make_blobs_shapes_and_labels():
+    res = DeviceResources(device="cpu", seed=3)
+    X, labels, centers = make_blobs(res, 7, 1000, 8, n_clusters=5,
+                                    cluster_std=0.5, return_centers=True)
+    assert X.shape == (1000, 8) and centers.shape == (5, 8)
+    assert torch.bincount(labels.long()).tolist() == [200] * 5
+    # every point lies near its own center (std 0.5, 8 features)
+    dist = (X - centers[labels.long()]).norm(dim=1)
+    assert float(dist.max()) < 0.5 * 8
+    X2, _ = make_blobs(res, 7, 1000, 8, n_clusters=5, cluster_std=0.5)
+    assert torch.equal(X, X2)                        # seeded
+    _, lab = make_blobs(res, 1, 10, 2, n_clusters=3,
+                        proportions=[0.5, 0.3, 0.2], shuffle=False)
+    assert lab.tolist() == [0] * 5 + [1] * 3 + [2] * 2
+    # state=None draws from the handle's seeded generator
+    a, _ = make_blobs(DeviceResources(device="cpu", seed=9), None, 50, 3)
+    b, _ = make_blobs(DeviceResources(device="cpu", seed=9), None, 50, 3)
+    assert torch.equal(a, b)
+
+
+def test_version():
+    assert raft_tpu_torch.__version__

@@ -20,8 +20,25 @@ Phases, each fatal on failure (non-zero exit, no result line):
    beside its twin, its bound and the library product of the same shape.
    Each run is traced once more under torch.profiler, and its device time
    by kernel, busy time and idle share (profiler on) are printed.
-4. A JSON ``kernels`` line, a ``main_path`` line, the card's name and power
-   limit, and the result line ``{"ok": true, "device": {...}}``.
+4. K4 (the list-major IVF fine scan, f32 and int8) against its plain twin
+   on the card, on one real schedule: the first 256 queries of the IVF
+   phase's batch at P=32, on the f32 and then the int8 index.
+5. IVF-Flat at full width, as ``benchmarks/bench_ann.py:81,177-197``
+   configures it: make_blobs 1,000,000 × 128 (64 centers, per-center std
+   linspace(0.5, 2.0), proportions uniform(0.5, 2.0) from numpy seed 11),
+   2048 queries drawn from the rows plus N(0, 0.1) noise, k=10;
+   ``build_ivf_flat`` with 1024 lists, max_iter=8, seed=3, f32 and int8.
+   Runs, each with the kernels' counts zeroed just before and read just
+   after: ivf_p32 and ivf_p128 (list-major, f32; ids identical as sets to
+   the port's query-major scan up to proven ties; at most half the queries
+   may fail the certificate), ivf_q8_p64 (list-major, int8; id sets
+   identical to the f32 index at P=64) and ivf_exact (P=1024, the K1
+   plane; ids identical to the exact oracle up to proven ties). Each run
+   prints recall@10, reruns, the host-clock median of 5 calls, launches
+   per batch, and K4 timed on the run's own inputs beside its twin and
+   its bound.
+6. A JSON ``kernels`` line, ``main_path`` and ``ivf`` lines, the card's name
+   and power limit, and the result line ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -36,8 +53,11 @@ import time
 
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM)
 H100_BYTES_PER_S = 3.35e12      # HBM3
+H100_F32_FLOPS = 67e12          # f32 off the tensor cores (SXM)
 
 N_INDEX, DIM, N_QUERIES, K = 1_000_000, 128, 2048, 64
+# the IVF phase: bench_ann.py's TPU shape and build
+IVF_CENTERS, IVF_K, IVF_LISTS = 64, 10, 1024
 
 
 def fail(msg: str):
@@ -153,6 +173,87 @@ def unported_bounds_ms(Q: int, M: int, d: int, S: int, T: int):
     }
 
 
+def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
+                q8: bool):
+    """Least time for K4's work on one batch: each probed list read once
+    (its padded rows at 4 or 1 bytes a feature), the queries, their norms
+    and probe table read once and the five [nq, 128] pools written once;
+    or ``passes × 2 × d`` operations per scored (query, row) pair at the
+    bf16 tensor-core peak (passes 3 for f32: hi·hi, hi·lo, lo·hi; 2 for
+    int8: x hi and x lo against exact codes)."""
+    nbytes = (stream_rows * d * (1 if q8 else 4) + nq * d * 4 + nq * 4
+              + nq * P * 4 + 5 * nq * 128 * 4)
+    ops = (2 if q8 else 3) * 2.0 * d * pair_rows
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def ivf_unported_bounds_ms(nq: int, d: int, stream_rows: int,
+                           pair_rows: int):
+    """Bounds of K5–K9 at the shapes the JAX package's benchmarks fix
+    (bytes at the HBM rate, operations at the f32 rate off the tensor
+    cores, the larger of the two). K5: bench_ann.py's 1M × 128, L=1024,
+    pq_dim = d/4 = 32 codes of 8 bits, on ivf_p32's own schedule (codes +
+    the 4-byte norm and Eq sidecars per streamed row, the [nq, 32, 256]
+    f32 table, the pools; one add per (pair, sub-space)). K6/K7: BASELINE
+    config 4, the 1M-edge RMAT graph (scale 17: 131,072 nodes, 2,000,000
+    stored entries once symmetrized, f32 values, i32 indices); SpMM at 4
+    columns and SDDMM at rank 4, config 4's n_components. K8: BASELINE
+    config 1, L1 over 5,000 × 50 (sub, abs, add per term). K9: no
+    benchmark of the package fixes a histogram shape."""
+    def bound(ops, nbytes):
+        return 1e3 * max(ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S)
+
+    n, nnz = 1 << 17, 2_000_000
+    csr = nnz * 8 + (n + 1) * 4
+    m8, d8 = 5000, 50
+    return {
+        "K5 pq_scan_list_major (1M x 128, L=1024, pq_dim 32, 8-bit, P=32)":
+            bound(32.0 * pair_rows, stream_rows * (32 + 8) + nq * d * 4
+                  + nq * 32 * 256 * 4 + 5 * nq * 128 * 4),
+        "K6 spmv_tiled (1M-edge graph)": bound(2.0 * nnz, csr + 2 * n * 4),
+        "K6 spmv_pair_tiled (1M-edge graph, 2 vectors)":
+            bound(4.0 * nnz, csr + 4 * n * 4),
+        "K6 spmm_tiled (1M-edge graph, 4 columns)":
+            bound(8.0 * nnz, csr + 8 * n * 4),
+        "K7 sddmm_tiled (1M-edge graph, rank 4)":
+            bound(8.0 * nnz, csr + 2 * n * 4 * 4 + nnz * 4),
+        "K8 unexpanded_pairwise_tiled L1 (5000 x 50)":
+            bound(3.0 * m8 * m8 * d8, 2 * m8 * d8 * 4 + m8 * m8 * 4),
+        "K9 histogram_blocked": None,
+    }
+
+
+def compare_k4(kern, twin, x, ymax: float, q8: bool):
+    """Hold K4's pools against its twin's. Both sum in f32 in other
+    orders (the kernel an fma chain over d, the twin torch.matmul with
+    TF32 off), so a value may differ by (4d + 8)·2⁻²⁴·(‖x‖ + max‖y‖)² per
+    query; +inf must match +inf. i1/i2 (global slab rows) must agree on
+    ≥ 99.9% of slots: a near-tie may flip. Returns the max abs error."""
+    import torch
+
+    d = x.shape[1]
+    tol = ((4 * d + 8) * 2.0 ** -24 * (x.norm(dim=1) + ymax) ** 2)[:, None]
+    err = 0.0
+    tag = "K4_q8" if q8 else "K4"
+    for n in (0, 2, 4):
+        a, b = kern[n], twin[n]
+        fin = torch.isfinite(b)
+        check(bool((torch.isfinite(a) == fin).all()),
+              f"{tag} output {n}: +inf slots differ from the twin's")
+        diff = torch.where(fin, (a - b).abs(), 0.0)
+        check(bool((diff <= tol).all()),
+              f"{tag} values of output {n} differ by up to "
+              f"{diff.max().item()}")
+        err = max(err, diff.max().item())
+    for n in (1, 3):
+        same = (kern[n] == twin[n]).float().mean().item()
+        check(same >= 0.999, f"{tag} ids of output {n} agree on only "
+              f"{same:.5f} of slots")
+    return err
+
+
 def exact_oracle(X, Qx, k: int, chunk: int = 131072):
     """Exact f32 top-k (TF32 off): chunked matmul + topk, merged."""
     import torch
@@ -173,9 +274,11 @@ def exact_oracle(X, Qx, k: int, chunk: int = 131072):
     return best_v, best_i
 
 
-def check_exact(ids, o_ids, o_vals, X, Qx, label: str):
+def check_exact(ids, o_ids, o_vals, X, Qx, label: str, floor=None):
     """Ids identical to the oracle's as sets per query; a mismatch must be
-    a tie at the k-th distance, proven by the oracle's own values."""
+    a tie at the k-th distance, proven by the oracle's own values. ``floor``
+    ([Q], optional) widens the tie by the rounding of the expanded f32
+    score both sides rank by, where the norms dwarf the distances."""
     import torch
 
     a = torch.sort(ids.long(), 1).values
@@ -185,11 +288,229 @@ def check_exact(ids, o_ids, o_vals, X, Qx, label: str):
         extra = sorted(set(a[q].tolist()) - set(b[q].tolist()))
         y = X[extra]
         d2 = ((Qx[q][None] - y) ** 2).sum(1)
-        theta = o_vals[q, -1]
+        theta = o_vals[q, -1] + (0.0 if floor is None else floor[q])
         check(bool((d2 <= theta * (1 + 1e-5) + 1e-5).all()),
               f"{label}: query {q} returned ids {extra} that are not "
-              f"within a tie of the oracle's k-th distance")
+              f"within a tie of the oracle's k-th distance (their d2 "
+              f"{d2.tolist()}, the bound {theta.item()})")
     return int(bad.numel())
+
+
+def k4_inputs(res, index, Qx, P: int):
+    """K4's operands for one batch at ``P`` probes, built as
+    ``search_ivf_flat``'s list-major path builds them, with the batch's
+    probed rows (each probed list once) and scored (query, row) pairs."""
+    import torch
+    from raft_tpu_torch.ann import ivf_flat as ivf
+    from raft_tpu_torch.ops import fine_scan as k4
+
+    probes = ivf._coarse_probe(res, index.centroids, Qx, P)
+    sch = ivf.build_list_schedule(index, probes.cpu().numpy())
+    sched = torch.from_numpy(sch.sched).cuda()
+    xp, pp, _ = ivf._pad_kernel_operands(Qx, probes)
+    xx = (xp * xp).sum(1)
+    Wk = k4.pad_window(index.probe_window)
+    q8 = index.db_dtype == "int8"
+    if q8:
+        args = (sched, torch.from_numpy(sch.scale_l).cuda(), xp, xx, pp,
+                index.slab_q, Wk)
+        kern, twin = k4.fine_scan_list_major_q8, k4.fine_scan_list_major_q8_ref
+        yy = index.yy_q
+    else:
+        args = (sched, xp, xx, pp, index.slab, Wk)
+        kern, twin = k4.fine_scan_list_major, k4.fine_scan_list_major_ref
+        yy = index.yy_slab
+    return {"args": args, "kern": kern, "twin": twin, "x": xp, "q8": q8,
+            "ymax": float(yy.max().sqrt()), "stream_rows": sch.stream_rows,
+            "lists": sch.n_lists_probed,
+            "pair_rows": int(index.sizes[probes.long()].sum())}
+
+
+def k4_counts():
+    from raft_tpu_torch.ops import fine_scan as k4
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    return {"K1": k1.LAUNCHES, "K4": k4.LAUNCHES, "K4_q8": k4.LAUNCHES_Q8}
+
+
+def set_counts(c):
+    from raft_tpu_torch.ops import fine_scan as k4
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    k1.LAUNCHES, k4.LAUNCHES, k4.LAUNCHES_Q8 = c["K1"], c["K4"], c["K4_q8"]
+
+
+def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
+              probes=(32, 128, 64)):
+    """Phases 4 and 5 (see the module doc) at ``n_rows`` × 128 with
+    ``n_lists`` lists; ``probes`` are the P of ivf_p32, ivf_p128 and
+    ivf_q8_p64. Returns (the ``ivf`` report, K4's two ``kernels`` entries,
+    ivf_p32's streamed rows and scored pairs)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.ann import build_ivf_flat, search_ivf_flat
+    from raft_tpu_torch.random import make_blobs
+
+    rng = np.random.default_rng(11)
+    X, _ = make_blobs(
+        res, 11, n_rows, DIM, n_clusters=IVF_CENTERS,
+        cluster_std=np.linspace(0.5, 2.0, IVF_CENTERS).astype(np.float32),
+        proportions=rng.uniform(0.5, 2.0, IVF_CENTERS))
+    noise = rng.normal(0, 0.1, (n_queries, DIM)).astype(np.float32)
+    Q = X[torch.from_numpy(rng.choice(n_rows, n_queries, replace=False))
+          .cuda()] + torch.from_numpy(noise).cuda()
+    o_vals, o_ids = exact_oracle(X, Q, IVF_K)
+    # ids ranked by xx + yy − 2·x·y in f32 on both sides may swap where
+    # two true distances lie within that form's rounding: 16·2⁻²⁴ of the
+    # norms (here ‖x‖² ≈ 4·10³ against k-th distances of ≈ 10²)
+    floor = 16 * 2.0 ** -24 * ((Q * Q).sum(1) + (X * X).sum(1).max())
+    report = {"build": {}}
+    index = {}
+    for dt in ("f32", "int8"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        index[dt] = build_ivf_flat(res, X, n_lists, max_iter=8, seed=3,
+                                   db_dtype=dt)
+        torch.cuda.synchronize()
+        ix = index[dt]
+        report["build"][dt] = {
+            "seconds": time.perf_counter() - t0, "kmeans_iters":
+            ix.kmeans_iters, "size_min": int(ix.sizes.min()),
+            "size_max": int(ix.sizes.max()),
+            "probe_window": ix.probe_window, "slab_rows": ix.slab_rows}
+        print(f"ivf build {dt}: {json.dumps(report['build'][dt])}",
+              flush=True)
+    f32, q8 = index["f32"], index["int8"]
+    check(torch.equal(f32.offsets, q8.offsets)
+          and torch.equal(f32.ids, q8.ids),
+          "the f32 and int8 builds from one seed laid out different lists")
+    L = f32.n_lists
+
+    # ---- phase 4: K4 against its twin on one real schedule ----
+    for ix in (f32, q8):
+        inp = k4_inputs(res, ix, Q[:256], probes[0])
+        saved = k4_counts()
+        out = inp["kern"](*inp["args"])
+        torch.cuda.synchronize()
+        check(k4_counts() != saved, "a K4 launch was not counted")
+        set_counts(saved)
+        ref = inp["twin"](*inp["args"])
+        err = compare_k4(out, ref, inp["x"], inp["ymax"], inp["q8"])
+        print(f"K4 vs twin ({ix.db_dtype}, 256 queries, P={probes[0]}, "
+              f"{inp['lists']} lists): max_abs_err={err}", flush=True)
+        del out, ref
+
+    # ---- phase 5: the IVF path at full width ----
+    runs = [("ivf_p32", f32, probes[0]), ("ivf_p128", f32, probes[1]),
+            ("ivf_q8_p64", q8, probes[2]), ("ivf_exact", f32, L)]
+    entries, k4_rows = {}, {}
+    for name, ix, P in runs:
+        set_counts({"K1": 0, "K4": 0, "K4_q8": 0})
+        vals, ids, reruns = search_ivf_flat(res, ix, Q, IVF_K, n_probes=P,
+                                            fine_scan="list",
+                                            with_stats=True)
+        torch.cuda.synchronize()
+        launches = k4_counts()
+        check(tuple(ids.shape) == (n_queries, IVF_K)
+              and bool(torch.isfinite(vals).all()),
+              f"{name}: results are not finite [nq, k]")
+        recall = (ids.long()[:, :, None] == o_ids[:, None, :]).any(2) \
+            .float().mean().item()
+        if name == "ivf_exact":
+            check(launches["K1"] > 0, f"{name}: K1 launched no time")
+            n_tie = check_exact(ids, o_ids, o_vals, X, Q, name, floor)
+        else:
+            kname = "K4_q8" if ix.db_dtype == "int8" else "K4"
+            check(launches[kname] > 0, f"{name}: {kname} launched no time")
+            if ix.db_dtype == "int8":
+                # the int8 contract: the f32 index's id sets at this P
+                ref_v, ref_i = search_ivf_flat(res, f32, Q, IVF_K,
+                                               n_probes=P, fine_scan="list")
+            else:
+                check(reruns <= n_queries // 2,
+                      f"{name}: {reruns} of {n_queries} queries failed the "
+                      f"certificate; K4 decides nothing")
+                ref_v, ref_i = search_ivf_flat(res, ix, Q, IVF_K,
+                                               n_probes=P,
+                                               fine_scan="query")
+            n_tie = check_exact(ids, ref_i, ref_v, X, Q, name, floor)
+        times = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            search_ivf_flat(res, ix, Q, IVF_K, n_probes=P, fine_scan="list")
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        row = {"P": P, "recall": recall, "reruns": reruns,
+               "tie_queries": n_tie, "ms": 1e3 * statistics.median(times),
+               "launches": launches}
+        if name != "ivf_exact":
+            inp = k4_inputs(res, ix, Q, P)
+            saved = k4_counts()
+            out = inp["kern"](*inp["args"])
+            hold = []
+            plain_ms = cuda_ms(lambda: hold.append(inp["twin"](
+                *inp["args"])), 1, warmup=0)
+            err = compare_k4(out, hold[0], inp["x"], inp["ymax"], inp["q8"])
+            del out, hold
+            ms = cuda_ms(lambda: inp["kern"](*inp["args"]), 5)
+            set_counts(saved)           # comparison launches do not count
+            bound, bound_by = k4_bound_ms(n_queries, DIM, P,
+                                          inp["stream_rows"],
+                                          inp["pair_rows"], inp["q8"])
+            k4_rows[name] = {
+                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "bound_by": bound_by, "library_ms": None,
+                "max_abs_err": err, "lists": inp["lists"],
+                "stream_rows": inp["stream_rows"],
+                "pair_rows": inp["pair_rows"]}
+            row["k4"] = k4_rows[name]
+            if name == "ivf_p32":
+                p32_work = (inp["stream_rows"], inp["pair_rows"])
+                # K4 under the reference's list-major chunk, the query-major
+                # gather's max(8, 2^26 // (P·W·d)) queries: each chunk
+                # streams the union of its own probed lists
+                qc = max(8, (1 << 26) // (P * ix.probe_window * DIM))
+                parts = [k4_inputs(res, ix, Q[s:s + qc], P)
+                         for s in range(0, n_queries, qc)]
+                saved = k4_counts()
+                chunk_ms = cuda_ms(lambda: [c["kern"](*c["args"])
+                                            for c in parts], 1)
+                set_counts(saved)
+                row["k4_reference_chunk"] = {
+                    "queries": qc, "launches": len(parts), "ms": chunk_ms,
+                    "stream_rows": sum(c["stream_rows"] for c in parts)}
+                del parts
+        report[name] = row
+        print(f"ivf {name}: {json.dumps(row)}", flush=True)
+    for name in ("ivf_p32", "ivf_p128"):
+        br = profile_run(lambda: search_ivf_flat(
+            res, f32, Q, IVF_K, n_probes=report[name]["P"],
+            fine_scan="list"))
+        print(json.dumps({"profile": name, **br}), flush=True)
+    # a reference point only: no single PyTorch call computes the masked
+    # gather-and-fold, so library_ms stays null
+    qb, sb = Q.to(torch.bfloat16), f32.slab.to(torch.bfloat16)
+    report["matmul_whole_slab_bf16_ms"] = cuda_ms(
+        lambda: torch.matmul(qb, sb.T), 3)
+    del qb, sb
+    print(f"K4 library_ms: null (no one PyTorch call computes the masked "
+          f"gather-and-fold); bf16 torch.matmul of the queries against the "
+          f"whole slab, a reference point only: "
+          f"{report['matmul_whole_slab_bf16_ms']} ms", flush=True)
+    common = {"route": "cuda", "source": "raft_tpu_torch/ops/csrc/"
+              "fine_scan.cu"}
+    k4_entry = {"name": "fine_scan_list_major", **common,
+                "replaces": "raft_tpu/ops/fine_scan_pallas.py:280",
+                "launches": report["ivf_p32"]["launches"]["K4"]
+                + report["ivf_p128"]["launches"]["K4"],
+                **{k: v for k, v in k4_rows["ivf_p32"].items()},
+                "p128": k4_rows["ivf_p128"]}
+    q8_entry = {"name": "fine_scan_list_major_q8", **common,
+                "replaces": "raft_tpu/ops/fine_scan_pallas.py:329",
+                "launches": report["ivf_q8_p64"]["launches"]["K4_q8"],
+                **k4_rows["ivf_q8_p64"]}
+    return report, [k4_entry, q8_entry], p32_work
 
 
 def profile_run(fn, top: int = 8):
@@ -239,6 +560,7 @@ def main() -> int:
     from raft_tpu_torch import distance
     from raft_tpu_torch.distance.knn_fused import knn_fused
     from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops import fine_scan as k4
     from raft_tpu_torch.ops import fused_l2_topk as k1
     from raft_tpu_torch.random import make_blobs
 
@@ -248,8 +570,9 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["fused_l2_topk"])
+    _build.build_all(["fused_l2_topk", "fine_scan"])
     k1._launcher()
+    k4._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
@@ -376,11 +699,21 @@ def main() -> int:
         br = profile_run(lambda: distance.knn(res, index, Qx, k=K,
                                               certify=certify))
         print(json.dumps({"profile": name, **br}), flush=True)
-    print(json.dumps({"bounds_unported_ms": unported_bounds_ms(
-        N_QUERIES, Mi, index.stream_width, S, index.T)}), flush=True)
+    bounds = unported_bounds_ms(N_QUERIES, Mi, index.stream_width, S,
+                                index.T)
+    del X, Qx, idx1, idx3, o_vals, o_ids
+    torch.cuda.empty_cache()
+
+    # ---- phases 4 and 5: K4 against its twin, then IVF-Flat ----
+    ivf, k4_entries, (p32_rows, p32_pairs) = ivf_phase(
+        res, N_INDEX, N_QUERIES, IVF_LISTS)
+    bounds.update(ivf_unported_bounds_ms(N_QUERIES, DIM, p32_rows,
+                                         p32_pairs))
+    print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
+    print(json.dumps({"ivf": ivf}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry]}), flush=True)
+    print(json.dumps({"kernels": [entry, *k4_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

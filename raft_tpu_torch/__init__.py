@@ -11,13 +11,17 @@ Entry points run on the CUDA device unless the caller passes
 
 Ported so far: certified fused brute-force KNN (``distance.knn``,
 ``prepare_knn_index``, ``knn_fused``) with its kernel K1, the streamed
-sweeps, ``matrix.select_k`` and ``random.make_blobs``.
+sweeps, ``matrix.select_k``, ``random.make_blobs``, balanced k-means
+(``cluster``) and IVF-Flat (``ann.build_ivf_flat`` / ``search_ivf_flat``)
+with its list-major fine-scan kernel K4.
 """
 
-from raft_tpu_torch import core, distance, matrix, ops, random
+from raft_tpu_torch import (ann, cluster, core, distance, matrix, mutable,
+                            observability, ops, random)
 from raft_tpu_torch.core import DeviceResources, device_resources
 
 __version__ = "0.1.0"
 
-__all__ = ["core", "distance", "matrix", "ops", "random",
+__all__ = ["ann", "cluster", "core", "distance", "matrix", "mutable",
+           "observability", "ops", "random",
            "DeviceResources", "device_resources", "__version__"]

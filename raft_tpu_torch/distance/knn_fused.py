@@ -105,18 +105,25 @@ def pad_query_rows(x, rows: int):
     return torch.cat([x, x.new_zeros((rows - n, x.shape[1]))])
 
 
-def _prepare_ops(y, T: int, g: int, metric: str, pbits: int = _PACK_BITS):
+def _prepare_ops(y, T: int, g: int, metric: str, pbits: int = _PACK_BITS,
+                 rows_valid=None):
     """Index-side operands: rows padded to whole tiles, the bf16 hi/lo
     split, row norms and the half-norm carrier with the never-wins
     sentinel on padded rows. Returns ``(yp, y_hi, y_lo, yyh_k, yy_raw)``;
     the reference's [8, M] sublane carrier is TPU layout, the port keeps
-    [M]."""
+    [M].
+
+    ``rows_valid`` ([M] bool over the padded rows) is the ragged mask of
+    the IVF slab: pads may sit anywhere, and every masked-out row carries
+    the same never-wins sentinel as the trailing tile pad, so K1's fold
+    and the certificate never see it (reference ``:344-377``)."""
     m = y.shape[0]
     pad = (-m) % T
     yp = torch.cat([y, y.new_zeros((pad, y.shape[1]))]) if pad else y
     M = yp.shape[0]
     yy_raw = (yp * yp).sum(1)
-    valid = torch.arange(M, device=y.device) < m
+    valid = (torch.arange(M, device=y.device) < m if rows_valid is None
+             else rows_valid)
     if metric == "ip":
         # r = 0/2 − x·(y/2) = −x·y/2, so the score −x·y = 2·r
         y_hi, y_lo = split_hi_lo(yp * 0.5)
@@ -125,6 +132,37 @@ def _prepare_ops(y, T: int, g: int, metric: str, pbits: int = _PACK_BITS):
         y_hi, y_lo = split_hi_lo(yp)
         yyh_k = torch.where(valid, 0.5 * yy_raw, _PACK_PAD)
     return yp, y_hi, y_lo, yyh_k.float(), yy_raw
+
+
+_Q8_LEVELS = 127
+# per-element round-trip error of the int8 quantizer in code steps: half a
+# step plus headroom for the f32 divide / round / multiply
+_Q8_ERR = 0.5 * (1.0 + 2.0 ** -10)
+
+
+def quantize_rows_q8(z, gid, n_groups: int, valid=None):
+    """Per-group symmetric int8 quantization of ``z`` [M, d] (group of row
+    i = ``gid[i]``; reference ``:383``): scale = max|z_group| / 127, codes
+    round half to even and clip to ±127. ``valid`` keeps pad rows out of
+    the scales (their codes are still produced; consumers mask them).
+    Returns (codes int8 [M, d], scales f32 [n_groups])."""
+    absz = z.abs()
+    if valid is not None:
+        absz = torch.where(valid.reshape(-1, 1), absz, 0.0)
+    row_max = absz.max(dim=1).values
+    gid = gid.long()
+    gmax = torch.zeros(n_groups, dtype=z.dtype, device=z.device)
+    gmax = gmax.scatter_reduce(0, gid, row_max, reduce="amax")
+    scales = torch.where(gmax > 0, gmax / _Q8_LEVELS, 1.0)
+    q = torch.clamp(torch.round(z / scales[gid].reshape(-1, 1)),
+                    -_Q8_LEVELS, _Q8_LEVELS)
+    return q.to(torch.int8), scales
+
+
+def q8_eq_bound(scales, d: int):
+    """Per-group bound Eq on the row-vector L2 error of the int8 round
+    trip (reference ``:405``): scale·_Q8_ERR per element, times √d."""
+    return scales * (_Q8_ERR * math.sqrt(max(d, 1)))
 
 
 class FusedConfig(NamedTuple):
@@ -173,7 +211,7 @@ class KnnIndex:
 
     def __init__(self, yp, y_hi, y_lo, yyh_k, yy_raw, n_rows: int, T: int,
                  g: int, passes: int, metric: str, d_orig: int,
-                 pbits: int = _PACK_BITS):
+                 pbits: int = _PACK_BITS, rows_valid=None):
         self.yp = yp
         self.y_hi, self.y_lo = y_hi, y_lo
         self.yyh_k, self.yy_raw = yyh_k, yy_raw
@@ -182,6 +220,15 @@ class KnnIndex:
         self.passes, self.metric = passes, metric
         self.d_orig = d_orig
         self.pbits = pbits
+        # [M] bool live mask of a ragged index (None: the first n_rows
+        # rows are live)
+        self.rows_valid = rows_valid
+
+    def live_columns(self) -> torch.Tensor:
+        """[M] bool: the prepared rows a result may name."""
+        col = torch.arange(self.y_hi.shape[0], device=self.device)
+        live = col < self.n_rows
+        return live if self.rows_valid is None else live & self.rows_valid
 
     @property
     def device(self) -> torch.device:
@@ -223,13 +270,16 @@ def _missing_kernel(what: str):
 
 def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
                       T: Optional[int] = None, g: Optional[int] = None,
-                      store_yp: bool = True, device=None) -> KnnIndex:
+                      store_yp: bool = True, device=None,
+                      rows_valid=None) -> KnnIndex:
     """Build a :class:`KnnIndex` for repeated queries against ``y``
     (numpy or tensor; ``device=None`` is ``y``'s device, else ``cuda``).
 
     ``store_yp=False`` builds a lite index without the f32 rows: queries
     then return the exact top-k of the kernel score function (bf16 /
-    bf16x3), values within 2^(pbits−23) relative."""
+    bf16x3), values within 2^(pbits−23) relative. ``rows_valid`` ([m]
+    bool) marks the live rows of a ragged slab (the IVF-Flat layout);
+    results then never name a masked row, and positions are slab rows."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"prepare_knn_index: metric must be 'l2' or "
                          f"'ip', got {metric!r}")
@@ -264,13 +314,22 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
     dpad = (-d) % _LANES
     if dpad:
         y = torch.cat([y, y.new_zeros((m, dpad))], dim=1)
-    yp, y_hi, y_lo, yyh_k, yy_raw = _prepare_ops(y, T, g, metric, pbits)
+    if rows_valid is not None:
+        rows_valid = torch.as_tensor(rows_valid, device=dev).reshape(-1).to(
+            torch.bool)
+        if rows_valid.shape[0] != m:
+            raise ValueError(f"prepare_knn_index: rows_valid has "
+                             f"{rows_valid.shape[0]} entries for {m} rows")
+        rows_valid = torch.cat([rows_valid,
+                                rows_valid.new_zeros((-m) % T)])
+    yp, y_hi, y_lo, yyh_k, yy_raw = _prepare_ops(y, T, g, metric, pbits,
+                                                 rows_valid)
     if not store_yp:
         yp = None
         if passes == 1:
             y_lo = None    # the 1-pass kernel and lite fixup never read it
     return KnnIndex(yp, y_hi, y_lo, yyh_k, yy_raw, m, T, g, passes, metric,
-                    d, pbits=pbits)
+                    d, pbits=pbits, rows_valid=rows_valid)
 
 
 def _exact_rows(xq, idx: KnnIndex, k: int):
@@ -293,9 +352,9 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
     else:
         xs = (xq * xq).sum(1)
         d2 = (xs[:, None] + idx.yy_raw[None, :] - 2.0 * s).clamp_min(0.0)
-    col = torch.arange(d2.shape[1], device=d2.device)
-    d2 = d2.masked_fill(col[None, :] >= idx.n_rows, float("inf"))
+    d2 = d2.masked_fill(~idx.live_columns()[None, :], float("inf"))
     vals, ids = torch.topk(d2, k, dim=1, largest=False, sorted=True)
+    ids = torch.where(torch.isfinite(vals), ids, -1)
     return vals, ids.to(torch.int32)
 
 

@@ -13,9 +13,11 @@ import torch
 
 import raft_tpu_torch
 from raft_tpu_torch import distance
+from raft_tpu_torch.ann import IvfFlatIndex, build_ivf_flat, search_ivf_flat
+from raft_tpu_torch.cluster import kmeans_fit, kmeans_predict
 from raft_tpu_torch.core import DeviceError, DeviceResources
 from raft_tpu_torch.distance.knn_fused import knn_fused
-from raft_tpu_torch.ops import fused_l2_topk
+from raft_tpu_torch.ops import fine_scan, fused_l2_topk
 from raft_tpu_torch.random import make_blobs
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -28,7 +30,11 @@ def _forbidden(name: str) -> bool:
 
 
 def test_import_pulls_in_no_jax_and_no_reference():
-    code = ("import sys, raft_tpu_torch, raft_tpu_torch.distance.knn_fused; "
+    code = ("import sys, raft_tpu_torch, raft_tpu_torch.distance.knn_fused, "
+            "raft_tpu_torch.ann.ivf_flat, raft_tpu_torch.cluster.kmeans, "
+            "raft_tpu_torch.mutable.layout, "
+            "raft_tpu_torch.observability.costmodel, "
+            "raft_tpu_torch.ops.fine_scan; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -72,12 +78,22 @@ def test_entry_points_default_to_cuda():
         make_blobs(None, 0, 100, 4)
     with pytest.raises(DeviceError):
         distance.knn(None, y, y[:8], 4)
+    with pytest.raises(DeviceError):
+        kmeans_fit(None, y, 4, max_iter=2)
+    with pytest.raises(DeviceError):
+        kmeans_predict(None, y[:4], y)
+    with pytest.raises(DeviceError):
+        build_ivf_flat(None, y, 4, max_iter=2)
     # the same calls on the CPU, by argument
     assert distance.prepare_knn_index(y, device="cpu").device.type == "cpu"
     v, i = knn_fused(y[:8], y, 4, device="cpu")
     assert v.device.type == "cpu" and i.shape == (8, 4)
     X, labels = make_blobs(None, 0, 100, 4, device="cpu")
     assert X.shape == (100, 4) and labels.shape == (100,)
+    idx = build_ivf_flat(DeviceResources(device="cpu"), y, 4, max_iter=2)
+    assert isinstance(idx, IvfFlatIndex) and idx.device.type == "cpu"
+    v, i = search_ivf_flat(None, idx, y[:8], 4, n_probes=2)
+    assert v.device.type == "cpu" and i.shape == (8, 4)
 
 
 def test_cpu_path_launches_no_kernel():
@@ -88,6 +104,12 @@ def test_cpu_path_launches_no_kernel():
     v, i = distance.knn(res, idx, y[:16], 5, certify="f32")
     assert torch.equal(i[:, 0], torch.arange(16, dtype=torch.int32))
     assert fused_l2_topk.LAUNCHES == before == 0
+    ivf = build_ivf_flat(res, y, 8, max_iter=2)
+    for scan in ("list", "query"):
+        search_ivf_flat(res, ivf, y[:16], 5, n_probes=3, fine_scan=scan)
+    search_ivf_flat(res, ivf, y[:16], 5, n_probes=8)       # exact plane
+    assert fused_l2_topk.LAUNCHES == 0
+    assert fine_scan.LAUNCHES == fine_scan.LAUNCHES_Q8 == 0
 
 
 def test_make_blobs_shapes_and_labels():

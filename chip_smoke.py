@@ -37,8 +37,37 @@ Phases, each fatal on failure (non-zero exit, no result line):
    prints recall@10, reruns, the host-clock median of 5 calls, launches
    per batch, and K4 timed on the run's own inputs beside its twin and
    its bound.
-6. A JSON ``kernels`` line, ``main_path`` and ``ivf`` lines, the card's name
-   and power limit, and the result line ``{"ok": true, "device": {...}}``.
+6. spectral_g22, the spectral path at a size users run: an R-MAT graph
+   with Graph500's initiator (A=0.57, B=C=0.19, D=0.05), edge factor 16,
+   at scale 22 (4,194,304 vertices, 67,108,864 edges, symmetrized with
+   values 1.0 as ``benchmarks/bench_configs.py:114-117`` does), then
+   ``SpectralEmbedding(n_components=4, max_iterations=400,
+   tolerance=1e-5, seed=42, tiled=True).fit_transform`` with the counts
+   zeroed just before and read just after (K6a once per matvec). The
+   Laplacian, layout and Lanczos solve are then timed one by one (solve:
+   host-clock median of 3 after a warm-up, one torch.profiler trace).
+   Checks: each returned pair's f64 relative residual ‖L·v − λ·v‖/‖L‖₂ ≤
+   1e-4 (the plain CSR SpMV; ‖L‖₂ by power iteration), ‖VᵀV − I‖ ≤ 1e-4,
+   and the eigenvalues within 1e-5 of the same solve run through K6a's
+   twin. K6a and K6c (``linalg.spmm`` at V = 16 and 128) are held against
+   their twins on that layout, with the bound (nnz_i + 2)·2⁻²⁴·Σ|a||x|
+   per row, and timed beside the twin, the bound and cuSPARSE's call
+   (``torch.sparse_csr_tensor @``). K7 (``linalg.sddmm``, d = 64) runs on
+   the scale-22 adjacency's CSR structure in entry order, is held to
+   (d + 2)·2⁻²⁴·Σ|a·b| and timed beside ``torch.sparse.sampled_addmm``,
+   and is timed again over the same entries in the (row tile × column
+   tile) order of a TiledPairs layout (16384 × 16384 and 256 × 512). K6b
+   runs a Lanczos solve over the pair layout of a band matrix (n = 2²⁰,
+   |i − j| ≤ 16, 34.6 M nonzeros) and is held and timed the same way.
+7. spectral_c4, BASELINE config 4 as ``bench_configs.py:105-129`` runs it
+   (scale 17, 1,000,000 edges, ``jit_loop=True``): the fit timed on the
+   CSR path and on the tiled path (host-clock median of 3).
+8. lanczos_dense, config 3's Lanczos (``bench_configs.py:92-103``): the
+   256 × 256 Gram operator of make_blobs 100,000 × 1,000 (16 clusters), 8
+   components, ncv=32, tolerance 1e-6, 300 iterations; residuals ≤ 1e-3.
+9. A JSON ``kernels`` line, ``main_path``, ``ivf`` and ``spectral`` lines,
+   the card's name and power limit, and the result line
+   ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -191,37 +220,30 @@ def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
 
 def ivf_unported_bounds_ms(nq: int, d: int, stream_rows: int,
                            pair_rows: int):
-    """Bounds of K5–K9 at the shapes the JAX package's benchmarks fix
-    (bytes at the HBM rate, operations at the f32 rate off the tensor
-    cores, the larger of the two). K5: bench_ann.py's 1M × 128, L=1024,
-    pq_dim = d/4 = 32 codes of 8 bits, on ivf_p32's own schedule (codes +
-    the 4-byte norm and Eq sidecars per streamed row, the [nq, 32, 256]
-    f32 table, the pools; one add per (pair, sub-space)). K6/K7: BASELINE
-    config 4, the 1M-edge RMAT graph (scale 17: 131,072 nodes, 2,000,000
-    stored entries once symmetrized, f32 values, i32 indices); SpMM at 4
-    columns and SDDMM at rank 4, config 4's n_components. K8: BASELINE
-    config 1, L1 over 5,000 × 50 (sub, abs, add per term). K9: no
-    benchmark of the package fixes a histogram shape."""
+    """Bounds of the unported K5, K8 and K9 at the shapes the JAX
+    package's benchmarks fix (bytes at the HBM rate, operations at the f32
+    rate off the tensor cores, the larger of the two). K5: bench_ann.py's
+    1M × 128, L=1024, pq_dim = d/4 = 32 codes of 8 bits, on ivf_p32's own
+    schedule (codes + the 4-byte norm and Eq sidecars per streamed row, the
+    [nq, 32, 256] f32 table, the pools; one add per (pair, sub-space)).
+    K8: BASELINE config 1, L1 over 5,000 × 50 (sub, abs, add per term).
+    K9: bench_prims.py:44-46's X, a [100,000 × 128] int32 bin matrix,
+    column-batched as ``stats.histogram`` takes it, 64 bins: the bins read
+    once and the [64, 128] int32 counts written once (one add per bin
+    value)."""
     def bound(ops, nbytes):
         return 1e3 * max(ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S)
 
-    n, nnz = 1 << 17, 2_000_000
-    csr = nnz * 8 + (n + 1) * 4
     m8, d8 = 5000, 50
+    r9, c9, b9 = 100_000, 128, 64
     return {
         "K5 pq_scan_list_major (1M x 128, L=1024, pq_dim 32, 8-bit, P=32)":
             bound(32.0 * pair_rows, stream_rows * (32 + 8) + nq * d * 4
                   + nq * 32 * 256 * 4 + 5 * nq * 128 * 4),
-        "K6 spmv_tiled (1M-edge graph)": bound(2.0 * nnz, csr + 2 * n * 4),
-        "K6 spmv_pair_tiled (1M-edge graph, 2 vectors)":
-            bound(4.0 * nnz, csr + 4 * n * 4),
-        "K6 spmm_tiled (1M-edge graph, 4 columns)":
-            bound(8.0 * nnz, csr + 8 * n * 4),
-        "K7 sddmm_tiled (1M-edge graph, rank 4)":
-            bound(8.0 * nnz, csr + 2 * n * 4 * 4 + nnz * 4),
         "K8 unexpanded_pairwise_tiled L1 (5000 x 50)":
             bound(3.0 * m8 * m8 * d8, 2 * m8 * d8 * 4 + m8 * m8 * 4),
-        "K9 histogram_blocked": None,
+        "K9 histogram_blocked (100000 x 128 int32, 64 bins)":
+            bound(float(r9 * c9), r9 * c9 * 4 + b9 * c9 * 4),
     }
 
 
@@ -544,6 +566,454 @@ def profile_run(fn, top: int = 8):
                     for k, ms, n in rows[:top]]}
 
 
+# ---------------------------------------------------------------- spectral
+def spmv_bound_ms(nnz: int, n_rows: int, n_cols: int, V: int = 1):
+    """Least time for Y = A·B with B [n_cols, V]: the CSR form read once
+    (nnz·8 + (n_rows + 1)·4 bytes), B read and Y written once
+    (V·(n_cols + n_rows)·4 bytes), against 2·nnz·V f32 operations."""
+    nbytes = nnz * 8 + (n_rows + 1) * 4 + V * (n_cols + n_rows) * 4
+    t_ops, t_bytes = 2.0 * nnz * V / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sddmm_bound_ms(nnz: int, m: int, n: int, d: int):
+    """Least time for SDDMM: the structure in CSR form read and the values
+    written once (nnz·8 + (m + 1)·4 bytes), A and B read once
+    ((m + n)·d·4 bytes), against 2·nnz·d f32 flops."""
+    nbytes = nnz * 8 + (m + 1) * 4 + (m + n) * d * 4
+    t_ops, t_bytes = 2.0 * nnz * d / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def sparse_counts():
+    from raft_tpu_torch.ops import sddmm as k7
+    from raft_tpu_torch.ops import spmv as k6
+
+    return {"K6a": k6.LAUNCHES_SPMV, "K6b": k6.LAUNCHES_PAIR,
+            "K6c": k6.LAUNCHES_SPMM, "K7": k7.LAUNCHES}
+
+
+def set_sparse_counts(c):
+    from raft_tpu_torch.ops import sddmm as k7
+    from raft_tpu_torch.ops import spmv as k6
+
+    (k6.LAUNCHES_SPMV, k6.LAUNCHES_PAIR, k6.LAUNCHES_SPMM,
+     k7.LAUNCHES) = c["K6a"], c["K6b"], c["K6c"], c["K7"]
+
+
+def check_bound(tag: str, got, ref, bound) -> float:
+    """|got − ref| ≤ bound everywhere; returns the max error."""
+    import torch
+
+    diff = (got - ref).abs()
+    ok = bool((diff <= bound).all())
+    worst = float((diff / bound.clamp_min(1e-30)).max())
+    check(ok, f"{tag}: kernel and twin differ beyond the stated bound "
+          f"(max |diff| {diff.max().item()}, worst diff/bound {worst})")
+    torch.cuda.synchronize()
+    return diff.max().item()
+
+
+def library_ms(fn, reps: int):
+    """CUDA-event ms of one PyTorch library call (the yardstick only; the
+    port never calls it), or None with the reason when it refuses."""
+    try:
+        return cuda_ms(fn, reps)
+    except (RuntimeError, NotImplementedError) as e:
+        print(f"library call refused: {e}", flush=True)
+        return None
+
+
+def f64_residuals(L, vals, vecs, norm=None):
+    """Relative residuals ‖L·v − λ·v‖ / ‖L‖₂ of each pair in f64, with the
+    plain CSR SpMV, ‖L‖₂ estimated from below by 30 power iterations
+    unless given (so the check is no looser than with the true norm); the
+    norm; and ‖VᵀV − I‖_max."""
+    import torch
+    from raft_tpu_torch.sparse import linalg as sl
+
+    L64 = L.with_values(L.values.double())
+    V = vecs.double()
+    R = torch.stack([sl.spmv(None, L64, V[:, i]) - vals[i].double() * V[:, i]
+                     for i in range(V.shape[1])], 1)
+    if norm is None:
+        gen = torch.Generator(device=V.device)
+        gen.manual_seed(1)
+        z = torch.randn(V.shape[0], generator=gen, device=V.device,
+                        dtype=torch.float64)
+        for _ in range(30):
+            z = sl.spmv(None, L64, z / z.norm())
+        norm = z.norm().item()
+    gram = V.T @ V
+    ortho = (gram - torch.eye(V.shape[1], dtype=torch.float64,
+                              device=V.device)).abs().max().item()
+    return (R.norm(dim=0) / norm).tolist(), norm, ortho
+
+
+class _TwinOperator:
+    """The normalized Laplacian's layout applied by the K6a twin: a Lanczos
+    operand (``shape``, ``dtype``, ``device``, ``mv``) that runs the same
+    solve without the kernel."""
+
+    def __init__(self, tiled):
+        import torch
+
+        self.tiled, self.shape = tiled, tiled.shape
+        self.dtype, self.device = torch.float32, tiled.device
+
+    def mv(self, x):
+        from raft_tpu_torch.ops import spmv as k6
+
+        return k6.spmv_tiled_ref(self.tiled, x)
+
+
+def band_matrix(n: int, half: int, gen):
+    """Symmetric band matrix, entries (i, i+o) for |o| ≤ half, values
+    1 + N(0, 1) from ``gen``, as COO on the card."""
+    import torch
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+
+    rows, cols, vals = [], [], []
+    for o in range(half + 1):
+        i = torch.arange(n - o, device="cuda", dtype=torch.int32)
+        v = 1.0 + torch.randn(n - o, generator=gen, device="cuda")
+        rows += [i, i + o] if o else [i]
+        cols += [i + o, i] if o else [i]
+        vals += [v, v] if o else [v]
+    return COOMatrix(torch.cat(rows), torch.cat(cols), torch.cat(vals),
+                     (n, n))
+
+
+def csr_tensor(A):
+    """``torch.sparse_csr_tensor`` view of a port CSR matrix (the
+    library yardstick's operand)."""
+    import torch
+
+    return torch.sparse_csr_tensor(A.indptr, A.indices, A.values,
+                                   size=A.shape)
+
+
+def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
+                   c4=(17, 1_000_000), dense_rows: int = 100_000):
+    """Phases 6–8 (see the module doc) at R-MAT ``scale``, a band matrix of
+    ``band_n`` rows, config 4 at ``c4`` = (scale, edges) and config 3 at
+    ``dense_rows`` × 1000. Returns (the ``spectral`` report, the K6/K7
+    ``kernels`` entries)."""
+    import dataclasses
+
+    import torch
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.models import SpectralEmbedding
+    from raft_tpu_torch.ops import sddmm as k7
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
+    from raft_tpu_torch.sparse import convert
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse.solver import (LanczosSolverConfig,
+                                              lanczos_compute_eigenpairs)
+
+    zero = {"K6a": 0, "K6b": 0, "K6c": 0, "K7": 0}
+    report, rows_k = {}, {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+
+    # ---- phase 6: spectral_g22, the headline ----
+    n, n_edges = 1 << scale, 16 << scale
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    src, dst = rmat_rectangular_gen(res, 3, n_edges, scale, scale)
+    adj = COOMatrix(torch.cat([src, dst]), torch.cat([dst, src]),
+                    torch.ones(2 * n_edges, device="cuda"), (n, n))
+    del src, dst
+    torch.cuda.synchronize()
+    g22 = {"scale": scale, "n": n, "edges": n_edges, "entries": adj.nnz,
+           "graph_s": time.perf_counter() - t0}
+    model = SpectralEmbedding(n_components=4, normalized=True,
+                              drop_first=True, max_iterations=400,
+                              tolerance=1e-5, seed=42, tiled=True, res=res)
+    set_sparse_counts(zero)
+    t0 = time.perf_counter()
+    emb = model.fit_transform(adj)
+    torch.cuda.synchronize()
+    g22["fit_s"] = time.perf_counter() - t0
+    g22["launches"] = sparse_counts()
+    check(g22["launches"]["K6a"] > 0, "spectral_g22: the fit launched K6a "
+          "no time")
+    evals = model.eigenvalues_
+    check(tuple(emb.shape) == (n, 4) and bool(torch.isfinite(emb).all())
+          and bool(torch.isfinite(evals).all()),
+          "spectral_g22: the embedding is not finite [n, 4]")
+    print(f"spectral_g22 fit: {g22['fit_s']:.3f} s, launches "
+          f"{g22['launches']}, eigenvalues {evals.tolist()}", flush=True)
+
+    # the fit's steps one by one
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    L, _ = sl.laplacian_normalized(res, adj)
+    torch.cuda.synchronize()
+    g22["laplacian_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    T = sl.prepare_spmv(L)
+    torch.cuda.synchronize()
+    g22["layout_s"] = time.perf_counter() - t0
+    g22.update(laplacian_nnz=L.nnz, scatter_slots=T.m_chunks * T.E,
+               gather_slots=T.n_chunks * T.E,
+               slots_per_nnz=T.m_chunks * T.E / L.nnz)
+    cfg = LanczosSolverConfig(n_components=5, max_iterations=400,
+                              tolerance=1e-5, seed=42)
+    saved = sparse_counts()
+    vals, _ = lanczos_compute_eigenpairs(res, T, cfg)        # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanczos_compute_eigenpairs(res, T, cfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    g22["solve_ms"] = 1e3 * statistics.median(times)
+    g22["solve_ms_all"] = [1e3 * t for t in times]
+    g22["profile"] = profile_run(lambda: lanczos_compute_eigenpairs(
+        res, T, cfg))
+    set_sparse_counts(saved)
+
+    # correctness on the card: the fit's pairs, and the twin's solve
+    resid, norm_l, ortho = f64_residuals(L, evals, emb)
+    g22.update(residuals=resid, norm_L=norm_l, orthonormality=ortho,
+               eigenvalues=evals.tolist())
+    check(max(resid) <= 1e-4, f"spectral_g22: relative residuals {resid} "
+          f"exceed 1e-4 (10× the tolerance)")
+    check(ortho <= 1e-4, f"spectral_g22: ‖VᵀV − I‖ = {ortho} > 1e-4")
+    tvals, tvecs = lanczos_compute_eigenpairs(res, _TwinOperator(T), cfg)
+    tres, _, _ = f64_residuals(L, tvals, tvecs, norm_l)
+    g22.update(twin_eigenvalues=tvals.tolist(),
+               kernel_eigenvalues=vals.tolist(), twin_residuals=tres)
+    gap = (vals - tvals).abs().max().item()
+    g22["eigenvalue_gap"] = gap
+    check(gap <= 1e-5, f"spectral_g22: eigenvalues through K6a {vals.tolist()}"
+          f" and through its twin {tvals.tolist()} differ by {gap} > 1e-5")
+
+    # K6a against its twin, timed, on the run's own layout
+    x = torch.randn(n, generator=gen, device="cuda")
+    saved = sparse_counts()
+    y = k6.spmv_tiled(T, x)
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k6.spmv_tiled_ref(T, x)), 1,
+                    warmup=0)
+    deg = (L.indptr[1:] - L.indptr[:-1]).float()
+    T_abs = dataclasses.replace(T, vals=T.vals.abs())
+    bound = (deg + 2) * 2.0 ** -24 * k6.spmv_tiled_ref(T_abs, x.abs())
+    err = check_bound("K6a", y, hold[0], bound)
+    del hold, y
+    ms = cuda_ms(lambda: k6.spmv_tiled(T, x), 20)
+    set_sparse_counts(saved)
+    Lt = csr_tensor(L)
+    lib = library_ms(lambda: Lt @ x[:, None], 20)
+    b_ms, b_by = spmv_bound_ms(L.nnz, n, n)
+    rows_k["K6a"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib,
+                     "max_abs_err": err,
+                     "launches": g22["launches"]["K6a"]}
+    g22["matvecs_per_fit"] = g22["launches"]["K6a"]
+    g22["k6a_ms"] = ms
+    print(f"K6a at spectral_g22: {json.dumps(rows_k['K6a'])}", flush=True)
+
+    # K6c (SpMM) on the same layout, V = 16 and 128, through linalg.spmm
+    k6c = {}
+    for V in (16, 128):
+        B = torch.randn((n, V), generator=gen, device="cuda")
+        set_sparse_counts(zero)
+        Y = sl.spmm(res, T, B)
+        torch.cuda.synchronize()
+        launches = sparse_counts()["K6c"]
+        check(launches > 0, f"spmm V={V}: K6c launched no time")
+        hold = []
+        plain = cuda_ms(lambda: hold.append(k6.spmm_tiled_ref(T, B)), 1,
+                        warmup=0)
+        bound = (deg + 2)[:, None] * 2.0 ** -24 * k6.spmm_tiled_ref(
+            T_abs, B.abs())
+        err = check_bound(f"K6c V={V}", Y, hold[0], bound)
+        del hold, Y, bound
+        ms = cuda_ms(lambda: k6.spmm_tiled(T, B), 5)
+        lib = library_ms(lambda: Lt @ B, 5)
+        b_ms, b_by = spmv_bound_ms(L.nnz, n, n, V)
+        k6c[V] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                  "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
+                  "launches": launches, "V": V}
+        print(f"K6c at V={V}: {json.dumps(k6c[V])}", flush=True)
+        del B
+    rows_k["K6c"] = {**k6c[16], "V128": k6c[128]}
+    del T_abs, Lt, T, L, emb, model
+    torch.cuda.empty_cache()
+
+    # ---- K7 on the adjacency structure, d = 64, through linalg.sddmm ----
+    d = 64
+    S = convert.coo_to_csr(adj)
+    del adj
+    torch.cuda.empty_cache()
+    A = torch.randn((n, d), generator=gen, device="cuda")
+    Bm = torch.randn((d, n), generator=gen, device="cuda")
+    set_sparse_counts(zero)
+    out = sl.sddmm(res, A, Bm, S)
+    torch.cuda.synchronize()
+    launches = sparse_counts()["K7"]
+    check(launches > 0, "sddmm: K7 launched no time")
+    saved = sparse_counts()
+    rows, cols = S.row_ids(), S.indices
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k7.sddmm_entries_ref(A, Bm, rows,
+                                                             cols)), 1,
+                    warmup=0)
+    bound = (d + 2) * 2.0 ** -24 * k7.sddmm_entries_ref(A.abs(), Bm.abs(),
+                                                        rows, cols)
+    twin = hold.pop()
+    err = check_bound("K7", out.values, twin, bound)
+    del out
+    ms = cuda_ms(lambda: k7.sddmm_entries(A, Bm, rows, cols), 5)
+    # the same entries in the (row tile × column tile) order of a TiledPairs
+    # layout (each result still written to its entry): the TPU kernel's
+    # blocks, timed against the entry order the path runs
+    tile_ms = {}
+    for R, C in ((16384, 16384), (256, 512)):
+        key = (rows.long() // R) * (-(-n // C)) + cols.long() // C
+        order = torch.argsort(key, stable=True)
+        ro, co = rows[order].contiguous(), cols[order].contiguous()
+        order = order.to(torch.int32)
+        check_bound(f"K7 in {R}×{C} tile order",
+                    k7.sddmm_entries(A, Bm, ro, co, dst=order), twin, bound)
+        tile_ms[f"{R}x{C}"] = cuda_ms(
+            lambda: k7.sddmm_entries(A, Bm, ro, co, dst=order), 5)
+        del key, order, ro, co
+    set_sparse_counts(saved)
+    del bound, twin
+    St = csr_tensor(S)
+    lib = library_ms(lambda: torch.sparse.sampled_addmm(St, A, Bm, beta=0.0),
+                     5)
+    b_ms, b_by = sddmm_bound_ms(S.nnz, n, n, d)
+    rows_k["K7"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                    "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
+                    "launches": launches, "d": d,
+                    "tile_order_ms": tile_ms}
+    print(f"K7 at d={d}: {json.dumps(rows_k['K7'])}", flush=True)
+    del A, Bm, St, S, rows, cols
+    torch.cuda.empty_cache()
+    report["spectral_g22"] = g22
+    print(f"spectral_g22: {json.dumps(g22)}", flush=True)
+
+    # ---- K6b on a block-clustered (band) matrix, through a Lanczos solve
+    Bd = band_matrix(band_n, 16, gen)
+    t0 = time.perf_counter()
+    TP = sl.prepare_spmv(Bd, layout="pairs")
+    torch.cuda.synchronize()
+    band = {"n": band_n, "nnz": Bd.nnz, "layout_s": time.perf_counter() - t0,
+            "slots_per_nnz": TP.pairs.m_chunks * TP.pairs.E / Bd.nnz}
+    bcfg = LanczosSolverConfig(n_components=4, max_iterations=60,
+                               tolerance=1e-5, seed=1)
+    set_sparse_counts(zero)
+    bvals, _ = lanczos_compute_eigenpairs(res, TP, bcfg)
+    torch.cuda.synchronize()
+    band["launches"] = sparse_counts()["K6b"]
+    band["eigenvalues"] = bvals.tolist()
+    check(band["launches"] > 0 and bool(torch.isfinite(bvals).all()),
+          "band: the pair-tiled solve launched K6b no time")
+    x = torch.randn(band_n, generator=gen, device="cuda")
+    saved = sparse_counts()
+    y = k6.spmv_pair_tiled(TP, x)
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k6.spmv_pair_tiled_ref(TP, x)), 1,
+                    warmup=0)
+    Bcsr = convert.coo_to_csr(Bd)
+    rnz = (Bcsr.indptr[1:] - Bcsr.indptr[:-1]).float()
+    bound = (rnz + 2) * 2.0 ** -24 * sl.spmv(
+        None, Bcsr.with_values(Bcsr.values.abs()), x.abs())
+    err = check_bound("K6b", y, hold[0], bound)
+    del hold, y
+    ms = cuda_ms(lambda: k6.spmv_pair_tiled(TP, x), 20)
+    set_sparse_counts(saved)
+    Bt = csr_tensor(Bcsr)
+    lib = library_ms(lambda: Bt @ x[:, None], 20)
+    b_ms, b_by = spmv_bound_ms(Bd.nnz, band_n, band_n)
+    rows_k["K6b"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
+                     "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
+                     "launches": band["launches"]}
+    report["band_pairs"] = band
+    print(f"K6b at the band matrix: {json.dumps(rows_k['K6b'])}; "
+          f"{json.dumps(band)}", flush=True)
+    del Bd, TP, Bcsr, Bt
+    torch.cuda.empty_cache()
+
+    # ---- phase 7: spectral_c4, BASELINE config 4 as bench_configs runs it
+    s4, e4 = c4
+    src, dst = rmat_rectangular_gen(res, 3, e4, s4, s4)
+    adj4 = COOMatrix(torch.cat([src, dst]), torch.cat([dst, src]),
+                     torch.ones(2 * e4, device="cuda"), (1 << s4, 1 << s4))
+    c4r = {"scale": s4, "edges": e4}
+    for name, tiled in (("ms_csr", False), ("ms_tiled", True)):
+        def fit():
+            return SpectralEmbedding(
+                n_components=4, max_iterations=400, res=res, jit_loop=True,
+                tiled=tiled).fit(adj4)
+        m4 = fit()                                   # warm-up
+        times = []
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fit()
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        c4r[name] = 1e3 * statistics.median(times)
+        c4r[name.replace("ms", "eigenvalues")] = m4.eigenvalues_.tolist()
+        check(bool(torch.isfinite(m4.embedding_).all()),
+              f"spectral_c4 {name}: the embedding is not finite")
+    report["spectral_c4"] = c4r
+    print(f"spectral_c4: {json.dumps(c4r)}", flush=True)
+    del adj4, src, dst
+
+    # ---- phase 8: lanczos_dense, config 3's Lanczos on a Gram operator
+    X, _ = make_blobs(res, 2, dense_rows, 1000, n_clusters=16)
+    Xs = X[:, :256]
+    G = (Xs.T @ Xs) / dense_rows
+    del X, Xs
+    dcfg = LanczosSolverConfig(n_components=8, max_iterations=300, ncv=32,
+                               tolerance=1e-6, seed=0, jit_loop=True)
+    dv, dvec = lanczos_compute_eigenpairs(res, G, dcfg)     # warm-up
+    times = []
+    for _ in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        lanczos_compute_eigenpairs(res, G, dcfg)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    G64 = G.double()
+    w = torch.linalg.eigvalsh(G64)
+    V = dvec.double()
+    resid = ((G64 @ V - V * dv.double()).norm(dim=0) / w.abs().max()).tolist()
+    report["lanczos_dense"] = {
+        "rows": dense_rows, "ms": 1e3 * statistics.median(times),
+        "residuals": resid, "eigenvalues": dv.tolist(),
+        "eigvalsh": w[:8].tolist(),
+        "max_eigenvalue_err": (dv.double() - w[:8]).abs().max().item()}
+    check(bool(torch.isfinite(dv).all()) and max(resid) <= 1e-3,
+          f"lanczos_dense: residuals {resid} exceed 1e-3")
+    print(f"lanczos_dense: {json.dumps(report['lanczos_dense'])}",
+          flush=True)
+
+    replaces = {"K6a": "raft_tpu/ops/spmv_pallas.py:160",
+                "K6b": "raft_tpu/ops/spmv_pallas.py:226",
+                "K6c": "raft_tpu/ops/spmv_pallas.py:393",
+                "K7": "raft_tpu/ops/sddmm_pallas.py:108"}
+    names = {"K6a": "spmv_tiled", "K6b": "spmv_pair_tiled",
+             "K6c": "spmm_tiled", "K7": "sddmm_tiled"}
+    entries = []
+    for key in ("K6a", "K6b", "K6c", "K7"):
+        src_file = "sddmm.cu" if key == "K7" else "spmv.cu"
+        entries.append({"name": names[key], "route": "cuda",
+                        "source": f"raft_tpu_torch/ops/csrc/{src_file}",
+                        "replaces": replaces[key], **rows_k[key]})
+    return report, entries
+
+
 def main() -> int:
     import torch
 
@@ -570,9 +1040,11 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["fused_l2_topk", "fine_scan"])
+    _build.build_all(["fused_l2_topk", "fine_scan", "spmv", "sddmm"])
     k1._launcher()
     k4._launcher()
+    _build.load("spmv")
+    _build.load("sddmm")
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
@@ -709,11 +1181,17 @@ def main() -> int:
         res, N_INDEX, N_QUERIES, IVF_LISTS)
     bounds.update(ivf_unported_bounds_ms(N_QUERIES, DIM, p32_rows,
                                          p32_pairs))
+    torch.cuda.empty_cache()
+
+    # ---- phases 6–8: the spectral path ----
+    spectral, sparse_entries = spectral_phase(res)
     print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
+    print(json.dumps({"spectral": spectral}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, *k4_entries]}), flush=True)
+    print(json.dumps({"kernels": [entry, *k4_entries, *sparse_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -13,15 +13,20 @@ Ported so far: certified fused brute-force KNN (``distance.knn``,
 ``prepare_knn_index``, ``knn_fused``) with its kernel K1, the streamed
 sweeps, ``matrix.select_k``, ``random.make_blobs``, balanced k-means
 (``cluster``) and IVF-Flat (``ann.build_ivf_flat`` / ``search_ivf_flat``)
-with its list-major fine-scan kernel K4.
+with its list-major fine-scan kernel K4, and the sparse layer with
+spectral embedding (``sparse``, ``spectral``, ``models.SpectralEmbedding``,
+``random.rmat_rectangular_gen``): the tiled layouts, the Lanczos solver,
+and the SpMV/SpMM kernel K6 and SDDMM kernel K7.
 """
 
-from raft_tpu_torch import (ann, cluster, core, distance, matrix, mutable,
-                            observability, ops, random)
+from raft_tpu_torch import (ann, cluster, core, distance, linalg, matrix,
+                            models, mutable, observability, ops, random,
+                            sparse, spectral)
 from raft_tpu_torch.core import DeviceResources, device_resources
 
 __version__ = "0.1.0"
 
-__all__ = ["ann", "cluster", "core", "distance", "matrix", "mutable",
-           "observability", "ops", "random",
+__all__ = ["ann", "cluster", "core", "distance", "linalg", "matrix",
+           "models", "mutable", "observability", "ops", "random", "sparse",
+           "spectral",
            "DeviceResources", "device_resources", "__version__"]

@@ -17,8 +17,13 @@ from raft_tpu_torch.ann import IvfFlatIndex, build_ivf_flat, search_ivf_flat
 from raft_tpu_torch.cluster import kmeans_fit, kmeans_predict
 from raft_tpu_torch.core import DeviceError, DeviceResources
 from raft_tpu_torch.distance.knn_fused import knn_fused
-from raft_tpu_torch.ops import fine_scan, fused_l2_topk
-from raft_tpu_torch.random import make_blobs
+from raft_tpu_torch.core.sparse_types import COOMatrix
+from raft_tpu_torch.models import SpectralEmbedding
+from raft_tpu_torch.ops import fine_scan, fused_l2_topk, sddmm, spmv
+from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
+from raft_tpu_torch.sparse import linalg as sparse_linalg
+from raft_tpu_torch.sparse.solver import (LanczosSolverConfig,
+                                          lanczos_compute_eigenpairs)
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 PKG = os.path.join(REPO, "raft_tpu_torch")
@@ -34,7 +39,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.ann.ivf_flat, raft_tpu_torch.cluster.kmeans, "
             "raft_tpu_torch.mutable.layout, "
             "raft_tpu_torch.observability.costmodel, "
-            "raft_tpu_torch.ops.fine_scan; "
+            "raft_tpu_torch.ops.fine_scan, raft_tpu_torch.ops.spmv, "
+            "raft_tpu_torch.ops.sddmm, raft_tpu_torch.sparse.tiled, "
+            "raft_tpu_torch.sparse.linalg, raft_tpu_torch.sparse.matrix, "
+            "raft_tpu_torch.sparse.solver.lanczos, raft_tpu_torch.spectral, "
+            "raft_tpu_torch.models.spectral_embedding, "
+            "raft_tpu_torch.random.rmat, raft_tpu_torch.core.bitset; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -96,6 +106,43 @@ def test_entry_points_default_to_cuda():
     assert v.device.type == "cpu" and i.shape == (8, 4)
 
 
+def _ring(n=64):
+    """A ring graph's symmetric adjacency, held as numpy arrays."""
+    r = np.arange(n, dtype=np.int32)
+    c = (r + 1) % n
+    return COOMatrix(np.concatenate([r, c]), np.concatenate([c, r]),
+                     np.ones(2 * n, np.float32), (n, n))
+
+
+def test_sparse_entry_points_default_to_cuda():
+    A = _ring()
+    cfg = LanczosSolverConfig(n_components=2, max_iterations=100)
+    dense = np.eye(64, dtype=np.float32) + 1.0
+    if torch.cuda.is_available():
+        assert sparse_linalg.prepare_spmv(A).device.type == "cuda"
+        return
+    with pytest.raises(DeviceError):
+        sparse_linalg.prepare_spmv(A)
+    with pytest.raises(DeviceError):
+        SpectralEmbedding(n_components=2).fit(A)
+    with pytest.raises(DeviceError):
+        lanczos_compute_eigenpairs(None, A, cfg)
+    with pytest.raises(DeviceError):
+        lanczos_compute_eigenpairs(None, dense, cfg)
+    with pytest.raises(DeviceError):
+        rmat_rectangular_gen(None, 0, 100, 6, 6)
+    # the same calls on the CPU, by argument or by handle
+    cpu = DeviceResources(device="cpu")
+    assert sparse_linalg.prepare_spmv(A, device="cpu").device.type == "cpu"
+    m = SpectralEmbedding(n_components=2, res=cpu).fit(A)
+    assert m.embedding_.device.type == "cpu"
+    assert m.embedding_.shape == (64, 2)
+    vals, _ = lanczos_compute_eigenpairs(cpu, dense, cfg)
+    assert vals.device.type == "cpu"
+    src, _ = rmat_rectangular_gen(None, 0, 100, 6, 6, device="cpu")
+    assert src.device.type == "cpu"
+
+
 def test_cpu_path_launches_no_kernel():
     before = fused_l2_topk.LAUNCHES
     y = torch.randn(4096, 32, generator=torch.Generator().manual_seed(1))
@@ -110,6 +157,16 @@ def test_cpu_path_launches_no_kernel():
     search_ivf_flat(res, ivf, y[:16], 5, n_probes=8)       # exact plane
     assert fused_l2_topk.LAUNCHES == 0
     assert fine_scan.LAUNCHES == fine_scan.LAUNCHES_Q8 == 0
+    A = _ring().to("cpu")
+    SpectralEmbedding(n_components=2, tiled=True).fit(A)
+    t = sparse_linalg.prepare_spmv(A)
+    sparse_linalg.spmm(res, t, torch.ones(64, 3))
+    sparse_linalg.spmv(res, sparse_linalg.prepare_spmv(A, layout="pairs"),
+                       torch.ones(64))
+    sparse_linalg.sddmm(res, torch.ones(64, 4), torch.ones(4, 64),
+                        sparse_linalg.prepare_sddmm(A))
+    assert spmv.LAUNCHES_SPMV == spmv.LAUNCHES_PAIR == spmv.LAUNCHES_SPMM \
+        == sddmm.LAUNCHES == 0
 
 
 def test_make_blobs_shapes_and_labels():

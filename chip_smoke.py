@@ -8,18 +8,26 @@ Phases, each fatal on failure (non-zero exit, no result line):
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from the sources in this checkout.
 2. K1 against its plain PyTorch twin on the card, at Q=512 × M=131072 ×
-   d=128 for passes {1, 3} × pair {False, True}.
+   d=128 for passes {1, 3} × pair {False, True}; then K2 (K1 over an int8
+   database) against its twin at Q=256 × 4 groups of 16 × 2048 rows × 128,
+   the same four modes: values (code bits cleared) within the f32
+   summation bound (d + 2)·2⁻²⁴·Σ|x||ŷ| plus the norm terms' roundings and
+   two units of the packing truncation; a slot's code may differ only
+   where the two rows it names score within that bound (a tie, proven in
+   f64).
 3. The main path at full size, as ``bench.py`` configures it: make_blobs
    1,000,000 × 128 (64 clusters, std 2.0), the first 2048 rows as queries,
-   k=64; ``prepare_knn_index`` at passes 1 and 3, then ``distance.knn`` at
-   passes=1, passes=3 and passes=1 with ``certify="f32"``. The kernel's
-   launch count is zeroed before each run and read after it. Results are
+   k=64; ``prepare_knn_index`` at passes 1 and 3, bf16 and int8, then
+   ``distance.knn`` at passes=1, passes=3, passes=1 with
+   ``certify="f32"`` (K1), and int8 at passes 1 and 3 (K2). The kernels'
+   launch counts are zeroed before each run and read after it. Results are
    held against an exact f32 oracle (chunked matmul + topk): ids identical
-   at passes=3 and certify="f32", recall ≥ 0.99 at passes=1. K1 is held
-   against its twin once more on the main path's own inputs, and timed
-   beside its twin, its bound and the library product of the same shape.
-   Each run is traced once more under torch.profiler, and its device time
-   by kernel, busy time and idle share (profiler on) are printed.
+   at passes=3, certify="f32" and int8, recall ≥ 0.99 at passes=1. K1 and
+   K2 are held against their twins once more on the main path's own
+   inputs, and timed beside the twin, the bound and the library product of
+   the same shape. Each run is traced once more under torch.profiler, and
+   its device time by kernel, busy time and idle share (profiler on) are
+   printed.
 4. K4 (the list-major IVF fine scan, f32 and int8) against its plain twin
    on the card, on one real schedule: the first 256 queries of the IVF
    phase's batch at P=32, on the f32 and then the int8 index.
@@ -65,9 +73,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
 8. lanczos_dense, config 3's Lanczos (``bench_configs.py:92-103``): the
    256 × 256 Gram operator of make_blobs 100,000 × 1,000 (16 clusters), 8
    components, ncv=32, tolerance 1e-6, 300 iterations; residuals ≤ 1e-3.
-9. A JSON ``kernels`` line, ``main_path``, ``ivf`` and ``spectral`` lines,
-   the card's name and power limit, and the result line
-   ``{"ok": true, "device": {...}}``.
+9. Serving at ``benchmarks/bench_serving.py:54,198-226``'s chip shape:
+   1,000,000 × 128 rows of N(0, 1) from a seeded generator, k=64, 2000
+   requests from 8 closed-loop clients with Exp(1 ms) think time, request
+   sizes Poisson(16) clipped to [1, 256] on the default ladder (16, 64,
+   256), through ``ServingEngine``: brute_bf16 (``prepare_knn_index(Y)``,
+   passes=3, K1) and brute_int8 (``db_dtype="int8"``, K2), counts zeroed
+   before each load run and read after it. Each prints p50/p99 latency,
+   throughput, batches, mean fill, fixups and kernel builds after warm-up
+   (must be 0), with no request failing; every 250th request is re-solved
+   single-shot through ``knn_fused`` on the same index and must be
+   bit-identical. Then ``update_index`` to a second seeded Y while 8
+   clients keep submitting: every response must equal the single-shot
+   answer of exactly one generation.
+10. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf`` and
+   ``spectral`` lines, the card's name and power limit, and the result
+   line ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -78,6 +99,7 @@ import json
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM)
@@ -85,6 +107,10 @@ H100_BYTES_PER_S = 3.35e12      # HBM3
 H100_F32_FLOPS = 67e12          # f32 off the tensor cores (SXM)
 
 N_INDEX, DIM, N_QUERIES, K = 1_000_000, 128, 2048, 64
+# the serving phase: bench_serving.py's chip shape (rows, d, k, requests,
+# clients) and its mean think time
+SERVE_SHAPE = (1_000_000, 128, 64, 2000, 8)
+SERVE_THINK_S = 1e-3
 # the IVF phase: bench_ann.py's TPU shape and build
 IVF_CENTERS, IVF_K, IVF_LISTS = 64, 10, 1024
 
@@ -176,13 +202,81 @@ def k1_bound_ms(Q: int, M: int, d: int, S: int, passes: int):
                                        else "bytes")
 
 
+def k2_bound_ms(Q: int, M: int, d: int, S: int, passes: int):
+    """Least time for K2's work: the bf16 products (x hi, and x lo at
+    passes=3, against exact codes) at the tensor-core peak, or the
+    queries, the int8 rows, their norms, the group scales and the query
+    norms read once and the three pools written once at the HBM rate."""
+    ops = 2.0 * Q * M * d * (2 if passes == 3 else 1)
+    nbytes = Q * d * 4 + M * d + M * 4 + S // 128 * 4 + Q * 4 + 3 * Q * S * 4
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def compare_k2(kern, twin, x, y_q, scales, yyh, xxh, T: int, g: int,
+               passes: int, pbits: int, pair: bool):
+    """Hold K2's outputs against its twin's. Both sum the same exact bf16
+    products in f32 in other orders, then scale once: a value (code bits
+    cleared) may differ by (d + 2)·2⁻²⁴·Σ|x||ŷ| (the query's largest such
+    sum over the rows), 4·2⁻²⁴ of the norm terms, and two units of the
+    packing truncation. Where codes differ, both rows they name are scored
+    in f64 and must lie within twice that bound of each other: a tie.
+    Returns (max abs value error, slots whose codes differ)."""
+    import torch
+
+    d = x.shape[1]
+    grp = torch.arange(y_q.shape[0], device=x.device) // (g * T)
+    y_hat = y_q.float() * scales[grp][:, None]
+    xb = x.to(torch.bfloat16).float()
+    xs = xb.double()
+    if passes == 3:
+        xs = xs + (x - xb).to(torch.bfloat16).double()
+    xa = x.abs()
+    sum_abs = torch.stack([(xa @ y_hat[s:s + 131072].abs().T).max(1).values
+                           for s in range(0, y_hat.shape[0], 131072)]
+                          ).max(0).values.double()
+    live = yyh < 2.0 ** 123
+    acc = ((d + 2) * 2.0 ** -24 * sum_abs
+           + 4 * 2.0 ** -24 * (yyh[live].max().double() + xxh.double()))
+    err, n_diff = 0.0, 0
+    for n, (a, b) in enumerate(zip(kern, twin)):
+        ca, va = unpack(a, pbits)
+        cb, vb = unpack(b, pbits)
+        tol = acc[:, None] + 2.0 * 2.0 ** (pbits - 23) * vb.abs().double()
+        diff = (va - vb).abs().double()
+        check(bool((diff <= tol).all()),
+              f"K2 values of output {n} differ by up to "
+              f"{diff.max().item()} (bound {tol.min().item()})")
+        err = max(err, diff.max().item())
+        if n == 2 and pair:
+            continue                       # a3's code means nothing here
+        q_idx, s_idx = (ca != cb).nonzero(as_tuple=True)
+        n_diff += int(q_idx.numel())
+        if q_idx.numel():
+            def row(code):
+                return ((s_idx // 128) * g * T + code.long() * 128
+                        + s_idx % 128)
+            ra, rb = row(ca[q_idx, s_idx]), row(cb[q_idx, s_idx])
+
+            def score(r):
+                return (yyh[r].double()
+                        - (y_hat[r].double() * xs[q_idx]).sum(1)
+                        + xxh[q_idx].double())
+            gap = (score(ra) - score(rb)).abs()
+            check(bool((gap <= 2 * tol[q_idx, s_idx]).all()),
+                  f"K2 output {n}: {int(q_idx.numel())} slots name other "
+                  f"rows than the twin's, up to {gap.max().item()} apart")
+    torch.cuda.synchronize()
+    return err, n_diff
+
+
 def unported_bounds_ms(Q: int, M: int, d: int, S: int, T: int):
     """Bounds, at the main path's shape, of the TPU kernels on this path's
     family that the port has not written yet (same rules as k1_bound_ms):
     K1's unpacked form (ids as two extra i32 outputs), its slot form (per
-    tile and lane min, argmin, and a [Q, 128] 2nd-min), K2 (K1 over an
-    int8 slab, still bf16 products) and K3 (the packed fold of the [Q, S]
-    pool without a product)."""
+    tile and lane min, argmin, and a [Q, 128] 2nd-min) and K3 (the packed
+    fold of the [Q, S] pool without a product)."""
     def bound(ops, nbytes):
         return 1e3 * max(ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
 
@@ -195,8 +289,6 @@ def unported_bounds_ms(Q: int, M: int, d: int, S: int, T: int):
         "K1 fused_l2_slot_topk p1":
             bound(ops, x_in + M * d * 2 + yy_in + 2 * Q * s_slot * 4
                   + Q * 128 * 4),
-        "K2 fused_l2_group_topk_packed_db_q8 p1":
-            bound(ops, x_in + M * d + yy_in + 3 * Q * S * 4),
         "K3 select_slot_topk_packed on the [Q, S] pool":
             bound(0.0, Q * S * 4 + 3 * Q * 128 * -(-S // 32768) * 4),
     }
@@ -564,6 +656,226 @@ def profile_run(fn, top: int = 8):
             "idle_share": max(0.0, 1.0 - busy / (wall * 1e3)),
             "top": [{"kernel": k, "ms": ms, "calls": n}
                     for k, ms, n in rows[:top]]}
+
+
+# ---------------------------------------------------------------- serving
+def closed_loop(engine, request, n_requests: int, clients: int,
+                think_s: float, seed: int, keep: bool = False,
+                go_on=None):
+    """``benchmarks/bench_serving.py``'s closed loop: each client takes
+    the next request index, submits ``request(i)``, waits for its answer
+    and thinks for Exp(``think_s``). Runs ``n_requests`` requests, and
+    past them while ``go_on(done)`` is true. Returns (latencies s, errors,
+    wall s, {i: (vals, ids)} when ``keep``)."""
+    import numpy as np
+
+    lat, errors, answers = [], [], {}
+    lock = threading.Lock()
+    state = {"next": 0, "done": 0}
+    seeds = np.random.default_rng(seed).integers(0, 2 ** 31, clients)
+
+    def client(cid: int):
+        rng = np.random.default_rng(seeds[cid])
+        while True:
+            with lock:
+                i = state["next"]
+                if i >= n_requests and (go_on is None
+                                        or not go_on(state["done"])):
+                    return
+                state["next"] = i + 1
+            t0 = time.perf_counter()
+            try:
+                vals, ids = engine.submit(request(i)).result(timeout=120)
+            except Exception as e:
+                with lock:
+                    errors.append(f"{type(e).__name__}: {e}"[:200])
+                continue
+            dt = time.perf_counter() - t0
+            with lock:
+                lat.append(dt)
+                state["done"] += 1
+                if keep:
+                    answers[i] = (vals, ids)
+            if think_s > 0:
+                time.sleep(float(rng.exponential(think_s)))
+
+    t_start = time.perf_counter()
+    threads = [threading.Thread(target=client, args=(c,))
+               for c in range(clients)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    engine.flush(60)
+    return lat, errors, time.perf_counter() - t_start, answers
+
+
+def serving_phase(res, seed: int = 0):
+    """Phase 9 (see the module doc). Returns (the ``serving`` report, the
+    launches of each cell's load run: K1 for brute_bf16, K2 for
+    brute_int8)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.distance.knn_fused import knn_fused
+    from raft_tpu_torch.distance import prepare_knn_index
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.serving import ServingEngine
+
+    m, d, k, n_requests, clients = SERVE_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    Y = torch.randn(m, d, device="cuda", generator=gen)
+    rng = np.random.default_rng(seed)
+    ladder = (16, 64, 256)        # the default: Qb = 256
+    sizes = np.clip(rng.poisson(max(2, ladder[0]), n_requests), 1,
+                    ladder[-1])
+    blocks = rng.normal(size=(64, ladder[-1], d)).astype(np.float32)
+
+    def request(i):
+        return blocks[i % 64, :int(sizes[i % n_requests])]
+
+    report, launches = {}, {}
+    for cell, dtype in (("brute_bf16", "bf16"), ("brute_int8", "int8")):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        idx = prepare_knn_index(Y, db_dtype=dtype)
+        torch.cuda.synchronize()
+        prepare_s = time.perf_counter() - t0
+        engine = ServingEngine(idx, k=k)
+        check(engine.buckets == ladder, f"{cell}: ladder {engine.buckets}")
+        t0 = time.perf_counter()
+        engine.start()
+        warm_s = time.perf_counter() - t0
+        try:
+            kname = "K2" if dtype == "int8" else "K1"
+            k1.LAUNCHES = k1.LAUNCHES_Q8 = 0
+            s0 = engine.stats()
+            lat, errors, wall, _ = closed_loop(
+                engine, request, n_requests, clients, SERVE_THINK_S, seed)
+            launches[cell] = (k1.LAUNCHES_Q8 if dtype == "int8"
+                              else k1.LAUNCHES)
+            s1 = engine.stats()
+            check(not errors and len(lat) == n_requests,
+                  f"{cell}: {len(errors)} requests failed: {errors[:3]}")
+            check(launches[cell] > 0, f"{cell}: serving launched {kname} "
+                  f"no time")
+            check(s1["builds_after_warmup"] == 0,
+                  f"{cell}: {s1['builds_after_warmup']} kernel builds or "
+                  f"loads after warm-up")
+            batches = s1["batches"] - s0.get("batches", 0)
+            # bench_serving's parity probe: every 250th request asked
+            # again, and single-shot through knn_fused on the same index;
+            # every other probe carries a deadline, so the batch runs in a
+            # deadline scope and waits on its polled completion event
+            parity = 0
+            for n_probe, i in enumerate(range(0, n_requests,
+                                              n_requests // 8)):
+                q = request(i)
+                sv, si = engine.query(
+                    q, deadline_s=30.0 if n_probe % 2 else None,
+                    timeout=120)
+                ov, oi = knn_fused(torch.from_numpy(q).cuda(), idx, k)
+                check(np.array_equal(sv, ov.cpu().numpy())
+                      and np.array_equal(si, oi.cpu().numpy()),
+                      f"{cell}: request {i} served differs from the same "
+                      f"query asked single-shot")
+                parity += 1
+            lat_ms = np.asarray(lat) * 1e3
+            row = {
+                "index": f"{dtype} p3", "prepare_s": prepare_s,
+                "warmup_s": warm_s, "p50_ms": float(np.percentile(lat_ms, 50)),
+                "p99_ms": float(np.percentile(lat_ms, 99)),
+                "throughput_rps": n_requests / wall,
+                "rows_per_s": float(sizes.sum()) / wall,
+                "n_requests": n_requests, "errors": len(errors),
+                "batches": batches,
+                "mean_fill": float(sizes.sum()) / max(1, batches)
+                / ladder[-1],
+                "padded_rows": s1["padded_rows"] - s0.get("padded_rows", 0),
+                "fixups": s1["fixups"] - s0.get("fixups", 0),
+                "builds_after_warmup": s1["builds_after_warmup"],
+                "warmup_builds": s1["warmup_builds"],
+                "launches": {kname: launches[cell]},
+                "parity_checked": parity}
+            # a short burst under the profiler: device busy and idle share
+            row["profile"] = profile_run(lambda: closed_loop(
+                engine, request, 300, clients, SERVE_THINK_S, seed + 1))
+            if dtype == "bf16":
+                row["swap"] = swap_under_load(engine, idx, request, blocks,
+                                              sizes, k, seed)
+            report[cell] = row
+            print(f"serving {cell}: {json.dumps(row)}", flush=True)
+        finally:
+            engine.stop()
+        del engine, idx
+        torch.cuda.empty_cache()
+    return report, launches
+
+
+def swap_under_load(engine, idx0, request, blocks, sizes, k: int,
+                    seed: int):
+    """``update_index`` to a second seeded Y while 8 clients keep
+    submitting: each response must equal the single-shot answer of
+    exactly one generation. Clients go on until 200 requests were answered
+    after the swap landed."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.distance.knn_fused import knn_fused
+
+    m, d = idx0.n_rows, idx0.d_orig
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed + 1)
+    Y2 = torch.randn(m, d, device="cuda", generator=gen)
+    torch.cuda.synchronize()
+    n_req, clients = 400, SERVE_SHAPE[4]
+    gen0 = engine.snapshot.generation
+    state = {"swapped_at": None}
+
+    def trigger(i):
+        if i == 100:
+            engine.update_index(Y2)              # background rebuild
+        if (state["swapped_at"] is None
+                and engine.snapshot.generation != gen0):
+            state["swapped_at"] = i
+        return request(i)
+
+    def go_on(done):
+        # 200 more answers once the swap has landed (at most 20000)
+        at = state["swapped_at"]
+        return (at is None or done < at + 200) and done < 20000
+
+    lat, errors, wall, answers = closed_loop(
+        engine, trigger, n_req, clients, SERVE_THINK_S, seed + 2,
+        keep=True, go_on=go_on)
+    engine._store.wait_for_builds(120)
+    check(not errors, f"swap: {len(errors)} requests failed: {errors[:3]}")
+    check(engine.snapshot.generation == gen0 + 1, "swap: the update did "
+          "not land")
+    # single-shot answers of every request block, one per generation
+    new = engine.snapshot.index
+    xq = torch.from_numpy(blocks.reshape(-1, d)).cuda()
+    per_gen = []
+    for index in (idx0, new):
+        v, i = knn_fused(xq, index, k)
+        per_gen.append((v.cpu().numpy().reshape(64, -1, k),
+                        i.cpu().numpy().reshape(64, -1, k)))
+    count = [0, 0]
+    for j, (vals, ids) in answers.items():
+        n = vals.shape[0]
+        hit = [np.array_equal(vals, gv[j % 64, :n])
+               and np.array_equal(ids, gi[j % 64, :n])
+               for gv, gi in per_gen]
+        if not any(hit):
+            why = [(float(np.abs(vals - gv[j % 64, :n]).max()),
+                    int((ids != gi[j % 64, :n]).sum())) for gv, gi in per_gen]
+            fail(f"swap: request {j}'s answer equals neither generation's "
+                 f"(max |value diff|, ids differing) per generation: {why}")
+        count[0 if hit[0] else 1] += 1
+    check(count[1] > 0, "swap: no response came from the new generation")
+    return {"requests": len(answers), "old_generation": count[0],
+            "new_generation": count[1], "wall_s": wall,
+            "rebuild_to_swap_at_request": state["swapped_at"],
+            "p99_ms": float(np.percentile(np.asarray(lat) * 1e3, 99))}
 
 
 # ---------------------------------------------------------------- spectral
@@ -1042,6 +1354,7 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(["fused_l2_topk", "fine_scan", "spmv", "sddmm"])
     k1._launcher()
+    k1._launcher_q8()
     k4._launcher()
     _build.load("spmv")
     _build.load("sddmm")
@@ -1077,6 +1390,33 @@ def main() -> int:
                   f"pair={pair}: max_abs_err={err}", flush=True)
     del x, y, y_hi, y_lo, yyh, xxh, out, ref
 
+    # K2 against its twin: 4 whole groups of int8 rows, quantized as
+    # prepare_knn_index(db_dtype="int8") does, with a padded tail
+    from raft_tpu_torch.distance.knn_fused import _prepare_ops_q8
+
+    Q2 = 256
+    x = torch.randn(Q2, d, device="cuda", generator=gen)
+    y = 2.0 * torch.randn(4 * g * T, d, device="cuda", generator=gen) + 0.5
+    _, y_q, scales, yyh, _, _ = _prepare_ops_q8(y, T, g, "l2")
+    yyh[-100:] = k1._PACK_PAD
+    xxh = 0.5 * (x * x).sum(1)
+    for passes in (1, 3):
+        for pair in (False, True):
+            n0 = k1.LAUNCHES_Q8
+            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
+                      xxh=xxh)
+            out = k1.fused_l2_group_topk_packed_q8(x, y_q, yyh, scales, **kw)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES_Q8 == n0 + 1, "K2 launch was not counted")
+            ref = k1.fused_l2_group_topk_packed_q8_ref(x, y_q, yyh, scales,
+                                                       **kw)
+            err, n_diff = compare_k2(out, ref, x, y_q, scales, yyh, xxh, T,
+                                     g, passes, pbits, pair)
+            print(f"K2 vs twin Q={Q2} M={y_q.shape[0]} d={d} "
+                  f"passes={passes} pair={pair}: max_abs_err={err} "
+                  f"tie_slots={n_diff}", flush=True)
+    del x, y, y_q, scales, yyh, xxh, out, ref
+
     # ---- phase 3: the main path at full size ----
     res = raft_tpu_torch.DeviceResources(device="cuda", seed=0)
     X, _ = make_blobs(res, 0, N_INDEX, DIM, n_clusters=64, cluster_std=2.0)
@@ -1088,18 +1428,27 @@ def main() -> int:
     print(f"prepare (p1 + p3): {time.perf_counter() - t0:.3f} s; "
           f"T={idx1.T} g={idx1.g} pbits={idx1.pbits} "
           f"M={idx1.y_hi.shape[0]}", flush=True)
+    t0 = time.perf_counter()
+    idx8_1 = distance.prepare_knn_index(X, passes=1, db_dtype="int8")
+    idx8_3 = distance.prepare_knn_index(X, passes=3, db_dtype="int8")
+    res.sync()
+    print(f"prepare int8 (p1 + p3): {time.perf_counter() - t0:.3f} s; "
+          f"M={idx8_1.prepared_rows} groups={idx8_1.scales.numel()} "
+          f"Eq max={idx8_1.eq_groups.max().item()}", flush=True)
     o_vals, o_ids = exact_oracle(X, Qx, K)
 
     runs = {"p1": (idx1, "kernel"), "p3": (idx3, "kernel"),
-            "p1_f32": (idx1, "f32")}
+            "p1_f32": (idx1, "f32"), "int8_p1": (idx8_1, "kernel"),
+            "int8_p3": (idx8_3, "kernel")}
     main_path, launches = {}, {}
     for name, (index, certify) in runs.items():
-        k1.LAUNCHES = 0
+        kname = "K2" if index.db_dtype == "int8" else "K1"
+        k1.LAUNCHES = k1.LAUNCHES_Q8 = 0
         vals, ids = distance.knn(res, index, Qx, k=K, certify=certify)
         torch.cuda.synchronize()
-        launches[name] = k1.LAUNCHES
-        check(launches[name] > 0, f"{name}: the main path launched K1 "
-              f"no time")
+        launches[name] = k1.LAUNCHES_Q8 if kname == "K2" else k1.LAUNCHES
+        check(launches[name] > 0, f"{name}: the main path launched "
+              f"{kname} no time")
         check(tuple(vals.shape) == (N_QUERIES, K)
               and bool(torch.isfinite(vals).all()),
               f"{name}: results are not finite [Q, k]")
@@ -1126,7 +1475,8 @@ def main() -> int:
         ms = 1e3 * statistics.median(times[1:])
         main_path[name] = {"ms": ms, "gbps": N_QUERIES * N_INDEX * 4.0
                            / (ms * 1e-3) / 1e9, "n_fail": n_fail,
-                           "launches": launches[name], **quality}
+                           "kernel": kname, "launches": launches[name],
+                           **quality}
         print(f"main path {name}: {json.dumps(main_path[name])}",
               flush=True)
 
@@ -1160,10 +1510,54 @@ def main() -> int:
             entry = {"name": "fused_l2_group_topk_packed", "route": "cuda",
                      "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
                      "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1269",
-                     "launches": sum(launches.values()), **row}
+                     "launches": sum(launches[n] for n in ("p1", "p3",
+                                                           "p1_f32")),
+                     **row}
         else:
             entry["p3"] = row
         print(f"K1 at the main path, passes={index.passes} pair={pair}: "
+              f"{json.dumps(row)}", flush=True)
+    torch.cuda.synchronize()
+
+    # ---- K2 on the main path's own inputs: twin, times, bound ----
+    k2_entry = None
+    for index, pair in ((idx8_1, True), (idx8_3, False)):
+        kw = dict(T=index.T, g=index.g, passes=index.passes, pair=pair,
+                  pbits=index.pbits, xxh=xxh)
+        args = (xq, index.y_q, index.yyh_k, index.scales)
+        n0 = k1.LAUNCHES_Q8
+        out = k1.fused_l2_group_topk_packed_q8(*args, **kw)
+        ref = k1.fused_l2_group_topk_packed_q8_ref(*args, **kw)
+        err, n_diff = compare_k2(out, ref, xq, index.y_q, index.scales,
+                                 index.yyh_k, xxh, index.T, index.g,
+                                 index.passes, index.pbits, pair)
+        del out, ref
+        ms = cuda_ms(lambda: k1.fused_l2_group_topk_packed_q8(*args, **kw),
+                     10)
+        plain_ms = cuda_ms(
+            lambda: k1.fused_l2_group_topk_packed_q8_ref(*args, **kw), 3)
+        k1.LAUNCHES_Q8 = n0          # comparison launches do not count
+        M8 = index.prepared_rows
+        S8 = M8 // (index.g * index.T) * 128
+        bound, bound_by = k2_bound_ms(N_QUERIES, M8, index.stream_width,
+                                      S8, index.passes)
+        xb, qb = xq.to(torch.bfloat16), index.y_q.to(torch.bfloat16)
+        lib_ms = cuda_ms(lambda: torch.matmul(xb, qb.T), 10)
+        del qb
+        row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+               "bound_by": bound_by, "library_ms": lib_ms,
+               "max_abs_err": err, "tie_slots": n_diff,
+               "launches_per_batch": launches[f"int8_p{index.passes}"]}
+        if index.passes == 1:
+            k2_entry = {
+                "name": "fused_l2_group_topk_packed_q8", "route": "cuda",
+                "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+                "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1465",
+                "launches": launches["int8_p1"] + launches["int8_p3"],
+                **row}
+        else:
+            k2_entry["p3"] = row
+        print(f"K2 at the main path, passes={index.passes} pair={pair}: "
               f"{json.dumps(row)}", flush=True)
     torch.cuda.synchronize()
 
@@ -1173,7 +1567,13 @@ def main() -> int:
         print(json.dumps({"profile": name, **br}), flush=True)
     bounds = unported_bounds_ms(N_QUERIES, Mi, index.stream_width, S,
                                 index.T)
-    del X, Qx, idx1, idx3, o_vals, o_ids
+    del X, Qx, idx1, idx3, idx8_1, idx8_3, o_vals, o_ids
+    torch.cuda.empty_cache()
+
+    # ---- phase 9 (run here, on a fresh index): serving ----
+    serving, serve_launches = serving_phase(res)
+    entry["serving_launches"] = serve_launches["brute_bf16"]
+    k2_entry["serving_launches"] = serve_launches["brute_int8"]
     torch.cuda.empty_cache()
 
     # ---- phases 4 and 5: K4 against its twin, then IVF-Flat ----
@@ -1187,11 +1587,12 @@ def main() -> int:
     spectral, sparse_entries = spectral_phase(res)
     print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
+    print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"spectral": spectral}), flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, *k4_entries, *sparse_entries]}),
-          flush=True)
+    print(json.dumps({"kernels": [entry, k2_entry, *k4_entries,
+                                  *sparse_entries]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

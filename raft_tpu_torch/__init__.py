@@ -10,23 +10,28 @@ Entry points run on the CUDA device unless the caller passes
 ``device="cpu"`` or CPU tensors; without a card they raise.
 
 Ported so far: certified fused brute-force KNN (``distance.knn``,
-``prepare_knn_index``, ``knn_fused``) with its kernel K1, the streamed
-sweeps, ``matrix.select_k``, ``random.make_blobs``, balanced k-means
-(``cluster``) and IVF-Flat (``ann.build_ivf_flat`` / ``search_ivf_flat``)
-with its list-major fine-scan kernel K4, and the sparse layer with
-spectral embedding (``sparse``, ``spectral``, ``models.SpectralEmbedding``,
+``prepare_knn_index``, ``knn_fused``) with its kernel K1, and its
+int8-streamed index (``db_dtype="int8"``) with the kernel K2; the serving
+engine over it (``serving.ServingEngine``: micro-batching to a bucket
+ladder, admission control, deadlines, snapshot swap; brute bf16/int8 and
+IVF-Flat planes) with its entry ``runtime.knn_query`` and the deadline
+scopes of ``resilience``; the streamed sweeps, ``matrix.select_k``,
+``random.make_blobs``, balanced k-means (``cluster``) and IVF-Flat
+(``ann.build_ivf_flat`` / ``search_ivf_flat``) with its list-major
+fine-scan kernel K4, and the sparse layer with spectral embedding
+(``sparse``, ``spectral``, ``models.SpectralEmbedding``,
 ``random.rmat_rectangular_gen``): the tiled layouts, the Lanczos solver,
 and the SpMV/SpMM kernel K6 and SDDMM kernel K7.
 """
 
 from raft_tpu_torch import (ann, cluster, core, distance, linalg, matrix,
                             models, mutable, observability, ops, random,
-                            sparse, spectral)
+                            resilience, runtime, serving, sparse, spectral)
 from raft_tpu_torch.core import DeviceResources, device_resources
 
 __version__ = "0.1.0"
 
 __all__ = ["ann", "cluster", "core", "distance", "linalg", "matrix",
-           "models", "mutable", "observability", "ops", "random", "sparse",
-           "spectral",
+           "models", "mutable", "observability", "ops", "random",
+           "resilience", "runtime", "serving", "sparse", "spectral",
            "DeviceResources", "device_resources", "__version__"]

@@ -1,6 +1,7 @@
 """raft_tpu_torch.core — handle and error vocabulary of the port."""
 
 from raft_tpu_torch.core.error import (
+    DeadlineExceededError,
     DeviceError,
     LogicError,
     RaftException,
@@ -15,7 +16,7 @@ from raft_tpu_torch.core.resources import (
 )
 
 __all__ = [
-    "DeviceError", "LogicError", "RaftException", "expects",
+    "DeadlineExceededError", "DeviceError", "LogicError", "RaftException", "expects",
     "KeyValuePair", "DeviceResources", "device_resources",
     "ensure_resources", "resolve_device",
 ]

@@ -2,9 +2,10 @@
 
 (Counterpart of ``raft_tpu/core/resources.py:346`` ``DeviceResources`` and
 ``device_resources()`` at ``:413``; ref: core/device_resources.hpp.) PyTorch
-owns streams and allocation, so the handle holds only what the algorithms
-read: the device, a seeded ``torch.Generator`` on it, and the workspace
-budget that sizes the streamed KNN tile.
+owns allocation, so the handle holds only what the algorithms read: the
+device, a seeded ``torch.Generator`` on it, the workspace budget that sizes
+the streamed KNN tile, and (on a card) a CUDA stream of its own, the one a
+serving engine's batcher dispatches on.
 
 Device rule for every entry point of the port: ``device=None`` means the
 device of the tensors passed in, or ``cuda`` when none is a tensor. Without
@@ -74,6 +75,10 @@ class DeviceResources:
                 props = torch.cuda.get_device_properties(self.device)
                 workspace_limit = props.total_memory // 4
         self.allocation_limit = int(workspace_limit)
+        # the handle's stream (None on the CPU); entry points run on the
+        # caller's current stream, a server enters this one to dispatch
+        self.stream = (torch.cuda.Stream(device=self.device)
+                       if self.device.type == "cuda" else None)
 
     def sync(self, value=None):
         """Wait for the device's queued work; returns ``value``."""

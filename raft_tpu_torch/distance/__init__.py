@@ -6,7 +6,11 @@ from raft_tpu_torch.distance.fused_l2nn import (
     fused_l2_nn_argmin,
     knn,
 )
-from raft_tpu_torch.distance.knn_fused import KnnIndex, prepare_knn_index
+from raft_tpu_torch.distance.knn_fused import (DB_DTYPES, KnnIndex,
+                                               pad_query_rows,
+                                               prepare_knn_index,
+                                               resolve_db_dtype)
 
-__all__ = ["fused_l2_nn", "fused_l2_nn_argmin", "knn", "KnnIndex",
-           "prepare_knn_index"]
+__all__ = ["fused_l2_nn", "fused_l2_nn_argmin", "knn", "DB_DTYPES",
+           "KnnIndex", "pad_query_rows", "prepare_knn_index",
+           "resolve_db_dtype"]

@@ -26,15 +26,25 @@ Modes: ``passes=3`` (bf16 hi/lo split, certified exact w.r.t. f32 scores)
 and ``passes=1`` (one bf16 product; exact w.r.t. bf16 scores, or w.r.t.
 f32 with ``certify="f32"``); metrics ``l2`` and ``ip``.
 
+``db_dtype="int8"`` streams the index as per-group symmetric int8 codes
+through K2 (``ops.fused_l2_topk.fused_l2_group_topk_packed_q8``), half of
+bf16's bytes. The kernel then scores the dequantized rows ŷ exactly up to
+the bf16 error of x; the certificate is widened by the groups' recorded
+quantization bound Eq, and the candidates are always rescored in f32
+from the original rows, so returned ids are certified against the f32
+oracle.
+
 Not in this port yet (each raises naming the missing kernel): the
 unpacked and d-chunked K1 forms (an index outside the packed-code envelope
-or with d > 512) and the int8-streamed index (K2). The reference's grid
-orders (query/db/dbuf) are TPU schedules of one function; the port has one
-kernel, so there is nothing to choose.
+or with d > 512; an int8 request there takes bf16 first, as the reference
+does). The reference's grid orders (query/db/dbuf) are TPU schedules of
+one function; the port has one kernel per operand type, so there is
+nothing to choose.
 """
 
 from __future__ import annotations
 
+import logging
 import math
 from typing import NamedTuple, Optional
 
@@ -44,8 +54,12 @@ import torch
 from raft_tpu_torch.core.resources import as_f32, resolve_device
 from raft_tpu_torch.ops.fused_l2_topk import (
     _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk_packed,
-    split_hi_lo)
+    fused_l2_group_topk_packed_q8, split_hi_lo)
 
+_log = logging.getLogger(__name__)
+
+#: storage dtypes of the streamed index (reference ``:102``)
+DB_DTYPES = ("bf16", "int8")
 _D_SINGLE_SHOT = 512
 # budget of one [F, M] f32 fixup tile (the reference's figure)
 _FIXUP_TILE_BUDGET = 4_200_000_000
@@ -165,6 +179,46 @@ def q8_eq_bound(scales, d: int):
     return scales * (_Q8_ERR * math.sqrt(max(d, 1)))
 
 
+def _pad_valid(rows_valid, m: int, M: int, device):
+    """[M] bool live mask: ``rows_valid`` ([m], or None for the first m
+    rows) with the rows padded on to M masked out."""
+    if rows_valid is None:
+        return torch.arange(M, device=device) < m
+    return torch.cat([rows_valid, rows_valid.new_zeros(M - m)])
+
+
+def _prepare_ops_q8(y, T: int, g: int, metric: str, rows_valid=None):
+    """Index-side operands of the int8-streamed index (reference
+    ``:424-487``): rows padded to whole certificate groups of g·T rows,
+    the stream operand (y, or y/2 for ip) quantized per group (group of
+    row i = i // (g·T)), and the carriers from the DEQUANTIZED rows ŷ, so
+    K2's folded value is exactly d2(x, ŷ)/2 and the decode and certificate
+    downstream are K1's. Returns ``(yp, y_q, scales, yyh_k, yy_raw,
+    eq_groups)``: scales and eq_groups [G] (the reference's [G, 8, 128]
+    scale tile is TPU layout), yy_raw the dequantized full-scale norms
+    (the bf16 error bound's ymax). ``rows_valid`` ([m] bool) keeps pads
+    out of the scales and gives them the never-wins sentinel."""
+    m, d = y.shape
+    pad = (-m) % (g * T)
+    yp = torch.cat([y, y.new_zeros((pad, d))]) if pad else y
+    M = yp.shape[0]
+    G = M // (g * T)
+    valid = _pad_valid(rows_valid, m, M, y.device)
+    z = yp * 0.5 if metric == "ip" else yp
+    gid = torch.arange(M, device=y.device) // (g * T)
+    y_q, scales = quantize_rows_q8(z, gid, G, valid=valid)
+    eq_groups = q8_eq_bound(scales, d)
+    zq = y_q.float() * scales[gid].reshape(-1, 1)
+    if metric == "ip":
+        yyh_k = torch.where(valid, 0.0, _PACK_PAD)
+        yhat = 2.0 * zq            # full-scale dequantized ŷ (= 2·ẑ)
+    else:
+        yyh_k = torch.where(valid, 0.5 * (zq * zq).sum(1), _PACK_PAD)
+        yhat = zq
+    yy_raw = (yhat * yhat).sum(1)
+    return yp, y_q, scales, yyh_k.float(), yy_raw, eq_groups
+
+
 class FusedConfig(NamedTuple):
     """(T, Qb, g, grid_order): the reference's tiling config. The port
     reads T (rows per tile) and g (tiles per group); Qb and grid_order are
@@ -185,6 +239,35 @@ def fused_config(passes: int = 3) -> FusedConfig:
     return _BUILTIN_CONFIG
 
 
+def resolve_db_dtype(db_dtype: str, d: int, packed: bool,
+                     store_yp: bool = True) -> str:
+    """The dtype an index build really stores (reference ``:1095``). A
+    lite int8 index is an error: int8 results are certified by rescoring
+    candidates from the f32 rows. Outside K2's envelope (d > 512, or a
+    geometry outside the packed codes) int8 downgrades to bf16, logged;
+    the port then raises for the unported kernel that bf16 needs there."""
+    if db_dtype not in DB_DTYPES:
+        raise ValueError(f"db_dtype must be one of {DB_DTYPES}, "
+                         f"got {db_dtype!r}")
+    if db_dtype == "bf16":
+        return db_dtype
+    if not store_yp:
+        raise ValueError(
+            "db_dtype='int8' requires store_yp=True: quantized results "
+            "are certified by exact-rescoring candidates from the "
+            "original f32 rows — a lite index has nothing to rescore from")
+    reason = None
+    if d > _D_SINGLE_SHOT:
+        reason = f"d={d} > {_D_SINGLE_SHOT} takes the d-chunked kernel"
+    elif not packed:
+        reason = "config is outside the packed-code envelope"
+    if reason is None:
+        return db_dtype
+    _log.warning("db_dtype='int8' outside the quantized-streaming envelope "
+                 "(%s) — storing bf16 for this index", reason)
+    return "bf16"
+
+
 def fused_eligible(n_rows: int, d: int, device) -> bool:
     """The fused pipeline's gate: a CUDA device and a shape inside the
     ported packed kernel's envelope (shared by ``knn``'s auto routing)."""
@@ -203,64 +286,109 @@ def _bf16_from_numpy(a, device) -> torch.Tensor:
 
 class KnnIndex:
     """Prepared fused-KNN index: the index-side operands computed once
-    (row padding, bf16 hi/lo split, norms and sentinel carrier), with the
-    tiling, passes and metric frozen at build. Build with
-    :func:`prepare_knn_index` or :meth:`from_numpy`; query with
-    ``knn_fused(x, index, k)`` or ``distance.knn(res, index, queries, k)``.
-    ``yp`` (the row-padded f32 rows) is None for a lite index."""
+    (row padding, bf16 hi/lo split or int8 codes, norms and sentinel
+    carrier), with the tiling, passes, metric and storage dtype frozen at
+    build. Build with :func:`prepare_knn_index` or :meth:`from_numpy`;
+    query with ``knn_fused(x, index, k)`` or ``distance.knn(res, index,
+    queries, k)``. ``yp`` (the row-padded f32 rows) is None for a lite
+    index. An int8 index (``db_dtype="int8"``) holds ``y_q`` [M, d] int8
+    with one scale and one quantization bound Eq per group of g·T rows
+    (``scales``, ``eq_groups`` [G]) instead of ``y_hi``/``y_lo``. ``Qb``
+    is the query block the serving ladder tops out at."""
 
     def __init__(self, yp, y_hi, y_lo, yyh_k, yy_raw, n_rows: int, T: int,
                  g: int, passes: int, metric: str, d_orig: int,
-                 pbits: int = _PACK_BITS, rows_valid=None):
+                 pbits: int = _PACK_BITS, rows_valid=None,
+                 Qb: Optional[int] = None,
+                 db_dtype: str = "bf16", y_q=None, scales=None,
+                 eq_groups=None):
         self.yp = yp
         self.y_hi, self.y_lo = y_hi, y_lo
         self.yyh_k, self.yy_raw = yyh_k, yy_raw
         self.n_rows = n_rows
         self.T, self.g = T, g
+        self.Qb = _BUILTIN_CONFIG.Qb if Qb is None else Qb
         self.passes, self.metric = passes, metric
         self.d_orig = d_orig
         self.pbits = pbits
         # [M] bool live mask of a ragged index (None: the first n_rows
         # rows are live)
         self.rows_valid = rows_valid
+        self.db_dtype = db_dtype
+        self.y_q, self.scales, self.eq_groups = y_q, scales, eq_groups
+
+    def row_norms(self) -> torch.Tensor:
+        """[M] ‖y‖² of the stored f32 rows: ``yy_raw`` itself, except on
+        an int8 index, whose ``yy_raw`` holds the dequantized rows' norms
+        (computed per call there, as the reference's fixup does)."""
+        if self.db_dtype != "int8":
+            return self.yy_raw
+        return (self.yp * self.yp).sum(1)
+
+    @property
+    def _stream(self) -> torch.Tensor:
+        return self.y_q if self.db_dtype == "int8" else self.y_hi
+
+    @property
+    def prepared_rows(self) -> int:
+        """M: the rows the kernel streams (padded to whole tiles, or to
+        whole groups of g·T rows for int8)."""
+        return self._stream.shape[0]
 
     def live_columns(self) -> torch.Tensor:
         """[M] bool: the prepared rows a result may name."""
-        col = torch.arange(self.y_hi.shape[0], device=self.device)
+        col = torch.arange(self.prepared_rows, device=self.device)
         live = col < self.n_rows
         return live if self.rows_valid is None else live & self.rows_valid
 
     @property
     def device(self) -> torch.device:
-        return self.y_hi.device
+        return self._stream.device
 
     @property
     def stream_width(self) -> int:
         """Feature width of the streamed operand (queries pad to it)."""
-        return self.y_hi.shape[1]
+        return self._stream.shape[1]
 
     @classmethod
     def from_numpy(cls, arrays: dict, device=None) -> "KnnIndex":
         """The port's index from a reference ``KnnIndex``'s state as
         numpy: ``yp`` (or None), ``y_hi``, ``y_lo`` (or None), ``yyh_k``
         ([8, M] or [M]), ``yy_raw`` ([1, M] or [M]), and the scalars
-        ``n_rows, T, g, passes, metric, d_orig, pbits``. Queries against
-        it give the reference index's answers."""
+        ``n_rows, T, g, passes, metric, d_orig, pbits`` (``Qb`` if
+        given). A reference int8 index (``db_dtype="int8"``) brings
+        ``y_q``, ``y_scale_k`` ([G, 8, 128], or ``scales`` [G]) and
+        ``eq_groups`` instead of ``y_hi``/``y_lo``. Queries against it give
+        the reference index's answers."""
         dev = resolve_device(device)
 
         def f32(a):
             return None if a is None else as_f32(np.asarray(a), dev)
 
         yyh = np.asarray(arrays["yyh_k"])
-        y_lo = arrays.get("y_lo")
+        db_dtype = str(arrays.get("db_dtype") or "bf16")
+        kw = {}
+        if db_dtype == "int8":
+            scales = arrays.get("scales")
+            if scales is None:
+                scales = np.asarray(arrays["y_scale_k"])[:, 0, 0]
+            kw = dict(y_q=torch.from_numpy(np.array(
+                arrays["y_q"], np.int8, order="C")).to(dev),
+                scales=f32(scales), eq_groups=f32(arrays["eq_groups"]))
+            y_hi = y_lo = None
+        else:
+            y_hi = _bf16_from_numpy(arrays["y_hi"], dev)
+            y_lo = arrays.get("y_lo")
+            y_lo = None if y_lo is None else _bf16_from_numpy(y_lo, dev)
+        qb = arrays.get("Qb")
         return cls(
-            f32(arrays.get("yp")), _bf16_from_numpy(arrays["y_hi"], dev),
-            None if y_lo is None else _bf16_from_numpy(y_lo, dev),
+            f32(arrays.get("yp")), y_hi, y_lo,
             f32(yyh[0] if yyh.ndim == 2 else yyh),
             f32(np.asarray(arrays["yy_raw"]).reshape(-1)),
             int(arrays["n_rows"]), int(arrays["T"]), int(arrays["g"]),
             int(arrays["passes"]), str(arrays["metric"]),
-            int(arrays["d_orig"]), int(arrays["pbits"]))
+            int(arrays["d_orig"]), int(arrays["pbits"]),
+            Qb=None if qb is None else int(qb), db_dtype=db_dtype, **kw)
 
 
 def _missing_kernel(what: str):
@@ -271,7 +399,8 @@ def _missing_kernel(what: str):
 def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
                       T: Optional[int] = None, g: Optional[int] = None,
                       store_yp: bool = True, device=None,
-                      rows_valid=None) -> KnnIndex:
+                      rows_valid=None, db_dtype: str = "bf16",
+                      Qb: Optional[int] = None) -> KnnIndex:
     """Build a :class:`KnnIndex` for repeated queries against ``y``
     (numpy or tensor; ``device=None`` is ``y``'s device, else ``cuda``).
 
@@ -279,13 +408,25 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
     then return the exact top-k of the kernel score function (bf16 /
     bf16x3), values within 2^(pbits−23) relative. ``rows_valid`` ([m]
     bool) marks the live rows of a ragged slab (the IVF-Flat layout);
-    results then never name a masked row, and positions are slab rows."""
+    results then never name a masked row, and positions are slab rows.
+
+    ``db_dtype="int8"`` (:data:`DB_DTYPES`) streams the index as int8
+    codes with one symmetric scale per certificate group of g·T rows (the
+    rows pad to whole groups): K2 reads M·d bytes instead of bf16's
+    M·d·2(·2), the certificate is widened by the groups' bound Eq, and
+    candidates are rescored in f32 from the stored rows, so it needs
+    ``store_yp=True``; outside K2's envelope it downgrades to bf16 (see
+    :func:`resolve_db_dtype`). ``Qb`` (default the built-in 256) is the
+    query block the serving engine's default bucket ladder tops out at."""
     if metric not in ("l2", "ip"):
         raise ValueError(f"prepare_knn_index: metric must be 'l2' or "
                          f"'ip', got {metric!r}")
     if passes not in (1, 3):
         raise ValueError(f"prepare_knn_index: passes must be 1 or 3, got "
                          f"{passes}")
+    if db_dtype not in DB_DTYPES:
+        raise ValueError(f"prepare_knn_index: db_dtype must be one of "
+                         f"{DB_DTYPES}, got {db_dtype!r}")
     dev = resolve_device(device, y)
     y = as_f32(y, dev)
     m, d = y.shape
@@ -301,7 +442,9 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
         raise ValueError(f"prepare_knn_index: g={g} must be ≥ 1")
     pbits = min(_PBITS_MAX, max(_PACK_BITS, int(math.ceil(math.log2(
         max(g * n_ch, 2))))))
-    if g * n_ch > (1 << pbits):
+    packed = g * n_ch <= (1 << pbits)
+    db_dtype = resolve_db_dtype(db_dtype, d, packed, store_yp)
+    if not packed:
         _missing_kernel(
             f"g·T/128 = {g * n_ch} codes exceed the packed envelope and "
             f"need the unpacked group kernel (raft_tpu/ops/"
@@ -320,8 +463,17 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
         if rows_valid.shape[0] != m:
             raise ValueError(f"prepare_knn_index: rows_valid has "
                              f"{rows_valid.shape[0]} entries for {m} rows")
-        rows_valid = torch.cat([rows_valid,
-                                rows_valid.new_zeros((-m) % T)])
+    if db_dtype == "int8":
+        yp, y_q, scales, yyh_k, yy_raw, eq = _prepare_ops_q8(
+            y, T, g, metric, rows_valid)
+        if rows_valid is not None:
+            rows_valid = _pad_valid(rows_valid, m, yp.shape[0], dev)
+        return KnnIndex(yp, None, None, yyh_k, yy_raw, m, T, g, passes,
+                        metric, d, pbits=pbits, rows_valid=rows_valid, Qb=Qb,
+                        db_dtype="int8", y_q=y_q, scales=scales,
+                        eq_groups=eq)
+    if rows_valid is not None:
+        rows_valid = _pad_valid(rows_valid, m, m + (-m) % T, dev)
     yp, y_hi, y_lo, yyh_k, yy_raw = _prepare_ops(y, T, g, metric, pbits,
                                                  rows_valid)
     if not store_yp:
@@ -329,7 +481,33 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
         if passes == 1:
             y_lo = None    # the 1-pass kernel and lite fixup never read it
     return KnnIndex(yp, y_hi, y_lo, yyh_k, yy_raw, m, T, g, passes, metric,
-                    d, pbits=pbits, rows_valid=rows_valid)
+                    d, pbits=pbits, rows_valid=rows_valid, Qb=Qb)
+
+
+def _rescore(x, xx, idx: KnnIndex, pid):
+    """Exact f32 scores (d2, or −x·y for ip) of the candidate rows ``pid``
+    [Q, C] (−1: none, scored +inf): one row-wise dot product each, not a
+    batched GEMM, so a query's values do not depend on the batch it rides
+    in (a served request equals the same query asked alone)."""
+    safe = pid.long().clamp(0, max(idx.n_rows, 1) - 1)
+    yc = idx.yp[safe]                                           # [Q, C, d]
+    dot = (yc * x[:, None, :]).sum(2)
+    if idx.metric == "ip":
+        d2 = -dot
+    else:
+        d2 = ((xx[:, None] + (yc * yc).sum(2)) - 2.0 * dot).clamp_min(0.0)
+    return d2.masked_fill(pid < 0, float("inf"))
+
+
+def _smallest_k(vals, ids, k: int):
+    """The k smallest ``vals`` [Q, n] (f32) with their ``ids``, ties
+    broken by id: one top-k over a unique (value, id) int64 key, so the
+    result does not depend on the top-k algorithm a batch size selects."""
+    bits = vals.view(torch.int32)
+    ordered = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
+    key = (ordered << 32) | (ids.long() & 0xFFFFFFFF)
+    _, pos = torch.topk(key, k, dim=1, largest=False, sorted=True)
+    return torch.gather(vals, 1, pos), torch.gather(ids, 1, pos)
 
 
 def _exact_rows(xq, idx: KnnIndex, k: int):
@@ -337,6 +515,7 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
     against the stored rows, or — lite index — the kernel's own bf16(x3)
     score function, which lite results are certified against."""
     y_hi, y_lo = idx.y_hi, idx.y_lo
+    xs = (xq * xq).sum(1)
     if idx.yp is not None:
         s = xq @ idx.yp.T
     else:
@@ -350,12 +529,22 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
         # lite operands are the split of y/2: −x·y = −2·s there
         d2 = -s if idx.yp is not None else -2.0 * s
     else:
-        xs = (xq * xq).sum(1)
-        d2 = (xs[:, None] + idx.yy_raw[None, :] - 2.0 * s).clamp_min(0.0)
+        # the f32 rows' norms (an int8 index's yy_raw is the dequantized
+        # rows')
+        yy = idx.yy_raw if idx.yp is None else idx.row_norms()
+        d2 = (xs[:, None] + yy[None, :] - 2.0 * s).clamp_min(0.0)
+    del s
     d2 = d2.masked_fill(~idx.live_columns()[None, :], float("inf"))
-    vals, ids = torch.topk(d2, k, dim=1, largest=False, sorted=True)
-    ids = torch.where(torch.isfinite(vals), ids, -1)
-    return vals, ids.to(torch.int32)
+    # with stored rows, the GEMM only nominates k + _POOL_PAD candidates:
+    # its rounding depends on how many query rows it multiplies, the
+    # row-wise rescore does not, so a query's answer is the same bits
+    # whichever batch (and path) it rides in
+    kk = k if idx.yp is None else min(k + _POOL_PAD, d2.shape[1])
+    vals, ids = torch.topk(d2, kk, dim=1, largest=False, sorted=True)
+    ids = torch.where(torch.isfinite(vals), ids, -1).to(torch.int32)
+    if idx.yp is not None:
+        vals, ids = _smallest_k(_rescore(xq, xs, idx, ids), ids, k)
+    return vals, ids
 
 
 def _real_half(v):
@@ -369,14 +558,20 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
     is d2 for l2 and −x·y for ip."""
     Q = x.shape[0]
     T, g, passes, pbits = idx.T, idx.g, idx.passes, idx.pbits
-    M = idx.y_hi.shape[0]
+    M = idx.prepared_rows
+    quant = idx.db_dtype == "int8"
     xx = (x * x).sum(1)                                         # [Q]
     # the query half-norm rides into the kernel, so packed values are
     # d2/2 — small, and the pack perturbation is relative to them
     xxh = 0.5 * xx if idx.metric != "ip" else torch.zeros_like(xx)
-    a1p, a2p, a3p = fused_l2_group_topk_packed(
-        x, idx.y_hi, idx.y_lo, idx.yyh_k, T=T, g=g, passes=passes,
-        pair=passes == 1 and (T // _LANES) % 2 == 0, pbits=pbits, xxh=xxh)
+    kw = dict(T=T, g=g, passes=passes, pbits=pbits, xxh=xxh,
+              pair=passes == 1 and (T // _LANES) % 2 == 0)
+    if quant:
+        a1p, a2p, a3p = fused_l2_group_topk_packed_q8(
+            x, idx.y_q, idx.yyh_k, idx.scales, **kw)
+    else:
+        a1p, a2p, a3p = fused_l2_group_topk_packed(
+            x, idx.y_hi, idx.y_lo, idx.yyh_k, **kw)
     S_ = a1p.shape[1]
     # twin pool: the Ca smallest bucket minima, each with its a2 twin,
     # pruned back to C by kernel order. topk returns the input's values,
@@ -406,17 +601,7 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
     e_pack = 8.0 * half_mag * 2.0 ** (pbits - 23)
 
     if rescore:
-        safe_pid = cand_pid.long().clamp(0, max(idx.n_rows, 1) - 1)
-        yc = idx.yp[safe_pid]                                   # [Q, C, d]
-        dot = torch.einsum("qd,qcd->qc", x, yc)
-        if idx.metric == "ip":
-            d2c = -dot
-        else:
-            d2c = ((xx[:, None] + (yc * yc).sum(2)) - 2.0 * dot
-                   ).clamp_min(0.0)
-        d2c = d2c.masked_fill(cand_pid < 0, float("inf"))
-        vals, ord_k = torch.topk(d2c, k, dim=1, largest=False, sorted=True)
-        ids = torch.gather(cand_pid, 1, ord_k)
+        vals, ids = _smallest_k(_rescore(x, xx, idx, cand_pid), cand_pid, k)
     else:
         # lite: candidates are sorted by kernel order, so the head is the
         # result; only the code bits are cleared from the values
@@ -431,13 +616,23 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
     # ---- certificate ----
     theta = vals[:, k - 1]
     bound = torch.minimum(a3_min, cand_v_hat[:, C - 1])
-    if passes == 3 or certify == "f32":
+    if quant or passes == 3 or certify == "f32":
         d = x.shape[1]
         coeff = _err_bound_coeff(d) if passes == 3 else _err_bound_coeff_p1(d)
         ymax = idx.yy_raw.max().sqrt()       # finite norms (padded rows: 0)
         err = coeff * xx.sqrt() * ymax + e_pack
     else:
         err = e_pack
+    if quant:
+        # quantization widening (reference :803-822): the kernel scores ŷ,
+        # so a row with true d2 < θ has d2(x, ŷ) < (√θ + Eq)²; for ip
+        # |x·(ŷ − y)| ≤ ‖x‖·2·Eq (Eq bounds the halved stream operand)
+        eq_max = idx.eq_groups.max()
+        if idx.metric == "ip":
+            err = err + 2.0 * xx.sqrt() * eq_max
+        else:
+            err = err + 2.0 * theta.clamp_min(0.0).sqrt() * eq_max \
+                + eq_max * eq_max
     failed = ~(bound >= theta + err)
 
     # ---- fixup: failed queries re-solved exactly, in budgeted chunks ----
@@ -455,11 +650,13 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
 def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
               g: Optional[int] = None, metric: str = "l2",
               rescore: Optional[bool] = None, certify: str = "kernel",
-              device=None, with_stats: bool = False):
+              device=None, with_stats: bool = False,
+              db_dtype: Optional[str] = None):
     """Certified fused brute-force KNN.
 
-    ``y`` is a raw [m, d] index (prepared per call) or a
-    :class:`KnnIndex`, whose T/g/passes/metric and device then hold.
+    ``y`` is a raw [m, d] index (prepared per call, streamed as
+    ``db_dtype``, default bf16) or a :class:`KnnIndex`, whose
+    T/g/passes/metric/db_dtype and device then hold.
     ``metric="l2"`` returns (d2 [Q, k] ascending, ids [Q, k] int32);
     ``metric="ip"`` returns (x·y [Q, k] descending, ids). ``passes=3`` is
     certified exact w.r.t. f32 scores; ``passes=1`` w.r.t. bf16 scores, or
@@ -467,14 +664,20 @@ def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
     widened by the one-pass error bound and failures pay the exact fixup).
     ``rescore`` — None rescores in f32 when the index stores its rows;
     False returns lite results. ``with_stats`` appends the number of
-    queries that failed the certificate (and were re-solved exactly)."""
+    queries that failed the certificate (and were re-solved exactly).
+    An int8 index is always rescored (``rescore=False`` is an error)."""
     idx = y if isinstance(y, KnnIndex) else None
     if idx is not None:
         passes, metric = idx.passes, idx.metric
         m, d = idx.n_rows, idx.d_orig
         dev = idx.device
+        db_dtype = idx.db_dtype
     else:
         dev = resolve_device(device, x, y)
+        db_dtype = "bf16" if db_dtype is None else db_dtype
+    if db_dtype not in DB_DTYPES:
+        raise ValueError(f"knn_fused: db_dtype must be one of "
+                         f"{DB_DTYPES}, got {db_dtype!r}")
     if metric not in ("l2", "ip"):
         raise ValueError(f"knn_fused: metric must be 'l2' or 'ip', "
                          f"got {metric!r}")
@@ -496,21 +699,47 @@ def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
     if k > m:
         raise ValueError(f"knn_fused: k={k} > index size {m}")
     if idx is None:
-        idx = prepare_knn_index(y, passes=passes, metric=metric, T=T, g=g)
+        idx = prepare_knn_index(y, passes=passes, metric=metric, T=T, g=g,
+                                db_dtype=db_dtype)
     n_tiles = (max(m, idx.T) + idx.T - 1) // idx.T
     pool = 2 * (-(-n_tiles // idx.g)) * _LANES
     if k > pool:
         raise NotImplementedError(
             f"knn_fused: k={k} too large for pool size {pool} "
             f"(shrink g or T, or use the streamed path)")
+    rescore = resolve_rescore(idx, rescore, certify, "knn_fused")
+    vals, ids, n_fail = query_prepared(x, idx, k, rescore, certify)
+    if with_stats:
+        return vals, ids, n_fail
+    return vals, ids
+
+
+def resolve_rescore(idx: KnnIndex, rescore: Optional[bool], certify: str,
+                    who: str) -> bool:
+    """Whether a query of ``idx`` rescores in f32 (None: when the index
+    stores its rows), with the contracts that pin it: rows to rescore
+    from, an f32 θ for ``certify="f32"``, and always for an int8 index."""
     if rescore is None:
         rescore = idx.yp is not None
     if rescore and idx.yp is None:
-        raise ValueError("knn_fused: rescore=True needs an index that "
-                         "stores its f32 rows (store_yp=True)")
+        raise ValueError(f"{who}: rescore=True needs an index that "
+                         f"stores its f32 rows (store_yp=True)")
     if certify == "f32" and not rescore:
-        raise ValueError("knn_fused: certify='f32' needs a yp-storing "
-                         "index (store_yp=True) for the exact rescore")
+        raise ValueError(f"{who}: certify='f32' needs a yp-storing "
+                         f"index (store_yp=True) for the exact rescore")
+    if idx.db_dtype == "int8" and not rescore:
+        raise ValueError(f"{who}: an int8-streamed index is always "
+                         f"exact-rescored (rescore=False would return the "
+                         f"top-k of the quantized score function)")
+    return rescore
+
+
+def query_prepared(x, idx: KnnIndex, k: int, rescore: bool, certify: str):
+    """The certified pipeline on validated arguments: ``x`` [Q, d_orig]
+    f32 on the index's device, padded here to the stream width and run in
+    chunks of ``_Q_CHUNK`` queries. Returns (vals, ids, n_fail) in the
+    metric's own order (ip descending)."""
+    Q, d = x.shape
     dpad = idx.stream_width - d
     if dpad:
         x = torch.cat([x, x.new_zeros((Q, dpad))], dim=1)
@@ -521,9 +750,7 @@ def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
         ids = torch.cat([o[1] for o in outs])
     else:
         vals = x.new_zeros((0, k))
-        ids = torch.zeros((0, k), dtype=torch.int32, device=dev)
-    if metric == "ip":
+        ids = torch.zeros((0, k), dtype=torch.int32, device=x.device)
+    if idx.metric == "ip":
         vals = -vals                # internal −x·y ascending → IP desc
-    if with_stats:
-        return vals, ids, sum(o[2] for o in outs)
-    return vals, ids
+    return vals, ids, sum(o[2] for o in outs)

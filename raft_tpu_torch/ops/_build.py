@@ -32,11 +32,16 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 
 _libs: Dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+_load_lock = threading.Lock()
 # seconds spent compiling, per library, in this process (0 when loaded
 # from an earlier build)
 BUILD_SECONDS: Dict[str, float] = {}
 # the compiler's report of each library built in this process
 BUILD_LOG: Dict[str, str] = {}
+# nvcc runs and library loads in this process: a server checks that
+# neither moves once it has warmed up (no request pays a build or a load)
+BUILDS = 0
+LOADS = 0
 
 
 def _nvcc() -> str:
@@ -57,6 +62,7 @@ def library_path(name: str) -> str:
 
 def build(name: str) -> str:
     """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+    global BUILDS
     out = library_path(name)
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
@@ -70,6 +76,8 @@ def build(name: str) -> str:
     if proc.returncode != 0:
         raise DeviceError(f"nvcc failed for {name}.cu:\n{proc.stderr}")
     os.replace(tmp, out)          # atomic: a reader never sees half a file
+    with _lock:
+        BUILDS += 1
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stderr
     return out
@@ -89,9 +97,11 @@ def build_all(names: Iterable[str]) -> None:
 
 def load(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
-    with _lock:
+    global LOADS
+    with _load_lock:
         lib = _libs.get(name)
         if lib is None:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
+            LOADS += 1
         return lib

@@ -1,11 +1,15 @@
-"""Fused L2 distance + packed group top-2 fold (K1) — the port's hot step.
+"""Fused L2 distance + packed group top-2 fold (K1, and K2 over an int8
+database) — the port's hot step.
 
 Counterpart of ``raft_tpu/ops/fused_l2_topk_pallas.py``. The TPU kernel
 ``fused_l2_group_topk_packed`` (``:1269``; its database-major forms
 ``_packed_db``/``_packed_dbuf`` compute the same outputs) becomes the
-hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``; see that file for
-the design. This module holds its wrapper, its plain PyTorch twin and the
-packing constants the certified KNN decodes with.
+hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``, and its int8
+twins ``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``,
+``:1491``) become the same kernel templated on the streamed slice's type;
+see that file for the design. This module holds both wrappers, their
+plain PyTorch twins and the packing constants the certified KNN decodes
+with.
 
 The wrapper dispatches on the device of the tensors it is given: CPU
 tensors take the twin, CUDA tensors launch the kernel (or raise). There is
@@ -30,8 +34,11 @@ _PACK_PAD = float(2.0 ** 125)    # finite "never wins" sentinel
 # kernel launches since import (or since a caller reset it): a run that
 # reads it before and after shows the path went through the kernel
 LAUNCHES = 0
+# K2's launches, counted the same way
+LAUNCHES_Q8 = 0
 
 _FN = None
+_FN_Q8 = None
 
 
 def _check(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
@@ -158,7 +165,6 @@ def fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yy_half, *, T: int,
     oracle and the CPU path."""
     _check(x, y_hi, y_lo, yy_half, T, g, passes, pair, pbits)
     Q = x.shape[0]
-    M = y_hi.shape[0]
     xhi = x.to(torch.bfloat16)
     s = xhi.float() @ y_hi.float().T
     if passes == 3:
@@ -169,6 +175,13 @@ def fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yy_half, *, T: int,
     del s
     if xxh is not None:
         c = c + xxh.reshape(Q, 1)
+    return _packed_fold(c, T, g, pair, pbits)
+
+
+def _packed_fold(c, T: int, g: int, pair: bool, pbits: int):
+    """The chunked, packed fold of the [Q, M] half-scores ``c`` in the
+    reference's order (shared by both twins)."""
+    Q, M = c.shape
     n_ch = T // _LANES
     n_groups = -(-(M // T) // g)
     pad = n_groups * g * T - M
@@ -192,6 +205,118 @@ def fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yy_half, *, T: int,
                                 a1, a2, a3)
     S = n_groups * _LANES
     return a1.reshape(Q, S), a2.reshape(Q, S), a3.reshape(Q, S)
+
+
+# ---------------------------------------------------------------- K2 (int8)
+def _check_q8(x, y_q, yy_half, scale, T: int, g: int, passes: int,
+              pair: bool, pbits: int):
+    Q, d = x.shape
+    M = y_q.shape[0]
+    if T % _LANES:
+        raise ValueError(f"T={T} must be a multiple of {_LANES}")
+    if M % (g * T) or M == 0:
+        raise ValueError(f"int8 index rows M={M} must be a whole number "
+                         f"of g·T = {g * T}-row groups")
+    if y_q.dtype != torch.int8:
+        raise ValueError(f"y_q must be int8, got {y_q.dtype}")
+    if (y_q.shape[1] != d or yy_half.shape != (M,)
+            or scale.shape != (M // (g * T),)):
+        raise ValueError("fused_l2_group_topk_packed_q8: operand shapes "
+                         f"x {tuple(x.shape)}, y_q {tuple(y_q.shape)}, "
+                         f"yy_half {tuple(yy_half.shape)}, scale "
+                         f"{tuple(scale.shape)} do not agree")
+    # y_lo does not exist here: the passes / pair / envelope checks are K1's
+    _check(x, y_q, y_q, yy_half, T, g, passes, pair, pbits)
+
+
+def fused_l2_group_topk_packed_q8(x, y_q, yy_half, scale, *, T: int,
+                                  g: int, passes: int, pair: bool = False,
+                                  pbits: int = _PACK_BITS, xxh=None
+                                  ) -> Tuple[torch.Tensor, ...]:
+    """K2: :func:`fused_l2_group_topk_packed` over an int8 database.
+
+    y_q [M, d] int8 is the per-group symmetric quantization of the
+    streamed rows (M a whole number of g·T-row groups); scale [M/(g·T)]
+    f32 holds one scale per group; yy_half [M] the dequantized rows'
+    half-norms (``_PACK_PAD`` on pads). The contraction is bf16(x)·q (plus
+    bf16(x − bf16(x))·q at passes=3) in f32, times the group's scale once
+    the d-sum is done. Outputs, codes and ``pair`` are K1's."""
+    global LAUNCHES_Q8
+    _check_q8(x, y_q, yy_half, scale, T, g, passes, pair, pbits)
+    if x.device.type == "cpu":
+        return fused_l2_group_topk_packed_q8_ref(
+            x, y_q, yy_half, scale, T=T, g=g, passes=passes, pair=pair,
+            pbits=pbits, xxh=xxh)
+    if x.device.type != "cuda":
+        raise DeviceError(f"fused_l2_group_topk_packed_q8: no kernel for "
+                          f"device {x.device}")
+    Q, d = x.shape
+    M = y_q.shape[0]
+    if d % _LANES:
+        raise ValueError(f"the Hopper kernel needs d % {_LANES} == 0 "
+                         f"(knn_fused pads features), got d={d}")
+    if xxh is None:
+        xxh = torch.zeros((Q,), dtype=torch.float32, device=x.device)
+    xxh = xxh.reshape(Q)
+    for name, t, dt in (("x", x, torch.float32),
+                        ("y_q", y_q, torch.int8),
+                        ("yy_half", yy_half, torch.float32),
+                        ("scale", scale, torch.float32),
+                        ("xxh", xxh, torch.float32)):
+        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"fused_l2_group_topk_packed_q8: {name} must "
+                             f"be a contiguous {dt} tensor on {x.device}")
+    S = M // (g * T) * _LANES
+    outs = [torch.empty((Q, S), dtype=torch.float32, device=x.device)
+            for _ in range(3)]
+    if Q == 0:
+        return tuple(outs)
+    with torch.cuda.device(x.device):
+        rc = _launcher_q8()(
+            x.data_ptr(), y_q.data_ptr(), scale.data_ptr(),
+            yy_half.data_ptr(), xxh.data_ptr(), outs[0].data_ptr(),
+            outs[1].data_ptr(), outs[2].data_ptr(), Q, M, d, T, g, passes,
+            int(pair), pbits, torch.cuda.current_stream().cuda_stream)
+    if rc:
+        raise DeviceError(f"fused_l2_group_topk_packed_q8: launch failed "
+                          f"with CUDA error {rc}")
+    LAUNCHES_Q8 += 1
+    return tuple(outs)
+
+
+def _launcher_q8():
+    global _FN_Q8
+    if _FN_Q8 is None:
+        fn = _build.load("fused_l2_topk").fused_l2_group_topk_packed_q8_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 8 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+        _FN_Q8 = fn
+    return _FN_Q8
+
+
+def fused_l2_group_topk_packed_q8_ref(x, y_q, yy_half, scale, *, T: int,
+                                      g: int, passes: int,
+                                      pair: bool = False,
+                                      pbits: int = _PACK_BITS, xxh=None):
+    """Plain PyTorch twin of :func:`fused_l2_group_topk_packed_q8`:
+    ``bf16(x)·q`` (+ the x-lo product at passes=3) by ``torch.matmul`` in
+    f32, times the group's scale, then K1's packed fold. The kernel's test
+    oracle and the CPU path."""
+    _check_q8(x, y_q, yy_half, scale, T, g, passes, pair, pbits)
+    Q = x.shape[0]
+    xhi = x.to(torch.bfloat16)
+    qf = y_q.float().T
+    s = xhi.float() @ qf
+    if passes == 3:
+        xlo = (x - xhi.float()).to(torch.bfloat16)
+        s += xlo.float() @ qf
+    del qf
+    s *= scale.repeat_interleave(g * T)[None, :]
+    c = s.neg_().add_(yy_half[None, :])           # yy/2 − scale·(x·q)
+    if xxh is not None:
+        c += xxh.reshape(Q, 1)
+    return _packed_fold(c, T, g, pair, pbits)
 
 
 def split_hi_lo(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -21,6 +21,8 @@ from raft_tpu_torch.core.sparse_types import COOMatrix
 from raft_tpu_torch.models import SpectralEmbedding
 from raft_tpu_torch.ops import fine_scan, fused_l2_topk, sddmm, spmv
 from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
+from raft_tpu_torch.runtime import knn_query
+from raft_tpu_torch.serving import ServingEngine
 from raft_tpu_torch.sparse import linalg as sparse_linalg
 from raft_tpu_torch.sparse.solver import (LanczosSolverConfig,
                                           lanczos_compute_eigenpairs)
@@ -44,7 +46,12 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.sparse.linalg, raft_tpu_torch.sparse.matrix, "
             "raft_tpu_torch.sparse.solver.lanczos, raft_tpu_torch.spectral, "
             "raft_tpu_torch.models.spectral_embedding, "
-            "raft_tpu_torch.random.rmat, raft_tpu_torch.core.bitset; "
+            "raft_tpu_torch.random.rmat, raft_tpu_torch.core.bitset, "
+            "raft_tpu_torch.core.env, raft_tpu_torch.serving, "
+            "raft_tpu_torch.serving.engine, raft_tpu_torch.serving.buckets, "
+            "raft_tpu_torch.serving.snapshot, raft_tpu_torch.runtime, "
+            "raft_tpu_torch.runtime.entry_points, "
+            "raft_tpu_torch.resilience, raft_tpu_torch.resilience.deadline; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -94,6 +101,10 @@ def test_entry_points_default_to_cuda():
         kmeans_predict(None, y[:4], y)
     with pytest.raises(DeviceError):
         build_ivf_flat(None, y, 4, max_iter=2)
+    with pytest.raises(DeviceError):
+        distance.prepare_knn_index(y, db_dtype="int8")
+    with pytest.raises(DeviceError):
+        ServingEngine(y, k=4)
     # the same calls on the CPU, by argument
     assert distance.prepare_knn_index(y, device="cpu").device.type == "cpu"
     v, i = knn_fused(y[:8], y, 4, device="cpu")
@@ -104,6 +115,14 @@ def test_entry_points_default_to_cuda():
     assert isinstance(idx, IvfFlatIndex) and idx.device.type == "cpu"
     v, i = search_ivf_flat(None, idx, y[:8], 4, n_probes=2)
     assert v.device.type == "cpu" and i.shape == (8, 4)
+    q8 = distance.prepare_knn_index(y, db_dtype="int8", device="cpu")
+    v, i = knn_query(None, q8, y[:8], 4)
+    assert v.device.type == "cpu" and i.shape == (8, 4)
+    eng = ServingEngine(y, k=4, device="cpu", buckets=(8,)).start()
+    try:
+        assert eng.query(y[:3], timeout=30)[1].shape == (3, 4)
+    finally:
+        eng.stop()
 
 
 def _ring(n=64):
@@ -151,6 +170,10 @@ def test_cpu_path_launches_no_kernel():
     v, i = distance.knn(res, idx, y[:16], 5, certify="f32")
     assert torch.equal(i[:, 0], torch.arange(16, dtype=torch.int32))
     assert fused_l2_topk.LAUNCHES == before == 0
+    q8 = distance.prepare_knn_index(y, passes=1, T=512, g=8,
+                                    db_dtype="int8")
+    distance.knn(res, q8, y[:16], 5)
+    assert fused_l2_topk.LAUNCHES == fused_l2_topk.LAUNCHES_Q8 == 0
     ivf = build_ivf_flat(res, y, 8, max_iter=2)
     for scan in ("list", "query"):
         search_ivf_flat(res, ivf, y[:16], 5, n_probes=3, fine_scan=scan)

@@ -44,8 +44,31 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plane; ids identical to the exact oracle up to proven ties). Each run
    prints recall@10, reruns, the host-clock median of 5 calls, launches
    per batch, and K4 timed on the run's own inputs beside its twin and
-   its bound.
-6. spectral_g22, the spectral path at a size users run: an R-MAT graph
+   its bound. serve_ivf_flat: an ``ivf_flat`` engine over the f32 index at
+   P=32 under the fine-scan chooser, 300 requests with phase 6d's recipe,
+   parity probes bit-identical to ``search_ivf_flat`` single-shot, 0
+   builds after warm-up, p50/p99 and requests/s.
+6. IVF-PQ on phase 5's data and lists: ``build_ivf_pq`` (max_iter=8,
+   seed=3, pq_dim 32) at 8 and 4 bits, the build seconds split into
+   coarse, codebooks and encode. (a) K5 against its twin on one real
+   schedule (the first 64 queries at P=32) at depths 2, 4 and 8: pool
+   values bit for bit, rows equal except at exact ties. (b) pq8_p32,
+   pq8_p128, pq4_p32, pq4_p128: ``search_ivf_pq(pq_scan="pq")`` with the
+   counts zeroed just before and read just after; recall@10, the
+   certificate rungs (certified, widened, exact rerun), id sets identical
+   to ``pq_scan="flat"`` over the same probes up to proven ties (a hard
+   check), the host-clock median of 5, K5 on the run's own inputs (CUDA
+   events, beside its bound and, at P=32, its twin), the chooser's pick
+   under ``auto`` and one profiled call. (d) serve_ivf_pq: an ``ivf_pq``
+   engine over the 8-bit index at P=32, 500 requests with
+   ``bench_serving.py``'s recipe (8 clients, Exp(1 ms), Poisson(16) on
+   (16, 64, 256)), parity probes bit-identical to ``search_ivf_pq``
+   single-shot, 0 builds after warm-up, p50/p99 and requests/s. (c)
+   pq_diffuse_opq_p32, ``bench_ann.py:360-380``'s worst case: 1,000,000 ×
+   128 N(0, 1) rows and 2048 N(0, 1) queries (a seeded torch generator),
+   ``pq_dim=64``, ``pq_mode="opq"``, P=32, the same line with
+   ``cert_rerun_frac`` reported (not gated) and flat parity gated.
+7. spectral_g22, the spectral path at a size users run: an R-MAT graph
    with Graph500's initiator (A=0.57, B=C=0.19, D=0.05), edge factor 16,
    at scale 22 (4,194,304 vertices, 67,108,864 edges, symmetrized with
    values 1.0 as ``benchmarks/bench_configs.py:114-117`` does), then
@@ -67,13 +90,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tile) order of a TiledPairs layout (16384 × 16384 and 256 × 512). K6b
    runs a Lanczos solve over the pair layout of a band matrix (n = 2²⁰,
    |i − j| ≤ 16, 34.6 M nonzeros) and is held and timed the same way.
-7. spectral_c4, BASELINE config 4 as ``bench_configs.py:105-129`` runs it
+8. spectral_c4, BASELINE config 4 as ``bench_configs.py:105-129`` runs it
    (scale 17, 1,000,000 edges, ``jit_loop=True``): the fit timed on the
    CSR path and on the tiled path (host-clock median of 3).
-8. lanczos_dense, config 3's Lanczos (``bench_configs.py:92-103``): the
+9. lanczos_dense, config 3's Lanczos (``bench_configs.py:92-103``): the
    256 × 256 Gram operator of make_blobs 100,000 × 1,000 (16 clusters), 8
    components, ncv=32, tolerance 1e-6, 300 iterations; residuals ≤ 1e-3.
-9. Serving at ``benchmarks/bench_serving.py:54,198-226``'s chip shape:
+10. Serving at ``benchmarks/bench_serving.py:54,198-226``'s chip shape:
    1,000,000 × 128 rows of N(0, 1) from a seeded generator, k=64, 2000
    requests from 8 closed-loop clients with Exp(1 ms) think time, request
    sizes Poisson(16) clipped to [1, 256] on the default ladder (16, 64,
@@ -86,9 +109,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bit-identical. Then ``update_index`` to a second seeded Y while 8
    clients keep submitting: every response must equal the single-shot
    answer of exactly one generation.
-10. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf`` and
-   ``spectral`` lines, the card's name and power limit, and the result
-   line ``{"ok": true, "device": {...}}``.
+11. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf``,
+   ``ivf_pq`` and ``spectral`` lines, the total wall time, the card's name
+   and power limit, and the result line ``{"ok": true, "device":
+   {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -96,6 +120,7 @@ Exits 2 without a CUDA device.
 from __future__ import annotations
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -310,28 +335,20 @@ def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
                                        else "bytes")
 
 
-def ivf_unported_bounds_ms(nq: int, d: int, stream_rows: int,
-                           pair_rows: int):
-    """Bounds of the unported K5, K8 and K9 at the shapes the JAX
-    package's benchmarks fix (bytes at the HBM rate, operations at the f32
-    rate off the tensor cores, the larger of the two). K5: bench_ann.py's
-    1M × 128, L=1024, pq_dim = d/4 = 32 codes of 8 bits, on ivf_p32's own
-    schedule (codes + the 4-byte norm and Eq sidecars per streamed row, the
-    [nq, 32, 256] f32 table, the pools; one add per (pair, sub-space)).
-    K8: BASELINE config 1, L1 over 5,000 × 50 (sub, abs, add per term).
-    K9: bench_prims.py:44-46's X, a [100,000 × 128] int32 bin matrix,
-    column-batched as ``stats.histogram`` takes it, 64 bins: the bins read
-    once and the [64, 128] int32 counts written once (one add per bin
-    value)."""
+def ivf_unported_bounds_ms():
+    """Bounds of the unported K8 and K9 at the shapes the JAX package's
+    benchmarks fix (bytes at the HBM rate, operations at the f32 rate off
+    the tensor cores, the larger of the two). K8: BASELINE config 1, L1
+    over 5,000 × 50 (sub, abs, add per term). K9: bench_prims.py:44-46's
+    X, a [100,000 × 128] int32 bin matrix, column-batched as
+    ``stats.histogram`` takes it, 64 bins: the bins read once and the
+    [64, 128] int32 counts written once (one add per bin value)."""
     def bound(ops, nbytes):
         return 1e3 * max(ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S)
 
     m8, d8 = 5000, 50
     r9, c9, b9 = 100_000, 128, 64
     return {
-        "K5 pq_scan_list_major (1M x 128, L=1024, pq_dim 32, 8-bit, P=32)":
-            bound(32.0 * pair_rows, stream_rows * (32 + 8) + nq * d * 4
-                  + nq * 32 * 256 * 4 + 5 * nq * 128 * 4),
         "K8 unexpanded_pairwise_tiled L1 (5000 x 50)":
             bound(3.0 * m8 * m8 * d8, 2 * m8 * d8 * 4 + m8 * m8 * 4),
         "K9 histogram_blocked (100000 x 128 int32, 64 bins)":
@@ -454,15 +471,12 @@ def set_counts(c):
     k1.LAUNCHES, k4.LAUNCHES, k4.LAUNCHES_Q8 = c["K1"], c["K4"], c["K4_q8"]
 
 
-def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
-              probes=(32, 128, 64)):
-    """Phases 4 and 5 (see the module doc) at ``n_rows`` × 128 with
-    ``n_lists`` lists; ``probes`` are the P of ivf_p32, ivf_p128 and
-    ivf_q8_p64. Returns (the ``ivf`` report, K4's two ``kernels`` entries,
-    ivf_p32's streamed rows and scored pairs)."""
+def ann_data(res, n_rows: int, n_queries: int):
+    """``bench_ann.py``'s data (see phase 5), its exact top-k oracle and
+    the tie floor of the expanded f32 score: {X, Q, o_vals, o_ids,
+    floor}."""
     import numpy as np
     import torch
-    from raft_tpu_torch.ann import build_ivf_flat, search_ivf_flat
     from raft_tpu_torch.random import make_blobs
 
     rng = np.random.default_rng(11)
@@ -478,6 +492,23 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
     # two true distances lie within that form's rounding: 16·2⁻²⁴ of the
     # norms (here ‖x‖² ≈ 4·10³ against k-th distances of ≈ 10²)
     floor = 16 * 2.0 ** -24 * ((Q * Q).sum(1) + (X * X).sum(1).max())
+    return {"X": X, "Q": Q, "o_vals": o_vals, "o_ids": o_ids,
+            "floor": floor}
+
+
+def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
+              probes=(32, 128, 64), data=None):
+    """Phases 4 and 5 (see the module doc) at ``n_rows`` × 128 with
+    ``n_lists`` lists; ``probes`` are the P of ivf_p32, ivf_p128 and
+    ivf_q8_p64; ``data`` is :func:`ann_data`'s (made here when None).
+    Returns (the ``ivf`` report, K4's two ``kernels`` entries)."""
+    import torch
+    from raft_tpu_torch.ann import build_ivf_flat, search_ivf_flat
+
+    if data is None:
+        data = ann_data(res, n_rows, n_queries)
+    X, Q, o_vals, o_ids, floor = (data[n] for n in (
+        "X", "Q", "o_vals", "o_ids", "floor"))
     report = {"build": {}}
     index = {}
     for dt in ("f32", "int8"):
@@ -580,7 +611,6 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
                 "pair_rows": inp["pair_rows"]}
             row["k4"] = k4_rows[name]
             if name == "ivf_p32":
-                p32_work = (inp["stream_rows"], inp["pair_rows"])
                 # K4 under the reference's list-major chunk, the query-major
                 # gather's max(8, 2^26 // (P·W·d)) queries: each chunk
                 # streams the union of its own probed lists
@@ -597,6 +627,9 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
                 del parts
         report[name] = row
         print(f"ivf {name}: {json.dumps(row)}", flush=True)
+    # ---- phase 5b: a short served burst on the f32 index ----
+    report["serve_ivf_flat"], _ = ivf_serving(res, f32, data, probes[0],
+                                              "ivf_flat", n_requests=300)
     for name in ("ivf_p32", "ivf_p128"):
         br = profile_run(lambda: search_ivf_flat(
             res, f32, Q, IVF_K, n_probes=report[name]["P"],
@@ -624,7 +657,412 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
                 "replaces": "raft_tpu/ops/fine_scan_pallas.py:329",
                 "launches": report["ivf_q8_p64"]["launches"]["K4_q8"],
                 **k4_rows["ivf_q8_p64"]}
-    return report, [k4_entry, q8_entry], p32_work
+    return report, [k4_entry, q8_entry]
+
+
+# ------------------------------------------------------------------ IVF-PQ
+PQ_SITE = "ann.search_ivf_pq"
+
+
+def k5_bound_ms(nq: int, S: int, bits: int, P: int, depth: int,
+                stream_rows: int, pair_rows: int):
+    """Least time for K5's work on one batch: each probed list's codes and
+    its two 4-byte sidecars (‖ŷ‖², Eq) read once, the queries' norms,
+    probe table, needed centroid dots (nq·P) and tables (nq·S·2^bits f32)
+    read once and the (2·depth + 1) [nq, 128] pools written once; or S +
+    10 f32 operations per scored (query, row) pair (the table sum and the
+    bound's arithmetic) at the f32 rate off the tensor cores."""
+    cb = S if bits == 8 else S // 2
+    nbytes = (stream_rows * (cb + 8) + nq * 4 + 2 * nq * P * 4
+              + nq * S * (1 << bits) * 4 + (2 * depth + 1) * nq * 128 * 4)
+    t_ops = float(S + 10) * pair_rows / H100_F32_FLOPS
+    t_bytes = nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def k5_inputs(res, index, Qx, P: int):
+    """K5's operands for one batch at ``P`` probes, built by the path's own
+    ``adc_operands``, with the batch's streamed rows and scored pairs."""
+    from raft_tpu_torch.ann import ivf_flat as ivf
+    from raft_tpu_torch.ann import ivf_pq
+
+    probes = ivf._coarse_probe(res, index.centroids, Qx, P)
+    args, sch = ivf_pq.adc_operands(index, Qx, probes.cpu().numpy(), probes)
+    return {"args": args, "bits": index.pq_bits, "S": index.pq_dim,
+            "probes": probes, "stream_rows": sch.stream_rows,
+            "lists": sch.n_lists_probed,
+            "pair_rows": int(index.sizes[probes.long()].sum())}
+
+
+def pq_counts():
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import pq_scan as k5
+
+    return {"K1": k1.LAUNCHES, "K5": k5.LAUNCHES_8BIT,
+            "K5_4bit": k5.LAUNCHES_4BIT}
+
+
+def set_pq_counts(c):
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import pq_scan as k5
+
+    k1.LAUNCHES, k5.LAUNCHES_8BIT, k5.LAUNCHES_4BIT = (
+        c["K1"], c["K5"], c["K5_4bit"])
+
+
+def k5_lb(args, bits: int, S: int, q: int, row: int) -> float:
+    """The twin's arithmetic for one (query, slab row): the row's entry in
+    the schedule, the table sum in subspace order, the certified bound."""
+    import torch
+    from raft_tpu_torch.ops.pq_scan import decode_codes
+
+    sched, xx, _, cdot, lut, codes, yy, eq, _ = args
+    lo = sched[0] + sched[2]
+    j = int(((row >= lo) & (row < lo + sched[1]) & (sched[3] >= 0))
+            .nonzero()[0, 0])
+    code = decode_codes(codes[row:row + 1], S, bits)[0]
+    adc = torch.zeros((), device=lut.device)
+    for s in range(S):
+        adc = adc + lut[q, s * (1 << bits) + code[s]]
+    d2 = (xx[q, 0] + yy.reshape(-1)[row]) - 2.0 * cdot[q, j] - 2.0 * adc
+    v = (d2.clamp_min(0.0).sqrt() - eq.reshape(-1)[row]).clamp_min(0.0)
+    return float(v * v)
+
+
+def compare_k5(out, ref, inp, tag: str):
+    """Hold K5's pools against its twin's: the two sum the same f32 terms
+    in the same order with the same roundings, so values (and +inf slots)
+    must agree bit for bit, and a slot's row may differ only where both
+    rows score exactly that value (a tie, re-evaluated by the twin's
+    arithmetic). Returns (max abs error, tie slots)."""
+    import torch
+
+    depth = (len(out) - 1) // 2
+    err = 0.0
+    for n in list(range(0, 2 * depth, 2)) + [2 * depth]:
+        a, b = out[n], ref[n]
+        fin = torch.isfinite(b)
+        check(bool((torch.isfinite(a) == fin).all()),
+              f"{tag} output {n}: +inf slots differ from the twin's")
+        diff = (torch.where(fin, a, 0.0) - torch.where(fin, b, 0.0)).abs()
+        err = max(err, diff.max().item())
+    check(err == 0.0, f"{tag}: pool values differ from the twin's by up "
+          f"to {err} (the same sums in the same order: bit for bit)")
+    ties = 0
+    for t in range(depth):
+        bad = (out[2 * t + 1] != ref[2 * t + 1]).nonzero().tolist()
+        for q, lane in bad:
+            want = float(out[2 * t][q, lane])
+            got = [k5_lb(inp["args"], inp["bits"], inp["S"], q,
+                         int(o[2 * t + 1][q, lane])) for o in (out, ref)]
+            check(got[0] == got[1] == want, f"{tag}: slot ({q}, {lane}) "
+                  f"level {t} holds rows scoring {got}, not a tie at "
+                  f"{want}")
+            ties += 1
+    return err, ties
+
+
+def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
+            plain: bool = True):
+    """One IVF-PQ cell: ``search_ivf_pq(pq_scan="pq")`` with the counts
+    zeroed just before and read just after; recall@10 against the exact
+    oracle; the rungs; id sets held to ``pq_scan="flat"`` over the same
+    probes (ties proven); the host-clock median of 5; the chooser's pick
+    under ``auto``; K5 on the run's own inputs (CUDA events, beside its
+    bound and, with ``plain``, its twin); the certificate margin's
+    quantiles over θ; one profiled call."""
+    import torch
+    from raft_tpu_torch.ann import ivf_pq, resolve_pq_scan, search_ivf_pq
+    from raft_tpu_torch.observability import quality
+    from raft_tpu_torch.ops import pq_scan as k5
+
+    nq = Q.shape[0]
+    kname = "K5" if index.pq_bits == 8 else "K5_4bit"
+    c0 = quality.certificate_counts(PQ_SITE)
+    set_pq_counts({"K1": 0, "K5": 0, "K5_4bit": 0})
+    vals, ids, reruns = search_ivf_pq(res, index, Q, IVF_K, n_probes=P,
+                                      pq_scan="pq", with_stats=True)
+    torch.cuda.synchronize()
+    launches = pq_counts()
+    c1 = quality.certificate_counts(PQ_SITE)
+    check(tuple(ids.shape) == (nq, IVF_K)
+          and bool(torch.isfinite(vals).all()),
+          f"{name}: results are not finite [nq, k]")
+    check(launches[kname] > 0, f"{name}: {kname} launched no time")
+    recall = (ids.long()[:, :, None] == o_ids[:, None, :]).any(2) \
+        .float().mean().item()
+    fv, fi = search_ivf_pq(res, index, Q, IVF_K, n_probes=P, pq_scan="flat")
+    n_tie = check_exact(ids, fi, fv, X, Q, f"{name} against the flat scan",
+                        floor)
+    times = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        search_ivf_pq(res, index, Q, IVF_K, n_probes=P, pq_scan="pq")
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    rungs = {r: c1[r] - c0[r] for r in ("certified", "widened",
+                                        "exact_rerun")}
+    inp = k5_inputs(res, index, Q, P)
+    saved = pq_counts()
+    bits, S = index.pq_bits, index.pq_dim
+    out = k5.pq_scan_list_major(*inp["args"], pq_bits=bits)
+    ms = cuda_ms(lambda: k5.pq_scan_list_major(*inp["args"], pq_bits=bits),
+                 5)
+    # the certificate's margin (pooled bound − θ − e_k) over θ, the
+    # quantity the rungs decide on
+    pr = inp["probes"]
+    theta, _, _, margin = ivf_pq.pq_scan_chunk(
+        index, Q, pr.cpu().numpy(), pr, index.offsets[:-1][pr.long()],
+        index.padded_sizes[pr.long()], IVF_K, P, index.probe_window)
+    rel = margin / theta[:, -1].clamp_min(1e-30)
+    set_pq_counts(saved)            # comparison launches do not count
+    bound, bound_by = k5_bound_ms(nq, S, bits, P, 2, inp["stream_rows"],
+                                  inp["pair_rows"])
+    k5_row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
+              "library_ms": None, "lists": inp["lists"],
+              "stream_rows": inp["stream_rows"],
+              "pair_rows": inp["pair_rows"],
+              "launches_per_call": launches[kname]}
+    if plain:
+        hold = []
+        k5_row["plain_ms"] = cuda_ms(lambda: hold.append(
+            k5.pq_scan_list_major_ref(*inp["args"], pq_bits=bits)), 1,
+            warmup=0)
+        k5_row["max_abs_err"], k5_row["tie_slots"] = compare_k5(
+            out, hold[0], inp, f"K5 {name}")
+        del hold
+    del out
+    pick = resolve_pq_scan(index, nq, IVF_K, P, index.probe_window, "auto",
+                           probes_np=inp["probes"].cpu().numpy())
+    del inp
+    row = {"P": P, "pq_bits": bits, "pq_dim": S, "pq_mode": index.pq_mode,
+           "recall": recall, "rungs": rungs,
+           "cert_rerun_frac": rungs["exact_rerun"] / nq,
+           "exact_reruns": reruns, "flat_parity_tie_queries": n_tie,
+           "ms": 1e3 * statistics.median(times), "launches": launches,
+           "auto_pick": pick, "k5": k5_row,
+           "margin_over_theta_q10_q50_q90": torch.quantile(
+               rel, torch.tensor([0.1, 0.5, 0.9], device=rel.device))
+           .tolist(),
+           "profile": profile_run(lambda: search_ivf_pq(
+               res, index, Q, IVF_K, n_probes=P, pq_scan="pq"))}
+    print(f"ivf_pq {name}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def ivf_serving(res, index, data, P: int, algorithm: str,
+                n_requests: int = 500, seed: int = 0):
+    """Phases 5b and 6d: an ``ivf_flat`` or ``ivf_pq`` engine over
+    ``index`` at ``n_probes=P`` with ``bench_serving.py``'s recipe (8
+    clients, Exp(1 ms) think time, Poisson(16) sizes on the ladder (16,
+    64, 256)); requests are blocks of index rows plus N(0, 0.1) noise,
+    like the phase's queries. Every ``n_requests // 8``-th request is
+    asked again through the engine and single-shot through the plane's
+    search, and the two answers must have the same bits. The ``ivf_pq``
+    burst runs with ``RAFT_TPU_IVF_PQ_SCAN=pq`` (the cell serves through
+    K5; the chooser's pick for each bucket under ``auto`` is reported);
+    the ``ivf_flat`` burst serves under the fine-scan chooser, so a
+    bucket and the request asked alone may take different schedules.
+    Returns (the report row, the plane kernel's launches)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.ann import (resolve_pq_scan, search_ivf_flat,
+                                    search_ivf_pq)
+    from raft_tpu_torch.serving import ServingEngine
+
+    is_pq = algorithm == "ivf_pq"
+    tag = f"serve_{algorithm}"
+    search = search_ivf_pq if is_pq else search_ivf_flat
+    counts, set_c = (pq_counts, set_pq_counts) if is_pq \
+        else (k4_counts, set_counts)
+    if is_pq:
+        kname = "K5" if index.pq_bits == 8 else "K5_4bit"
+    else:
+        kname = "K4_q8" if index.db_dtype == "int8" else "K4"
+    X = data["X"]
+    clients, ladder = SERVE_SHAPE[4], (16, 64, 256)
+    rng = np.random.default_rng(seed + 5)
+    sizes = np.clip(rng.poisson(ladder[0], n_requests), 1, ladder[-1])
+    pick = torch.from_numpy(rng.choice(X.shape[0], 64 * ladder[-1],
+                                       replace=False)).cuda()
+    blocks = (X[pick].cpu().numpy() + rng.normal(
+        0, 0.1, (64 * ladder[-1], DIM)).astype(np.float32)).reshape(
+            64, ladder[-1], DIM)
+
+    def request(i):
+        return blocks[i % 64, :int(sizes[i % n_requests])]
+
+    picks, prev = None, os.environ.get("RAFT_TPU_IVF_PQ_SCAN")
+    if is_pq:
+        # the cell serves through K5: the chooser's own pick per bucket is
+        # reported beside it
+        picks = {b: resolve_pq_scan(index, b, IVF_K, P, index.probe_window,
+                                    "auto") for b in ladder}
+        os.environ["RAFT_TPU_IVF_PQ_SCAN"] = "pq"
+    engine = ServingEngine(index, k=IVF_K, algorithm=algorithm, n_probes=P)
+    check(engine.buckets == ladder, f"{tag}: ladder {engine.buckets}")
+    t0 = time.perf_counter()
+    engine.start()
+    warm_s = time.perf_counter() - t0
+    try:
+        set_c({n: 0 for n in counts()})
+        s0 = engine.stats()
+        lat, errors, wall, _ = closed_loop(
+            engine, request, n_requests, clients, SERVE_THINK_S, seed)
+        launches = counts()
+        s1 = engine.stats()
+        check(not errors and len(lat) == n_requests,
+              f"{tag}: {len(errors)} requests failed: {errors[:3]}")
+        if is_pq:
+            check(launches[kname] > 0, f"{tag}: {kname} launched no time")
+        check(s1["builds_after_warmup"] == 0,
+              f"{tag}: {s1['builds_after_warmup']} kernel builds or loads "
+              f"after warm-up")
+        parity = 0
+        for n_probe, i in enumerate(range(0, n_requests, n_requests // 8)):
+            q = request(i)
+            sv, si = engine.query(q, deadline_s=30.0 if n_probe % 2
+                                  else None, timeout=120)
+            ov, oi = search(res, index, torch.from_numpy(q).cuda(), IVF_K,
+                            n_probes=P)
+            check(np.array_equal(sv, ov.cpu().numpy())
+                  and np.array_equal(si, oi.cpu().numpy()),
+                  f"{tag}: request {i} served differs from "
+                  f"{search.__name__} asked single-shot")
+            parity += 1
+        batches = s1["batches"] - s0.get("batches", 0)
+        lat_ms = np.asarray(lat) * 1e3
+        row = {"P": P, "warmup_s": warm_s,
+               "p50_ms": float(np.percentile(lat_ms, 50)),
+               "p99_ms": float(np.percentile(lat_ms, 99)),
+               "throughput_rps": n_requests / wall,
+               "rows_per_s": float(sizes.sum()) / wall,
+               "n_requests": n_requests, "batches": batches,
+               "mean_fill": float(sizes.sum()) / max(1, batches)
+               / ladder[-1],
+               "fixups": s1["fixups"] - s0.get("fixups", 0),
+               "builds_after_warmup": s1["builds_after_warmup"],
+               "warmup_builds": s1["warmup_builds"],
+               "launches": launches, "parity_checked": parity,
+               "profile": profile_run(lambda: closed_loop(
+                   engine, request, 150, clients, SERVE_THINK_S,
+                   seed + 1))}
+        if is_pq:
+            row.update(pq_bits=index.pq_bits, auto_pick_by_bucket=picks)
+    finally:
+        engine.stop()
+        if is_pq:
+            if prev is None:
+                os.environ.pop("RAFT_TPU_IVF_PQ_SCAN")
+            else:
+                os.environ["RAFT_TPU_IVF_PQ_SCAN"] = prev
+    print(f"{algorithm} {tag}: {json.dumps(row)}", flush=True)
+    return row, launches[kname]
+
+
+def pq_phase(res, data, n_lists: int, probes=(32, 128)):
+    """Phase 6 (see the module doc) on :func:`ann_data`'s ``data`` with
+    ``n_lists`` lists; ``probes`` are the P of the pq cells (the first is
+    also the diffuse cell's, the served burst's and the K5-against-twin
+    check's). Returns (the ``ivf_pq`` report, K5's two ``kernels``
+    entries)."""
+    import torch
+    from raft_tpu_torch.ann import build_ivf_pq
+    from raft_tpu_torch.ops import pq_scan as k5
+
+    X, Q, o_ids, floor = (data[n] for n in ("X", "Q", "o_ids", "floor"))
+    n_rows, nq = X.shape[0], Q.shape[0]
+    report = {"build": {}}
+    index = {}
+
+    def build(tag, Y, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ix = build_ivf_pq(res, Y, n_lists, max_iter=8, seed=3, **kw)
+        torch.cuda.synchronize()
+        report["build"][tag] = {
+            "seconds": time.perf_counter() - t0, **ix.build_seconds,
+            "pq_dim": ix.pq_dim, "pq_bits": ix.pq_bits,
+            "pq_mode": ix.pq_mode, "code_bytes": ix.code_bytes,
+            "probe_window": ix.probe_window, "slab_rows": ix.slab_rows,
+            "eq_row_max": float(ix.pq_eq_rows.max()),
+            "eq_row_median": float(ix.pq_eq_rows[ix.ids >= 0].median()),
+            "resid_med": ix.pq_resid_med}
+        print(f"ivf_pq build {tag}: {json.dumps(report['build'][tag])}",
+              flush=True)
+        return ix
+
+    for bits in (8, 4):
+        index[bits] = build(f"pq{bits}", X, pq_bits=bits)
+
+    # ---- phase 6a: K5 against its twin on one real schedule ----
+    for bits in (8, 4):
+        inp = k5_inputs(res, index[bits], Q[:64], probes[0])
+        for depth in (2, 4, 8):
+            saved = pq_counts()
+            out = k5.pq_scan_list_major(*inp["args"], pq_bits=bits,
+                                        pool_depth=depth)
+            torch.cuda.synchronize()
+            check(pq_counts() != saved, "a K5 launch was not counted")
+            set_pq_counts(saved)
+            ref = k5.pq_scan_list_major_ref(*inp["args"], pq_bits=bits,
+                                            pool_depth=depth)
+            err, ties = compare_k5(out, ref, inp, f"K5 {bits}-bit d{depth}")
+            print(f"K5 vs twin ({bits}-bit, depth {depth}, 64 queries, "
+                  f"P={probes[0]}, {inp['lists']} lists): max_abs_err={err} "
+                  f"tie_slots={ties}", flush=True)
+            del out, ref
+        del inp
+
+    # ---- phase 6b: the IVF-PQ path at full width ----
+    for bits in (8, 4):
+        for P in probes:
+            report[f"pq{bits}_p{P}"] = pq_cell(
+                res, f"pq{bits}_p{P}", index[bits], Q, P, X, o_ids, floor,
+                plain=P == probes[0])
+    del index[4]
+    torch.cuda.empty_cache()
+
+    # ---- phase 6d: a short served burst on the 8-bit index ----
+    report["serve_ivf_pq"], serve_launches = ivf_serving(
+        res, index[8], data, probes[0], "ivf_pq")
+    del index[8]
+    torch.cuda.empty_cache()
+
+    # ---- phase 6c: the diffuse worst case (bench_ann.py:360-380) ----
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    Xg = torch.randn(n_rows, DIM, device="cuda", generator=gen)
+    Qg = torch.randn(nq, DIM, device="cuda", generator=gen)
+    _, og_ids = exact_oracle(Xg, Qg, IVF_K)
+    floor_g = 16 * 2.0 ** -24 * ((Qg * Qg).sum(1) + (Xg * Xg).sum(1).max())
+    idxg = build("pq_diffuse_opq", Xg, pq_dim=DIM // 2, pq_bits=8,
+                 pq_mode="opq")
+    report["pq_diffuse_opq_p32"] = pq_cell(
+        res, "pq_diffuse_opq_p32", idxg, Qg, probes[0], Xg, og_ids, floor_g,
+        plain=False)
+    del Xg, Qg, idxg
+    torch.cuda.empty_cache()
+
+    common = {"route": "cuda", "source": "raft_tpu_torch/ops/csrc/"
+              "pq_scan.cu", "replaces": "raft_tpu/ops/pq_scan_pallas.py:279"}
+    entries = []
+    for bits, kname, label in ((8, "K5", "pq_scan_list_major"),
+                               (4, "K5_4bit", "pq_scan_list_major_4bit")):
+        p32, p128 = (report[f"pq{bits}_p{P}"] for P in probes)
+        entries.append({
+            "name": label, **common,
+            "launches": p32["launches"][kname] + p128["launches"][kname],
+            **{k: p32["k5"][k] for k in (
+                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
+                "library_ms")},
+            "p128": p128["k5"]})
+    entries[0]["serving_launches"] = serve_launches
+    print("K5 library_ms: null (no one PyTorch call computes the masked "
+          "table-lookup fold)", flush=True)
+    return report, entries
 
 
 def profile_run(fn, top: int = 8):
@@ -711,7 +1149,7 @@ def closed_loop(engine, request, n_requests: int, clients: int,
 
 
 def serving_phase(res, seed: int = 0):
-    """Phase 9 (see the module doc). Returns (the ``serving`` report, the
+    """Phase 10 (see the module doc). Returns (the ``serving`` report, the
     launches of each cell's load run: K1 for brute_bf16, K2 for
     brute_int8)."""
     import numpy as np
@@ -1009,7 +1447,7 @@ def csr_tensor(A):
 
 def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
                    c4=(17, 1_000_000), dense_rows: int = 100_000):
-    """Phases 6–8 (see the module doc) at R-MAT ``scale``, a band matrix of
+    """Phases 7–9 (see the module doc) at R-MAT ``scale``, a band matrix of
     ``band_n`` rows, config 4 at ``c4`` = (scale, edges) and config 3 at
     ``dense_rows`` × 1000. Returns (the ``spectral`` report, the K6/K7
     ``kernels`` entries)."""
@@ -1031,7 +1469,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     gen = torch.Generator(device="cuda")
     gen.manual_seed(5)
 
-    # ---- phase 6: spectral_g22, the headline ----
+    # ---- phase 7: spectral_g22, the headline ----
     n, n_edges = 1 << scale, 16 << scale
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1255,7 +1693,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     del Bd, TP, Bcsr, Bt
     torch.cuda.empty_cache()
 
-    # ---- phase 7: spectral_c4, BASELINE config 4 as bench_configs runs it
+    # ---- phase 8: spectral_c4, BASELINE config 4 as bench_configs runs it
     s4, e4 = c4
     src, dst = rmat_rectangular_gen(res, 3, e4, s4, s4)
     adj4 = COOMatrix(torch.cat([src, dst]), torch.cat([dst, src]),
@@ -1282,7 +1720,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     print(f"spectral_c4: {json.dumps(c4r)}", flush=True)
     del adj4, src, dst
 
-    # ---- phase 8: lanczos_dense, config 3's Lanczos on a Gram operator
+    # ---- phase 9: lanczos_dense, config 3's Lanczos on a Gram operator
     X, _ = make_blobs(res, 2, dense_rows, 1000, n_clusters=16)
     Xs = X[:, :256]
     G = (Xs.T @ Xs) / dense_rows
@@ -1344,18 +1782,22 @@ def main() -> int:
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fine_scan as k4
     from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import pq_scan as k5
     from raft_tpu_torch.random import make_blobs
 
+    t_start = time.perf_counter()
     # ---- phase 1: device and build ----
     card = gpu_name_power()
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, "
           f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["fused_l2_topk", "fine_scan", "spmv", "sddmm"])
+    _build.build_all(["fused_l2_topk", "fine_scan", "pq_scan", "spmv",
+                      "sddmm"])
     k1._launcher()
     k1._launcher_q8()
     k4._launcher()
+    k5._launcher()
     _build.load("spmv")
     _build.load("sddmm")
     print(f"build: {time.perf_counter() - t0:.1f} s "
@@ -1570,29 +2012,35 @@ def main() -> int:
     del X, Qx, idx1, idx3, idx8_1, idx8_3, o_vals, o_ids
     torch.cuda.empty_cache()
 
-    # ---- phase 9 (run here, on a fresh index): serving ----
+    # ---- phase 10 (run here, on a fresh index): serving ----
     serving, serve_launches = serving_phase(res)
     entry["serving_launches"] = serve_launches["brute_bf16"]
     k2_entry["serving_launches"] = serve_launches["brute_int8"]
     torch.cuda.empty_cache()
 
-    # ---- phases 4 and 5: K4 against its twin, then IVF-Flat ----
-    ivf, k4_entries, (p32_rows, p32_pairs) = ivf_phase(
-        res, N_INDEX, N_QUERIES, IVF_LISTS)
-    bounds.update(ivf_unported_bounds_ms(N_QUERIES, DIM, p32_rows,
-                                         p32_pairs))
+    # ---- phases 4–6: K4 against its twin, IVF-Flat, then IVF-PQ ----
+    data = ann_data(res, N_INDEX, N_QUERIES)
+    ivf, k4_entries = ivf_phase(res, N_INDEX, N_QUERIES, IVF_LISTS,
+                                data=data)
+    bounds.update(ivf_unported_bounds_ms())
+    torch.cuda.empty_cache()
+    ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS)
+    del data
     torch.cuda.empty_cache()
 
-    # ---- phases 6–8: the spectral path ----
+    # ---- phases 7–9: the spectral path ----
     spectral, sparse_entries = spectral_phase(res)
     print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
+    print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
     print(json.dumps({"spectral": spectral}), flush=True)
+    print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, k2_entry, *k4_entries,
-                                  *sparse_entries]}), flush=True)
+                                  *k5_entries, *sparse_entries]}),
+          flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -18,12 +18,15 @@ Search (:func:`search_ivf_flat`):
    ``"query"`` gathers each query's probed windows and scores them in f32
    (plain torch); ``"list"`` runs the list-major kernel K4
    (``ops.fine_scan``), which reads each probed list once per batch and
-   keeps a 256-slot candidate pool per query, exact-rescores the pool with
-   the query-major formula, and certifies per query that nothing outside
-   the pool can beat the k-th value. Queries that fail the certificate
-   rerun query-major — the algorithm, not a fallback: a K4 failure to
-   build or launch on the card raises. The int8 query-major scan keeps a
-   certified pool likewise and reruns its failures in f32;
+   keeps a 256-slot candidate pool per query, exact-rescores the pool,
+   and certifies per query that nothing outside the pool can beat the
+   k-th value. Queries that fail the certificate rerun query-major — the
+   algorithm, not a fallback: a K4 failure to build or launch on the card
+   raises. The int8 query-major scan keeps a certified pool likewise and
+   reruns its failures in f32. Every exact answer is finished by
+   :func:`_rescore_smallest` (one row-wise dot a candidate, in the
+   query-major candidate order), so the schedule, the batch and the rung
+   a query takes change none of its bits;
 3. ``n_probes ≥ n_lists`` (or ``k`` beyond the probed capacity) is the
    degenerate-exact plane: the certified fused pipeline (K1) over the
    whole ragged slab, whose pads ride K1's never-wins sentinel.
@@ -248,27 +251,61 @@ def _probe_rows(slab, ids, starts, psizes, W: int):
 
 
 def _scores(x, xx, yc, yy):
-    """``xx + yy − 2·x·y`` in f32: the one score formula of every exact
-    IVF scorer, so the schedules give equal values for equal rows."""
+    """``xx + yy − 2·x·y`` in f32 as one batched product: it only
+    nominates candidates (its rounding depends on the batch shape); the
+    values returned come from :func:`_rescore_smallest`."""
     return xx + yy - 2.0 * torch.einsum("qd,qcd->qc", x, yc)
+
+
+def _rescore_smallest(x, xx, rows, cid, slab, yy_slab, k: int):
+    """The top-k of candidate slab ``rows`` [nq, C] (their ids ``cid``,
+    −1 = none, scored +inf), taken in the given candidate order (equal
+    values keep it, XLA's tie rule): each candidate rescored exactly in
+    f32 as ``(xx + yy) − 2·x·y``, one row-wise dot a candidate rather than
+    a batched product, so a query's values do not depend on the batch, the
+    schedule or the rung it rides in (a served request equals the query
+    asked alone). Every exact IVF answer is finished here."""
+    rc = rows.long().clamp_min(0)
+    dot = (slab[rc] * x[:, None, :]).sum(2)
+    d2 = torch.where(cid >= 0, ((xx + yy_slab[rc]) - 2.0 * dot)
+                     .clamp_min(0.0), float("inf"))
+    vals, pos = _smallest(d2, k)
+    out = torch.gather(cid, 1, pos)
+    return vals, torch.where(torch.isfinite(vals), out, -1)
+
+
+def _nominate(d2, C: int):
+    """The columns of each row's ``C`` smallest values, in column order.
+    The key (value bits, column) is unique, so the set does not depend on
+    the top-k algorithm a batch size selects."""
+    bits = d2.view(torch.int32)
+    key = (torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long() << 32) \
+        | torch.arange(d2.shape[1], device=d2.device)
+    return torch.sort(torch.topk(key, C, dim=1, largest=False).indices,
+                      dim=1).values
 
 
 def _fine_scan(x, slab, ids, yy_slab, starts, psizes, k: int, P: int,
                W: int):
     """Score the probed windows in f32 and select the top-k (reference
     ``:313``). ``starts`` / ``psizes`` [nq, P]: slab offsets and padded
-    lengths of the probed lists."""
+    lengths of the probed lists. The batched product only nominates each
+    query's k + 32 best candidates; :func:`_rescore_smallest` scores them
+    in the query-major candidate order (probe slot × window column), as
+    the list-major pool finish does, so both schedules give the same
+    bits."""
     rows, cid, valid = _probe_rows(slab, ids, starts, psizes, W)
     xx = (x * x).sum(1, keepdim=True)
     d2 = _scores(x, xx, slab[rows], yy_slab[rows])
     d2 = torch.where(valid, d2.clamp_min(0.0), float("inf"))
-    vals, pos = _smallest(d2, k)
-    out = torch.gather(cid, 1, pos)
-    return vals, torch.where(torch.isfinite(vals), out, -1)
+    pos = _nominate(d2, min(k + _IVF_RESCORE_PAD, P * W))
+    return _rescore_smallest(x, xx, torch.gather(rows, 1, pos),
+                             torch.gather(torch.where(valid, cid, -1), 1,
+                                          pos), slab, yy_slab, k)
 
 
-def _fine_scan_q8(x, slab, slab_q, row_scale, ids, yy_q, eq_rows, starts,
-                  psizes, k: int, P: int, W: int, C: int):
+def _fine_scan_q8(x, slab, slab_q, row_scale, ids, yy_slab, yy_q, eq_rows,
+                  starts, psizes, k: int, P: int, W: int, C: int):
     """The int8 gather scan (reference ``:344``): approximate scores
     against the dequantized rows ŷ, the top ``C`` kept and exact-rescored
     from the f32 slab, and a per-query certificate that the true top-k
@@ -282,15 +319,12 @@ def _fine_scan_q8(x, slab, slab_q, row_scale, ids, yy_q, eq_rows, starts,
     del yc
     approx, cpos = _smallest(d2h, C)
     bound = approx[:, C - 1]
-    crow = torch.gather(rows, 1, cpos)
-    ccid = torch.gather(cid, 1, cpos)
-    cvalid = torch.gather(valid, 1, cpos)
-    ycf = slab[crow]
-    d2 = torch.where(cvalid, _scores(x, xx, ycf, (ycf * ycf).sum(2))
-                     .clamp_min(0.0), float("inf"))
-    vals, kpos = _smallest(d2, k)
-    out = torch.gather(ccid, 1, kpos)
-    out = torch.where(torch.isfinite(vals), out, -1)
+    # the pool in the query-major candidate order, rescored as the f32
+    # scan rescores, so a certified answer has the f32 scan's bits
+    cpos = torch.sort(cpos, dim=1).values
+    vals, out = _rescore_smallest(
+        x, xx, torch.gather(rows, 1, cpos),
+        torch.gather(torch.where(valid, cid, -1), 1, cpos), slab, yy_slab, k)
     theta = vals[:, k - 1]
     eq_w = torch.where(valid, eq_rows[rows], 0.0).max(1).values
     yymax = torch.where(valid, yyq, 0.0).max(1).values
@@ -315,7 +349,7 @@ def _query_major_chunk(index: IvfFlatIndex, xs, st, ps, k: int, P: int,
     C = min(k + _IVF_RESCORE_PAD, P * W)
     vals, ids_c, ok = _fine_scan_q8(
         xs, index.slab, index.slab_q, index.row_scale, index.ids,
-        index.yy_q, index.eq_rows, st, ps, k, P, W, C)
+        index.yy_slab, index.yy_q, index.eq_rows, st, ps, k, P, W, C)
     bad = (~ok).nonzero().squeeze(1)
     n_fail = int(bad.numel())
     if n_fail:
@@ -408,26 +442,22 @@ def _list_host(index: IvfFlatIndex) -> dict:
 
 def _pool_finish(x, xx, rows, slab, ids, yy_slab, starts_qm, psizes,
                  k: int, P: int, W: int):
-    """Exact-rescore the pooled rows with the query-major formula, put
-    them in the query-major candidate order (probe slot × window column,
-    so equal values break as there) and select the top-k (reference
-    ``:535``)."""
+    """Put the pooled rows [nq, C] (−1 = empty slot) in the query-major
+    candidate order (probe slot × window column, so equal values break as
+    there), exact-rescore them (:func:`_rescore_smallest`) and select the
+    top-k (reference ``:535``). Rows whose id is masked (−1) score
+    +inf."""
     valid = rows >= 0
-    rc = rows.long().clamp_min(0)
-    d2 = torch.where(valid, _scores(x, xx, slab[rc], yy_slab[rc])
-                     .clamp_min(0.0), float("inf"))
+    cid = torch.where(valid, ids[rows.long().clamp_min(0)], -1)
+    valid = valid & (cid >= 0)
     w = rows[:, :, None].long() - starts_qm[:, None, :].long()
     match = (w >= 0) & (w < psizes[:, None, :]) & valid[:, :, None]
     slot = torch.argmax(match.to(torch.int32), dim=2)
     col = torch.gather(w, 2, slot[:, :, None])[:, :, 0]
     key = torch.where(match.any(2), slot * W + col, P * W)
     order = torch.argsort(key, dim=1, stable=True)
-    d2s = torch.gather(d2, 1, order)
-    rs = torch.gather(rows, 1, order)
-    cid = torch.where(rs >= 0, ids[rs.long().clamp_min(0)], -1)
-    vals, pos = _smallest(d2s, k)
-    out = torch.gather(cid, 1, pos)
-    return vals, torch.where(torch.isfinite(vals), out, -1)
+    return _rescore_smallest(x, xx, torch.gather(rows, 1, order),
+                             torch.gather(cid, 1, order), slab, yy_slab, k)
 
 
 def _pad_kernel_operands(x, probes):

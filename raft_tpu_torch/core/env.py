@@ -45,6 +45,22 @@ _knob("RAFT_TPU_SERVING_QUEUE_CAP", "int", 4096,
       "serving queue cap in query rows (admission sheds past it)")
 _knob("RAFT_TPU_SERVING_DEADLINE_S", "float", None,
       "default per-request deadline budget (unset = none)")
+_knob("RAFT_TPU_IVF_PQ_SCAN", "enum", "auto",
+      "IVF-PQ schedule: the list-major ADC kernel over the codes slab, "
+      "the uncompressed flat fine scan, or the cost-model crossover "
+      "(read per call)",
+      choices=("auto", "pq", "flat"))
+_knob("RAFT_TPU_ANN_PQ_BITS", "int", 8,
+      "default code width for build_ivf_pq callers that pass none (4 or "
+      "8 bits per subspace code)")
+_knob("RAFT_TPU_ANN_PQ_MODE", "enum", "plain",
+      "default build_ivf_pq quantizer mode: plain PQ, an OPQ learned "
+      "rotation, or OPQ plus score-aware anisotropic codeword assignment",
+      choices=("plain", "opq", "opq_aniso"))
+_knob("RAFT_TPU_ANN_PQ_WIDEN", "int", 4,
+      "max widen factor for the PQ certificate middle rung (1 disables "
+      "widening; >=2 allows the 512-slot re-ADC pool, >=4 the 1024-slot "
+      "pool)")
 
 
 def knob(name: str) -> Knob:

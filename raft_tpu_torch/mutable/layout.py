@@ -1,7 +1,8 @@
 """IndexLayout — the slab description the IVF-Flat planes share.
 
 Counterpart of ``raft_tpu/mutable/layout.py``, holding only what IVF-Flat
-calls: the :class:`IndexLayout` struct (``:50``), the padded ragged slab
+and IVF-PQ call: the :class:`IndexLayout` struct (``:50``, with the PQ
+sidecar slots), the padded ragged slab
 (``ragged_layout_from_lists``, ``:138``), its per-list int8 sidecar
 (``quantize_layout``, ``:174``) and the certified-fused operands over a
 layout (``fused_geometry`` / ``fused_ops_for_layout``, ``:244`` / ``:274``),
@@ -32,16 +33,23 @@ class IndexLayout:
     ``offsets`` [L+1] / ``sizes`` [L] / ``padded_sizes`` [L] int32 carry the
     inverted-list geometry; the int8 sidecar (``slab_q`` int8 [R, d],
     ``row_scale`` and ``eq_rows`` f32 [R]) is per row, each row holding
-    its list's scale and quantization bound."""
+    its list's scale and quantization bound. The product-quantized sidecar
+    of an IVF-PQ index (reference ``:65-98``) rides the same rows:
+    ``pq_codes`` (packed codes), ``pq_yy`` (‖ŷ‖²) and ``pq_eq_rows`` (the
+    round-trip bound), with the per-index ``pq_rot`` (OPQ rotation or
+    None) and ``pq_meta`` (``pq_dim``, ``pq_bits``, ``pq_mode``,
+    ``codebooks``)."""
 
     __slots__ = ("slab", "ids", "rows_valid", "offsets", "sizes",
                  "padded_sizes", "row_quantum", "d_orig", "n_rows",
-                 "db_dtype", "slab_q", "row_scale", "eq_rows")
+                 "db_dtype", "slab_q", "row_scale", "eq_rows",
+                 "pq_codes", "pq_yy", "pq_eq_rows", "pq_rot", "pq_meta")
 
     def __init__(self, slab, ids, rows_valid, n_rows: int, d_orig: int,
                  offsets=None, sizes=None, padded_sizes=None,
                  row_quantum: int = ROW_QUANTUM, db_dtype: str = "f32",
-                 slab_q=None, row_scale=None, eq_rows=None):
+                 slab_q=None, row_scale=None, eq_rows=None, pq_codes=None,
+                 pq_yy=None, pq_eq_rows=None, pq_rot=None, pq_meta=None):
         self.slab = slab
         self.ids = ids
         self.rows_valid = rows_valid
@@ -55,6 +63,11 @@ class IndexLayout:
         self.slab_q = slab_q
         self.row_scale = row_scale
         self.eq_rows = eq_rows
+        self.pq_codes = pq_codes
+        self.pq_yy = pq_yy
+        self.pq_eq_rows = pq_eq_rows
+        self.pq_rot = pq_rot
+        self.pq_meta = pq_meta
 
     @property
     def slab_rows(self) -> int:

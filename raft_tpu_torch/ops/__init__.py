@@ -15,6 +15,10 @@ from raft_tpu_torch.ops.fused_l2_topk import (
     fused_l2_group_topk_packed_ref,
     split_hi_lo,
 )
+from raft_tpu_torch.ops.pq_scan import (
+    pq_scan_list_major,
+    pq_scan_list_major_ref,
+)
 from raft_tpu_torch.ops.sddmm import (
     sddmm_entries,
     sddmm_entries_ref,
@@ -34,7 +38,8 @@ __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fine_scan_list_major_q8_ref", "fine_scan_list_major_ref",
            "fused_l2_group_topk_packed", "fused_l2_group_topk_packed_q8",
            "fused_l2_group_topk_packed_q8_ref",
-           "fused_l2_group_topk_packed_ref",
+           "fused_l2_group_topk_packed_ref", "pq_scan_list_major",
+           "pq_scan_list_major_ref",
            "sddmm_entries", "sddmm_entries_ref", "sddmm_tiled",
            "sddmm_tiled_ref", "spmm_tiled", "spmm_tiled_ref",
            "spmv_pair_tiled", "spmv_pair_tiled_ref", "spmv_tiled",

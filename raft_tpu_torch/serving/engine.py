@@ -34,9 +34,11 @@ and dispatches on the handle's stream (``DeviceResources.stream``).
 
 Planes: ``algorithm="brute"`` (:func:`raft_tpu_torch.runtime.knn_query`
 over a bf16 or int8 :class:`~raft_tpu_torch.distance.knn_fused.KnnIndex`;
-``db_dtype=`` or ``RAFT_TPU_DB_DTYPE`` is kept through every rebuild) and
-``algorithm="ivf_flat"`` (``ann.search_ivf_flat``). ``algorithm="ivf_pq"``
-raises: IVF-PQ and its kernel K5 are not ported.
+``db_dtype=`` or ``RAFT_TPU_DB_DTYPE`` is kept through every rebuild),
+``algorithm="ivf_flat"`` (``ann.search_ivf_flat``) and
+``algorithm="ivf_pq"`` (snapshots built by ``ann.build_ivf_pq`` with
+``pq_dim`` / ``pq_bits``, served by ``ann.search_ivf_pq``, warmed by
+``ann.warm_pq_scan``).
 
 Not in the port yet, each raising ``NotImplementedError`` when asked for:
 ``mesh`` (ROADMAP item 7), the mutable and durable planes with
@@ -79,7 +81,8 @@ _MAX_REQUEUES = 1
 
 #: the kernel libraries each plane can reach (warm-up loads them all)
 _PLANE_LIBS = {"brute": ("fused_l2_topk",),
-               "ivf_flat": ("fine_scan", "fused_l2_topk")}
+               "ivf_flat": ("fine_scan", "fused_l2_topk"),
+               "ivf_pq": ("pq_scan", "fused_l2_topk")}
 
 #: options of the reference engine not in the port yet: (ROADMAP item,
 #: what they are)
@@ -212,7 +215,8 @@ class ServingEngine:
     """Dynamic micro-batching KNN serving engine (reference ``:229``).
 
     ``index`` is a prepared :class:`~raft_tpu_torch.distance.knn_fused.
-    KnnIndex` (or, for ``algorithm="ivf_flat"``, an ``IvfFlatIndex``),
+    KnnIndex` (or, for ``algorithm="ivf_flat"`` / ``"ivf_pq"``, an
+    ``IvfFlatIndex`` / ``IvfPqIndex``),
     whose device the engine serves on, or a raw [m, d] matrix, built at
     construction on ``device`` (default ``cuda``; ``device="cpu"`` runs
     the plain twins).
@@ -241,6 +245,8 @@ class ServingEngine:
                  algorithm: str = "brute",
                  n_lists: Optional[int] = None,
                  n_probes: Optional[int] = None,
+                 pq_dim: Optional[int] = None,
+                 pq_bits: Optional[int] = None,
                  db_dtype: Optional[str] = None,
                  shadow_frac: Optional[float] = None,
                  shadow_floor: Optional[float] = None,
@@ -254,7 +260,7 @@ class ServingEngine:
                  blackbox_path: Optional[str] = None,
                  watchdog_s: Optional[float] = None, slo=None,
                  clock=time.monotonic, device=None):
-        from raft_tpu_torch.ann import IvfFlatIndex
+        from raft_tpu_torch.ann import IvfFlatIndex, IvfPqIndex
         from raft_tpu_torch.distance.knn_fused import KnnIndex, fused_config
 
         asked = dict(mesh=mesh, index_ids=index_ids,
@@ -271,20 +277,15 @@ class ServingEngine:
             _not_ported("mutable")
         if durable:
             _not_ported("durable")
-        if algorithm == "ivf_pq":
-            raise NotImplementedError(
-                "ServingEngine: algorithm='ivf_pq' needs IVF-PQ and its "
-                "list-major ADC scan kernel K5 (raft_tpu/ops/"
-                "pq_scan_pallas.py:279), which are not ported to the GPU "
-                "yet (ROADMAP queue 1, item 9)")
-        if algorithm not in ("brute", "ivf_flat"):
+        if algorithm not in ("brute", "ivf_flat", "ivf_pq"):
             raise ValueError(f"ServingEngine: algorithm must be 'brute', "
                              f"'ivf_flat' or 'ivf_pq', got {algorithm!r}")
-        if algorithm == "ivf_flat":
-            expects(metric == "l2", "ServingEngine: algorithm='ivf_flat' "
-                    "serves metric='l2' only")
+        if algorithm != "brute":
+            expects(metric == "l2", "ServingEngine: algorithm=%r serves "
+                    "metric='l2' only" % (algorithm,))
         self._algorithm = algorithm
         self._n_lists, self._n_probes = n_lists, n_probes
+        self._pq_dim, self._pq_bits = pq_dim, pq_bits
         self._rescore, self._certify = rescore, certify
         self._clock = clock
         self.k = int(k)
@@ -294,7 +295,9 @@ class ServingEngine:
             db_dtype = env.raw("RAFT_TPU_DB_DTYPE")
         self._db_dtype = db_dtype
         if isinstance(index, (KnnIndex, IvfFlatIndex)):
-            want = "ivf_flat" if isinstance(index, IvfFlatIndex) else "brute"
+            want = ("ivf_pq" if isinstance(index, IvfPqIndex) else
+                    "ivf_flat" if isinstance(index, IvfFlatIndex) else
+                    "brute")
             if want != algorithm:
                 raise ValueError("ServingEngine: prepared index type does "
                                  "not match algorithm=%r" % (algorithm,))
@@ -355,6 +358,14 @@ class ServingEngine:
         if not isinstance(y, torch.Tensor):
             y = torch.from_numpy(np.ascontiguousarray(y, np.float32))
         y = y.to(self.device)
+        if self._algorithm == "ivf_pq":
+            from raft_tpu_torch.ann import build_ivf_pq
+
+            n_lists = self._n_lists or max(
+                1, min(1024, int(round(y.shape[0] ** 0.5))))
+            return build_ivf_pq(self.res, y, n_lists=n_lists,
+                                pq_dim=self._pq_dim, pq_bits=self._pq_bits,
+                                n_probes=self._n_probes)
         if self._algorithm == "ivf_flat":
             from raft_tpu_torch.ann import build_ivf_flat
 
@@ -372,6 +383,11 @@ class ServingEngine:
         """The data plane of one padded bucket batch: (vals, ids, n_fail),
         n_fail the queries that paid the exact fixup (brute) or the
         certificate rerun (IVF)."""
+        if self._algorithm == "ivf_pq":
+            from raft_tpu_torch.ann import search_ivf_pq
+
+            return search_ivf_pq(self.res, snap.index, xb, self.k,
+                                 n_probes=self._n_probes, with_stats=True)
         if self._algorithm == "ivf_flat":
             from raft_tpu_torch.ann import search_ivf_flat
 
@@ -429,6 +445,13 @@ class ServingEngine:
             execute_batch(self._plane, snap,
                           np.zeros((b, self.d), np.float32), b, b,
                           stream=self.res.stream)
+            if self._algorithm == "ivf_pq":
+                # the ADC scan at every pool depth the widen rung can
+                # reach, whichever way the chooser lands on live traffic
+                from raft_tpu_torch.ann import warm_pq_scan
+
+                warm_pq_scan(self.res, snap.index, b, self.k,
+                             self._n_probes or snap.index.n_probes_default)
         with self._cond:
             self._stats["warmed_buckets"] = len(self._ladder)
             self._stats["warmup_builds"] += _build.BUILDS + _build.LOADS - b0

@@ -26,6 +26,8 @@ from raft_tpu_torch.ann import ivf_flat as tivf
 from raft_tpu_torch.core import DeviceResources
 from raft_tpu_torch.ops import fine_scan as tfs
 
+from _torch_threads import one_torch_thread  # noqa: F401
+
 M, D, NQ, K, L = 8000, 32, 64, 10, 16
 
 
@@ -148,6 +150,39 @@ def test_list_chunk_sizes_give_identical_ids(world):
             for chunk in (NQ, 24)]
     assert torch.equal(outs[0][1], outs[1][1])
     assert torch.equal(outs[0][0], outs[1][0])
+
+
+@pytest.mark.parametrize("dtype", ["f32", "int8"])
+@pytest.mark.parametrize("fine_scan", ["list", "query"])
+def test_answers_do_not_depend_on_the_batch(world, dtype, fine_scan):
+    """A query's answer has the same bits asked alone as in a batch, and
+    its values are ``(xx + yy) − 2·Σ x·y`` evaluated row-wise for that
+    query alone: the exact rescore takes one row-wise dot a candidate,
+    never a batched product whose rounding follows the batch's shape (on
+    the card, a served answer padded to its bucket differed from the same
+    query asked alone). f32 answers have the same bits under both
+    schedules."""
+    _, Q, _, _, tidx, res = world
+    t = tidx[dtype]
+    x = torch.from_numpy(Q)
+    v, i = search_ivf_flat(res, t, x, K, n_probes=4, fine_scan=fine_scan)
+    live = t.ids >= 0
+    row_of = torch.full((t.n_rows,), -1, dtype=torch.long)
+    row_of[t.ids[live].long()] = torch.nonzero(live).squeeze(1)
+    for q in range(0, NQ, 7):
+        xq = x[q:q + 1]
+        vq, iq = search_ivf_flat(res, t, xq, K, n_probes=4,
+                                 fine_scan=fine_scan)
+        assert torch.equal(vq[0], v[q]) and torch.equal(iq[0], i[q])
+        r = row_of[i[q].long()]
+        dot = (t.slab[r][None] * xq[:, None, :]).sum(2)
+        d2 = ((xq * xq).sum(1, keepdim=True) + t.yy_slab[r][None]) \
+            - 2.0 * dot
+        assert torch.equal(d2.clamp_min(0.0)[0], v[q]), q
+    if dtype == "f32":
+        other = "query" if fine_scan == "list" else "list"
+        v2, i2 = search_ivf_flat(res, t, x, K, n_probes=4, fine_scan=other)
+        assert torch.equal(v, v2) and torch.equal(i, i2)
 
 
 def test_port_build_recall_matches_reference(world):

@@ -13,13 +13,14 @@ import torch
 
 import raft_tpu_torch
 from raft_tpu_torch import distance
-from raft_tpu_torch.ann import IvfFlatIndex, build_ivf_flat, search_ivf_flat
+from raft_tpu_torch.ann import (IvfFlatIndex, IvfPqIndex, build_ivf_flat,
+                                build_ivf_pq, search_ivf_flat, search_ivf_pq)
 from raft_tpu_torch.cluster import kmeans_fit, kmeans_predict
 from raft_tpu_torch.core import DeviceError, DeviceResources
 from raft_tpu_torch.distance.knn_fused import knn_fused
 from raft_tpu_torch.core.sparse_types import COOMatrix
 from raft_tpu_torch.models import SpectralEmbedding
-from raft_tpu_torch.ops import fine_scan, fused_l2_topk, sddmm, spmv
+from raft_tpu_torch.ops import fine_scan, fused_l2_topk, pq_scan, sddmm, spmv
 from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
 from raft_tpu_torch.runtime import knn_query
 from raft_tpu_torch.serving import ServingEngine
@@ -38,10 +39,13 @@ def _forbidden(name: str) -> bool:
 
 def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.distance.knn_fused, "
-            "raft_tpu_torch.ann.ivf_flat, raft_tpu_torch.cluster.kmeans, "
+            "raft_tpu_torch.ann.ivf_flat, raft_tpu_torch.ann.ivf_pq, "
+            "raft_tpu_torch.cluster.kmeans, "
             "raft_tpu_torch.mutable.layout, "
             "raft_tpu_torch.observability.costmodel, "
-            "raft_tpu_torch.ops.fine_scan, raft_tpu_torch.ops.spmv, "
+            "raft_tpu_torch.observability.quality, "
+            "raft_tpu_torch.ops.fine_scan, raft_tpu_torch.ops.pq_scan, "
+            "raft_tpu_torch.ops.spmv, "
             "raft_tpu_torch.ops.sddmm, raft_tpu_torch.sparse.tiled, "
             "raft_tpu_torch.sparse.linalg, raft_tpu_torch.sparse.matrix, "
             "raft_tpu_torch.sparse.solver.lanczos, raft_tpu_torch.spectral, "
@@ -105,6 +109,10 @@ def test_entry_points_default_to_cuda():
         distance.prepare_knn_index(y, db_dtype="int8")
     with pytest.raises(DeviceError):
         ServingEngine(y, k=4)
+    with pytest.raises(DeviceError):
+        build_ivf_pq(None, y, 4, pq_bits=4, max_iter=2)
+    with pytest.raises(DeviceError):
+        ServingEngine(y, k=4, algorithm="ivf_pq", pq_bits=4)
     # the same calls on the CPU, by argument
     assert distance.prepare_knn_index(y, device="cpu").device.type == "cpu"
     v, i = knn_fused(y[:8], y, 4, device="cpu")
@@ -115,6 +123,14 @@ def test_entry_points_default_to_cuda():
     assert isinstance(idx, IvfFlatIndex) and idx.device.type == "cpu"
     v, i = search_ivf_flat(None, idx, y[:8], 4, n_probes=2)
     assert v.device.type == "cpu" and i.shape == (8, 4)
+    pq = build_ivf_pq(DeviceResources(device="cpu"), y, 4, pq_bits=4,
+                      max_iter=2)
+    assert isinstance(pq, IvfPqIndex) and pq.device.type == "cpu"
+    assert pq.codes.device.type == pq.codebooks.device.type == "cpu"
+    v, i = search_ivf_pq(None, pq, y[:8], 4, n_probes=2, pq_scan="pq")
+    assert v.device.type == "cpu" and i.shape == (8, 4)
+    with pytest.raises(DeviceError):
+        search_ivf_pq(DeviceResources(), pq, y[:8], 4)
     q8 = distance.prepare_knn_index(y, db_dtype="int8", device="cpu")
     v, i = knn_query(None, q8, y[:8], 4)
     assert v.device.type == "cpu" and i.shape == (8, 4)
@@ -180,6 +196,13 @@ def test_cpu_path_launches_no_kernel():
     search_ivf_flat(res, ivf, y[:16], 5, n_probes=8)       # exact plane
     assert fused_l2_topk.LAUNCHES == 0
     assert fine_scan.LAUNCHES == fine_scan.LAUNCHES_Q8 == 0
+    for bits in (8, 4):
+        pq = build_ivf_pq(res, y, 8, pq_bits=bits, max_iter=2)
+        for scan in ("pq", "flat"):
+            search_ivf_pq(res, pq, y[:16], 5, n_probes=3, pq_scan=scan)
+        search_ivf_pq(res, pq, y[:16], 5, n_probes=8)      # exact plane
+    assert pq_scan.LAUNCHES_8BIT == pq_scan.LAUNCHES_4BIT == 0
+    assert fused_l2_topk.LAUNCHES == 0
     A = _ring().to("cpu")
     SpectralEmbedding(n_components=2, tiled=True).fit(A)
     t = sparse_linalg.prepare_spmv(A)

@@ -507,11 +507,84 @@ def test_ivf_flat_plane_matches_search(data):
         for fut, x in zip(futs, xs):
             v, i = fut.result(timeout=WAIT)
             rv, ri = search_ivf_flat(res, ivf, x, K)
-            np.testing.assert_allclose(v, rv.numpy(), rtol=1e-6, atol=1e-6)
-            for q in range(x.shape[0]):
-                assert set(i[q].tolist()) == set(ri[q].tolist())
+            # the bits of the query asked alone, whatever bucket and
+            # schedule the engine's batch took
+            np.testing.assert_array_equal(v, rv.numpy())
+            np.testing.assert_array_equal(i, ri.numpy())
     finally:
         eng.stop()
+
+
+def test_ivf_pq_plane_matches_search(data):
+    """An ivf_pq engine answers each request with the bits of
+    search_ivf_pq asked the same query alone, through a rebuild."""
+    from raft_tpu_torch.ann import IvfPqIndex, build_ivf_pq, search_ivf_pq
+    from raft_tpu_torch.ops import pq_scan
+
+    y, _ = data
+    res = DeviceResources(device="cpu")
+    pq = build_ivf_pq(res, y, 16, pq_bits=8, n_probes=4, max_iter=4)
+    eng = _engine(pq, algorithm="ivf_pq", res=res).start()
+    try:
+        assert eng.stats()["warmed_buckets"] == 2
+        assert eng.stats()["builds_after_warmup"] == 0
+        launches = (pq_scan.LAUNCHES_8BIT, pq_scan.LAUNCHES_4BIT)
+        xs = _queries(13, (2, 6, 9, 1, 16))
+        futs = [eng.submit(x) for x in xs]
+        assert eng.flush(WAIT)
+        for fut, x in zip(futs, xs):
+            v, i = fut.result(timeout=WAIT)
+            rv, ri = search_ivf_pq(res, pq, x, K)
+            assert np.array_equal(v, rv.numpy())
+            assert np.array_equal(i, ri.numpy())
+        assert (pq_scan.LAUNCHES_8BIT, pq_scan.LAUNCHES_4BIT) == launches
+        # a rebuild from raw rows keeps the plane: pq_bits and n_probes
+        eng.update_index(y[:2000], block=True)
+        snap = eng.snapshot.index
+        assert isinstance(snap, IvfPqIndex) and snap.pq_bits == 8
+        x = xs[2]
+        v, i = eng.query(x, timeout=WAIT)
+        rv, ri = search_ivf_pq(res, snap, x, K)
+        assert np.array_equal(v, rv.numpy()) and np.array_equal(i, ri.numpy())
+    finally:
+        eng.stop()
+
+
+def test_ivf_pq_plane_matches_reference_engine(monkeypatch):
+    """At the reference test's shape (tests/test_ivf_pq.py:
+    test_serving_snapshot_swap), the port's engine over the reference's
+    snapshot index, carried across, serves the JAX engine's answers. The
+    widen rung is capped at 1 in both engines: the JAX engine's warm-up
+    then compiles one ADC program per schedule rung, not three."""
+    monkeypatch.setenv("RAFT_TPU_ANN_PQ_WIDEN", "1")
+    from raft_tpu.serving import ServingEngine as JaxEngine
+    from raft_tpu_torch.ann import IvfPqIndex
+    from test_torch_ivf_pq import _assert_same, _dup_data, export
+
+    base, X = _dup_data()
+    r = np.random.default_rng(3)
+    Q = (base[r.choice(base.shape[0], 16, replace=False)]
+         + r.normal(0, 0.02, (16, X.shape[1]))).astype(np.float32)
+    k = 5
+    jeng = JaxEngine(X, k=k, algorithm="ivf_pq", n_lists=96, n_probes=4,
+                     pq_bits=8, buckets=(16,))
+    jeng.start()
+    try:
+        jv, ji = jeng.submit(Q).result(timeout=60)
+        jidx = jeng._store.current().index
+    finally:
+        jeng.stop()
+    res = DeviceResources(device="cpu")
+    eng = ServingEngine(IvfPqIndex.from_numpy(export(jidx), device="cpu"),
+                        k=k, algorithm="ivf_pq", n_probes=4, buckets=(16,),
+                        flush_interval_s=0.005, res=res).start()
+    try:
+        v, i = eng.submit(Q).result(timeout=WAIT)
+    finally:
+        eng.stop()
+    # values to f32 tolerance with the expanded form's cancellation floor,
+    # ids equal up to a tie proven from the values (test_torch_ivf_pq.py)
+    _assert_same(v, i, np.asarray(jv), np.asarray(ji), Q, X)
 
 
 @pytest.mark.parametrize("option,value,item", [
@@ -529,9 +602,12 @@ def test_left_out_options_raise(data, option, value, item):
 
 
 def test_ivf_pq_and_mutations_raise(data):
-    _, idx = data
-    with pytest.raises(NotImplementedError, match="K5"):
-        ServingEngine(idx, k=K, algorithm="ivf_pq")
+    """The IVF-PQ plane is served (see below); its mutable plane, like
+    every upsert and delete, is not ported yet (ROADMAP item 10)."""
+    y, idx = data
+    with pytest.raises(NotImplementedError, match="item 10"):
+        ServingEngine(y, k=K, algorithm="ivf_pq", mutable=True,
+                      device="cpu")
     eng = _engine(idx)
     for call in (lambda: eng.upsert([1], np.ones((1, D), np.float32)),
                  lambda: eng.delete([1])):

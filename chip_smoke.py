@@ -109,10 +109,50 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bit-identical. Then ``update_index`` to a second seeded Y while 8
    clients keep submitting: every response must equal the single-shot
    answer of exactly one generation.
-11. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf``,
-   ``ivf_pq`` and ``spectral`` lines, the total wall time, the card's name
-   and power limit, and the result line ``{"ok": true, "device":
-   {...}}``.
+11. Pairwise distances and stats (``pairwise_stats_phase``). (a) K8
+   (``ops.unexpanded``) against its twin for all ten unexpanded metrics
+   (Minkowski at p = 3; KL and JS on non-negative row-normalised inputs,
+   Hamming on rounded ones) at 256 queries × 1,000,000 rows × 128 of
+   N(0, 1) from a seeded generator (``bench_unexpanded.py:48-55``'s data,
+   the first 256 rows as queries), at config 1's 5,000 × 1,000 × 50, at
+   333 × 4,097 × 61 and there with inf, −inf and NaN planted: Linf and
+   Hamming bit for bit, the others within ``ops.unexpanded.error_bound``
+   ((d + 2 + U)·2⁻²⁴·Σ|term| carried through the finalize, U the ulp of
+   logf/powf), non-finite entries equal in kind; the worst diff/bound is
+   printed. (b) K8 at 2048 × 1,000,000 × 128 for l1, linf, canberra and
+   hamming (CUDA events), held to its twin the same way, beside the twin
+   (once), the bound (FP32 instructions a term at 132 × 128 × 1.98 GHz, the
+   SFU reciprocal for canberra, or the bytes) and ``torch.cdist`` at p = 1
+   and p = ∞, and ``torch.cdist(p=0) / d`` for hamming (held once to the
+   twin within 2⁻²⁴ per entry); canberra's library time is null, since no
+   PyTorch call computes it. (c) BASELINE config 1 (``bench_configs.py:65-72``):
+   ``pairwise_distance(res, X, X[:1000])`` on make_blobs 5,000 × 50 (8
+   clusters), euclidean (cuBLAS) and l1 (K8, one launch), host-clock
+   median of 20 and GB/s of the [5,000, 1,000] f32 matrix, values within
+   the f32 bound of an f64 ``torch.cdist``. (d) K9 (``ops.histogram``) bit
+   for bit against its twin and ``torch.bincount`` at
+   ``bench_prims.py:125-130``'s 100,000 × 8 bins (64), on the batch-1
+   bins of ``value_histogram`` over make_blobs 100,000 × 128 (12.8 M
+   values) and on per-column bins of the 1,000,000 × 128 matrix (64
+   bins), each timed beside the twin, the bound and ``torch.bincount``;
+   and, untimed, at 3 × 786,437 bins (1024 bins), whose 65,537 column
+   slabs are more than a grid's 65,535 rows.
+   (e) The stats path on make_blobs 100,000 × 128 (16 clusters,
+   ``bench_prims.py:44-46``), the K8/K9 counts zeroed just before and read
+   after (both must be > 0), and first, outside the counts, K8 held to its
+   twin at the silhouette's chunks (the first 1,024 and the last 672 rows
+   against all 100,000, l1, where d = 128 leaves a ragged 32-column
+   tile): moments (relative 1e-4 of f64), ``KMeans(16)
+   .fit``, ARI (equal to a numpy evaluation to 1e-12) and V-measure
+   against the true labels, ``stats.histogram`` of the labels (K9, equal
+   to ``torch.bincount``), ``silhouette_score_batched`` with sqeuclidean
+   and l1 (K8, 98 chunks of 1024 × 100,000 × 128), each within 1e-4 of
+   the same call in f64, and trustworthiness at n = 5,000 against a
+   seeded 128 → 16 projection, within 1e-4 of f64.
+12. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf``,
+   ``ivf_pq``, ``spectral`` and ``pairwise_stats`` lines, the total wall
+   time, the card's name and power limit, and the result line ``{"ok":
+   true, "device": {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -333,27 +373,6 @@ def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
     t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
     return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
                                        else "bytes")
-
-
-def ivf_unported_bounds_ms():
-    """Bounds of the unported K8 and K9 at the shapes the JAX package's
-    benchmarks fix (bytes at the HBM rate, operations at the f32 rate off
-    the tensor cores, the larger of the two). K8: BASELINE config 1, L1
-    over 5,000 × 50 (sub, abs, add per term). K9: bench_prims.py:44-46's
-    X, a [100,000 × 128] int32 bin matrix, column-batched as
-    ``stats.histogram`` takes it, 64 bins: the bins read once and the
-    [64, 128] int32 counts written once (one add per bin value)."""
-    def bound(ops, nbytes):
-        return 1e3 * max(ops / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S)
-
-    m8, d8 = 5000, 50
-    r9, c9, b9 = 100_000, 128, 64
-    return {
-        "K8 unexpanded_pairwise_tiled L1 (5000 x 50)":
-            bound(3.0 * m8 * m8 * d8, 2 * m8 * d8 * 4 + m8 * m8 * 4),
-        "K9 histogram_blocked (100000 x 128 int32, 64 bins)":
-            bound(float(r9 * c9), r9 * c9 * 4 + b9 * c9 * 4),
-    }
 
 
 def compare_k4(kern, twin, x, ymax: float, q8: bool):
@@ -1764,6 +1783,404 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     return report, entries
 
 
+# ---------------------------------------------------- pairwise and stats
+#: FP32 instruction issue rate of the card: 132 SMs × 128 lanes × 1.98 GHz
+H100_FP32_RATE = 132 * 128 * 1.98e9
+#: the SFU's reciprocal rate, an eighth of the FP32 issue rate
+H100_SFU_RATE = H100_FP32_RATE / 8
+#: phase 11a/b: bench_unexpanded.py:48-55's shape, and its four metrics
+K8_FULL = (2048, 1_000_000, 128)
+K8_TIMED = ("l1", "linf", "canberra", "hamming")
+#: phase 11e: bench_prims.py:44-46's make_blobs (rows, d, clusters)
+STATS_SHAPE = (100_000, 128, 16)
+
+
+def k8_bound_ms(name: str, n: int, m: int, d: int):
+    """Least time for an [n, m] unexpanded distance matrix: the x and y
+    rows read and the output written once, against the FP32 instructions
+    each of the n·m·d terms needs at the least (l1: FSUB, FADD with |·|;
+    linf: FSUB, a NaN-propagating max; hamming: a compare, a predicated
+    add) or, for canberra, the one SFU reciprocal of its quotient."""
+    terms = n * m * d
+    if name == "canberra":
+        t_ops = terms / H100_SFU_RATE
+    else:
+        t_ops = 2.0 * terms / H100_FP32_RATE
+    t_bytes = ((n + m) * d * 4 + n * m * 4) / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def k9_bound_ms(n: int, batch: int, n_bins: int):
+    """Least time for K9: the bins read and the counts written once."""
+    return 1e3 * (n * batch + n_bins * batch) * 4 / H100_BYTES_PER_S, \
+        "bytes"
+
+
+def k8_hold(tag: str, x, y, t, p: float, out, ref, rows: int = 256):
+    """K8's ``out`` against its twin's ``ref``: Linf and Hamming bit for
+    bit; the others within ``ops.unexpanded.error_bound`` per entry
+    (computed in row blocks of ``rows``); non-finite entries equal in
+    kind. Returns (max |diff| over finite entries, worst diff/bound)."""
+    import torch
+    from raft_tpu_torch.distance import DistanceType
+    from raft_tpu_torch.ops import unexpanded as k8
+
+    both_nan = out.isnan() & ref.isnan()
+    check(bool((out.isnan() == ref.isnan()).all()),
+          f"{tag}: NaN entries differ")
+    fin = torch.isfinite(ref)
+    check(bool(((out == ref) | both_nan | fin).all()),
+          f"{tag}: infinite entries differ")
+    diff = torch.where(fin, (out - ref).abs(), 0.0)
+    if t in (DistanceType.Linf, DistanceType.HammingUnexpanded):
+        check(bool((diff == 0).all()), f"{tag}: not bit-identical "
+              f"(max |diff| {diff.max().item()})")
+        return 0.0, 0.0
+    worst = 0.0
+    for r0 in range(0, x.shape[0], rows):
+        sl = slice(r0, r0 + rows)
+        b = k8.error_bound(x[sl], y, t, p, ref[sl])
+        d_ = diff[sl]
+        ok = (d_ <= b) | ~fin[sl]
+        check(bool(ok.all()), f"{tag}: kernel and twin differ beyond the "
+              f"bound (max diff/bound "
+              f"{float((d_ / b.clamp_min(1e-30))[fin[sl]].max())})")
+        worst = max(worst, float(torch.where(
+            fin[sl] & (b > 0), d_ / b.clamp_min(1e-30), 0.0).max()))
+    torch.cuda.synchronize()
+    return diff.max().item(), worst
+
+
+def _k8_inputs(x, y, name):
+    """KL/JS take non-negative, row-normalised inputs."""
+    if name in ("kl_divergence", "jensenshannon"):
+        x, y = x.abs(), y.abs()
+        return x / x.sum(1, keepdim=True), y / y.sum(1, keepdim=True)
+    return x, y
+
+
+K8_METRICS = ("l1", "linf", "sqeuclidean_unexpanded", "euclidean_unexpanded",
+              "minkowski", "canberra", "hamming", "braycurtis",
+              "kl_divergence", "jensenshannon")
+
+
+def _k8_type(name):
+    from raft_tpu_torch.distance import METRIC_NAMES, DistanceType
+
+    return {"sqeuclidean_unexpanded": DistanceType.L2Unexpanded,
+            "euclidean_unexpanded": DistanceType.L2SqrtUnexpanded
+            }.get(name) or METRIC_NAMES[name]
+
+
+def k8_versus_twin(tag: str, x, y, workspace: int = 4 << 30):
+    """All ten metrics through K8 and its twin on (x, y); Minkowski at
+    p = 3. Returns {metric: {max_abs_err, worst_ratio}}."""
+    import torch
+    from raft_tpu_torch.ops import unexpanded as k8
+
+    rows = {}
+    for name in K8_METRICS:
+        t, p = _k8_type(name), 3.0
+        xs, ys = _k8_inputs(x, y, name)
+        if name == "hamming":
+            xs, ys = xs.round(), ys.round()
+        out = k8.unexpanded_pairwise_tiled(xs, ys, t, p)
+        ref = k8.unexpanded_pairwise_tiled_ref(xs, ys, t, p, workspace)
+        err, worst = k8_hold(f"K8 {tag} {name}", xs, ys, t, p, out, ref)
+        rows[name] = {"max_abs_err": err, "worst_diff_over_bound": worst}
+        del out, ref
+    torch.cuda.empty_cache()
+    print(f"K8 vs twin {tag} {tuple(x.shape)} × {tuple(y.shape)}: "
+          f"{json.dumps(rows)}", flush=True)
+    return rows
+
+
+def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
+                         stats_shape=STATS_SHAPE, hist_rows: int = 1_000_000,
+                         trust_n: int = 5000):
+    """Phase 11 (see the module doc): K8 against its twin at ``check_rows``
+    × full[1] × full[2] and at config 1's shape, K8 timed at ``full``, config
+    1, K9 against its twin and ``torch.bincount``, and the stats path on
+    make_blobs ``stats_shape``. Returns (the ``pairwise_stats`` report,
+    the K8/K9 ``kernels`` entries)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch import stats
+    from raft_tpu_torch.distance import DistanceType, pairwise_distance
+    from raft_tpu_torch.models import KMeans
+    from raft_tpu_torch.ops import histogram as k9
+    from raft_tpu_torch.ops import unexpanded as k8
+    from raft_tpu_torch.random import make_blobs
+
+    report = {}
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(11)
+    n_full, m_full, d_full = full
+    Y = torch.randn(m_full, d_full, device="cuda", generator=gen)
+
+    # ---- 11a: K8 against its twin, all ten metrics ----
+    n0 = k8.LAUNCHES
+    checks = {"main": k8_versus_twin("main", Y[:check_rows], Y)}
+    Xc, _ = make_blobs(res, 0, 5000, 50, n_clusters=8)
+    checks["config1"] = k8_versus_twin("config1", Xc, Xc[:1000])
+    xo = torch.randn(333, 61, device="cuda", generator=gen)
+    yo = torch.randn(4097, 61, device="cuda", generator=gen)
+    checks["odd"] = k8_versus_twin("odd", xo, yo)
+    xo[3, 5], xo[7, 0], xo[9, 60] = float("inf"), float("-inf"), float("nan")
+    yo[11, 2], yo[12, 40] = float("nan"), float("inf")
+    yo[13] = float("inf")
+    checks["nonfinite"] = k8_versus_twin("nonfinite", xo, yo)
+    del xo, yo
+    k8.LAUNCHES = n0                  # comparison launches do not count
+    max_err = max(r["max_abs_err"] for c in checks.values()
+                  for r in c.values())
+    report["k8_checks"] = checks
+
+    # ---- 11b: K8 at full width, timed ----
+    Xf = Y[:n_full]
+    k8_rows = {}
+    for name in K8_TIMED:
+        t = _k8_type(name)
+        xs, ys = (Xf.round(), Y.round()) if name == "hamming" else (Xf, Y)
+        out = k8.unexpanded_pairwise_tiled(xs, ys, t)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ref = k8.unexpanded_pairwise_tiled_ref(xs, ys, t, 2.0, 4 << 30)
+        torch.cuda.synchronize()
+        plain = 1e3 * (time.perf_counter() - t0)
+        err, worst = k8_hold(f"K8 full {name}", xs, ys, t, 2.0, out, ref,
+                             rows=128)
+        del out
+        p_lib = {"l1": 1.0, "linf": float("inf"), "hamming": 0.0}.get(name)
+        lib_fn = None if p_lib is None else (
+            lambda: torch.cdist(xs, ys, p=p_lib) / d_full if name == "hamming"
+            else torch.cdist(xs, ys, p=p_lib))
+        if name == "hamming":
+            lib_err = lib_fn().sub_(ref).abs_().max().item()
+            check(lib_err <= 2.0 ** -24, f"cdist(p=0) / d off the hamming "
+                  f"twin by {lib_err}")
+        del ref
+        torch.cuda.empty_cache()
+        ms = cuda_ms(lambda: k8.unexpanded_pairwise_tiled(xs, ys, t), 3)
+        bound, by = k8_bound_ms(name, n_full, m_full, d_full)
+        lib = None if lib_fn is None else library_ms(lib_fn, 2)
+        k8_rows[name] = {"ms": ms, "plain_ms": plain, "bound_ms": bound,
+                         "bound_by": by, "library_ms": lib,
+                         "max_abs_err": err, "worst_diff_over_bound": worst}
+        if name == "hamming":
+            k8_rows[name]["library_call"] = "torch.cdist(p=0) / d"
+            k8_rows[name]["library_max_abs_diff_vs_twin"] = lib_err
+        if lib is None:
+            k8_rows[name]["library_null"] = (
+                "no PyTorch call computes this metric")
+        torch.cuda.empty_cache()
+        print(f"K8 at {n_full} × {m_full} × {d_full} {name}: "
+              f"{json.dumps(k8_rows[name])}", flush=True)
+    k8.LAUNCHES = n0
+    del Xf
+
+    # ---- 11c: BASELINE config 1, pairwise_distance(res, X, X[:1000]) ----
+    c1 = {}
+    Xq = Xc[:1000]
+    x64, q64 = Xc.double(), Xq.double()
+    for metric, p_ in (("euclidean", 2.0), ("l1", 1.0)):
+        k8.LAUNCHES = 0
+        out = pairwise_distance(res, Xc, Xq, metric=metric)
+        torch.cuda.synchronize()
+        launches = k8.LAUNCHES
+        exact = torch.cdist(x64, q64, p=p_)
+        if metric == "euclidean":
+            e2 = 4 * (Xc.shape[1] + 2) * 2.0 ** -24 * (
+                (x64 * x64).sum(1)[:, None] + (q64 * q64).sum(1)[None, :])
+            bound = e2 / torch.maximum(exact, e2.sqrt()) + 2.0 ** -23 * exact
+        else:
+            bound = (Xc.shape[1] + 2) * 2.0 ** -24 * exact
+        diff = (out.double() - exact).abs()
+        check(bool((diff <= bound).all()), f"config1 {metric}: off the f64 "
+              f"cdist by {diff.max().item()}")
+        times = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pairwise_distance(res, Xc, Xq, metric=metric)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        ms = 1e3 * statistics.median(times[1:])
+        c1[metric] = {"ms": ms, "gbps": 5000 * 1000 * 4 / (ms * 1e-3) / 1e9,
+                      "device_ms": cuda_ms(lambda: pairwise_distance(
+                          res, Xc, Xq, metric=metric), 20),
+                      "k8_launches": launches,
+                      "max_abs_err_vs_f64": diff.max().item()}
+    check(c1["l1"]["k8_launches"] == 1 and c1["euclidean"]["k8_launches"]
+          == 0, f"config1: K8 launches {c1}")
+    bound, by = k8_bound_ms("l1", 5000, 1000, 50)
+    lib = library_ms(lambda: torch.cdist(Xc, Xq, p=1.0), 20)
+    c1["l1"].update({"bound_ms": bound, "bound_by": by, "library_ms": lib})
+    k8.LAUNCHES = 0
+    report["config1"] = c1
+    print(f"config1 5000 × 1000 × 50: {json.dumps(c1)}", flush=True)
+    del Xc, Xq, x64, q64
+
+    # ---- 11d: K9 against its twin and torch.bincount ----
+    def k9_case(tag, bins, n_bins):
+        n, batch = bins.shape
+        flat = (torch.arange(batch, device="cuda")[None, :] * n_bins
+                + bins).reshape(-1)
+        out = k9.histogram_blocked(bins, n_bins)
+        ref = k9.histogram_blocked_ref(bins, n_bins)
+        lib = torch.bincount(flat, minlength=batch * n_bins).reshape(
+            batch, n_bins).T.to(torch.int32)
+        check(torch.equal(out, ref) and torch.equal(out, lib),
+              f"K9 {tag}: counts differ from the twin or bincount")
+        bound, by = k9_bound_ms(n, batch, n_bins)
+        row = {"shape": [n, batch, n_bins],
+               "ms": cuda_ms(lambda: k9.histogram_blocked(bins, n_bins), 20),
+               "plain_ms": cuda_ms(
+                   lambda: k9.histogram_blocked_ref(bins, n_bins), 3),
+               "bound_ms": bound, "bound_by": by,
+               "library_ms": library_ms(lambda: torch.bincount(
+                   flat, minlength=batch * n_bins), 20),
+               "max_abs_err": 0}
+        print(f"K9 {tag}: {json.dumps(row)}", flush=True)
+        return row
+
+    n0 = k9.LAUNCHES
+    k9_rows = {"bench_prims": k9_case("bench_prims", torch.randint(
+        0, 64, (100_000, 8), device="cuda", generator=gen,
+        dtype=torch.int32), 64)}
+    n_s, d_s, k_s = stats_shape
+    Xs, truth = make_blobs(res, 0, n_s, d_s, n_clusters=k_s)
+    vals = Xs.reshape(-1)
+    vh = stats.value_histogram(res, vals, 64)
+    lo, hi = vals.min(), vals.max()
+    vbins = ((vals - lo) / ((hi - lo) / 64)).to(torch.int32).clamp(0, 63)
+    check(torch.equal(vh, torch.bincount(vbins, minlength=64).to(
+        torch.int32)), "value_histogram differs from torch.bincount")
+    k9_rows["value_histogram"] = k9_case("value_histogram",
+                                         vbins[:, None].contiguous(), 64)
+    colb = ((Y[:hist_rows] + 4.0) * 8.0).to(torch.int32).clamp(0, 63)
+    k9_rows["main"] = k9_case("columns", colb, 64)
+    # more column slabs (12 columns each at 1024 bins) than grid rows
+    wide = torch.randint(-3, 1030, (3, 65537 * 12 - 7), device="cuda",
+                         generator=gen, dtype=torch.int32)
+    check(torch.equal(k9.histogram_blocked(wide, 1024),
+                      k9.histogram_blocked_ref(wide, 1024)),
+          f"K9 at {tuple(wide.shape)}, 1024 bins: counts differ from the twin")
+    del wide
+    via = stats.histogram(res, Y[:hist_rows], 64,
+                          binner=lambda v, row: ((v + 4.0) * 8.0).to(
+                              torch.int32))
+    check(torch.equal(via, k9.histogram_blocked_ref(colb, 64)),
+          "stats.histogram with a binner differs from K9's twin")
+    k9.LAUNCHES = n0
+    del colb, via, vbins, vals, Y
+    torch.cuda.empty_cache()
+
+    # ---- 11e: the stats path end to end, counts zeroed just before ----
+    # K8 at the l1 silhouette's own chunk shapes, held to its twin first
+    last = n_s - (n_s - 1) // 1024 * 1024
+    sil_chunks = {}
+    for tag, q in (("first", Xs[:1024]), ("last", Xs[n_s - last:])):
+        out = pairwise_distance(res, q, Xs, metric="l1")
+        ref = k8.unexpanded_pairwise_tiled_ref(q, Xs, DistanceType.L1, 2.0,
+                                               4 << 30)
+        err, worst = k8_hold(f"K8 silhouette chunk {tag}", q, Xs,
+                             DistanceType.L1, 2.0, out, ref)
+        sil_chunks[tag] = {"rows": q.shape[0], "max_abs_err": err,
+                           "worst_diff_over_bound": worst}
+        del out, ref
+    checks["silhouette_l1_chunks"] = sil_chunks
+    max_err = max(max_err, *(r["max_abs_err"] for r in sil_chunks.values()))
+    print(f"K8 vs twin at the silhouette chunks: {json.dumps(sil_chunks)}",
+          flush=True)
+    k8.LAUNCHES = k9.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t_path = time.perf_counter()
+    path = {}
+    mu, var = stats.meanvar(res, Xs)
+    lo_, hi_ = stats.minmax(res, Xs)
+    C = stats.cov(res, Xs, stable=True)
+    x64 = Xs.double()
+    mom_err = max(float((a.double() - b).abs().max() / b.abs().max())
+                  for a, b in ((mu, x64.mean(0)),
+                               (var, x64.var(0, correction=0)),
+                               (C, torch.cov(x64.T))))
+    check(mom_err <= 1e-4 and torch.equal(lo_, Xs.amin(0))
+          and torch.equal(hi_, Xs.amax(0)),
+          f"moments off the f64 evaluation by {mom_err} (relative)")
+    path["moments_max_rel_err_vs_f64"] = mom_err
+    t0 = time.perf_counter()
+    km = KMeans(k_s, res=res).fit(Xs)
+    torch.cuda.synchronize()
+    path["kmeans_fit_s"] = time.perf_counter() - t0
+    path["kmeans_inertia"] = km.inertia_
+    path["kmeans_n_iter"] = km.n_iter_
+    labels = km.labels_
+    path["ari"] = stats.adjusted_rand_index(res, truth, labels)
+    path["v_measure"] = stats.v_measure(res, truth, labels)
+    cm = np.zeros((k_s, k_s))
+    np.add.at(cm, (truth.cpu().numpy(), labels.cpu().numpy()), 1)
+
+    def c2(v):
+        return v * (v - 1) / 2.0
+
+    sc, ca, cb = c2(cm).sum(), c2(cm.sum(1)).sum(), c2(cm.sum(0)).sum()
+    ari_np = (sc - ca * cb / c2(n_s)) / (0.5 * (ca + cb) - ca * cb / c2(n_s))
+    check(abs(path["ari"] - ari_np) <= 1e-12 and 0.0 <= path["v_measure"]
+          <= 1.0 + 1e-12, f"ari {path['ari']} against numpy {ari_np}")
+    h = stats.histogram(res, labels, k_s)
+    check(torch.equal(h, torch.bincount(labels.long(), minlength=k_s).to(
+        torch.int32)), "histogram of the labels differs from bincount")
+    for metric in ("sqeuclidean", "l1"):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s32 = stats.silhouette_score_batched(res, Xs, labels, metric=metric)
+        sec = time.perf_counter() - t0
+        s64 = stats.silhouette_score_batched(res, x64, labels, metric=metric)
+        check(abs(s32 - s64) <= 1e-4, f"silhouette {metric}: {s32} against "
+              f"f64 {s64}")
+        path[f"silhouette_{metric}"] = {"value": s32, "f64": s64, "s": sec}
+    P = torch.randn(d_s, 16, device="cuda", generator=gen) / 4.0
+    E = Xs[:trust_n] @ P
+    tw = stats.trustworthiness_score(res, Xs[:trust_n], E, 5)
+    tw64 = stats.trustworthiness_score(res, x64[:trust_n], E.double(), 5)
+    check(abs(tw - tw64) <= 1e-4 and 0.0 <= tw <= 1.0,
+          f"trustworthiness {tw} against f64 {tw64}")
+    path["trustworthiness"] = {"value": tw, "f64": tw64}
+    torch.cuda.synchronize()
+    path["wall_s"] = time.perf_counter() - t_path
+    path["launches"] = {"K8": k8.LAUNCHES, "K9": k9.LAUNCHES}
+    check(k8.LAUNCHES > 0 and k9.LAUNCHES > 0,
+          f"the stats path launched K8 {k8.LAUNCHES}, K9 {k9.LAUNCHES} times")
+    report["stats_path"] = path
+    print(f"stats path: {json.dumps(path)}", flush=True)
+    del Xs, x64, E
+
+    main8 = k8_rows["l1"]
+    k8_entry = {"name": "unexpanded_pairwise_tiled", "route": "cuda",
+                "source": "raft_tpu_torch/ops/csrc/unexpanded.cu",
+                "replaces": "raft_tpu/ops/unexpanded_pallas.py:261",
+                "launches": path["launches"]["K8"],
+                **{k: main8[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms")},
+                "max_abs_err": max_err, "shape": list(full),
+                "metrics": {k: v for k, v in k8_rows.items() if k != "l1"},
+                "config1_l1": c1["l1"]}
+    main9 = k9_rows["main"]
+    k9_entry = {"name": "histogram_blocked", "route": "cuda",
+                "source": "raft_tpu_torch/ops/csrc/histogram.cu",
+                "replaces": "raft_tpu/ops/histogram_pallas.py:47",
+                "launches": path["launches"]["K9"],
+                **{k: main9[k] for k in ("ms", "plain_ms", "bound_ms",
+                                         "bound_by", "library_ms",
+                                         "max_abs_err", "shape")},
+                "bench_prims": k9_rows["bench_prims"],
+                "value_histogram": k9_rows["value_histogram"]}
+    report["k8"], report["k9"] = k8_rows, k9_rows
+    return report, [k8_entry, k9_entry]
+
+
 def main() -> int:
     import torch
 
@@ -1782,7 +2199,9 @@ def main() -> int:
     from raft_tpu_torch.ops import _build
     from raft_tpu_torch.ops import fine_scan as k4
     from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import histogram as k9
     from raft_tpu_torch.ops import pq_scan as k5
+    from raft_tpu_torch.ops import unexpanded as k8
     from raft_tpu_torch.random import make_blobs
 
     t_start = time.perf_counter()
@@ -1793,13 +2212,15 @@ def main() -> int:
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
     _build.build_all(["fused_l2_topk", "fine_scan", "pq_scan", "spmv",
-                      "sddmm"])
+                      "sddmm", "unexpanded", "histogram"])
     k1._launcher()
     k1._launcher_q8()
     k4._launcher()
     k5._launcher()
     _build.load("spmv")
     _build.load("sddmm")
+    k8._launcher()
+    k9._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
@@ -2022,7 +2443,6 @@ def main() -> int:
     data = ann_data(res, N_INDEX, N_QUERIES)
     ivf, k4_entries = ivf_phase(res, N_INDEX, N_QUERIES, IVF_LISTS,
                                 data=data)
-    bounds.update(ivf_unported_bounds_ms())
     torch.cuda.empty_cache()
     ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS)
     del data
@@ -2030,16 +2450,22 @@ def main() -> int:
 
     # ---- phases 7–9: the spectral path ----
     spectral, sparse_entries = spectral_phase(res)
+    torch.cuda.empty_cache()
+
+    # ---- phase 11: pairwise distances and stats ----
+    pairwise_stats, k89_entries = pairwise_stats_phase(res)
     print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
     print(json.dumps({"spectral": spectral}), flush=True)
+    print(json.dumps({"pairwise_stats": pairwise_stats}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": [entry, k2_entry, *k4_entries,
-                                  *k5_entries, *sparse_entries]}),
+                                  *k5_entries, *sparse_entries,
+                                  *k89_entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

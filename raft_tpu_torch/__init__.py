@@ -21,12 +21,16 @@ scopes of ``resilience``; the streamed sweeps, ``matrix.select_k``,
 fine-scan kernel K4, and the sparse layer with spectral embedding
 (``sparse``, ``spectral``, ``models.SpectralEmbedding``,
 ``random.rmat_rectangular_gen``): the tiled layouts, the Lanczos solver,
-and the SpMV/SpMM kernel K6 and SDDMM kernel K7.
+and the SpMV/SpMM kernel K6 and SDDMM kernel K7; pairwise distances of all
+19 metrics (``distance.pairwise_distance``) with the unexpanded-metric
+kernel K8, and ``stats`` (moments, histograms with the blocked kernel K9,
+clustering and embedding metrics) with the ``models.KMeans`` estimator.
 """
 
 from raft_tpu_torch import (ann, cluster, core, distance, linalg, matrix,
                             models, mutable, observability, ops, random,
-                            resilience, runtime, serving, sparse, spectral)
+                            resilience, runtime, serving, sparse, spectral,
+                            stats)
 from raft_tpu_torch.core import DeviceResources, device_resources
 
 __version__ = "0.1.0"
@@ -34,4 +38,4 @@ __version__ = "0.1.0"
 __all__ = ["ann", "cluster", "core", "distance", "linalg", "matrix",
            "models", "mutable", "observability", "ops", "random",
            "resilience", "runtime", "serving", "sparse", "spectral",
-           "DeviceResources", "device_resources", "__version__"]
+           "stats", "DeviceResources", "device_resources", "__version__"]

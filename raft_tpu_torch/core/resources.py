@@ -57,6 +57,29 @@ def as_f32(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def _is_f64(a) -> bool:
+    if isinstance(a, torch.Tensor):
+        return a.dtype == torch.float64
+    return np.asarray(a).dtype == np.float64
+
+
+def float_operands(device: torch.device, *arrays):
+    """``arrays`` (numpy, lists or tensors; None passes through) as
+    contiguous tensors on ``device``: all f64 when one of them is f64,
+    else all f32 (the reference's accumulator rule with x64 on)."""
+    dt = torch.float64 if any(_is_f64(a) for a in arrays
+                              if a is not None) else torch.float32
+    out = []
+    for a in arrays:
+        if a is not None and not isinstance(a, torch.Tensor):
+            a = np.array(a, dtype=np.float64 if dt == torch.float64
+                         else np.float32)
+            a = torch.from_numpy(a)
+        out.append(None if a is None
+                   else a.to(device=device, dtype=dt).contiguous())
+    return tuple(out)
+
+
 class DeviceResources:
     """The concrete per-device handle.
 
@@ -104,3 +127,15 @@ def device_resources() -> DeviceResources:
 def ensure_resources(res: Optional[DeviceResources]) -> DeviceResources:
     """``None`` means the process-default handle."""
     return res if res is not None else device_resources()
+
+
+def input_device(res, *arrays, device=None) -> torch.device:
+    """The device of an entry point that takes a handle: ``device`` when
+    given, else the first tensor's among ``arrays``, else the handle's
+    (the process-default handle's, on cuda, when ``res`` is None)."""
+    if device is not None:
+        return resolve_device(device)
+    for a in arrays:
+        if isinstance(a, torch.Tensor):
+            return a.device
+    return ensure_resources(res).device

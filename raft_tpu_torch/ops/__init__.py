@@ -15,6 +15,10 @@ from raft_tpu_torch.ops.fused_l2_topk import (
     fused_l2_group_topk_packed_ref,
     split_hi_lo,
 )
+from raft_tpu_torch.ops.histogram import (
+    histogram_blocked,
+    histogram_blocked_ref,
+)
 from raft_tpu_torch.ops.pq_scan import (
     pq_scan_list_major,
     pq_scan_list_major_ref,
@@ -33,14 +37,20 @@ from raft_tpu_torch.ops.spmv import (
     spmv_tiled,
     spmv_tiled_ref,
 )
+from raft_tpu_torch.ops.unexpanded import (
+    unexpanded_pairwise_tiled,
+    unexpanded_pairwise_tiled_ref,
+)
 
 __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fine_scan_list_major_q8_ref", "fine_scan_list_major_ref",
            "fused_l2_group_topk_packed", "fused_l2_group_topk_packed_q8",
            "fused_l2_group_topk_packed_q8_ref",
-           "fused_l2_group_topk_packed_ref", "pq_scan_list_major",
+           "fused_l2_group_topk_packed_ref", "histogram_blocked",
+           "histogram_blocked_ref", "pq_scan_list_major",
            "pq_scan_list_major_ref",
            "sddmm_entries", "sddmm_entries_ref", "sddmm_tiled",
            "sddmm_tiled_ref", "spmm_tiled", "spmm_tiled_ref",
            "spmv_pair_tiled", "spmv_pair_tiled_ref", "spmv_tiled",
-           "spmv_tiled_ref", "split_hi_lo"]
+           "spmv_tiled_ref", "split_hi_lo", "unexpanded_pairwise_tiled",
+           "unexpanded_pairwise_tiled_ref"]

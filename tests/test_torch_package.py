@@ -55,7 +55,13 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.serving.engine, raft_tpu_torch.serving.buckets, "
             "raft_tpu_torch.serving.snapshot, raft_tpu_torch.runtime, "
             "raft_tpu_torch.runtime.entry_points, "
-            "raft_tpu_torch.resilience, raft_tpu_torch.resilience.deadline; "
+            "raft_tpu_torch.resilience, raft_tpu_torch.resilience.deadline, "
+            "raft_tpu_torch.distance.pairwise, raft_tpu_torch.distance.types, "
+            "raft_tpu_torch.ops.unexpanded, raft_tpu_torch.ops.histogram, "
+            "raft_tpu_torch.stats, raft_tpu_torch.stats.moments, "
+            "raft_tpu_torch.stats.histogram, raft_tpu_torch.stats.metrics, "
+            "raft_tpu_torch.stats.cluster, raft_tpu_torch.stats.model_select, "
+            "raft_tpu_torch.stats.embed, raft_tpu_torch.models.kmeans; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)

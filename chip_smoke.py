@@ -14,7 +14,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    summation bound (d + 2)·2⁻²⁴·Σ|x||ŷ| plus the norm terms' roundings and
    two units of the packing truncation; a slot's code may differ only
    where the two rows it names score within that bound (a tie, proven in
-   f64).
+   f64). Then K1 and K2 once more (``nonfinite_k1_k2``, the same shapes and
+   eight modes) with +inf, −inf and NaN planted in three query rows and
+   three index rows (K2: in the rows' half-norm carrier) and a −inf
+   carrier in chunk 0: every slot is NaN, +inf or −inf exactly where the
+   twin's is (the merge's min/max propagate NaN), and the finite slots
+   hold the bound above, taken over the finite rows.
 3. The main path at full size, as ``bench.py`` configures it: make_blobs
    1,000,000 × 128 (64 clusters, std 2.0), the first 2048 rows as queries,
    k=64; ``prepare_knn_index`` at passes 1 and 3, bf16 and int8, then
@@ -149,10 +154,49 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and l1 (K8, 98 chunks of 1024 × 100,000 × 128), each within 1e-4 of
    the same call in f64, and trustworthiness at n = 5,000 against a
    seeded 128 → 16 projection, within 1e-4 of f64.
-12. A JSON ``kernels`` line, ``main_path``, ``serving``, ``ivf``,
-   ``ivf_pq``, ``spectral`` and ``pairwise_stats`` lines, the total wall
-   time, the card's name and power limit, and the result line ``{"ok":
-   true, "device": {...}}``.
+12. select_k and K3 (``select_k_phase``). (a) K3 (``ops.select_slotted``)
+   against its twin at 256 × 1,048,576 N(0, 1) with tpg 4 and 1, at
+   ``bench_prims.py:80-88``'s make_blobs 100,000 × 128 (16 clusters)
+   reshaped to [1562, 8192], and at a ragged 37 × 70,001 with ±inf and
+   NaN planted (tpg 4 and 1): bit for bit on every slot where the twin is
+   not NaN, NaN exactly where it is. (b) ``select_k(algo=SLOTTED)`` at
+   ``select_k_matrix.py:64-82``'s largest cells, [256, 1,048,576] with
+   k ∈ {16, 64, 256} (k = 256 takes tpg 1) and [64, 10,485,760] with
+   k = 64, the K3 count zeroed before each and read after (> 0): values
+   equal to ``torch.topk``'s exactly, ids naming those values once each;
+   the rows that failed the certificate, the host-clock median of five,
+   K3 alone (CUDA events) beside its bound (bytes), its twin and
+   ``torch.topk`` of the same [B, L, k] (the path's library time; K3's
+   own ``library_ms`` is null: no PyTorch call computes the packed
+   fold). (c) BITONIC, CHUNKED and RADIX once each at [256, 1,048,576],
+   k = 64, equal to ``torch.topk``.
+13. Wide and unpacked brute-force KNN (``wide_knn_phase``). wide_knn:
+   ann-benchmarks' gist-960-euclidean shape as make_blobs 1,000,000 × 960
+   (64 clusters, std 2.0), the first 1,000 rows as queries, k = 100;
+   ``distance.knn`` on prepared indexes at p1 (recall ≥ 0.99), p3 and p1
+   with ``certify="f32"``, and a ``db_dtype="int8"`` request at p3 (it
+   must store bf16), each with K1's d-chunked count zeroed before and
+   read after (> 0), ids identical to the exact f32 oracle's up to
+   ties proven within the expanded score's rounding (16·2⁻²⁴ of ‖x‖² +
+   max‖y‖², as phase 5's; the norms dwarf the distances at d = 960);
+   then ``knn(res, X, Q, k)`` without an index, which must
+   take the fused pipeline. ms, n_fail, launches and GB/s of the [1000,
+   1M] f32 matrix. K1's d-chunked form against its twin on the path's
+   own inputs (``compare_k1``), timed beside the twin, its bound and
+   ``torch.matmul`` in bf16 of the same shape. unpacked_knn:
+   ``prepare_knn_index(Y, T=512, g=4096, passes=3)`` (16,384 codes, past
+   the packed envelope) on the wide data and on phase 3's 1M × 128 data
+   (2048 queries, k = 64): ids identical to the oracle's up to proven
+   ties, n_fail printed (one group: most queries take the fixup); K1's
+   unpacked form and its d-chunked form against their twins (values
+   within the f32 summation bound, non-finite slots equal in kind, ids
+   equal except where both rows score within twice the bound in f64),
+   timed beside twin, bound and ``torch.matmul``.
+14. A JSON ``kernels`` line, ``bounds_unported_ms`` (K1's slot forms),
+   ``nonfinite_k1_k2``, ``main_path``, ``serving``, ``ivf``, ``ivf_pq``,
+   ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
+   the total wall time, the card's name and power limit, and the result
+   line ``{"ok": true, "device": {...}}``.
 
 Exits 2 without a CUDA device.
 """
@@ -336,27 +380,16 @@ def compare_k2(kern, twin, x, y_q, scales, yyh, xxh, T: int, g: int,
     return err, n_diff
 
 
-def unported_bounds_ms(Q: int, M: int, d: int, S: int, T: int):
-    """Bounds, at the main path's shape, of the TPU kernels on this path's
+def unported_bounds_ms(Q: int, M: int, d: int, T: int):
+    """Bound, at the main path's shape, of the TPU kernel on this path's
     family that the port has not written yet (same rules as k1_bound_ms):
-    K1's unpacked form (ids as two extra i32 outputs), its slot form (per
-    tile and lane min, argmin, and a [Q, 128] 2nd-min) and K3 (the packed
-    fold of the [Q, S] pool without a product)."""
-    def bound(ops, nbytes):
-        return 1e3 * max(ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)
-
+    K1's slot form (per tile and lane min, argmin, and a [Q, 128]
+    2nd-min); phase 13 adds its d-chunked form at the wide shape."""
     ops = 2.0 * Q * M * d
-    x_in, yy_in = Q * d * 4 + Q * 4, M * 4
-    s_slot = M // T * 128
-    return {
-        "K1 fused_l2_group_topk p1 (unpacked)":
-            bound(ops, x_in + M * d * 2 + yy_in + 5 * Q * S * 4),
-        "K1 fused_l2_slot_topk p1":
-            bound(ops, x_in + M * d * 2 + yy_in + 2 * Q * s_slot * 4
-                  + Q * 128 * 4),
-        "K3 select_slot_topk_packed on the [Q, S] pool":
-            bound(0.0, Q * S * 4 + 3 * Q * 128 * -(-S // 32768) * 4),
-    }
+    nbytes = (Q * d * 4 + Q * 4 + M * d * 2 + M * 4
+              + 2 * Q * (M // T * 128) * 4 + Q * 128 * 4)
+    return {"K1 fused_l2_slot_topk p1": 1e3 * max(
+        ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)}
 
 
 def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
@@ -2181,6 +2214,611 @@ def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
     return report, [k8_entry, k9_entry]
 
 
+# ---------------------------------------------------------- phases 12-13
+#: phase 12b: select_k_matrix.py:64-82's largest cells (rows, length, k)
+SELECT_CELLS = ((256, 1_048_576, 16), (256, 1_048_576, 64),
+                (256, 1_048_576, 256), (64, 10_485_760, 64))
+#: phase 13: ann-benchmarks' gist-960-euclidean shape (rows, d, queries,
+#: k), as make_blobs with bench.py's recipe (64 clusters, std 2.0)
+WIDE_SHAPE = (1_000_000, 960, 1000, 100)
+#: phase 13: the unpacked geometry of the reference's own test
+#: (tests/test_knn_fused.py:526-534)
+UNPACKED_T, UNPACKED_G = 512, 4096
+
+
+def nonfinite_k1_k2(gen, Q: int = 512, M: int = 131072, d: int = 128,
+                    T: int = 2048, g: int = 16, pbits: int = 8):
+    """Phase 2's second half: K1 and K2 against their twins with +inf,
+    −inf and NaN planted in query rows and index rows (K2: in the rows'
+    half-norm carrier, its codes being int8). Non-finite slots must equal
+    the twin's in kind; finite slots hold ``finite_slots_close``'s bound.
+    Returns {form: the twin's non-finite slots by kind}."""
+    import torch
+    from raft_tpu_torch.distance.knn_fused import _prepare_ops_q8
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    inf, nan = float("inf"), float("nan")
+    x = torch.randn(Q, d, device="cuda", generator=gen)
+    x[5, 3], x[77, 100], x[300, 0] = inf, -inf, nan
+    y = torch.randn(M, d, device="cuda", generator=gen)
+    y[1000, 7], y[70000, 50], y[99999, 1] = inf, -inf, nan
+    y_hi, y_lo = k1.split_hi_lo(y)
+    yyh = 0.5 * (y * y).sum(1)
+    yyh[5] = -inf                 # chunk 0 (code 0): the slot stays −inf
+    yyh[-100:] = k1._PACK_PAD
+    xxh = 0.5 * (x * x).sum(1)
+    y_q, scales = _prepare_ops_q8(torch.nan_to_num(y, 0.0, 0.0, 0.0), T, g,
+                                  "l2")[1:3]
+    grp = torch.arange(M, device="cuda") // (g * T)
+    live = torch.isfinite(y).all(1)
+    ymax = {False: y_hi.float()[live].norm(dim=1).max().item(),
+            True: (y_q.float() * scales[grp][:, None])[live].norm(
+                dim=1).max().item()}
+    yymax = yyh[torch.isfinite(yyh) & (yyh < 2.0 ** 123)].max().item()
+    report = {}
+    n0, n8 = k1.LAUNCHES, k1.LAUNCHES_Q8
+    for q8 in (False, True):
+        for passes in (1, 3):
+            for pair in (False, True):
+                kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
+                          xxh=xxh)
+                if q8:
+                    args = (x, y_q, yyh, scales)
+                    out = k1.fused_l2_group_topk_packed_q8(*args, **kw)
+                    ref = k1.fused_l2_group_topk_packed_q8_ref(*args, **kw)
+                else:
+                    args = (x, y_hi, y_lo, yyh)
+                    out = k1.fused_l2_group_topk_packed(*args, **kw)
+                    ref = k1.fused_l2_group_topk_packed_ref(*args, **kw)
+                tag = f"{'K2' if q8 else 'K1'} p{passes} pair={pair}"
+                report[tag] = same_in_kind(out, ref, tag)
+                report[tag]["max_abs_err"] = finite_slots_close(
+                    out, ref, x, ymax[q8], yymax, pbits, pair, tag)
+                print(f"{tag} with ±inf/NaN planted: "
+                      f"{json.dumps(report[tag])}", flush=True)
+    k1.LAUNCHES, k1.LAUNCHES_Q8 = n0, n8
+    return report
+
+
+def finite_slots_close(out, ref, x, ymax: float, yymax: float, pbits: int,
+                       pair: bool, tag: str):
+    """Where the twin's slot is finite, the kernel's value (code bits
+    cleared) lies within the f32 summation bound 2·(d + 2)·2⁻²⁴·‖x‖·max‖y‖
+    (max over the finite rows; for K2 the dequantized rows), four units of
+    the norm terms' rounding and two of the packing truncation; the codes
+    of a1/a2 agree on ≥ 99.9% of those slots. Returns the max abs error."""
+    import torch
+
+    d = x.shape[1]
+    xn = torch.nan_to_num(x.norm(dim=1), nan=0.0, posinf=0.0)
+    acc = (2.0 * (d + 2) * 2.0 ** -24 * xn * ymax
+           + 4.0 * 2.0 ** -24 * (yymax + 0.5 * xn * xn))[:, None]
+    err = 0.0
+    for n, (a, b) in enumerate(zip(out, ref)):
+        fin = torch.isfinite(b)
+        ca, va = unpack(a, pbits)
+        cb, vb = unpack(b, pbits)
+        diff = torch.where(fin, (va - vb).abs(), 0.0)
+        tol = torch.where(fin, acc + 2.0 * 2.0 ** (pbits - 23) * vb.abs(),
+                          0.0)
+        check(bool((diff <= tol).all()), f"{tag}: finite values of output "
+              f"{n} differ by up to {diff.max().item()}")
+        if n < 2 or not pair:
+            same = (ca == cb)[fin].float().mean().item()
+            check(same >= 0.999, f"{tag}: codes of output {n} agree on "
+                  f"only {same:.5f} of the finite slots")
+        err = max(err, diff.max().item())
+    torch.cuda.synchronize()
+    return err
+
+
+def same_in_kind(out, ref, tag: str):
+    """NaN where the twin has NaN, +inf and −inf where it has them.
+    Returns the counts of each kind over the outputs."""
+    import torch
+
+    counts = {"nan": 0, "+inf": 0, "-inf": 0}
+    for n, (a, b) in enumerate(zip(out, ref)):
+        for kind, f in (("nan", torch.isnan),
+                        ("+inf", lambda t: t == float("inf")),
+                        ("-inf", lambda t: t == -float("inf"))):
+            fa, fb = f(a), f(b)
+            check(bool(torch.equal(fa, fb)),
+                  f"{tag}: output {n} has {kind} at {int((fa != fb).sum())} "
+                  f"slots where the twin does not, or the reverse")
+            counts[kind] += int(fb.sum())
+    return counts
+
+
+def k1_counts():
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    return {"K1": k1.LAUNCHES, "K1_dchunk": k1.LAUNCHES_DCHUNK,
+            "K1_group": k1.LAUNCHES_GROUP,
+            "K1_group_dchunk": k1.LAUNCHES_GROUP_DCHUNK}
+
+
+def zero_k1_counts():
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    k1.LAUNCHES = k1.LAUNCHES_DCHUNK = 0
+    k1.LAUNCHES_GROUP = k1.LAUNCHES_GROUP_DCHUNK = 0
+
+
+def k3_bound_ms(B: int, L: int, T: int, tpg: int):
+    """Least time for K3's work: the rows read once and the three pools
+    written once at the HBM rate (its ~10 operations a value are some 30×
+    below that)."""
+    G = -(-(-(-L // T)) // tpg)
+    return 1e3 * (B * L * 4 + 3 * B * G * 128 * 4) / H100_BYTES_PER_S, \
+        "bytes"
+
+
+def compare_k3(out, ref, tag: str):
+    """K3 against its twin: the same min/max network over the same packed
+    values, so bit for bit on every slot where the twin is not NaN, and
+    NaN exactly where it is (a NaN's payload may differ: PTX returns the
+    canonical NaN). Returns the twin's NaN slots."""
+    import torch
+
+    n_nan = 0
+    for n, (a, b) in enumerate(zip(out, ref)):
+        na, nb = torch.isnan(a), torch.isnan(b)
+        check(bool(torch.equal(na, nb)), f"K3 {tag}: output {n} is NaN at "
+              f"{int((na != nb).sum())} slots where the twin is not, or "
+              f"the reverse")
+        diff = int((a.view(torch.int32) != b.view(torch.int32))[~nb].sum())
+        check(diff == 0, f"K3 {tag}: output {n} differs from the twin at "
+              f"{diff} slots")
+        n_nan += int(nb.sum())
+    torch.cuda.synchronize()
+    return n_nan
+
+
+def select_k_phase(res, cells=SELECT_CELLS, k3_shape=(256, 1_048_576),
+                   blobs=(100_000, 128, 16), ragged=(37, 70_001)):
+    """Phase 12 (see the module doc): K3 against its twin bit for bit,
+    ``select_k(algo=SLOTTED)`` at ``cells`` with the K3 count zeroed
+    before each and read after, and the reference's alias names once.
+    Returns (the ``select_k`` report, K3's ``kernels`` entry)."""
+    import torch
+    from raft_tpu_torch.matrix import SelectAlgo, select_k
+    from raft_tpu_torch.matrix.select_k_slotted import (_T_SEL,
+                                                        select_k_slotted,
+                                                        slotted_envelope)
+    from raft_tpu_torch.ops import select_slotted as k3
+    from raft_tpu_torch.random import make_blobs
+
+    inf, nan = float("inf"), float("nan")
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(12)
+    report = {"k3_vs_twin": {}, "cells": {}, "aliases": {}}
+
+    # ---- 12a: K3 against its twin ----
+    v = torch.randn(*k3_shape, device="cuda", generator=gen)
+    X, _ = make_blobs(res, 12, blobs[0], blobs[1], n_clusters=blobs[2])
+    vb = X[:blobs[0] // 64 * 64].reshape(-1, blobs[1] * 64)
+    vr = torch.randn(*ragged, device="cuda", generator=gen)
+    for r, c, val in ((3, 5, inf), (3, 9000, inf), (10, 40000, -inf),
+                      (20, 128, -inf), (30, ragged[1] - 1, nan),
+                      (36, 1, nan)):
+        vr[r, min(c, ragged[1] - 1)] = val
+    n0 = k3.LAUNCHES
+    for tag, t, tpg in ((f"N(0,1) {tuple(v.shape)} tpg=4", v, 4),
+                        (f"N(0,1) {tuple(v.shape)} tpg=1", v, 1),
+                        (f"bench_prims blobs {tuple(vb.shape)} tpg=4", vb,
+                         4),
+                        (f"ragged ±inf/NaN {tuple(vr.shape)} tpg=4", vr, 4),
+                        (f"ragged ±inf/NaN {tuple(vr.shape)} tpg=1", vr,
+                         1)):
+        out = k3.select_slot_topk_packed(t, T=_T_SEL, tpg=tpg)
+        ref = k3.select_slot_topk_packed_ref(t, T=_T_SEL, tpg=tpg)
+        report["k3_vs_twin"][tag] = {"bit_for_bit": True,
+                                     "nan_slots": compare_k3(out, ref, tag)}
+        print(f"K3 vs twin {tag}: {json.dumps(report['k3_vs_twin'][tag])}",
+              flush=True)
+    del out, ref, X, vr
+    k3.LAUNCHES = n0
+
+    # ---- 12b: select_k(SLOTTED) at the matrix's largest cells ----
+    k3_rows, launches = {}, 0
+    for B, L, k in cells:
+        if tuple(v.shape) != (B, L):
+            del v
+            torch.cuda.empty_cache()
+            v = torch.randn(B, L, device="cuda", generator=gen)
+        tag = f"{B}x{L} k={k}"
+        k3.LAUNCHES = 0
+        vals, ids = select_k(res, v, k=k, algo=SelectAlgo.SLOTTED)
+        torch.cuda.synchronize()
+        n_launch = k3.LAUNCHES
+        check(n_launch > 0, f"select_k SLOTTED {tag}: K3 launched no time")
+        launches += n_launch
+        ref_v, _ = torch.topk(v, k, dim=1, largest=False, sorted=True)
+        check(bool(torch.equal(vals, ref_v)),
+              f"select_k SLOTTED {tag}: values differ from torch.topk's")
+        check(bool(torch.equal(torch.gather(v, 1, ids.long()), vals))
+              and bool((torch.sort(ids, 1).values.diff(dim=1) > 0).all()),
+              f"select_k SLOTTED {tag}: ids do not name the values once "
+              f"each (not a tie)")
+        _, _, n_fail = select_k_slotted(v, None, k, True, with_stats=True)
+        times = []
+        for _ in range(6):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            select_k(res, v, k=k, algo=SelectAlgo.SLOTTED)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        tpg = slotted_envelope(L, k)[1]
+        key = (B, L, tpg)
+        if key not in k3_rows:
+            bound, by = k3_bound_ms(B, L, _T_SEL, tpg)
+            k3_rows[key] = {
+                "ms": cuda_ms(lambda: k3.select_slot_topk_packed(
+                    v, T=_T_SEL, tpg=tpg), 10),
+                "plain_ms": cuda_ms(lambda: k3.select_slot_topk_packed_ref(
+                    v, T=_T_SEL, tpg=tpg), 1, warmup=0),
+                "bound_ms": bound, "bound_by": by, "library_ms": None,
+                "shape": [B, L], "tpg": tpg}
+        row = {"ms": 1e3 * statistics.median(times[1:]), "n_fail": n_fail,
+               "launches": n_launch, "tpg": tpg,
+               "k3_ms": k3_rows[key]["ms"],
+               "k3_bound_ms": k3_rows[key]["bound_ms"],
+               "topk_ms": cuda_ms(lambda: torch.topk(
+                   v, k, dim=1, largest=False, sorted=True), 5),
+               "values_equal_topk": True}
+        report["cells"][tag] = row
+        print(f"select_k SLOTTED {tag}: {json.dumps(row)}", flush=True)
+
+    # ---- 12c: the reference's names once each ----
+    v = torch.randn(256, 1_048_576, device="cuda", generator=gen)
+    ref_v, _ = torch.topk(v, 64, dim=1, largest=False, sorted=True)
+    for algo in (SelectAlgo.BITONIC, SelectAlgo.CHUNKED, SelectAlgo.RADIX):
+        k3.LAUNCHES = 0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        vals, ids = select_k(res, v, k=64, algo=algo)
+        torch.cuda.synchronize()
+        ms = 1e3 * (time.perf_counter() - t0)
+        check(bool(torch.equal(vals, ref_v))
+              and bool(torch.equal(torch.gather(v, 1, ids.long()), vals)),
+              f"select_k {algo.name}: values differ from torch.topk's")
+        report["aliases"][algo.name] = {"ms_first_call": ms,
+                                        "k3_launches": k3.LAUNCHES}
+        launches += k3.LAUNCHES if algo == SelectAlgo.BITONIC else 0
+    print(f"select_k aliases at 256x1048576 k=64: "
+          f"{json.dumps(report['aliases'])}", flush=True)
+    del v, ref_v, vals, ids
+    torch.cuda.empty_cache()
+    k3.LAUNCHES = 0
+
+    main_key = (k3_shape[0], k3_shape[1], 4)
+    main = k3_rows.get(main_key) or next(iter(k3_rows.values()))
+    k3_entry = {"name": "select_slot_topk_packed", "route": "cuda",
+                "source": "raft_tpu_torch/ops/csrc/select_slotted.cu",
+                "replaces": "raft_tpu/ops/select_slotted_pallas.py:67",
+                "launches": launches,
+                **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                        "bound_by", "library_ms")},
+                "max_abs_err": 0.0, "shape": main["shape"],
+                "library_note": "no one PyTorch call computes the packed "
+                                "fold; torch.topk of the path is in the "
+                                "select_k cells",
+                "other_shapes": [r for kk, r in k3_rows.items()
+                                 if kk != main_key]}
+    report["k3"] = list(k3_rows.values())
+    return report, k3_entry
+
+
+def compare_unpacked(out, ref, x, y_hi, y_lo, yyh, passes: int):
+    """The unpacked form against its twin: values within the f32
+    summation bound 2·d·2⁻²⁴·‖x‖·max‖y‖ plus two units of the half-score's
+    rounding, non-finite slots equal in kind; where an id differs, both
+    rows score within twice that bound in f64 (a tie). Returns (max abs
+    value error, slots whose ids differ)."""
+    import torch
+
+    d = x.shape[1]
+    ymax = y_hi.float().norm(dim=1).max()
+    acc = (2.0 * d * 2.0 ** -24 * x.norm(dim=1) * ymax)[:, None]
+    same_in_kind([out[0], out[2], out[4]], [ref[0], ref[2], ref[4]],
+                 "unpacked")
+    err = 0.0
+    for n in (0, 2, 4):
+        a, b = out[n], ref[n]
+        fin = torch.isfinite(b)
+        tol = acc + 2.0 * 2.0 ** -24 * b.abs()
+        diff = torch.where(fin, (a - b).abs(), 0.0)
+        check(bool((diff <= torch.where(fin, tol, 0.0)).all()),
+              f"unpacked values of output {n} differ by up to "
+              f"{diff.max().item()}")
+        err = max(err, diff.max().item())
+    xh = x.to(torch.bfloat16)
+    xl = (x - xh.float()).to(torch.bfloat16)
+    n_diff = 0
+    for n in (1, 3):
+        q_idx, s_idx = (out[n] != ref[n]).nonzero(as_tuple=True)
+        n_diff += int(q_idx.numel())
+        if not q_idx.numel():
+            continue
+
+        def score(r):
+            r = r.long()
+            s = (xh[q_idx].double() * y_hi[r].double()).sum(1)
+            if passes == 3:
+                s += (xh[q_idx].double() * y_lo[r].double()).sum(1)
+                s += (xl[q_idx].double() * y_hi[r].double()).sum(1)
+            return yyh[r].double() - s
+        ra, rb = out[n][q_idx, s_idx], ref[n][q_idx, s_idx]
+        check(bool((ra >= 0).all() and (rb >= 0).all()),
+              f"unpacked ids of output {n}: −1 on one side only")
+        gap = (score(ra) - score(rb)).abs()
+        tol = 2 * (acc[q_idx, 0] + 4.0 * 2.0 ** -24
+                   * ref[n - 1][q_idx, s_idx].abs()).double()
+        check(bool((gap <= tol).all()),
+              f"unpacked ids of output {n}: {int(q_idx.numel())} slots name "
+              f"other rows than the twin's, up to {gap.max().item()} apart")
+    torch.cuda.synchronize()
+    return err, n_diff
+
+
+def expanded_floor(X, Qx):
+    """[Q] rounding of the expanded f32 score xx + yy − 2·x·y that the
+    oracle and the rescore both rank by: 16·2⁻²⁴ of the norms. At d = 960
+    the norms (~7·10⁴) dwarf the k-th distances (~7·10³), so two rows
+    within it are a tie (as ``ann_data``'s floor)."""
+    return 16 * 2.0 ** -24 * ((Qx * Qx).sum(1) + (X * X).sum(1).max())
+
+
+def knn_cell(res, name: str, index, Qx, k: int, certify: str, X, o_vals,
+             o_ids, counter: str, exact: bool = True):
+    """One ``distance.knn`` run on a prepared index with the K1 counts
+    zeroed before and read after; the result held against the oracle
+    (recall ≥ 0.99, or ids identical up to ties proven within
+    ``expanded_floor``), then n_fail, the host-clock median of five and
+    the GB/s of the [Q, M] f32 matrix."""
+    import torch
+    from raft_tpu_torch import distance
+    from raft_tpu_torch.distance.knn_fused import knn_fused
+
+    zero_k1_counts()
+    vals, ids = distance.knn(res, index, Qx, k=k, certify=certify)
+    torch.cuda.synchronize()
+    counts = k1_counts()
+    check(counts[counter] > 0, f"{name}: the path launched {counter} no "
+          f"time ({counts})")
+    nq = Qx.shape[0]
+    check(tuple(vals.shape) == (nq, k) and bool(torch.isfinite(vals).all()),
+          f"{name}: results are not finite [Q, k]")
+    if exact:
+        quality = {"ids_exact": True,
+                   "tie_queries": check_exact(ids, o_ids, o_vals, X, Qx,
+                                              name,
+                                              expanded_floor(X, Qx)),
+                   "max_abs_val_err": (vals - o_vals).abs().max().item()}
+    else:
+        got, want = ids.cpu().tolist(), o_ids.cpu().tolist()
+        recall = sum(len(set(a) & set(b)) for a, b in zip(got, want)) \
+            / (nq * k)
+        check(recall >= 0.99, f"{name}: recall {recall} < 0.99")
+        quality = {"recall": recall}
+    _, _, n_fail = knn_fused(Qx, index, k, certify=certify, with_stats=True)
+    times = []
+    for _ in range(6):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        distance.knn(res, index, Qx, k=k, certify=certify)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    ms = 1e3 * statistics.median(times[1:])
+    row = {"ms": ms, "gbps": nq * index.n_rows * 4.0 / (ms * 1e-3) / 1e9,
+           "n_fail": n_fail, "kernel": counter,
+           "launches": counts[counter], **quality}
+    print(f"{name}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def padded_queries(index, Qx):
+    """The queries as the core sees them: padded to the stream width."""
+    import torch
+
+    pad = index.stream_width - Qx.shape[1]
+    return torch.cat([Qx, Qx.new_zeros((Qx.shape[0], pad))], 1) if pad \
+        else Qx
+
+
+def unpacked_kernel_row(index, Qx, reps: int = 3):
+    """The unpacked form (or its d-chunked form) on a path's own inputs:
+    against its twin, timed beside the twin, the bound and the bf16
+    product of the same shape."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    x = padded_queries(index, Qx)
+    wide = x.shape[1] > 512
+    kern = k1.fused_l2_group_topk_dchunk if wide else k1.fused_l2_group_topk
+    twin = (k1.fused_l2_group_topk_dchunk_ref if wide
+            else k1.fused_l2_group_topk_ref)
+    args = (x, index.y_hi, index.y_lo, index.yyh_k)
+    kw = dict(T=index.T, g=index.g, passes=index.passes)
+    counts = k1_counts()
+    out = kern(*args, **kw)
+    ref = twin(*args, **kw)
+    err, n_diff = compare_unpacked(out, ref, x, index.y_hi, index.y_lo,
+                                   index.yyh_k, index.passes)
+    del out, ref
+    ms = cuda_ms(lambda: kern(*args, **kw), reps)
+    plain_ms = cuda_ms(lambda: twin(*args, **kw), 1, warmup=0)
+    M = index.prepared_rows
+    S = -(-(M // index.T) // index.g) * 128
+    nq = x.shape[0]
+    ops = 2.0 * nq * M * index.d_orig * (3 if index.passes == 3 else 1)
+    nbytes = (nq * index.d_orig * 4 + M * index.d_orig * 2
+              * (2 if index.passes == 3 else 1) + M * 4 + 5 * nq * S * 4)
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    xb = x.to(torch.bfloat16)
+    library_ms = cuda_ms(lambda: torch.matmul(xb, index.y_hi.T), 5)
+    (k1.LAUNCHES, k1.LAUNCHES_DCHUNK, k1.LAUNCHES_GROUP,
+     k1.LAUNCHES_GROUP_DCHUNK) = counts.values()
+    return {"ms": ms, "plain_ms": plain_ms,
+            "bound_ms": 1e3 * max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms, "max_abs_err": err,
+            "tie_slots": n_diff, "shape": [nq, M, index.d_orig],
+            "passes": index.passes}
+
+
+def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
+    """Phase 13 (see the module doc): wide_knn at ``shape`` (K1's
+    d-chunked form), then unpacked_knn at ``main`` and on the wide data
+    (K1's unpacked forms). Returns (the ``wide_knn`` report, the three
+    ``kernels`` entries, the slot forms' bounds at the wide shape)."""
+    import torch
+    from raft_tpu_torch import distance
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.random import make_blobs
+
+    n, d, nq, k = shape
+    report = {"wide_knn": {}, "unpacked_knn": {}}
+    X, _ = make_blobs(res, 13, n, d, n_clusters=64, cluster_std=2.0)
+    Qx = X[:nq].clone()
+    o_vals, o_ids = exact_oracle(X, Qx, k, chunk=65536)
+    t0 = time.perf_counter()
+    idx1 = distance.prepare_knn_index(X, passes=1)
+    idx3 = distance.prepare_knn_index(X, passes=3)
+    res.sync()
+    print(f"wide prepare (p1 + p3): {time.perf_counter() - t0:.3f} s; "
+          f"T={idx1.T} g={idx1.g} pbits={idx1.pbits} "
+          f"stream width {idx1.stream_width}", flush=True)
+    cells = report["wide_knn"]
+    for name, index, certify, exact in (("p1", idx1, "kernel", False),
+                                        ("p3", idx3, "kernel", True),
+                                        ("p1_f32", idx1, "f32", True)):
+        cells[name] = knn_cell(res, f"wide_knn {name}", index, Qx, k,
+                               certify, X, o_vals, o_ids, "K1_dchunk",
+                               exact)
+
+    # ---- K1's d-chunked form on the path's own inputs ----
+    x = padded_queries(idx1, Qx)
+    xxh = 0.5 * (x * x).sum(1)
+    rows = {}
+    for index in (idx1, idx3):
+        kw = dict(T=index.T, g=index.g, passes=index.passes, pair=False,
+                  pbits=index.pbits, xxh=xxh)
+        args = (x, index.y_hi, index.y_lo, index.yyh_k)
+        counts = k1_counts()
+        out = k1.fused_l2_group_topk_packed_dchunk(*args, **kw)
+        ref = k1.fused_l2_group_topk_packed_dchunk_ref(*args, **kw)
+        err = compare_k1(out, ref, x, index.y_hi, index.pbits, False)
+        del out, ref
+        ms = cuda_ms(lambda: k1.fused_l2_group_topk_packed_dchunk(
+            *args, **kw), 10)
+        plain_ms = cuda_ms(lambda: k1.fused_l2_group_topk_packed_dchunk_ref(
+            *args, **kw), 1, warmup=0)
+        M = index.prepared_rows
+        S = -(-(M // index.T) // index.g) * 128
+        bound, bound_by = k1_bound_ms(nq, M, d, S, index.passes)
+        xb = x.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.matmul(xb, index.y_hi.T), 10)
+        (k1.LAUNCHES, k1.LAUNCHES_DCHUNK, k1.LAUNCHES_GROUP,
+         k1.LAUNCHES_GROUP_DCHUNK) = counts.values()
+        rows[f"p{index.passes}"] = {
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": bound_by, "library_ms": library_ms,
+            "max_abs_err": err, "shape": [nq, M, d],
+            "stream_width": index.stream_width}
+        print(f"K1 dchunk at wide_knn, passes={index.passes}: "
+              f"{json.dumps(rows[f'p{index.passes}'])}", flush=True)
+    del idx1, idx3
+    torch.cuda.empty_cache()
+
+    # ---- the int8 request (downgrades to bf16) and knn without an index
+    idx8 = distance.prepare_knn_index(X, passes=3, db_dtype="int8")
+    check(idx8.db_dtype == "bf16", f"wide int8 request stored "
+          f"{idx8.db_dtype}, not the bf16 downgrade")
+    cells["int8_p3"] = knn_cell(res, "wide_knn int8_p3 (bf16)", idx8, Qx,
+                                k, "kernel", X, o_vals, o_ids, "K1_dchunk")
+    del idx8
+    torch.cuda.empty_cache()
+    zero_k1_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    vals, ids = distance.knn(res, X, Qx, k)
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    counts = k1_counts()
+    check(counts["K1_dchunk"] > 0, f"knn(res, X, Q, k) at d={d} did not "
+          f"take the fused pipeline ({counts})")
+    cells["auto_unprepared"] = {
+        "ms_with_prepare": ms, "launches": counts["K1_dchunk"],
+        "ids_exact": True,
+        "tie_queries": check_exact(ids, o_ids, o_vals, X, Qx, "wide auto",
+                                   expanded_floor(X, Qx))}
+    print(f"wide_knn auto (no prepared index): "
+          f"{json.dumps(cells['auto_unprepared'])}", flush=True)
+    del vals, ids
+    dchunk_launches = sum(c["launches"] for c in cells.values())
+
+    # ---- unpacked_knn on the wide data (K1's unpacked d-chunked form) ----
+    uidx = distance.prepare_knn_index(X, T=UNPACKED_T, g=UNPACKED_G,
+                                      passes=3)
+    check(uidx.g * (uidx.T // 128) > (1 << uidx.pbits), "the unpacked "
+          "geometry fits the packed codes")
+    ucells = report["unpacked_knn"]
+    ucells["wide"] = knn_cell(res, "unpacked_knn wide", uidx, Qx, k,
+                              "kernel", X, o_vals, o_ids, "K1_group_dchunk")
+    wide_row = unpacked_kernel_row(uidx, Qx, reps=2)
+    print(f"K1 unpacked dchunk at unpacked_knn wide: "
+          f"{json.dumps(wide_row)}", flush=True)
+    slot_bounds = {
+        "K1 fused_l2_slot_topk_dchunk p1 at the wide shape": 1e3 * max(
+            2.0 * nq * n * d / H100_BF16_FLOPS,
+            (nq * d * 4 + n * d * 2 + n * 4 + 2 * nq * (n // 2048) * 128 * 4
+             + nq * 128 * 4) / H100_BYTES_PER_S)}
+    del uidx, X, Qx, o_vals, o_ids
+    torch.cuda.empty_cache()
+
+    # ---- unpacked_knn on the main path's data (K1's unpacked form) ----
+    n2, d2, nq2, k2 = main
+    X, _ = make_blobs(res, 0, n2, d2, n_clusters=64, cluster_std=2.0)
+    Qx = X[:nq2].clone()
+    o_vals, o_ids = exact_oracle(X, Qx, k2)
+    uidx = distance.prepare_knn_index(X, T=UNPACKED_T, g=UNPACKED_G,
+                                      passes=3)
+    ucells["main"] = knn_cell(res, "unpacked_knn main", uidx, Qx, k2,
+                              "kernel", X, o_vals, o_ids, "K1_group")
+    main_row = unpacked_kernel_row(uidx, Qx)
+    print(f"K1 unpacked at unpacked_knn main: {json.dumps(main_row)}",
+          flush=True)
+    del uidx, X, Qx, o_vals, o_ids
+    torch.cuda.empty_cache()
+    zero_k1_counts()
+
+    src = "raft_tpu_torch/ops/csrc/fused_l2_topk.cu"
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    entries = [
+        {"name": "fused_l2_group_topk_packed_dchunk", "route": "cuda",
+         "source": src,
+         "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1294",
+         "launches": dchunk_launches, **{k: rows["p1"][k] for k in keys},
+         "shape": rows["p1"]["shape"], "p3": rows["p3"]},
+        {"name": "fused_l2_group_topk", "route": "cuda", "source": src,
+         "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1230",
+         "launches": ucells["main"]["launches"],
+         **{k: main_row[k] for k in keys}, "shape": main_row["shape"],
+         "passes": 3, "tie_slots": main_row["tie_slots"]},
+        {"name": "fused_l2_group_topk_dchunk", "route": "cuda",
+         "source": src,
+         "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1254",
+         "launches": ucells["wide"]["launches"],
+         **{k: wide_row[k] for k in keys}, "shape": wide_row["shape"],
+         "passes": 3, "tie_slots": wide_row["tie_slots"]}]
+    report["kernel_rows"] = {"dchunk": rows, "unpacked_main": main_row,
+                             "unpacked_wide": wide_row}
+    return report, entries, slot_bounds
+
+
 def main() -> int:
     import torch
 
@@ -2201,6 +2839,7 @@ def main() -> int:
     from raft_tpu_torch.ops import fused_l2_topk as k1
     from raft_tpu_torch.ops import histogram as k9
     from raft_tpu_torch.ops import pq_scan as k5
+    from raft_tpu_torch.ops import select_slotted as k3
     from raft_tpu_torch.ops import unexpanded as k8
     from raft_tpu_torch.random import make_blobs
 
@@ -2212,9 +2851,12 @@ def main() -> int:
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
     _build.build_all(["fused_l2_topk", "fine_scan", "pq_scan", "spmv",
-                      "sddmm", "unexpanded", "histogram"])
+                      "sddmm", "unexpanded", "histogram", "select_slotted"])
     k1._launcher()
     k1._launcher_q8()
+    k1._launcher_dchunk()
+    k1._launcher_group()
+    k3._launcher()
     k4._launcher()
     k5._launcher()
     _build.load("spmv")
@@ -2279,6 +2921,8 @@ def main() -> int:
                   f"passes={passes} pair={pair}: max_abs_err={err} "
                   f"tie_slots={n_diff}", flush=True)
     del x, y, y_q, scales, yyh, xxh, out, ref
+    # K1 and K2 once more, with ±inf and NaN planted
+    nonfinite = nonfinite_k1_k2(gen)
 
     # ---- phase 3: the main path at full size ----
     res = raft_tpu_torch.DeviceResources(device="cuda", seed=0)
@@ -2428,8 +3072,7 @@ def main() -> int:
         br = profile_run(lambda: distance.knn(res, index, Qx, k=K,
                                               certify=certify))
         print(json.dumps({"profile": name, **br}), flush=True)
-    bounds = unported_bounds_ms(N_QUERIES, Mi, index.stream_width, S,
-                                index.T)
+    bounds = unported_bounds_ms(N_QUERIES, Mi, index.stream_width, index.T)
     del X, Qx, idx1, idx3, idx8_1, idx8_3, o_vals, o_ids
     torch.cuda.empty_cache()
 
@@ -2454,17 +3097,32 @@ def main() -> int:
 
     # ---- phase 11: pairwise distances and stats ----
     pairwise_stats, k89_entries = pairwise_stats_phase(res)
+    torch.cuda.empty_cache()
+
+    # ---- phase 12: select_k and K3 ----
+    select, k3_entry = select_k_phase(res)
+    torch.cuda.empty_cache()
+
+    # ---- phase 13: wide and unpacked brute-force KNN ----
+    wide, wide_entries, slot_bounds = wide_knn_phase(res)
+    bounds.update(slot_bounds)
+    torch.cuda.empty_cache()
+
+    # ---- phase 14: the summary ----
     print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
+    print(json.dumps({"nonfinite_k1_k2": nonfinite}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
     print(json.dumps({"spectral": spectral}), flush=True)
     print(json.dumps({"pairwise_stats": pairwise_stats}), flush=True)
+    print(json.dumps({"select_k": select}), flush=True)
+    print(json.dumps({"wide_knn": wide}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, k2_entry, *k4_entries,
-                                  *k5_entries, *sparse_entries,
+    print(json.dumps({"kernels": [entry, k2_entry, k3_entry, *wide_entries,
+                                  *k4_entries, *k5_entries, *sparse_entries,
                                   *k89_entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -166,11 +166,11 @@ def knn(res, index, queries, k: int, metric: str = "sqeuclidean",
     ``inner_product``).
 
     ``algo``: ``"auto"`` takes the certified fused pipeline (knn_fused)
-    when ``fused_eligible`` holds — a CUDA device, a shape inside the
-    packed kernel's envelope — and the streamed sweep otherwise; the
-    decision is made from the shapes before anything launches.
-    ``"fused"`` / ``"fused_fast"`` force the fused pipeline at passes 3 /
-    1 (raising where it has no kernel); ``"streamed"`` forces the sweep.
+    when ``fused_eligible`` holds — a CUDA device, at least 4096 rows and
+    d ≤ 4096 (K1 at d ≤ 512, its d-chunked form above) — and the
+    streamed sweep otherwise; the decision is made from the shapes before
+    anything launches. ``"fused"`` / ``"fused_fast"`` force the fused
+    pipeline at passes 3 / 1; ``"streamed"`` forces the sweep.
 
     ``metric="cosine"`` solves squared L2 on row-normalized operands and
     returns ``1 − cos = d2/2``; a zero-norm row normalizes to the zero

@@ -34,12 +34,18 @@ quantization bound Eq, and the candidates are always rescored in f32
 from the original rows, so returned ids are certified against the f32
 oracle.
 
-Not in this port yet (each raises naming the missing kernel): the
-unpacked and d-chunked K1 forms (an index outside the packed-code envelope
-or with d > 512; an int8 request there takes bf16 first, as the reference
-does). The reference's grid orders (query/db/dbuf) are TPU schedules of
-one function; the port has one kernel per operand type, so there is
-nothing to choose.
+Wide features (512 < d ≤ 4096) take K1's d-chunked form
+(``fused_l2_group_topk_packed_dchunk``), which streams the queries' feature
+slices instead of holding them; features pad to a multiple of 128, what
+the kernel slices by (not the reference's 256). A geometry whose g·T/128
+codes do not fit the packed mantissa (2¹³) takes the unpacked form
+(``fused_l2_group_topk``, or ``_dchunk`` for d > 512): the pool is the
+2S′ values (a1, a2) with their row ids, recovered as 2·a + ‖x‖², padded
+rows carry +inf, and there is no packing margin. An int8 request there
+takes bf16, as the reference does. The reference's grid orders
+(query/db/dbuf) are TPU schedules of one function, and its
+``RAFT_TPU_POOL_SELECT`` A/B knob is not ported: the port selects the pool
+with ``torch.topk``, what the knob's default ``xla`` does.
 """
 
 from __future__ import annotations
@@ -53,14 +59,20 @@ import torch
 
 from raft_tpu_torch.core.resources import as_f32, resolve_device
 from raft_tpu_torch.ops.fused_l2_topk import (
-    _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk_packed,
-    fused_l2_group_topk_packed_q8, split_hi_lo)
+    _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk,
+    fused_l2_group_topk_dchunk, fused_l2_group_topk_packed,
+    fused_l2_group_topk_packed_dchunk, fused_l2_group_topk_packed_q8,
+    split_hi_lo)
 
 _log = logging.getLogger(__name__)
 
 #: storage dtypes of the streamed index (reference ``:102``)
 DB_DTYPES = ("bf16", "int8")
+# past this width the query block no longer fits a block's shared memory
+# resident, and the d-chunked kernel forms stream it
 _D_SINGLE_SHOT = 512
+# the fused pipeline's widest features (the reference's gate)
+_D_MAX = 4096
 # budget of one [F, M] f32 fixup tile (the reference's figure)
 _FIXUP_TILE_BUDGET = 4_200_000_000
 # pool oversampling beyond k before exact rescoring
@@ -123,9 +135,10 @@ def _prepare_ops(y, T: int, g: int, metric: str, pbits: int = _PACK_BITS,
                  rows_valid=None):
     """Index-side operands: rows padded to whole tiles, the bf16 hi/lo
     split, row norms and the half-norm carrier with the never-wins
-    sentinel on padded rows. Returns ``(yp, y_hi, y_lo, yyh_k, yy_raw)``;
-    the reference's [8, M] sublane carrier is TPU layout, the port keeps
-    [M].
+    sentinel on padded rows: the finite ``_PACK_PAD`` for the packed
+    kernels (code bits would turn +inf into NaN), +inf for the unpacked
+    ones. Returns ``(yp, y_hi, y_lo, yyh_k, yy_raw)``; the reference's
+    [8, M] sublane carrier is TPU layout, the port keeps [M].
 
     ``rows_valid`` ([M] bool over the padded rows) is the ragged mask of
     the IVF slab: pads may sit anywhere, and every masked-out row carries
@@ -138,13 +151,15 @@ def _prepare_ops(y, T: int, g: int, metric: str, pbits: int = _PACK_BITS,
     yy_raw = (yp * yp).sum(1)
     valid = (torch.arange(M, device=y.device) < m if rows_valid is None
              else rows_valid)
+    packed = g * (T // _LANES) <= (1 << pbits)
+    pad_sentinel = _PACK_PAD if packed else float("inf")
     if metric == "ip":
         # r = 0/2 − x·(y/2) = −x·y/2, so the score −x·y = 2·r
         y_hi, y_lo = split_hi_lo(yp * 0.5)
-        yyh_k = torch.where(valid, 0.0, _PACK_PAD)
+        yyh_k = torch.where(valid, 0.0, pad_sentinel)
     else:
         y_hi, y_lo = split_hi_lo(yp)
-        yyh_k = torch.where(valid, 0.5 * yy_raw, _PACK_PAD)
+        yyh_k = torch.where(valid, 0.5 * yy_raw, pad_sentinel)
     return yp, y_hi, y_lo, yyh_k.float(), yy_raw
 
 
@@ -244,8 +259,8 @@ def resolve_db_dtype(db_dtype: str, d: int, packed: bool,
     """The dtype an index build really stores (reference ``:1095``). A
     lite int8 index is an error: int8 results are certified by rescoring
     candidates from the f32 rows. Outside K2's envelope (d > 512, or a
-    geometry outside the packed codes) int8 downgrades to bf16, logged;
-    the port then raises for the unported kernel that bf16 needs there."""
+    geometry outside the packed codes) int8 downgrades to bf16, logged,
+    and the bf16 index then runs K1's d-chunked or unpacked form."""
     if db_dtype not in DB_DTYPES:
         raise ValueError(f"db_dtype must be one of {DB_DTYPES}, "
                          f"got {db_dtype!r}")
@@ -269,10 +284,10 @@ def resolve_db_dtype(db_dtype: str, d: int, packed: bool,
 
 
 def fused_eligible(n_rows: int, d: int, device) -> bool:
-    """The fused pipeline's gate: a CUDA device and a shape inside the
-    ported packed kernel's envelope (shared by ``knn``'s auto routing)."""
+    """The fused pipeline's gate, the reference's: a CUDA device, at
+    least 4096 rows and d ≤ 4096 (shared by ``knn``'s auto routing)."""
     return (torch.device(device).type == "cuda" and n_rows >= 4096
-            and d <= _D_SINGLE_SHOT)
+            and d <= _D_MAX)
 
 
 def _bf16_from_numpy(a, device) -> torch.Tensor:
@@ -391,11 +406,6 @@ class KnnIndex:
             Qb=None if qb is None else int(qb), db_dtype=db_dtype, **kw)
 
 
-def _missing_kernel(what: str):
-    raise NotImplementedError(
-        f"knn_fused: {what} — that kernel is not ported to the GPU yet")
-
-
 def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
                       T: Optional[int] = None, g: Optional[int] = None,
                       store_yp: bool = True, device=None,
@@ -409,6 +419,8 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
     bf16x3), values within 2^(pbits−23) relative. ``rows_valid`` ([m]
     bool) marks the live rows of a ragged slab (the IVF-Flat layout);
     results then never name a masked row, and positions are slab rows.
+    The mask rides the packed kernels' sentinel carrier, so it needs the
+    packed-code envelope (g·T/128 ≤ 2¹³) and raises outside it.
 
     ``db_dtype="int8"`` (:data:`DB_DTYPES`) streams the index as int8
     codes with one symmetric scale per certificate group of g·T rows (the
@@ -444,16 +456,11 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
         max(g * n_ch, 2))))))
     packed = g * n_ch <= (1 << pbits)
     db_dtype = resolve_db_dtype(db_dtype, d, packed, store_yp)
-    if not packed:
-        _missing_kernel(
-            f"g·T/128 = {g * n_ch} codes exceed the packed envelope and "
-            f"need the unpacked group kernel (raft_tpu/ops/"
-            f"fused_l2_topk_pallas.py:1230, fused_l2_group_topk)")
-    if d > _D_SINGLE_SHOT:
-        _missing_kernel(
-            f"d={d} > {_D_SINGLE_SHOT} needs the d-chunked kernel "
-            f"(fused_l2_topk_pallas.py:1294, "
-            f"fused_l2_group_topk_packed_dchunk)")
+    if rows_valid is not None and not packed:
+        raise ValueError(
+            f"prepare_knn_index: rows_valid (a ragged mask) needs the "
+            f"packed-code envelope, but g·T/128 = {g * n_ch} codes exceed "
+            f"2^{pbits}")
     dpad = (-d) % _LANES
     if dpad:
         y = torch.cat([y, y.new_zeros((m, dpad))], dim=1)
@@ -556,22 +563,71 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
     """Certified fused KNN on prepared operands; ``x`` [Q, stream_width]
     f32. Returns (scores [Q, k] ascending, ids [Q, k], n_fail): the score
     is d2 for l2 and −x·y for ip."""
-    Q = x.shape[0]
-    T, g, passes, pbits = idx.T, idx.g, idx.passes, idx.pbits
-    M = idx.prepared_rows
-    quant = idx.db_dtype == "int8"
+    wide = x.shape[1] > _D_SINGLE_SHOT
     xx = (x * x).sum(1)                                         # [Q]
+    cand_p = None
+    if idx.g * (idx.T // _LANES) > (1 << idx.pbits):
+        C, cand_v_hat, cand_pid, a3_min = _unpacked_pool(x, xx, idx, k,
+                                                         wide)
+        e_pack = torch.zeros_like(xx)
+    else:
+        C, cand_v_hat, cand_pid, a3_min, cand_p, e_pack = _packed_pool(
+            x, xx, idx, k, wide)
+    if rescore:
+        vals, ids = _smallest_k(_rescore(x, xx, idx, cand_pid), cand_pid, k)
+    else:
+        # lite: candidates are sorted by kernel order, so the head is the
+        # result; a packed value has its code bits cleared first
+        vals = cand_v_hat[:, :k]
+        if cand_p is not None:
+            vals = 2.0 * (cand_p[:, :k].view(torch.int32)
+                          & ~((1 << idx.pbits) - 1)).view(torch.float32)
+        if idx.metric != "ip":
+            vals = vals.clamp_min(0.0)
+        ids = cand_pid[:, :k]
+        vals = vals.masked_fill(ids < 0, float("inf"))
+    return _certify(x, xx, idx, k, vals, ids, C, cand_v_hat, a3_min, e_pack,
+                    certify)
+
+
+def _unpacked_pool(x, xx, idx: KnnIndex, k: int, wide: bool):
+    """The unpacked kernel's pool (reference ``:716-735``): (a1, a2) with
+    their row ids, back in score space as 2·a + xx (0 for ip; +inf stays
+    +inf), the C smallest of the 2S′ pool, ids −1 where the value is not
+    finite, and the group 3rd-min bound. Returns (C, cand_v_hat,
+    cand_pid, a3_min)."""
+    kern = fused_l2_group_topk_dchunk if wide else fused_l2_group_topk
+    a1, id1, a2, id2, a3 = kern(x, idx.y_hi, idx.y_lo, idx.yyh_k, T=idx.T,
+                                g=idx.g, passes=idx.passes)
+    xx_r = (torch.zeros_like(xx) if idx.metric == "ip" else xx)[:, None]
+    pool_v = torch.cat([2.0 * a1 + xx_r, 2.0 * a2 + xx_r], dim=1)
+    pool_id = torch.cat([id1, id2], dim=1)
+    C = min(k + _POOL_PAD, pool_v.shape[1])
+    cand_v_hat, pos = torch.topk(pool_v, C, dim=1, largest=False,
+                                 sorted=True)
+    cand_pid = torch.gather(pool_id, 1, pos)
+    cand_pid = torch.where(torch.isfinite(cand_v_hat), cand_pid, -1)
+    a3_min = 2.0 * a3.min(dim=1).values + xx_r[:, 0]
+    return C, cand_v_hat, cand_pid, a3_min
+
+
+def _packed_pool(x, xx, idx: KnnIndex, k: int, wide: bool):
+    """The packed kernels' twin pool, its decode and the packing margin.
+    Returns (C, cand_v_hat, cand_pid, a3_min, cand_p, e_pack)."""
+    T, g, passes, pbits = idx.T, idx.g, idx.passes, idx.pbits
     # the query half-norm rides into the kernel, so packed values are
     # d2/2 — small, and the pack perturbation is relative to them
     xxh = 0.5 * xx if idx.metric != "ip" else torch.zeros_like(xx)
+    # the reference pairs chunks at passes=1 on the single-shot forms only
     kw = dict(T=T, g=g, passes=passes, pbits=pbits, xxh=xxh,
-              pair=passes == 1 and (T // _LANES) % 2 == 0)
-    if quant:
+              pair=not wide and passes == 1 and (T // _LANES) % 2 == 0)
+    if idx.db_dtype == "int8":
         a1p, a2p, a3p = fused_l2_group_topk_packed_q8(
             x, idx.y_q, idx.yyh_k, idx.scales, **kw)
     else:
-        a1p, a2p, a3p = fused_l2_group_topk_packed(
-            x, idx.y_hi, idx.y_lo, idx.yyh_k, **kw)
+        kern = (fused_l2_group_topk_packed_dchunk if wide
+                else fused_l2_group_topk_packed)
+        a1p, a2p, a3p = kern(x, idx.y_hi, idx.y_lo, idx.yyh_k, **kw)
     S_ = a1p.shape[1]
     # twin pool: the Ca smallest bucket minima, each with its a2 twin,
     # pruned back to C by kernel order. topk returns the input's values,
@@ -599,21 +655,15 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
                           _real_half(a1_sel[:, Ca - 1])),
             cand_p[:, k - 1].abs()))
     e_pack = 8.0 * half_mag * 2.0 ** (pbits - 23)
+    return C, cand_v_hat, cand_pid, a3_min, cand_p, e_pack
 
-    if rescore:
-        vals, ids = _smallest_k(_rescore(x, xx, idx, cand_pid), cand_pid, k)
-    else:
-        # lite: candidates are sorted by kernel order, so the head is the
-        # result; only the code bits are cleared from the values
-        clean = (cand_p.view(torch.int32) & ~((1 << pbits) - 1)).view(
-            torch.float32)
-        vals = 2.0 * clean[:, :k]
-        if idx.metric != "ip":
-            vals = vals.clamp_min(0.0)
-        ids = cand_pid[:, :k]
-        vals = vals.masked_fill(ids < 0, float("inf"))
 
-    # ---- certificate ----
+def _certify(x, xx, idx: KnnIndex, k: int, vals, ids, C: int, cand_v_hat,
+             a3_min, e_pack, certify: str):
+    """The per-query certificate and the exact fixup of the queries that
+    fail it. Returns (vals, ids, n_fail)."""
+    M, passes = idx.prepared_rows, idx.passes
+    quant = idx.db_dtype == "int8"
     theta = vals[:, k - 1]
     bound = torch.minimum(a3_min, cand_v_hat[:, C - 1])
     if quant or passes == 3 or certify == "f32":

@@ -5,27 +5,47 @@ Semantics kept from the reference: batched rows, optional input indices
 (default 0..len-1 per row), ``select_min``, sorted output.
 
 Algorithms. ``XLA_TOPK`` — the framework's own top-k, here ``torch.topk``.
-The reference's ``CHUNKED`` (and its ``RADIX`` alias) is an exact
-per-chunk + merge selection that exists because XLA's TPU top-k grows
-superlinearly with row length; it returns the same exact answer as one
-``torch.topk``, which serves it here. ``APPROX`` has no approximate
-counterpart in PyTorch: the exact answer meets any recall target.
-``SLOTTED`` (and its ``BITONIC`` alias) runs the TPU kernel K3, which is not
-ported yet, and raises. AUTO picks ``XLA_TOPK``: the reference's table of
-measured timings is TPU data, and the port has none of its own yet.
+``SLOTTED`` — the certified slot fold (``select_k_slotted``: K3 on rows
+of 4,096 or more). ``CHUNKED`` — the exact per-chunk top-k and merge
+(``select_k_chunked``). The reference names keep dispatching to the
+algorithms that play their roles: ``RADIX`` → CHUNKED, ``BITONIC`` →
+SLOTTED. An explicit request outside its algorithm's envelope warns
+(``RuntimeWarning``) and answers with ``torch.topk``; under AUTO that
+fallback is silent. ``APPROX`` has no approximate counterpart in
+PyTorch: the exact answer meets any recall target. AUTO picks
+``XLA_TOPK``: the reference's table of measured timings is TPU data, and
+the port has none of its own yet.
 """
 
 from __future__ import annotations
 
+import warnings
 from typing import Tuple
 
 import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import ensure_resources
-from raft_tpu_torch.matrix.select_k_types import SelectAlgo
+from raft_tpu_torch.matrix.select_k_chunked import (chunked_envelope,
+                                                    select_k_chunked)
+from raft_tpu_torch.matrix.select_k_slotted import (select_k_slotted,
+                                                    slotted_envelope)
+from raft_tpu_torch.matrix.select_k_types import (SelectAlgo,
+                                                  f32_comparable_keys)
 
-_K3_ALGOS = (SelectAlgo.SLOTTED, SelectAlgo.BITONIC)
+
+def _algo_in_envelope(algo: SelectAlgo, length: int, k: int,
+                      dtype=None) -> bool:
+    """Whether (length, k, dtype) is inside ``algo``'s envelope — the
+    predicates whose violation makes the implementations raise."""
+    if algo in (SelectAlgo.SLOTTED, SelectAlgo.CHUNKED):
+        if dtype is not None and not f32_comparable_keys(dtype):
+            return False
+    if algo == SelectAlgo.SLOTTED:
+        return k <= slotted_envelope(length, k)[2]
+    if algo == SelectAlgo.CHUNKED:
+        return chunked_envelope(length)
+    return True
 
 
 def choose_select_k_algorithm(n_rows: int, length: int, k: int,
@@ -65,10 +85,22 @@ def select_k(res, in_val, in_idx=None, k: int = 1, select_min: bool = True,
         in_idx = torch.as_tensor(in_idx, device=dev)
         expects(tuple(in_idx.shape) == tuple(in_val.shape),
                 "select_k: in_idx shape mismatch")
-    if algo == SelectAlgo.AUTO:
+    explicit = algo != SelectAlgo.AUTO
+    if not explicit:
         algo = choose_select_k_algorithm(batch, length, k, in_val.dtype)
-    if algo in _K3_ALGOS:
-        raise NotImplementedError(
-            f"select_k: algo={algo.name} runs the slotted selection kernel "
-            f"K3 (raft_tpu/ops/select_slotted_pallas.py), not yet ported")
+    if algo in (SelectAlgo.RADIX, SelectAlgo.BITONIC):
+        algo = (SelectAlgo.CHUNKED if algo == SelectAlgo.RADIX
+                else SelectAlgo.SLOTTED)
+    if algo in (SelectAlgo.SLOTTED, SelectAlgo.CHUNKED):
+        if _algo_in_envelope(algo, length, k, in_val.dtype):
+            impl = (select_k_slotted if algo == SelectAlgo.SLOTTED
+                    else select_k_chunked)
+            return impl(in_val, in_idx, k, select_min)
+        if explicit:
+            # silently answering with another algorithm would invalidate
+            # a benchmark or test of the named one
+            warnings.warn(
+                f"select_k: explicit algo={algo.name} outside its envelope "
+                f"(len={length}, k={k}, dtype={in_val.dtype}); falling "
+                f"back to torch.topk", RuntimeWarning, stacklevel=2)
     return _topk_select(in_val, in_idx, k, select_min)

@@ -2,6 +2,7 @@
 its plain PyTorch twin in the same module (CUDA sources under ``csrc/``,
 built by ``_build`` at first use)."""
 
+from raft_tpu_torch.ops.folds import fold_group_top2
 from raft_tpu_torch.ops.fine_scan import (
     fine_scan_list_major,
     fine_scan_list_major_q8,
@@ -9,10 +10,16 @@ from raft_tpu_torch.ops.fine_scan import (
     fine_scan_list_major_ref,
 )
 from raft_tpu_torch.ops.fused_l2_topk import (
+    fused_l2_group_topk,
+    fused_l2_group_topk_dchunk,
+    fused_l2_group_topk_dchunk_ref,
     fused_l2_group_topk_packed,
+    fused_l2_group_topk_packed_dchunk,
+    fused_l2_group_topk_packed_dchunk_ref,
     fused_l2_group_topk_packed_q8,
     fused_l2_group_topk_packed_q8_ref,
     fused_l2_group_topk_packed_ref,
+    fused_l2_group_topk_ref,
     split_hi_lo,
 )
 from raft_tpu_torch.ops.histogram import (
@@ -22,6 +29,10 @@ from raft_tpu_torch.ops.histogram import (
 from raft_tpu_torch.ops.pq_scan import (
     pq_scan_list_major,
     pq_scan_list_major_ref,
+)
+from raft_tpu_torch.ops.select_slotted import (
+    select_slot_topk_packed,
+    select_slot_topk_packed_ref,
 )
 from raft_tpu_torch.ops.sddmm import (
     sddmm_entries,
@@ -44,6 +55,12 @@ from raft_tpu_torch.ops.unexpanded import (
 
 __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fine_scan_list_major_q8_ref", "fine_scan_list_major_ref",
+           "fold_group_top2", "fused_l2_group_topk",
+           "fused_l2_group_topk_dchunk", "fused_l2_group_topk_dchunk_ref",
+           "fused_l2_group_topk_packed_dchunk",
+           "fused_l2_group_topk_packed_dchunk_ref",
+           "fused_l2_group_topk_ref", "select_slot_topk_packed",
+           "select_slot_topk_packed_ref",
            "fused_l2_group_topk_packed", "fused_l2_group_topk_packed_q8",
            "fused_l2_group_topk_packed_q8_ref",
            "fused_l2_group_topk_packed_ref", "histogram_blocked",

@@ -4,7 +4,9 @@
 //
 // Replaces raft_tpu/ops/fused_l2_topk_pallas.py:fused_l2_group_topk_packed
 // (and its database-major forms _packed_db / _packed_dbuf, which compute
-// the same outputs in another TPU grid order) — K1 — and
+// the same outputs in another TPU grid order) — K1 —, its wide-feature
+// form fused_l2_group_topk_packed_dchunk (:1294), the unpacked forms
+// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254), and
 // fused_l2_group_topk_packed_db_q8 / _dbuf_q8 — K2.
 //
 // What it computes. For every query q and database row n (rows padded to
@@ -30,6 +32,22 @@
 // the winner carries code 2i (+1 when it came from the odd chunk). K2's
 // outputs have K1's layout bit for bit, so the decode and the
 // certificate downstream are the same.
+//
+// NaN. The min/max of the merge and of the pair step propagate NaN
+// (PTX min.NaN / max.NaN), as the reference's jnp.minimum/jnp.maximum
+// and the twin's torch.minimum/torch.maximum do. A ±inf half-score turns
+// into NaN once code bits are OR'd into its mantissa; that NaN must
+// reach a3 so the query fails the certificate and takes the exact fixup
+// (fminf/fmaxf would drop the entry and could certify a top-k without
+// it).
+//
+// The unpacked form (knn_fused for g·T/128 beyond the 2^13-code
+// envelope) keeps per bucket (a1, id1, a2, id2, a3) with global row ids
+// tile·T + chunk·128 + lane, merged by _merge_chunk_top2's compare/select
+// order with strict < (on a tie the earlier id stays), over the plain
+// half-score yyh − x·y (no query norm: the caller recovers 2·a + xx).
+// Padded rows carry yyh = +inf, which never wins a strict <, so a group
+// of pads keeps a = +inf, id = −1.
 //
 // Precision contract. Both factors of every product are bf16 rounded to
 // nearest (__float2bfloat16_rn), so each product is exact in f32, and the
@@ -63,6 +81,18 @@
 // into one bf16 slice in shared memory (exact) before ldmatrix, and the
 // group's scale is read once per block. wgmma, TMA and a persistent
 // schedule are later work.
+//
+// Wide features (the _dchunk forms, d > 512). The resident query block
+// is 64·(d + 8)·2 bytes per bf16 array: at d = 960 and passes=3 that is
+// 247,808 B, more than a block's 232,448. The accumulator of a (64
+// queries × 128 rows) chunk already lives in registers across the
+// k-slice loop, so the wide forms keep that loop and only change where
+// x's k-slices come from: they stream through the cp.async ring beside
+// y's (the GPU counterpart of the TPU's d-chunked VMEM accumulator, with
+// no scratch). x arrives as a bf16 hi/lo copy made once a call (Q·d·4
+// bytes, L2-resident), rounded exactly as the resident path rounds it.
+// A stage then holds 128 y rows and 64 x rows of each array: 104,960 B
+// at passes=3, two stages in 209,920 B.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -119,35 +149,83 @@ __device__ __forceinline__ float pack(float c, uint32_t keep, int code) {
   return __int_as_float((__float_as_int(c) & keep) | code);
 }
 
+// minima and maxima that propagate NaN, as torch.minimum/maximum do
+__device__ __forceinline__ float min_nan(float a, float b) {
+  float r;
+  asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+__device__ __forceinline__ float max_nan(float a, float b) {
+  float r;
+  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
+  return r;
+}
+
 // _merge_chunk_top2_packed: with a1 ≤ a2, the round-1 loser either stays
 // ≥ a2 or becomes the new 2nd; the round-2 loser is the 3rd smallest.
 __device__ __forceinline__ void merge(float cp, float& a1, float& a2,
                                       float& a3) {
-  float b1 = fmaxf(a1, cp);
-  a1 = fminf(a1, cp);
-  float b2 = fmaxf(a2, b1);
-  a2 = fminf(a2, b1);
-  a3 = fminf(a3, b2);
+  float b1 = max_nan(a1, cp);
+  a1 = min_nan(a1, cp);
+  float b2 = max_nan(a2, b1);
+  a2 = min_nan(a2, b1);
+  a3 = min_nan(a3, b2);
 }
 
-template <int PASSES, bool PAIR, bool Q8>
+// _merge_chunk_top2: the unpacked compare/select order (strict <)
+__device__ __forceinline__ void merge_ids(float c, int ci, float& a1,
+                                          int& id1, float& a2, int& id2,
+                                          float& a3) {
+  const bool lt1 = c < a1;
+  const float b1 = lt1 ? a1 : c;
+  const int bid1 = lt1 ? id1 : ci;
+  a1 = lt1 ? c : a1;
+  id1 = lt1 ? ci : id1;
+  const bool lt2 = b1 < a2;
+  const float b2 = lt2 ? a2 : b1;
+  a2 = lt2 ? b1 : a2;
+  id2 = lt2 ? bid1 : id2;
+  a3 = min_nan(a3, b2);
+}
+
+struct Args {
+  const float* x;                     // [Q, d] f32 (resident forms)
+  const __nv_bfloat16* x_hi;          // [Qp, d] bf16 (streamed forms;
+  const __nv_bfloat16* x_lo;          //  Qp = Q rounded up to kBQ)
+  const __nv_bfloat16* y_hi;
+  const __nv_bfloat16* y_lo;
+  const int8_t* y_q;
+  const float* scale;
+  const float* yyh;
+  const float* xxh;
+  float* a1;
+  float* a2;
+  float* a3;
+  int* id1;                           // unpacked form only
+  int* id2;
+  int Q, M, d, T, g, pbits;
+};
+
+// One kernel for the group forms: PASSES 1/3; PAIR pre-reduction; Q8 (K2,
+// int8 slices); XS (x streamed through the ring: the _dchunk forms);
+// PACKED (codes in the mantissa) or the unpacked (a, id) state.
+template <int PASSES, bool PAIR, bool Q8, bool XS, bool PACKED>
 __global__ void __launch_bounds__(kThreads, 1)
-fused_l2_group_topk_packed_kernel(
-    const float* __restrict__ x, const __nv_bfloat16* __restrict__ y_hi,
-    const __nv_bfloat16* __restrict__ y_lo, const int8_t* __restrict__ y_q,
-    const float* __restrict__ scale, const float* __restrict__ yyh,
-    const float* __restrict__ xxh, float* __restrict__ a1_out,
-    float* __restrict__ a2_out, float* __restrict__ a3_out, int Q, int M,
-    int d, int T, int g, int pbits, int n_stages) {
+fused_l2_group_topk_kernel(const Args p, int n_stages) {
+  static_assert(!(Q8 && XS) && !(Q8 && !PACKED) && !(PAIR && !PACKED),
+                "no such form");
   extern __shared__ __align__(16) unsigned char smem[];
+  const int d = p.d;
   const int xstride = d + 8;
+  constexpr int x_arrays = PASSES == 3 ? 2 : 1;
+  // bf16 ring (K1: y_hi, and y_lo at passes=3, then for XS the x
+  // slices) or, for K2, one widened bf16 slice followed by the int8 ring
+  constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
+  constexpr int y_elems = y_arrays * kLanes * kYStride;
+  constexpr int stage_elems = y_elems + (XS ? x_arrays * kBQ * kYStride : 0);
   __nv_bfloat16* xs_hi = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* xs_lo = xs_hi + kBQ * xstride;            // PASSES == 3
-  __nv_bfloat16* ys = xs_hi + (PASSES == 3 ? 2 : 1) * kBQ * xstride;
-  // bf16 ring (K1: y_hi, and y_lo at passes=3) or, for K2, one widened
-  // bf16 slice followed by the int8 ring
-  const int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
-  const int stage_elems = y_arrays * kLanes * kYStride;
+  __nv_bfloat16* ys = XS ? xs_hi : xs_hi + x_arrays * kBQ * xstride;
   int8_t* qring = reinterpret_cast<int8_t*>(ys + kLanes * kYStride);
   float* yyh_s = Q8 ? reinterpret_cast<float*>(qring + n_stages * kQStage)
                     : reinterpret_cast<float*>(ys + n_stages * stage_elems);
@@ -159,24 +237,28 @@ fused_l2_group_topk_packed_kernel(
   const int wn = warp & 1;        // 64-lane half of this warp
   const int q0 = blockIdx.x * kBQ;
   const int grp = blockIdx.y;
+  const int Q = p.Q, T = p.T, g = p.g;
   const int n_ch = T / kLanes;
-  const int n_tiles = M / T;
+  const int n_tiles = p.M / T;
   const int tiles = min(g, n_tiles - grp * g);
   const int n_chunks = tiles * n_ch;
   const int ksl = d / kKS;
   const int steps = n_chunks * ksl;
   const long row0 = static_cast<long>(grp) * g * T;
-  const float gscale = Q8 ? scale[grp] : 1.f;
+  const float gscale = Q8 ? p.scale[grp] : 1.f;
 
-  // ---- the query block, rounded to bf16 hi (and lo) once ----
-  for (int i = tid; i < kBQ * d; i += kThreads) {
-    const int r = i / d, k = i - r * d;
-    const float v = (q0 + r < Q) ? x[static_cast<long>(q0 + r) * d + k]
-                                 : 0.f;
-    const __nv_bfloat16 hi = __float2bfloat16_rn(v);
-    xs_hi[r * xstride + k] = hi;
-    if (PASSES == 3)
-      xs_lo[r * xstride + k] = __float2bfloat16_rn(v - __bfloat162float(hi));
+  if constexpr (!XS) {
+    // ---- the query block, rounded to bf16 hi (and lo) once ----
+    for (int i = tid; i < kBQ * d; i += kThreads) {
+      const int r = i / d, k = i - r * d;
+      const float v =
+          (q0 + r < Q) ? p.x[static_cast<long>(q0 + r) * d + k] : 0.f;
+      const __nv_bfloat16 hi = __float2bfloat16_rn(v);
+      xs_hi[r * xstride + k] = hi;
+      if (PASSES == 3)
+        xs_lo[r * xstride + k] =
+            __float2bfloat16_rn(v - __bfloat162float(hi));
+    }
   }
 
   // ---- stage loader: step s = (chunk s / ksl, feature slice s % ksl) ----
@@ -186,46 +268,65 @@ fused_l2_group_topk_packed_kernel(
     if constexpr (Q8) {
       // 128 rows × 128 int8 = 1024 16-byte pieces
       int8_t* dst = qring + (s % n_stages) * kQStage;
-      for (int p = tid; p < kLanes * (kKS / 16); p += kThreads) {
-        const int r = p >> 3, seg = p & 7;
+      for (int i = tid; i < kLanes * (kKS / 16); i += kThreads) {
+        const int r = i >> 3, seg = i & 7;
         cp_async16(smem_u32(dst + r * kQStride + seg * 16),
-                   y_q + (rbase + r) * d + kk * kKS + seg * 16);
+                   p.y_q + (rbase + r) * d + kk * kKS + seg * 16);
       }
     } else {
       __nv_bfloat16* dst = ys + (s % n_stages) * stage_elems;
       // 128 rows × 128 bf16 = 2048 16-byte pieces per array
-      for (int p = tid; p < kLanes * (kKS / 8); p += kThreads) {
-        const int r = p >> 4, seg = p & 15;
+      for (int i = tid; i < kLanes * (kKS / 8); i += kThreads) {
+        const int r = i >> 4, seg = i & 15;
         const long goff = (rbase + r) * d + kk * kKS + seg * 8;
-        cp_async16(smem_u32(dst + r * kYStride + seg * 8), y_hi + goff);
+        cp_async16(smem_u32(dst + r * kYStride + seg * 8), p.y_hi + goff);
         if (PASSES == 3)
           cp_async16(
               smem_u32(dst + kLanes * kYStride + r * kYStride + seg * 8),
-              y_lo + goff);
+              p.y_lo + goff);
+      }
+      if constexpr (XS) {
+        // 64 query rows × 128 bf16 = 1024 pieces per array (x_hi/x_lo
+        // are padded to whole query blocks)
+        __nv_bfloat16* xdst = dst + y_elems;
+        for (int i = tid; i < kBQ * (kKS / 8); i += kThreads) {
+          const int r = i >> 4, seg = i & 15;
+          const long goff =
+              static_cast<long>(q0 + r) * d + kk * kKS + seg * 8;
+          cp_async16(smem_u32(xdst + r * kYStride + seg * 8),
+                     p.x_hi + goff);
+          if (PASSES == 3)
+            cp_async16(
+                smem_u32(xdst + kBQ * kYStride + r * kYStride + seg * 8),
+                p.x_lo + goff);
+        }
       }
     }
     if (kk == ksl - 1 && tid < kLanes / 4)
       cp_async16(smem_u32(yyh_s + (s % n_stages) * kLanes + tid * 4),
-                 yyh + rbase + tid * 4);
+                 p.yyh + rbase + tid * 4);
     cp_async_commit();
   };
 
-  const uint32_t keep = ~((1u << pbits) - 1u);
+  const uint32_t keep = ~((1u << p.pbits) - 1u);
   float xh[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = q0 + wq * 16 + gid + 8 * h;
-    xh[h] = (q < Q) ? xxh[q] : 0.f;
+    xh[h] = (PACKED && q < Q) ? p.xxh[q] : 0.f;
   }
 
+  const float init = PACKED ? kPackPad : __int_as_float(0x7f800000);
   float acc[8][4], a1[8][4], a2[8][4], a3[8][4];
-  float c_even[8][4];   // PAIR: the even chunk's values (dead otherwise)
+  int id1[8][4], id2[8][4];   // unpacked only (dead otherwise)
+  float c_even[8][4];         // PAIR: the even chunk's values
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
       acc[t][i] = 0.f;
-      a1[t][i] = a2[t][i] = a3[t][i] = kPackPad;
+      a1[t][i] = a2[t][i] = a3[t][i] = init;
+      id1[t][i] = id2[t][i] = -1;
     }
 
   load_step(0);
@@ -242,8 +343,8 @@ fused_l2_group_topk_packed_kernel(
     if constexpr (Q8) {
       // widen the int8 slice into the bf16 slice (exact: |q| <= 127)
       const int8_t* qs = qring + (s % n_stages) * kQStage;
-      for (int p = tid; p < kLanes * (kKS / 16); p += kThreads) {
-        const int r = p >> 3, seg = p & 7;
+      for (int i = tid; i < kLanes * (kKS / 16); i += kThreads) {
+        const int r = i >> 3, seg = i & 7;
         const int4 raw =
             *reinterpret_cast<const int4*>(qs + r * kQStride + seg * 16);
         const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
@@ -262,16 +363,22 @@ fused_l2_group_topk_packed_kernel(
     const int c = s / ksl, kk = s - c * ksl;
     const __nv_bfloat16* ys_hi = Q8 ? ys : ys + (s % n_stages) * stage_elems;
     const __nv_bfloat16* ys_lo = ys_hi + kLanes * kYStride;
+    // A operand: the resident block (column kk·128 of the row), or this
+    // step's streamed slice
+    const __nv_bfloat16* xa_hi = XS ? ys_hi + y_elems : xs_hi;
+    const __nv_bfloat16* xa_lo = XS ? xa_hi + kBQ * kYStride : xs_lo;
+    const int astride = XS ? kYStride : xstride;
+    const int acol0 = XS ? 0 : kk * kKS;
 #pragma unroll
     for (int k16 = 0; k16 < kKS / 16; ++k16) {
       // A: 16 queries × 16 features of this warp's slab
       const int arow = wq * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-      const int acol = kk * kKS + k16 * 16 + (lane >> 4) * 8;
+      const int acol = acol0 + k16 * 16 + (lane >> 4) * 8;
       uint32_t ahi[4], alo[4];
-      ldsm_x4(smem_u32(xs_hi + arow * xstride + acol), ahi[0], ahi[1],
+      ldsm_x4(smem_u32(xa_hi + arow * astride + acol), ahi[0], ahi[1],
               ahi[2], ahi[3]);
       if (PASSES == 3)
-        ldsm_x4(smem_u32(xs_lo + arow * xstride + acol), alo[0], alo[1],
+        ldsm_x4(smem_u32(xa_lo + arow * astride + acol), alo[0], alo[1],
                 alo[2], alo[3]);
 #pragma unroll
       for (int tp = 0; tp < 4; ++tp) {
@@ -298,30 +405,54 @@ fused_l2_group_topk_packed_kernel(
 
     if (kk == ksl - 1) {
       // ---- fold chunk c of the group into the bucket registers ----
+      // (one branch a chunk, outside the unrolled loops: with PAIR an even
+      // chunk only waits for its odd partner)
       const float* yy = yyh_s + (s % n_stages) * kLanes;
+      if (PAIR && (c & 1) == 0) {
 #pragma unroll
-      for (int t = 0; t < 8; ++t) {
-        const int ln = wn * 64 + t * 8 + tig * 2;
-        const float y0 = yy[ln], y1 = yy[ln + 1];
+        for (int t = 0; t < 8; ++t) {
+          const int ln = wn * 64 + t * 8 + tig * 2;
+          const float y0 = yy[ln], y1 = yy[ln + 1];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) {
-          // K2: the group scale multiplies the finished d-sum, rounded
-          // on its own (no fused multiply-add), as the twin computes it
-          const float dot = Q8 ? __fmul_rn(acc[t][i], gscale) : acc[t][i];
-          const float cv = __fadd_rn(((i & 1) ? y1 : y0) - dot, xh[i >> 1]);
-          acc[t][i] = 0.f;
-          if (PAIR) {
-            if ((c & 1) == 0) {
-              c_even[t][i] = cv;
+          for (int i = 0; i < 4; ++i) {
+            const float dot = Q8 ? __fmul_rn(acc[t][i], gscale) : acc[t][i];
+            c_even[t][i] = __fadd_rn(((i & 1) ? y1 : y0) - dot, xh[i >> 1]);
+            acc[t][i] = 0.f;
+          }
+        }
+      } else {
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int ln = wn * 64 + t * 8 + tig * 2;
+          const float y0 = yy[ln], y1 = yy[ln + 1];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            if constexpr (!PACKED) {
+              // the plain half-score and its global row id
+              const float cv = ((i & 1) ? y1 : y0) - acc[t][i];
+              acc[t][i] = 0.f;
+              const int ci =
+                  static_cast<int>(row0) + c * kLanes + ln + (i & 1);
+              merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                        a3[t][i]);
             } else {
-              const float c0 = c_even[t][i];
-              const float mn = fminf(c0, cv);
-              a3[t][i] = fminf(a3[t][i], fmaxf(c0, cv));
-              const int code = (mn == cv) ? c : c - 1;
-              merge(pack(mn, keep, code), a1[t][i], a2[t][i], a3[t][i]);
+              // K2: the group scale multiplies the finished d-sum, rounded
+              // on its own (no fused multiply-add), as the twin computes it
+              const float dot =
+                  Q8 ? __fmul_rn(acc[t][i], gscale) : acc[t][i];
+              const float cv =
+                  __fadd_rn(((i & 1) ? y1 : y0) - dot, xh[i >> 1]);
+              acc[t][i] = 0.f;
+              if (PAIR) {
+                const float c0 = c_even[t][i];
+                const float mn = min_nan(c0, cv);
+                a3[t][i] = min_nan(a3[t][i], max_nan(c0, cv));
+                const int code = (mn == cv) ? c : c - 1;
+                merge(pack(mn, keep, code), a1[t][i], a2[t][i], a3[t][i]);
+              } else {
+                merge(pack(cv, keep, c), a1[t][i], a2[t][i], a3[t][i]);
+              }
             }
-          } else {
-            merge(pack(cv, keep, c), a1[t][i], a2[t][i], a3[t][i]);
           }
         }
       }
@@ -340,80 +471,87 @@ fused_l2_group_topk_packed_kernel(
       const int q = q0 + wq * 16 + gid + 8 * h;
       if (q < Q) {
         const long o = static_cast<long>(q) * S + col;
-        *reinterpret_cast<float2*>(a1_out + o) =
+        *reinterpret_cast<float2*>(p.a1 + o) =
             make_float2(a1[t][2 * h], a1[t][2 * h + 1]);
-        *reinterpret_cast<float2*>(a2_out + o) =
+        *reinterpret_cast<float2*>(p.a2 + o) =
             make_float2(a2[t][2 * h], a2[t][2 * h + 1]);
-        *reinterpret_cast<float2*>(a3_out + o) =
+        *reinterpret_cast<float2*>(p.a3 + o) =
             make_float2(a3[t][2 * h], a3[t][2 * h + 1]);
+        if constexpr (!PACKED) {
+          *reinterpret_cast<int2*>(p.id1 + o) =
+              make_int2(id1[t][2 * h], id1[t][2 * h + 1]);
+          *reinterpret_cast<int2*>(p.id2 + o) =
+              make_int2(id2[t][2 * h], id2[t][2 * h + 1]);
+        }
       }
     }
   }
 }
 
-size_t smem_bytes(int d, int passes, int n_stages, bool q8) {
-  const int x_arrays = passes == 3 ? 2 : 1;
-  const size_t xs = static_cast<size_t>(x_arrays) * kBQ * (d + 8) * 2;
+size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
+  const size_t x_arrays = passes == 3 ? 2 : 1;
+  const size_t xs_bytes = xs ? 0 : x_arrays * kBQ * (d + 8) * 2;
   if (q8)
-    return xs + static_cast<size_t>(kLanes) * kYStride * 2 +
+    return xs_bytes + static_cast<size_t>(kLanes) * kYStride * 2 +
            static_cast<size_t>(n_stages) * (kQStage + kLanes * 4);
-  return xs + static_cast<size_t>(n_stages) *
-                  (x_arrays * kLanes * kYStride * 2 + kLanes * 4);
+  const size_t stage_rows =
+      x_arrays * kLanes + (xs ? x_arrays * kBQ : 0);   // y_arrays = x_arrays
+  return xs_bytes +
+         static_cast<size_t>(n_stages) * (stage_rows * kYStride * 2 +
+                                          kLanes * 4);
 }
 
-template <int PASSES, bool PAIR, bool Q8>
-int launch(const float* x, const __nv_bfloat16* y_hi,
-           const __nv_bfloat16* y_lo, const int8_t* y_q, const float* scale,
-           const float* yyh, const float* xxh, float* a1, float* a2,
-           float* a3, int Q, int M, int d, int T, int g, int pbits,
-           cudaStream_t stream) {
+template <int PASSES, bool PAIR, bool Q8, bool XS, bool PACKED>
+int launch(const Args& a, cudaStream_t stream) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   int n_stages = 2;
-  if (smem_bytes(d, PASSES, 2, Q8) > static_cast<size_t>(limit))
+  if (smem_bytes(a.d, PASSES, 2, Q8, XS) > static_cast<size_t>(limit))
     n_stages = 1;
-  const size_t smem = smem_bytes(d, PASSES, n_stages, Q8);
-  auto kern = fused_l2_group_topk_packed_kernel<PASSES, PAIR, Q8>;
+  const size_t smem = smem_bytes(a.d, PASSES, n_stages, Q8, XS);
+  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, Q8, XS, PACKED>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
-  const int n_groups = (M / T + g - 1) / g;
-  dim3 grid((Q + kBQ - 1) / kBQ, n_groups);
-  kern<<<grid, kThreads, smem, stream>>>(x, y_hi, y_lo, y_q, scale, yyh, xxh,
-                                         a1, a2, a3, Q, M, d, T, g, pbits,
-                                         n_stages);
+  const int n_groups = (a.M / a.T + a.g - 1) / a.g;
+  dim3 grid((a.Q + kBQ - 1) / kBQ, n_groups);
+  kern<<<grid, kThreads, smem, stream>>>(a, n_stages);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <bool Q8>
-int dispatch(const void* x, const void* y_hi, const void* y_lo,
-             const void* y_q, const void* scale, const void* yyh,
-             const void* xxh, void* a1, void* a2, void* a3, int Q, int M,
-             int d, int T, int g, int passes, int pair, int pbits,
-             void* stream) {
-  const float* xf = static_cast<const float*>(x);
-  const __nv_bfloat16* yh = static_cast<const __nv_bfloat16*>(y_hi);
-  const __nv_bfloat16* yl = static_cast<const __nv_bfloat16*>(y_lo);
-  const int8_t* yq = static_cast<const int8_t*>(y_q);
-  const float* sc = static_cast<const float*>(scale);
-  const float* yy = static_cast<const float*>(yyh);
-  const float* xx = static_cast<const float*>(xxh);
-  float* o1 = static_cast<float*>(a1);
-  float* o2 = static_cast<float*>(a2);
-  float* o3 = static_cast<float*>(a3);
+// the packed forms: K1 resident or streamed x (XS), and K2
+template <bool Q8, bool XS>
+int dispatch_packed(const Args& a, int passes, int pair, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (passes == 3 && pair)
-    return launch<3, true, Q8>(xf, yh, yl, yq, sc, yy, xx, o1, o2, o3, Q, M,
-                               d, T, g, pbits, st);
-  if (passes == 3)
-    return launch<3, false, Q8>(xf, yh, yl, yq, sc, yy, xx, o1, o2, o3, Q,
-                                M, d, T, g, pbits, st);
-  if (pair)
-    return launch<1, true, Q8>(xf, yh, yl, yq, sc, yy, xx, o1, o2, o3, Q, M,
-                               d, T, g, pbits, st);
-  return launch<1, false, Q8>(xf, yh, yl, yq, sc, yy, xx, o1, o2, o3, Q, M,
-                              d, T, g, pbits, st);
+  if (passes == 3 && pair) return launch<3, true, Q8, XS, true>(a, st);
+  if (passes == 3) return launch<3, false, Q8, XS, true>(a, st);
+  if (pair) return launch<1, true, Q8, XS, true>(a, st);
+  return launch<1, false, Q8, XS, true>(a, st);
+}
+
+Args make_args(const void* x, const void* x_hi, const void* x_lo,
+               const void* y_hi, const void* y_lo, const void* y_q,
+               const void* scale, const void* yyh, const void* xxh,
+               void* a1, void* a2, void* a3, void* id1, void* id2, int Q,
+               int M, int d, int T, int g, int pbits) {
+  Args a;
+  a.x = static_cast<const float*>(x);
+  a.x_hi = static_cast<const __nv_bfloat16*>(x_hi);
+  a.x_lo = static_cast<const __nv_bfloat16*>(x_lo);
+  a.y_hi = static_cast<const __nv_bfloat16*>(y_hi);
+  a.y_lo = static_cast<const __nv_bfloat16*>(y_lo);
+  a.y_q = static_cast<const int8_t*>(y_q);
+  a.scale = static_cast<const float*>(scale);
+  a.yyh = static_cast<const float*>(yyh);
+  a.xxh = static_cast<const float*>(xxh);
+  a.a1 = static_cast<float*>(a1);
+  a.a2 = static_cast<float*>(a2);
+  a.a3 = static_cast<float*>(a3);
+  a.id1 = static_cast<int*>(id1);
+  a.id2 = static_cast<int*>(id2);
+  a.Q = Q; a.M = M; a.d = d; a.T = T; a.g = g; a.pbits = pbits;
+  return a;
 }
 
 }  // namespace
@@ -428,8 +566,43 @@ extern "C" int fused_l2_group_topk_packed_launch(
     const void* x, const void* y_hi, const void* y_lo, const void* yyh,
     const void* xxh, void* a1, void* a2, void* a3, int Q, int M, int d,
     int T, int g, int passes, int pair, int pbits, void* stream) {
-  return dispatch<false>(x, y_hi, y_lo, nullptr, nullptr, yyh, xxh, a1, a2,
-                         a3, Q, M, d, T, g, passes, pair, pbits, stream);
+  const Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, nullptr,
+                           nullptr, yyh, xxh, a1, a2, a3, nullptr, nullptr,
+                           Q, M, d, T, g, pbits);
+  return dispatch_packed<false, false>(a, passes, pair, stream);
+}
+
+// K1, d-chunked (wide features): x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the
+// split of x, zero rows past Q; x_lo unused at passes=1); the rest as
+// fused_l2_group_topk_packed_launch.
+extern "C" int fused_l2_group_topk_packed_dchunk_launch(
+    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
+    const void* yyh, const void* xxh, void* a1, void* a2, void* a3, int Q,
+    int M, int d, int T, int g, int passes, int pair, int pbits,
+    void* stream) {
+  const Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, nullptr,
+                           nullptr, yyh, xxh, a1, a2, a3, nullptr, nullptr,
+                           Q, M, d, T, g, pbits);
+  return dispatch_packed<false, true>(a, passes, pair, stream);
+}
+
+// K1, unpacked: a1/a2/a3 [Q, ceil(M/T/g)·128] f32, id1/id2 the same shape
+// int32; yyh carries +inf on padded rows. xs = 0 reads x [Q, d] f32
+// (resident, the single-shot form); xs = 1 reads x_hi/x_lo as the
+// d-chunked packed form does.
+extern "C" int fused_l2_group_topk_launch(
+    const void* x, const void* x_hi, const void* x_lo, const void* y_hi,
+    const void* y_lo, const void* yyh, void* a1, void* id1, void* a2,
+    void* id2, void* a3, int Q, int M, int d, int T, int g, int passes,
+    int xs, void* stream) {
+  const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yyh,
+                           nullptr, a1, a2, a3, id1, id2, Q, M, d, T, g, 8);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (xs)
+    return passes == 3 ? launch<3, false, false, true, false>(a, st)
+                       : launch<1, false, false, true, false>(a, st);
+  return passes == 3 ? launch<3, false, false, false, false>(a, st)
+                     : launch<1, false, false, false, false>(a, st);
 }
 
 // K2. Shapes: x [Q, d] f32, y_q [M, d] int8, scale [M/(g·T)] f32 (one per
@@ -440,6 +613,8 @@ extern "C" int fused_l2_group_topk_packed_q8_launch(
     const void* x, const void* y_q, const void* scale, const void* yyh,
     const void* xxh, void* a1, void* a2, void* a3, int Q, int M, int d,
     int T, int g, int passes, int pair, int pbits, void* stream) {
-  return dispatch<true>(x, nullptr, nullptr, y_q, scale, yyh, xxh, a1, a2,
-                        a3, Q, M, d, T, g, passes, pair, pbits, stream);
+  const Args a = make_args(x, nullptr, nullptr, nullptr, nullptr, y_q,
+                           scale, yyh, xxh, a1, a2, a3, nullptr, nullptr,
+                           Q, M, d, T, g, pbits);
+  return dispatch_packed<true, false>(a, passes, pair, stream);
 }

@@ -1,15 +1,17 @@
-"""Fused L2 distance + packed group top-2 fold (K1, and K2 over an int8
+"""Fused L2 distance + group top-2 fold (K1, and K2 over an int8
 database) — the port's hot step.
 
 Counterpart of ``raft_tpu/ops/fused_l2_topk_pallas.py``. The TPU kernel
 ``fused_l2_group_topk_packed`` (``:1269``; its database-major forms
 ``_packed_db``/``_packed_dbuf`` compute the same outputs) becomes the
-hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``, and its int8
-twins ``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``,
-``:1491``) become the same kernel templated on the streamed slice's type;
-see that file for the design. This module holds both wrappers, their
-plain PyTorch twins and the packing constants the certified KNN decodes
-with.
+hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``, and so do its
+wide-feature form ``fused_l2_group_topk_packed_dchunk`` (``:1294``), the
+unpacked forms ``fused_l2_group_topk`` (``:1230``) and
+``fused_l2_group_topk_dchunk`` (``:1254``), and the int8 twins
+``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``, ``:1491``):
+one kernel templated on the form; see that file for the design. This
+module holds the wrappers, their plain PyTorch twins and the packing
+constants the certified KNN decodes with.
 
 The wrapper dispatches on the device of the tensors it is given: CPU
 tensors take the twin, CUDA tensors launch the kernel (or raise). There is
@@ -36,13 +38,20 @@ _PACK_PAD = float(2.0 ** 125)    # finite "never wins" sentinel
 LAUNCHES = 0
 # K2's launches, counted the same way
 LAUNCHES_Q8 = 0
+# the d-chunked packed form's, the unpacked form's and its d-chunked
+# form's launches
+LAUNCHES_DCHUNK = 0
+LAUNCHES_GROUP = 0
+LAUNCHES_GROUP_DCHUNK = 0
 
 _FN = None
 _FN_Q8 = None
+_FN_DCHUNK = None
+_FN_GROUP = None
 
 
-def _check(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
-           pair: bool, pbits: int):
+def _check_group(x, y_hi, y_lo, yy_half, T: int, passes: int):
+    """The operand checks every group form shares."""
     Q, d = x.shape
     M = y_hi.shape[0]
     if T % _LANES:
@@ -51,13 +60,18 @@ def _check(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
         raise ValueError(f"index rows M={M} must be a whole number of "
                          f"T={T} tiles")
     if y_hi.shape[1] != d or yy_half.shape != (M,):
-        raise ValueError("fused_l2_group_topk_packed: operand shapes "
+        raise ValueError("fused_l2_group_topk: operand shapes "
                          f"x {tuple(x.shape)}, y_hi {tuple(y_hi.shape)}, "
                          f"yy_half {tuple(yy_half.shape)} do not agree")
     if passes not in (1, 3):
         raise ValueError(f"passes must be 1 or 3, got {passes}")
     if passes == 3 and (y_lo is None or y_lo.shape != y_hi.shape):
         raise ValueError("passes=3 needs y_lo shaped like y_hi")
+
+
+def _check(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
+           pair: bool, pbits: int):
+    _check_group(x, y_hi, y_lo, yy_half, T, passes)
     if not 0 < pbits <= _PBITS_MAX:
         raise ValueError(f"pbits={pbits} outside (0, {_PBITS_MAX}]")
     if g * (T // _LANES) > (1 << pbits):
@@ -90,30 +104,11 @@ def fused_l2_group_topk_packed(x, y_hi, y_lo, yy_half, *, T: int, g: int,
         return fused_l2_group_topk_packed_ref(
             x, y_hi, y_lo, yy_half, T=T, g=g, passes=passes, pair=pair,
             pbits=pbits, xxh=xxh)
-    if x.device.type != "cuda":
-        raise DeviceError(f"fused_l2_group_topk_packed: no kernel for "
-                          f"device {x.device}")
+    y_lo, xxh = _cuda_operands("fused_l2_group_topk_packed", x, y_hi, y_lo,
+                               yy_half, xxh)
     Q, d = x.shape
     M = y_hi.shape[0]
-    if d % _LANES:
-        raise ValueError(f"the Hopper kernel needs d % {_LANES} == 0 "
-                         f"(knn_fused pads features), got d={d}")
-    if xxh is None:
-        xxh = torch.zeros((Q,), dtype=torch.float32, device=x.device)
-    xxh = xxh.reshape(Q)
-    if y_lo is None:
-        y_lo = y_hi                  # never read at passes=1
-    for name, t, dt in (("x", x, torch.float32),
-                        ("y_hi", y_hi, torch.bfloat16),
-                        ("y_lo", y_lo, torch.bfloat16),
-                        ("yy_half", yy_half, torch.float32),
-                        ("xxh", xxh, torch.float32)):
-        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
-            raise ValueError(f"fused_l2_group_topk_packed: {name} must be "
-                             f"a contiguous {dt} tensor on {x.device}")
-    S = -(-(M // T) // g) * _LANES
-    outs = [torch.empty((Q, S), dtype=torch.float32, device=x.device)
-            for _ in range(3)]
+    outs = _outputs(x, Q, M, T, g, 3)
     if Q == 0:
         return tuple(outs)
     with torch.cuda.device(x.device):
@@ -122,11 +117,232 @@ def fused_l2_group_topk_packed(x, y_hi, y_lo, yy_half, *, T: int, g: int,
             yy_half.data_ptr(), xxh.data_ptr(), outs[0].data_ptr(),
             outs[1].data_ptr(), outs[2].data_ptr(), Q, M, d, T, g, passes,
             int(pair), pbits, torch.cuda.current_stream().cuda_stream)
-    if rc:
-        raise DeviceError(f"fused_l2_group_topk_packed: launch failed "
-                          f"with CUDA error {rc}")
+    _raise_on("fused_l2_group_topk_packed", rc)
     LAUNCHES += 1
     return tuple(outs)
+
+
+def _cuda_operands(who: str, x, y_hi, y_lo, yy_half, xxh):
+    """The checks of a CUDA launch of a group form: a CUDA device,
+    d % 128, contiguous operands of the kernel's types. Returns (y_lo,
+    xxh) with their defaults filled in (y_lo is never read at passes=1;
+    xxh None is zeros)."""
+    if x.device.type != "cuda":
+        raise DeviceError(f"{who}: no kernel for device {x.device}")
+    Q, d = x.shape
+    if d % _LANES:
+        raise ValueError(f"the Hopper kernel needs d % {_LANES} == 0 "
+                         f"(knn_fused pads features), got d={d}")
+    if xxh is None:
+        xxh = torch.zeros((Q,), dtype=torch.float32, device=x.device)
+    xxh = xxh.reshape(Q)
+    if y_lo is None:
+        y_lo = y_hi
+    for name, t, dt in (("x", x, torch.float32),
+                        ("y_hi", y_hi, torch.bfloat16),
+                        ("y_lo", y_lo, torch.bfloat16),
+                        ("yy_half", yy_half, torch.float32),
+                        ("xxh", xxh, torch.float32)):
+        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be a contiguous {dt} "
+                             f"tensor on {x.device}")
+    return y_lo, xxh
+
+
+def _outputs(x, Q: int, M: int, T: int, g: int, n: int):
+    S = -(-(M // T) // g) * _LANES
+    return [torch.empty((Q, S), dtype=torch.float32, device=x.device)
+            for _ in range(n)]
+
+
+def _raise_on(who: str, rc: int):
+    if rc:
+        raise DeviceError(f"{who}: launch failed with CUDA error {rc}")
+
+
+def _split_x(x, passes: int):
+    """The streamed forms' query operand: bf16 hi (and lo) of x, rounded
+    as the resident kernel and the twins round it, zero rows padded to
+    whole 64-query blocks."""
+    Q, d = x.shape
+    pad = (-Q) % 64
+    if pad:
+        x = torch.cat([x, x.new_zeros((pad, d))])
+    hi, lo = split_hi_lo(x)
+    return hi, (lo if passes == 3 else hi)
+
+
+def fused_l2_group_topk_packed_dchunk(x, y_hi, y_lo, yy_half, *, T: int,
+                                      g: int, passes: int,
+                                      pair: bool = False,
+                                      pbits: int = _PACK_BITS, xxh=None
+                                      ) -> Tuple[torch.Tensor, ...]:
+    """Wide-feature form of :func:`fused_l2_group_topk_packed` (the
+    reference's ``_packed_dchunk``, ``:1294``): the same contract and
+    outputs for any d (a multiple of 128 on the card), with x's feature
+    slices streamed beside y's instead of a resident query block, so
+    d > 512 fits a block's shared memory."""
+    global LAUNCHES_DCHUNK
+    _check(x, y_hi, y_lo, yy_half, T, g, passes, pair, pbits)
+    if x.device.type == "cpu":
+        return fused_l2_group_topk_packed_dchunk_ref(
+            x, y_hi, y_lo, yy_half, T=T, g=g, passes=passes, pair=pair,
+            pbits=pbits, xxh=xxh)
+    who = "fused_l2_group_topk_packed_dchunk"
+    y_lo, xxh = _cuda_operands(who, x, y_hi, y_lo, yy_half, xxh)
+    Q, d = x.shape
+    M = y_hi.shape[0]
+    outs = _outputs(x, Q, M, T, g, 3)
+    if Q == 0:
+        return tuple(outs)
+    x_hi, x_lo = _split_x(x, passes)
+    with torch.cuda.device(x.device):
+        rc = _launcher_dchunk()(
+            x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(),
+            y_lo.data_ptr(), yy_half.data_ptr(), xxh.data_ptr(),
+            outs[0].data_ptr(), outs[1].data_ptr(), outs[2].data_ptr(), Q,
+            M, d, T, g, passes, int(pair), pbits,
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(who, rc)
+    LAUNCHES_DCHUNK += 1
+    return tuple(outs)
+
+
+def fused_l2_group_topk_packed_dchunk_ref(x, y_hi, y_lo, yy_half, *,
+                                          T: int, g: int, passes: int,
+                                          pair: bool = False,
+                                          pbits: int = _PACK_BITS,
+                                          xxh=None):
+    """Plain PyTorch twin of :func:`fused_l2_group_topk_packed_dchunk`:
+    the resident form's twin (the products do not depend on how d is
+    cut; only the f32 summation order does)."""
+    return fused_l2_group_topk_packed_ref(
+        x, y_hi, y_lo, yy_half, T=T, g=g, passes=passes, pair=pair,
+        pbits=pbits, xxh=xxh)
+
+
+def _group(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
+           xs: bool):
+    """Launch the unpacked form, resident (xs False) or streamed x."""
+    who = "fused_l2_group_topk_dchunk" if xs else "fused_l2_group_topk"
+    y_lo, _ = _cuda_operands(who, x, y_hi, y_lo, yy_half, None)
+    Q, d = x.shape
+    M = y_hi.shape[0]
+    a1, a2, a3, id1, id2 = _outputs(x, Q, M, T, g, 5)
+    id1, id2 = id1.view(torch.int32), id2.view(torch.int32)
+    if Q == 0:
+        return a1, id1, a2, id2, a3
+    x_hi, x_lo = _split_x(x, passes) if xs else (x, x)
+    with torch.cuda.device(x.device):
+        rc = _launcher_group()(
+            x.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(),
+            y_lo.data_ptr(), yy_half.data_ptr(), a1.data_ptr(),
+            id1.data_ptr(), a2.data_ptr(), id2.data_ptr(), a3.data_ptr(),
+            Q, M, d, T, g, passes, int(xs),
+            torch.cuda.current_stream().cuda_stream)
+    _raise_on(who, rc)
+    return a1, id1, a2, id2, a3
+
+
+def fused_l2_group_topk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
+                        passes: int) -> Tuple[torch.Tensor, ...]:
+    """The unpacked fold (reference ``fused_l2_group_topk``, ``:1230``):
+    per (query, bucket) the two smallest half-scores ``yy/2 − x·y`` with
+    their global row ids, and the third smallest, for geometries whose
+    g·T/128 codes do not fit the packed mantissa. yy_half carries +inf on
+    padded rows (never wins; a bucket of pads keeps +inf and id −1); there
+    is no query norm: callers recover d2 as 2·a + ‖x‖². Returns ``(a1,
+    id1, a2, id2, a3)``, each [Q, ceil(M/T/g)·128] (ids int32)."""
+    global LAUNCHES_GROUP
+    _check_group(x, y_hi, y_lo, yy_half, T, passes)
+    if x.device.type == "cpu":
+        return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
+                                       passes=passes)
+    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, False)
+    LAUNCHES_GROUP += 1
+    return out
+
+
+def fused_l2_group_topk_dchunk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
+                               passes: int) -> Tuple[torch.Tensor, ...]:
+    """Wide-feature form of :func:`fused_l2_group_topk` (reference
+    ``:1254``): the same outputs, x's feature slices streamed beside
+    y's as in :func:`fused_l2_group_topk_packed_dchunk`."""
+    global LAUNCHES_GROUP_DCHUNK
+    _check_group(x, y_hi, y_lo, yy_half, T, passes)
+    if x.device.type == "cpu":
+        return fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, T=T,
+                                              g=g, passes=passes)
+    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, True)
+    LAUNCHES_GROUP_DCHUNK += 1
+    return out
+
+
+def _half_scores(x, y_hi, y_lo, yy_half, passes: int):
+    """[Q, M] ``yy/2 − x·y`` with x·y the bf16-factor products summed in
+    f32 by ``torch.matmul`` (the twins' contraction)."""
+    xhi = x.to(torch.bfloat16)
+    s = xhi.float() @ y_hi.float().T
+    if passes == 3:
+        xlo = (x - xhi.float()).to(torch.bfloat16)
+        s = s + xhi.float() @ y_lo.float().T
+        s = s + xlo.float() @ y_hi.float().T
+    return s.neg_().add_(yy_half[None, :])
+
+
+def fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, *, T: int, g: int,
+                            passes: int):
+    """Plain PyTorch twin of :func:`fused_l2_group_topk`: the twins'
+    contraction, then :func:`_group_fold`. The kernel's test oracle and
+    the CPU path."""
+    _check_group(x, y_hi, y_lo, yy_half, T, passes)
+    return _group_fold(_half_scores(x, y_hi, y_lo, yy_half, passes), T, g)
+
+
+def fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, *, T: int,
+                                   g: int, passes: int):
+    """Plain PyTorch twin of :func:`fused_l2_group_topk_dchunk` (the
+    resident form's twin)."""
+    return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
+                                   passes=passes)
+
+
+def _group_fold(c, T: int, g: int):
+    """The unpacked fold of the [Q, M] half-scores ``c`` in chunk order,
+    with ``_merge_chunk_top2``'s compare/selects (strict <: on a tie the
+    earlier id stays) and a NaN-propagating a3. Chunks past the last
+    tile are skipped (a +inf chunk changes nothing)."""
+    Q, M = c.shape
+    n_chunks = M // _LANES
+    n_groups = -(-(M // T) // g)
+    cpg = g * (T // _LANES) if n_groups > 1 else n_chunks
+    pad = n_groups * cpg * _LANES - M
+    if pad:
+        c = torch.cat([c, c.new_full((Q, pad), float("inf"))], dim=1)
+    c = c.reshape(Q, n_groups, cpg, _LANES)
+    col = (torch.arange(n_groups, device=c.device)[:, None] * cpg
+           * _LANES + torch.arange(_LANES, device=c.device)[None, :]
+           ).to(torch.int32)                                    # [G, 128]
+    a1 = c.new_full((Q, n_groups, _LANES), float("inf"))
+    a2, a3 = a1.clone(), a1.clone()
+    id1 = torch.full(a1.shape, -1, dtype=torch.int32, device=c.device)
+    id2 = id1.clone()
+    for r in range(cpg):
+        cr = c[:, :, r]
+        ci = (col + r * _LANES).expand_as(id1)
+        lt1 = cr < a1
+        b1 = torch.where(lt1, a1, cr)
+        bid1 = torch.where(lt1, id1, ci)
+        a1 = torch.where(lt1, cr, a1)
+        id1 = torch.where(lt1, ci, id1)
+        lt2 = b1 < a2
+        b2 = torch.where(lt2, a2, b1)
+        a2 = torch.where(lt2, b1, a2)
+        id2 = torch.where(lt2, bid1, id2)
+        a3 = torch.minimum(a3, b2)
+    S = n_groups * _LANES
+    return (a1.reshape(Q, S), id1.reshape(Q, S), a2.reshape(Q, S),
+            id2.reshape(Q, S), a3.reshape(Q, S))
 
 
 def _launcher():
@@ -138,6 +354,29 @@ def _launcher():
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
+
+
+def _launcher_dchunk():
+    global _FN_DCHUNK
+    if _FN_DCHUNK is None:
+        fn = _build.load(
+            "fused_l2_topk").fused_l2_group_topk_packed_dchunk_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 9 + [i] * 8 + [p]
+        fn.restype = ctypes.c_int
+        _FN_DCHUNK = fn
+    return _FN_DCHUNK
+
+
+def _launcher_group():
+    global _FN_GROUP
+    if _FN_GROUP is None:
+        fn = _build.load("fused_l2_topk").fused_l2_group_topk_launch
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 11 + [i] * 7 + [p]
+        fn.restype = ctypes.c_int
+        _FN_GROUP = fn
+    return _FN_GROUP
 
 
 def _pack(c: torch.Tensor, code, pbits: int) -> torch.Tensor:
@@ -164,17 +403,9 @@ def fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yy_half, *, T: int,
     chunked, packed fold in the reference's order. The kernel's test
     oracle and the CPU path."""
     _check(x, y_hi, y_lo, yy_half, T, g, passes, pair, pbits)
-    Q = x.shape[0]
-    xhi = x.to(torch.bfloat16)
-    s = xhi.float() @ y_hi.float().T
-    if passes == 3:
-        xlo = (x - xhi.float()).to(torch.bfloat16)
-        s = s + xhi.float() @ y_lo.float().T
-        s = s + xlo.float() @ y_hi.float().T
-    c = yy_half[None, :] - s
-    del s
+    c = _half_scores(x, y_hi, y_lo, yy_half, passes)
     if xxh is not None:
-        c = c + xxh.reshape(Q, 1)
+        c += xxh.reshape(-1, 1)
     return _packed_fold(c, T, g, pair, pbits)
 
 

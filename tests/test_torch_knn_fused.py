@@ -184,12 +184,18 @@ def test_distance_knn_with_prepared_index(metric):
                     np.asarray(i_ref))
 
 
-def test_missing_kernels_raise():
-    _, y = _data(4, 4096, 640, 1)
-    with pytest.raises(NotImplementedError, match="d-chunked"):
-        tkf.prepare_knn_index(y, T=T, g=G, device="cpu")
-    with pytest.raises(NotImplementedError, match="unpacked"):
-        tkf.prepare_knn_index(y[:, :64], T=T, g=4096, device="cpu")
+def test_wide_and_unpacked_indexes_match_reference():
+    """d > 512 (K1's d-chunked form) and g·T/128 past the packed envelope
+    (the unpacked form) build and answer with the reference's ids."""
+    x, y = _data(8, 4096, 640, 1)
+    for yy, g in ((y, G), (y[:, :64], 4096)):
+        xx = x[:, :yy.shape[1]]
+        idx = tkf.prepare_knn_index(yy, T=T, g=g, device="cpu")
+        v, i = tkf.knn_fused(xx, idx, 10)
+        v_ref, i_ref = jkf.knn_fused(xx, yy, k=10, passes=3, T=T, Qb=8, g=g,
+                                     grid_order="query")
+        assert_same_ids(v.numpy(), i.numpy(), np.asarray(v_ref),
+                        np.asarray(i_ref))
 
 
 def test_pad_query_rows():

@@ -267,13 +267,16 @@ def test_unknown_db_dtype_rejected():
         tkf.knn_fused(y[:4], y, 2, db_dtype="f16", device="cpu")
 
 
-def test_int8_wide_features_downgrade_then_need_dchunk():
+def test_int8_wide_features_downgrade_then_run_dchunk():
     y = np.ones((512, 600), np.float32)
     assert tkf.resolve_db_dtype("int8", 600, True) == "bf16"
     # the reference downgrades the same way
     assert jkf.resolve_db_dtype("int8", 600, True, "db") == "bf16"
-    with pytest.raises(NotImplementedError, match="d-chunked"):
-        tkf.prepare_knn_index(y, passes=1, db_dtype="int8", device="cpu")
+    idx = tkf.prepare_knn_index(y, passes=1, db_dtype="int8", device="cpu")
+    assert idx.db_dtype == "bf16" and idx.y_q is None
+    # the bf16 index then serves through K1's d-chunked form
+    v, i = tkf.knn_fused(y[:4], idx, 3)
+    np.testing.assert_array_equal(v.numpy(), np.zeros((4, 3), np.float32))
 
 
 def test_index_from_reference_int8_state():

@@ -61,7 +61,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.stats, raft_tpu_torch.stats.moments, "
             "raft_tpu_torch.stats.histogram, raft_tpu_torch.stats.metrics, "
             "raft_tpu_torch.stats.cluster, raft_tpu_torch.stats.model_select, "
-            "raft_tpu_torch.stats.embed, raft_tpu_torch.models.kmeans; "
+            "raft_tpu_torch.stats.embed, raft_tpu_torch.models.kmeans, "
+            "raft_tpu_torch.ops.select_slotted, raft_tpu_torch.ops.folds, "
+            "raft_tpu_torch.matrix.select_k_slotted, "
+            "raft_tpu_torch.matrix.select_k_chunked, "
+            "raft_tpu_torch.matrix.select_k_types; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)

@@ -117,10 +117,7 @@ def test_select_k_algos(res):
         np.random.default_rng(8).normal(size=(4, 300)).astype(np.float32))
     v0, i0 = select_k(res, vals, k=10)
     for algo in (SelectAlgo.XLA_TOPK, SelectAlgo.CHUNKED, SelectAlgo.RADIX,
-                 SelectAlgo.APPROX):
+                 SelectAlgo.APPROX, SelectAlgo.SLOTTED, SelectAlgo.BITONIC):
         v, i = select_k(res, vals, k=10, algo=algo)
         torch.testing.assert_close(v, v0)
         torch.testing.assert_close(i, i0)
-    for algo in (SelectAlgo.SLOTTED, SelectAlgo.BITONIC):
-        with pytest.raises(NotImplementedError, match="K3"):
-            select_k(res, vals, k=10, algo=algo)

@@ -19,7 +19,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    three index rows (K2: in the rows' half-norm carrier) and a −inf
    carrier in chunk 0: every slot is NaN, +inf or −inf exactly where the
    twin's is (the merge's min/max propagate NaN), and the finite slots
-   hold the bound above, taken over the finite rows.
+   hold the bound above, taken over the finite rows. Then K1's slot forms
+   (``nonfinite_slot``) with the same planted rows, a −inf norm and a
+   padded tail: the resident form at passes 1/3 × mask × track, the
+   d-chunked form at d = 768, held by ``compare_slot`` (m1 and m2min
+   equal in kind and within K1's f32 bound for d2, ids equal but at
+   ties proven in f64).
 3. The main path at full size, as ``bench.py`` configures it: make_blobs
    1,000,000 × 128 (64 clusters, std 2.0), the first 2048 rows as queries,
    k=64; ``prepare_knn_index`` at passes 1 and 3, bf16 and int8, then
@@ -32,10 +37,20 @@ Phases, each fatal on failure (non-zero exit, no result line):
    inputs, and timed beside the twin, the bound and the library product of
    the same shape. Each run is traced once more under torch.profiler, and
    its device time by kernel, busy time and idle share (profiler on) are
-   printed.
+   printed. Last, the reference's K1 stage ladder (``k1_ladder``,
+   ``benchmarks/profile_fused.py:146-165``) on these operands: the slot
+   form (T = 2048) held against its twin at p1, p3 and min-only, then,
+   with its count zeroed before and read after, packed K1 at p1/p3, the
+   unpacked group form at p1/p3, the slot form at p1/p3 and its min-only
+   fold timed by CUDA events beside their bounds and ``torch.matmul`` in
+   bf16 of the same product: how K1's time splits between the
+   contraction and the fold.
 4. K4 (the list-major IVF fine scan, f32 and int8) against its plain twin
    on the card, on one real schedule: the first 256 queries of the IVF
-   phase's batch at P=32, on the f32 and then the int8 index.
+   phase's batch at P=32, on the f32 and then the int8 index; then once
+   more with NaN/±inf planted in three query rows and (f32) in three
+   probed slab rows (``k4_nonfinite``): no NaN in either side's a1, a2
+   or a3, no planted row pooled.
 5. IVF-Flat at full width, as ``benchmarks/bench_ann.py:81,177-197``
    configures it: make_blobs 1,000,000 × 128 (64 centers, per-center std
    linspace(0.5, 2.0), proportions uniform(0.5, 2.0) from numpy seed 11),
@@ -191,9 +206,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    unpacked form and its d-chunked form against their twins (values
    within the f32 summation bound, non-finite slots equal in kind, ids
    equal except where both rows score within twice the bound in f64),
-   timed beside twin, bound and ``torch.matmul``.
-14. A JSON ``kernels`` line, ``bounds_unported_ms`` (K1's slot forms),
-   ``nonfinite_k1_k2``, ``main_path``, ``serving``, ``ivf``, ``ivf_pq``,
+   timed beside twin, bound and ``torch.matmul``. K1's d-chunked slot form
+   (``slot_dchunk_rows``) on wide_knn's operands at p1 and p3: held
+   against its twin, then timed with its count zeroed before and read
+   after, beside twin, bound and ``torch.matmul``.
+14. A JSON ``kernels`` line, ``nonfinite_k1_k2`` (with the slot forms'
+   cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
    ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
    line ``{"ok": true, "device": {...}}``.
@@ -380,18 +398,6 @@ def compare_k2(kern, twin, x, y_q, scales, yyh, xxh, T: int, g: int,
     return err, n_diff
 
 
-def unported_bounds_ms(Q: int, M: int, d: int, T: int):
-    """Bound, at the main path's shape, of the TPU kernel on this path's
-    family that the port has not written yet (same rules as k1_bound_ms):
-    K1's slot form (per tile and lane min, argmin, and a [Q, 128]
-    2nd-min); phase 13 adds its d-chunked form at the wide shape."""
-    ops = 2.0 * Q * M * d
-    nbytes = (Q * d * 4 + Q * 4 + M * d * 2 + M * 4
-              + 2 * Q * (M // T * 128) * 4 + Q * 128 * 4)
-    return {"K1 fused_l2_slot_topk p1": 1e3 * max(
-        ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S)}
-
-
 def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
                 q8: bool):
     """Least time for K4's work on one batch: each probed list read once
@@ -435,6 +441,53 @@ def compare_k4(kern, twin, x, ymax: float, q8: bool):
         check(same >= 0.999, f"{tag} ids of output {n} agree on only "
               f"{same:.5f} of slots")
     return err
+
+
+def k4_nonfinite(inp):
+    """K4 against its twin once more on ``k4_inputs``' operands with NaN,
+    +inf and −inf planted in three query rows and (f32 slab) in a row of
+    each of the schedule's first three entries: every score they make is
+    NaN or +inf, which loses each strict < of the fold, so neither side
+    may carry a NaN into a1, a2 or a3 (the kernel's partial merge takes
+    its a3 min over such pools only) nor name a planted row; the pools
+    must still match (``compare_k4``). Returns the max abs error."""
+    import torch
+
+    args = list(inp["args"])
+    q8 = inp["q8"]
+    ix, islab = (2, 5) if q8 else (1, 4)
+    x = args[ix].clone()
+    x[5, 3], x[9, 0], x[20, 7] = float("nan"), float("inf"), -float("inf")
+    args[ix], args[ix + 1] = x, (x * x).sum(1)
+    planted = []
+    if not q8:
+        sched, slab = args[0], args[islab].clone()
+        for j in range(min(3, sched.shape[1])):
+            start, lsize, off = (int(v) for v in sched[:3, j])
+            if lsize:
+                planted.append(start + off)
+                slab[start + off, j] = (float("nan"), float("inf"),
+                                        -float("inf"))[j]
+        args[islab] = slab
+    saved = k4_counts()
+    out = inp["kern"](*args)
+    ref = inp["twin"](*args)
+    torch.cuda.synchronize()
+    set_counts(saved)
+    tag = "K4_q8" if q8 else "K4"
+    for side, pools in (("kernel", out), ("twin", ref)):
+        check(not any(bool(pools[n].isnan().any()) for n in (0, 2, 4)),
+              f"{tag} with ±inf/NaN planted: the {side} carried a NaN into "
+              f"its pools")
+        ids = torch.cat([pools[1], pools[3]]).reshape(-1)
+        check(not bool(torch.isin(ids, torch.tensor(
+            planted, dtype=ids.dtype, device=ids.device)).any()),
+              f"{tag}: the {side} pooled a planted row")
+    check(bool((out[1][[5, 9, 20]] == -1).all()), f"{tag}: a planted "
+          f"query row pooled a row")
+    # the planted query rows pool nothing; their bound is left finite
+    return compare_k4(out, ref, torch.where(torch.isfinite(x), x, 0.0),
+                      inp["ymax"], q8)
 
 
 def exact_oracle(X, Qx, k: int, chunk: int = 131072):
@@ -593,9 +646,12 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
         set_counts(saved)
         ref = inp["twin"](*inp["args"])
         err = compare_k4(out, ref, inp["x"], inp["ymax"], inp["q8"])
-        print(f"K4 vs twin ({ix.db_dtype}, 256 queries, P={probes[0]}, "
-              f"{inp['lists']} lists): max_abs_err={err}", flush=True)
         del out, ref
+        err_nf = k4_nonfinite(inp)
+        print(f"K4 vs twin ({ix.db_dtype}, 256 queries, P={probes[0]}, "
+              f"{inp['lists']} lists): max_abs_err={err}; with ±inf/NaN "
+              f"planted: max_abs_err={err_nf}, no NaN in the pools",
+              flush=True)
 
     # ---- phase 5: the IVF path at full width ----
     runs = [("ivf_p32", f32, probes[0]), ("ivf_p128", f32, probes[1]),
@@ -2668,11 +2724,337 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
             "passes": index.passes}
 
 
+# ------------------------------------------------ K1's slot forms, ladder
+#: the reference's stage ladder (``benchmarks/profile_fused.py:146-165``)
+#: runs its unpacked group and slot kernels at this fixed tile
+LADDER_T = 2048
+
+
+def slot_bound_ms(Q: int, M: int, d: int, T: int, passes: int):
+    """Least time for a slot form's work: the bf16 products at the
+    tensor-core peak, or x, the index rows, both norms read once and m1,
+    i1 (8 bytes a slot) and m2min written once at the HBM rate."""
+    S = M // T * 128
+    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
+    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
+              + Q * 4 + 2 * Q * S * 4 + Q * 128 * 4)
+    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                       else "bytes")
+
+
+def compare_slot(out, ref, x, y_hi, y_lo, xx, yy, passes: int, track: bool,
+                 tag: str):
+    """A slot form against its twin. m1 and m2min: non-finite entries
+    equal in kind, finite ones within K1's f32 summation bound taken for
+    d2 = (xx + yy) − 2·x·y: twice 2·(d + 2)·2⁻²⁴·‖x‖·max‖y‖ plus four units
+    of the norms' rounding, 4·2⁻²⁴·(xx + max yy), over the finite rows.
+    i1: equal, except where both rows score within twice that bound in
+    f64 (a tie); all 0 for the min-only form. Returns the twin's
+    non-finite entries by kind, the max abs error and the slots whose ids
+    differ."""
+    import torch
+
+    d = x.shape[1]
+    live = torch.isfinite(y_hi.float()).all(1) & torch.isfinite(yy)
+    ymax = y_hi.float()[live].norm(dim=1).max()
+    yymax = yy[live].max()
+    xn = torch.nan_to_num(x.norm(dim=1), nan=0.0, posinf=0.0)
+    xxf = torch.nan_to_num(xx, nan=0.0, posinf=0.0)
+    tol = (4.0 * (d + 2) * 2.0 ** -24 * xn * ymax
+           + 4.0 * 2.0 ** -24 * (xxf + yymax))[:, None]
+    report = same_in_kind([out[0], out[2]], [ref[0], ref[2]], tag)
+    err = 0.0
+    for n in (0, 2):
+        a, b = out[n], ref[n]
+        fin = torch.isfinite(b)
+        diff = (torch.where(fin, a, 0.0) - torch.where(fin, b, 0.0)).abs()
+        check(bool((diff <= tol).all()), f"{tag}: output {n} differs from "
+              f"the twin by up to {diff.max().item()}")
+        err = max(err, diff.max().item())
+    report.update(max_abs_err=err, tie_slots=0)
+    if not track:
+        check(not bool(out[1].any()), f"{tag}: min-only i1 is not all 0")
+        return report
+    q_idx, s_idx = (out[1] != ref[1]).nonzero(as_tuple=True)
+    if not q_idx.numel():
+        return report
+    check(bool(torch.isfinite(ref[0][q_idx, s_idx]).all()),
+          f"{tag}: ids differ at a non-finite slot")
+    xh = x.to(torch.bfloat16)
+    xl = (x - xh.float()).to(torch.bfloat16)
+
+    def score(r):
+        r = r.long()
+        s = (xh[q_idx].double() * y_hi[r].double()).sum(1)
+        if passes == 3:
+            s += (xh[q_idx].double() * y_lo[r].double()).sum(1)
+            s += (xl[q_idx].double() * y_hi[r].double()).sum(1)
+        return xx[q_idx].double() + yy[r].double() - 2 * s
+    ra, rb = out[1][q_idx, s_idx], ref[1][q_idx, s_idx]
+    check(bool((ra >= 0).all() and (rb >= 0).all()),
+          f"{tag}: −1 on one side only")
+    gap = (score(ra) - score(rb)).abs()
+    check(bool((gap <= 2 * tol[q_idx, 0].double()).all()),
+          f"{tag}: {int(q_idx.numel())} slots name other rows than the "
+          f"twin's, up to {gap.max().item()} apart")
+    report["tie_slots"] = int(q_idx.numel())
+    return report
+
+
+def slot_counts():
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    return k1.LAUNCHES_SLOT, k1.LAUNCHES_SLOT_DCHUNK
+
+
+def set_slot_counts(c):
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    k1.LAUNCHES_SLOT, k1.LAUNCHES_SLOT_DCHUNK = c
+
+
+def nonfinite_slot(gen, Q: int = 512, M: int = 131072, d: int = 128,
+                   wide: int = 768, T: int = 2048):
+    """Phase 2's slot half: both slot forms against their twins with +inf,
+    −inf and NaN planted in three query rows and three index rows and a
+    −inf norm, the last 100 rows padding (rows ≥ m_real): the resident
+    form at passes 1/3 × mask × track, the d-chunked form at d = ``wide``
+    (a multiple of its dc = 256) at passes 1/3, each launch counted.
+    Returns {case: the twin's non-finite entries by kind, the max abs
+    error and the tie slots}."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    inf, nan = float("inf"), float("nan")
+    saved = slot_counts()
+    report = {}
+    for dd in (d, wide):
+        x = torch.randn(Q, dd, device=gen.device, generator=gen)
+        x[5, 3], x[77, 100], x[300, 0] = inf, -inf, nan
+        Md = M if dd == d else M // 2
+        y = torch.randn(Md, dd, device=gen.device, generator=gen)
+        y[1000 % Md, 7], y[70000 % Md, 50], y[99999 % Md, 1] = inf, -inf, nan
+        y_hi, y_lo = k1.split_hi_lo(y)
+        xx, yy = (x * x).sum(1), (y * y).sum(1)
+        yy[5] = -inf
+        m_real = Md - 100
+        cases = ([(p, m, t) for p in (1, 3) for m in (True, False)
+                  for t in (True, False)] if dd == d
+                 else [(1, True, True), (3, True, True)])
+        for passes, mask, track in cases:
+            args = (x, y_hi, y_lo, xx, yy, m_real)
+            kw = dict(T=T, Qb=256, passes=passes)
+            n0 = slot_counts()
+            if dd == d:
+                kw.update(mask=mask, track=track)
+                out = k1.fused_l2_slot_topk(*args, **kw)
+                ref = k1.fused_l2_slot_topk_ref(*args, **kw)
+                tag = f"slot p{passes} mask={mask} track={track}"
+            else:
+                out = k1.fused_l2_slot_topk_dchunk(*args, **kw)
+                ref = k1.fused_l2_slot_topk_dchunk_ref(*args, **kw)
+                tag = f"slot dchunk d={dd} p{passes}"
+            torch.cuda.synchronize()
+            check(sum(slot_counts()) == sum(n0) + 1,
+                  f"{tag}: the launch was not counted")
+            report[tag] = compare_slot(out, ref, x, y_hi, y_lo, xx, yy,
+                                       passes, track, tag)
+            check(report[tag]["nan"] > 0 and report[tag]["-inf"] > 0,
+                  f"{tag}: the planted NaN / −inf reached no slot")
+            print(f"{tag} with ±inf/NaN planted: {json.dumps(report[tag])}",
+                  flush=True)
+        del x, y, y_hi, y_lo, xx, yy, out, ref
+    set_slot_counts(saved)
+    return report
+
+
+def k1_ladder(idx1, idx3, Qx, reps: int = 10):
+    """The reference's K1 stage ladder (``benchmarks/profile_fused.py:
+    146-165``) on the main path's operands: packed K1 at p1 (pair, the
+    path's own launch) and p3, the unpacked group form at T = 2048 (p1,
+    p3), the slot form at T = 2048 (p1, p3) and its min-only fold
+    (track=False, p1), each timed by CUDA events beside its bound and
+    ``torch.matmul`` in bf16 of the same [Q, d] × [d, M]. First, outside
+    the counts, the slot forms are held against their twins on these
+    inputs; the slot counts are zeroed just before the timed ladder and
+    read just after it. Returns (the ladder report, the slot form's
+    ``kernels`` entry)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    x = Qx
+    nq, d = x.shape
+    xx = (x * x).sum(1)
+    xxh = 0.5 * xx
+    yy = idx1.yy_raw                      # exact norms, 0 on padded rows
+    M, m_real, T = idx1.y_hi.shape[0], idx1.n_rows, LADDER_T
+    y_hi, y_lo = idx3.y_hi, idx3.y_lo        # idx1's split is the same
+    yyh_inf = torch.where(torch.arange(M, device=x.device) < m_real,
+                          0.5 * yy, float("inf"))
+    k1_saved = k1_counts()
+    saved = slot_counts()
+
+    # ---- the slot form against its twin on these inputs ----
+    held = {}
+    for name, passes, track in (("slot_p1", 1, True), ("slot_p3", 3, True),
+                                ("slot_minonly", 1, False)):
+        kw = dict(T=T, Qb=256, passes=passes, track=track)
+        args = (x, y_hi, y_lo, xx, yy, m_real)
+        out = k1.fused_l2_slot_topk(*args, **kw)
+        ref = k1.fused_l2_slot_topk_ref(*args, **kw)
+        held[name] = compare_slot(out, ref, x, y_hi, y_lo, xx, yy,
+                                  passes, track, f"ladder {name}")
+        del out, ref
+        held[name]["plain_ms"] = cuda_ms(
+            lambda: k1.fused_l2_slot_topk_ref(*args, **kw), 1, warmup=0)
+        print(f"ladder {name} vs twin: {json.dumps(held[name])}",
+              flush=True)
+    torch.cuda.empty_cache()
+
+    # ---- the timed ladder: the path the slot forms run on ----
+    pk = dict(g=idx1.g, pbits=idx1.pbits, xxh=xxh)
+    rows = {
+        "kernel_pck_p1": (lambda: k1.fused_l2_group_topk_packed(
+            x, y_hi, y_lo, idx1.yyh_k, T=idx1.T, passes=1, pair=True,
+            **pk), k1_bound_ms(nq, M, d, -(-(M // idx1.T) // idx1.g) * 128,
+                               1)),
+        "kernel_pck_p3": (lambda: k1.fused_l2_group_topk_packed(
+            x, y_hi, y_lo, idx1.yyh_k, T=idx1.T, passes=3, **pk),
+            k1_bound_ms(nq, M, d, -(-(M // idx1.T) // idx1.g) * 128, 3))}
+    S_grp = -(-(M // T) // idx1.g) * 128
+    for p in (1, 3):
+        ops = 2.0 * nq * M * d * (3 if p == 3 else 1)
+        nbytes = (nq * d * 4 + M * d * 2 * (2 if p == 3 else 1) + M * 4
+                  + 5 * nq * S_grp * 4)
+        t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+        rows[f"kernel_grp_p{p}"] = (
+            lambda p=p: k1.fused_l2_group_topk(x, y_hi, y_lo, yyh_inf, T=T,
+                                               g=idx1.g, passes=p),
+            (1e3 * max(t_ops, t_bytes),
+             "operations" if t_ops >= t_bytes else "bytes"))
+    for name, p, track in (("kernel_slot_p1", 1, True),
+                           ("kernel_slot_p3", 3, True),
+                           ("kernel_slot_minonly", 1, False)):
+        rows[name] = (lambda p=p, track=track: k1.fused_l2_slot_topk(
+            x, y_hi, y_lo, xx, yy, m_real, T=T, Qb=256, passes=p,
+            track=track), slot_bound_ms(nq, M, d, T, p))
+    set_slot_counts((0, 0))
+    ladder = {}
+    for name, (fn, (bound, by)) in rows.items():
+        ms = cuda_ms(fn, reps)
+        ladder[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                        "over_bound": ms / bound}
+    launches = slot_counts()[0]
+    set_slot_counts(saved)
+    (k1.LAUNCHES, k1.LAUNCHES_DCHUNK, k1.LAUNCHES_GROUP,
+     k1.LAUNCHES_GROUP_DCHUNK) = k1_saved.values()
+    check(launches > 0, "ladder: the slot form launched no time")
+    xb = x.to(torch.bfloat16)
+    mm = cuda_ms(lambda: torch.matmul(xb, y_hi.T), reps)
+    ladder["matmul_bf16"] = {"ms": mm}
+    for name, row in ladder.items():
+        row["over_matmul"] = row["ms"] / mm
+        print(f"K1 ladder {name}: {json.dumps(row)}", flush=True)
+    torch.cuda.empty_cache()
+    report = {"shape": [nq, M, d], "T": T, "g": idx1.g, "rows": ladder,
+              "held": held, "slot_launches": launches,
+              "split_p1_ms": {
+                  "contraction_and_min_fold":
+                      ladder["kernel_slot_minonly"]["ms"],
+                  "argmin_and_2nd_min": ladder["kernel_slot_p1"]["ms"]
+                  - ladder["kernel_slot_minonly"]["ms"],
+                  "group_fold_vs_slot_p1": ladder["kernel_pck_p1"]["ms"]
+                  - ladder["kernel_slot_p1"]["ms"],
+                  "matmul_bf16": mm}}
+    def kernel_row(name):
+        return {**{k: ladder[f"kernel_{name}"][k]
+                   for k in ("ms", "bound_ms", "bound_by")},
+                "library_ms": mm,
+                **{k: held[name][k]
+                   for k in ("plain_ms", "max_abs_err", "tie_slots")}}
+    entry = {"name": "fused_l2_slot_topk", "route": "cuda",
+             "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+             "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:406",
+             "launches": launches, **kernel_row("slot_p1"),
+             "max_abs_err": max(h["max_abs_err"] for h in held.values()),
+             "shape": [nq, M, d], "T": T,
+             "library_note": "torch.matmul bf16 of the same product",
+             "p3": kernel_row("slot_p3"),
+             "min_only": kernel_row("slot_minonly")}
+    return report, entry
+
+
+def slot_dchunk_rows(indexes, Qx, reps: int = 5):
+    """The slot form's d-chunked form on a wide index's operands (x padded
+    to the stream width, a multiple of its dc = 256): against its twin
+    (outside the counts), then timed with its count zeroed just before
+    and read just after, beside its twin, its bound and ``torch.matmul``
+    in bf16 of the same shape. Returns (rows by passes, the ``kernels``
+    entry)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    saved = slot_counts()
+    rows, timed = {}, []
+    for index in indexes:
+        x = padded_queries(index, Qx)
+        nq, d = x.shape
+        check(d % 256 == 0, f"slot dchunk: stream width {d} is not a "
+              f"multiple of dc = 256")
+        xx = (x * x).sum(1)
+        args = (x, index.y_hi, index.y_lo, xx, index.yy_raw, index.n_rows)
+        kw = dict(T=index.T, Qb=256, passes=index.passes, dc=256)
+        tag = f"slot dchunk p{index.passes}"
+        out = k1.fused_l2_slot_topk_dchunk(*args, **kw)
+        ref = k1.fused_l2_slot_topk_dchunk_ref(*args, **kw)
+        held = compare_slot(out, ref, x, index.y_hi, index.y_lo, xx,
+                            index.yy_raw, index.passes, True, tag)
+        del out, ref
+        plain_ms = cuda_ms(lambda: k1.fused_l2_slot_topk_dchunk_ref(
+            *args, **kw), 1, warmup=0)
+        M = index.y_hi.shape[0]
+        bound, by = slot_bound_ms(nq, M, index.d_orig, index.T,
+                                  index.passes)
+        xb = x.to(torch.bfloat16)
+        library_ms = cuda_ms(lambda: torch.matmul(xb, index.y_hi.T), reps)
+        rows[f"p{index.passes}"] = {
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": library_ms, "max_abs_err": held["max_abs_err"],
+            "tie_slots": held["tie_slots"], "shape": [nq, M, index.d_orig],
+            "stream_width": d}
+        timed.append((f"p{index.passes}", args, kw))
+        del xb
+        torch.cuda.empty_cache()
+    set_slot_counts((0, 0))
+    for name, args, kw in timed:
+        rows[name]["ms"] = cuda_ms(lambda: k1.fused_l2_slot_topk_dchunk(
+            *args, **kw), reps)
+    launches = slot_counts()[1]
+    set_slot_counts(saved)
+    check(launches > 0, "slot dchunk: launched no time")
+    for name, row in rows.items():
+        print(f"K1 slot dchunk at the wide shape, {name}: "
+              f"{json.dumps(row)}", flush=True)
+    keys = ("ms", "plain_ms", "bound_ms", "bound_by", "library_ms",
+            "max_abs_err")
+    first = rows[timed[0][0]]
+    entry = {"name": "fused_l2_slot_topk_dchunk", "route": "cuda",
+             "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+             "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:474",
+             "launches": launches, **{k: first[k] for k in keys},
+             "shape": first["shape"],
+             "library_note": "torch.matmul bf16 of the same product",
+             **{k: r for k, r in rows.items() if r is not first}}
+    return rows, entry
+
+
 def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
     """Phase 13 (see the module doc): wide_knn at ``shape`` (K1's
     d-chunked form), then unpacked_knn at ``main`` and on the wide data
-    (K1's unpacked forms). Returns (the ``wide_knn`` report, the three
-    ``kernels`` entries, the slot forms' bounds at the wide shape)."""
+    (K1's unpacked forms); K1's d-chunked slot form on the wide data
+    (``slot_dchunk_rows``). Returns (the ``wide_knn`` report, the four
+    ``kernels`` entries)."""
     import torch
     from raft_tpu_torch import distance
     from raft_tpu_torch.ops import fused_l2_topk as k1
@@ -2729,6 +3111,8 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
             "stream_width": index.stream_width}
         print(f"K1 dchunk at wide_knn, passes={index.passes}: "
               f"{json.dumps(rows[f'p{index.passes}'])}", flush=True)
+    # ---- K1's d-chunked slot form on the same operands ----
+    slot_rows, slot_entry = slot_dchunk_rows((idx1, idx3), Qx)
     del idx1, idx3
     torch.cuda.empty_cache()
 
@@ -2770,11 +3154,6 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
     wide_row = unpacked_kernel_row(uidx, Qx, reps=2)
     print(f"K1 unpacked dchunk at unpacked_knn wide: "
           f"{json.dumps(wide_row)}", flush=True)
-    slot_bounds = {
-        "K1 fused_l2_slot_topk_dchunk p1 at the wide shape": 1e3 * max(
-            2.0 * nq * n * d / H100_BF16_FLOPS,
-            (nq * d * 4 + n * d * 2 + n * 4 + 2 * nq * (n // 2048) * 128 * 4
-             + nq * 128 * 4) / H100_BYTES_PER_S)}
     del uidx, X, Qx, o_vals, o_ids
     torch.cuda.empty_cache()
 
@@ -2813,10 +3192,11 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
          "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1254",
          "launches": ucells["wide"]["launches"],
          **{k: wide_row[k] for k in keys}, "shape": wide_row["shape"],
-         "passes": 3, "tie_slots": wide_row["tie_slots"]}]
+         "passes": 3, "tie_slots": wide_row["tie_slots"]}, slot_entry]
     report["kernel_rows"] = {"dchunk": rows, "unpacked_main": main_row,
-                             "unpacked_wide": wide_row}
-    return report, entries, slot_bounds
+                             "unpacked_wide": wide_row,
+                             "slot_dchunk": slot_rows}
+    return report, entries
 
 
 def main() -> int:
@@ -2856,6 +3236,8 @@ def main() -> int:
     k1._launcher_q8()
     k1._launcher_dchunk()
     k1._launcher_group()
+    k1._launcher_slot(False)
+    k1._launcher_slot(True)
     k3._launcher()
     k4._launcher()
     k5._launcher()
@@ -2921,8 +3303,9 @@ def main() -> int:
                   f"passes={passes} pair={pair}: max_abs_err={err} "
                   f"tie_slots={n_diff}", flush=True)
     del x, y, y_q, scales, yyh, xxh, out, ref
-    # K1 and K2 once more, with ±inf and NaN planted
+    # K1 and K2 once more, with ±inf and NaN planted; then K1's slot forms
     nonfinite = nonfinite_k1_k2(gen)
+    nonfinite.update(nonfinite_slot(gen))
 
     # ---- phase 3: the main path at full size ----
     res = raft_tpu_torch.DeviceResources(device="cuda", seed=0)
@@ -3072,8 +3455,11 @@ def main() -> int:
         br = profile_run(lambda: distance.knn(res, index, Qx, k=K,
                                               certify=certify))
         print(json.dumps({"profile": name, **br}), flush=True)
-    bounds = unported_bounds_ms(N_QUERIES, Mi, index.stream_width, index.T)
-    del X, Qx, idx1, idx3, idx8_1, idx8_3, o_vals, o_ids
+    del idx8_1, idx8_3, runs, index, args
+    torch.cuda.empty_cache()
+    # ---- the reference's K1 stage ladder on these operands ----
+    ladder, slot_entry = k1_ladder(idx1, idx3, Qx)
+    del X, Qx, idx1, idx3, o_vals, o_ids
     torch.cuda.empty_cache()
 
     # ---- phase 10 (run here, on a fresh index): serving ----
@@ -3104,14 +3490,13 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     # ---- phase 13: wide and unpacked brute-force KNN ----
-    wide, wide_entries, slot_bounds = wide_knn_phase(res)
-    bounds.update(slot_bounds)
+    wide, wide_entries = wide_knn_phase(res)
     torch.cuda.empty_cache()
 
     # ---- phase 14: the summary ----
-    print(json.dumps({"bounds_unported_ms": bounds}), flush=True)
     print(json.dumps({"nonfinite_k1_k2": nonfinite}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
+    print(json.dumps({"k1_ladder": ladder}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
@@ -3121,9 +3506,9 @@ def main() -> int:
     print(json.dumps({"wide_knn": wide}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, k2_entry, k3_entry, *wide_entries,
-                                  *k4_entries, *k5_entries, *sparse_entries,
-                                  *k89_entries]}),
+    print(json.dumps({"kernels": [entry, k2_entry, slot_entry, k3_entry,
+                                  *wide_entries, *k4_entries, *k5_entries,
+                                  *sparse_entries, *k89_entries]}),
           flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -57,7 +57,7 @@ def main() -> int:
         k3_shape=(64, 1_048_576))
     print(f"select_k_phase: {time.time() - t0:.1f} s", flush=True)
     t0 = time.time()
-    _, entries, _ = cs.wide_knn_phase(res, shape=(n, d, nq, 100),
+    _, entries = cs.wide_knn_phase(res, shape=(n, d, nq, 100),
                                       main=(n, 128, 512, 64))
     print(f"wide_knn_phase: {time.time() - t0:.1f} s", flush=True)
     print(json.dumps({"kernels": [k3_entry, *entries]}), flush=True)

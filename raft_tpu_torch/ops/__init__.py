@@ -20,6 +20,10 @@ from raft_tpu_torch.ops.fused_l2_topk import (
     fused_l2_group_topk_packed_q8_ref,
     fused_l2_group_topk_packed_ref,
     fused_l2_group_topk_ref,
+    fused_l2_slot_topk,
+    fused_l2_slot_topk_dchunk,
+    fused_l2_slot_topk_dchunk_ref,
+    fused_l2_slot_topk_ref,
     split_hi_lo,
 )
 from raft_tpu_torch.ops.histogram import (
@@ -59,7 +63,9 @@ __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fused_l2_group_topk_dchunk", "fused_l2_group_topk_dchunk_ref",
            "fused_l2_group_topk_packed_dchunk",
            "fused_l2_group_topk_packed_dchunk_ref",
-           "fused_l2_group_topk_ref", "select_slot_topk_packed",
+           "fused_l2_group_topk_ref", "fused_l2_slot_topk",
+           "fused_l2_slot_topk_dchunk", "fused_l2_slot_topk_dchunk_ref",
+           "fused_l2_slot_topk_ref", "select_slot_topk_packed",
            "select_slot_topk_packed_ref",
            "fused_l2_group_topk_packed", "fused_l2_group_topk_packed_q8",
            "fused_l2_group_topk_packed_q8_ref",

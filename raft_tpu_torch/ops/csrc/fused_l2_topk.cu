@@ -6,8 +6,10 @@
 // (and its database-major forms _packed_db / _packed_dbuf, which compute
 // the same outputs in another TPU grid order) — K1 —, its wide-feature
 // form fused_l2_group_topk_packed_dchunk (:1294), the unpacked forms
-// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254), and
-// fused_l2_group_topk_packed_db_q8 / _dbuf_q8 — K2.
+// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254),
+// fused_l2_group_topk_packed_db_q8 / _dbuf_q8 — K2 —, and K1's first,
+// per-slot forms fused_l2_slot_topk (:406) and fused_l2_slot_topk_dchunk
+// (:474).
 //
 // What it computes. For every query q and database row n (rows padded to
 // whole tiles of T; padded rows carry the finite 2^125 sentinel in yyh):
@@ -49,6 +51,23 @@
 // Padded rows carry yyh = +inf, which never wins a strict <, so a group
 // of pads keeps a = +inf, id = −1.
 //
+// The slot forms (_fused_kernel + _fold_and_write, :238-299) fold the
+// distance itself, d2 = (xx[q] + yy[n]) − 2·x·y with exact f32 norms, per
+// slot = (tile of T rows, lane = n % 128): chunk by chunk in ascending
+// order, lt1 = d2 < a1; a2 = lt1 ? a1 : min(a2, d2); a1, i1 = d2, n where
+// lt1 (strict <: on a tie the earlier row stays). With MASK, rows n ≥
+// m_real score +inf before the fold (a slot of pads keeps +inf, −1). m1/i1
+// are written once a tile, at column tile·128 + lane, and m2min [Q, 128]
+// is the min over all tiles of a2. The min-only form (the reference's
+// track=False, a measurement knob) folds a1 = min(a1, d2), writes i1 = 0
+// and takes m2min over a1. Every min here is PTX min.NaN, as jnp.minimum
+// and torch.minimum: a NaN d2 sticks in a2 (or in the min-only a1) until a
+// new minimum displaces it, and always reaches m2min. One block walks a
+// group of consecutive tiles (sized in the wrapper so the blocks fill the
+// card about eight times over) and writes one [Q, 128] partial of m2min;
+// a second small kernel takes the min of the partials. mask and track are
+// template flags, never branches in the fold.
+//
 // Precision contract. Both factors of every product are bf16 rounded to
 // nearest (__float2bfloat16_rn), so each product is exact in f32, and the
 // tensor cores accumulate in f32 — the arithmetic the certificate's error
@@ -64,7 +83,9 @@
 // Bound on this card. At the main path's shape (2048 queries × ~1M rows ×
 // 128) K1 does 2·Q·M·d = 5.3e11 bf16 FLOP at passes=1 (×3 at passes=3;
 // K2 ×2) against 0.26 GB (×2) of y (K2: 0.13 GB) and 0.1 GB of outputs:
-// both are bound by the tensor cores, not by HBM.
+// both are bound by the tensor cores, not by HBM. The slot forms write
+// 8 bytes a slot: 1.03 GB at that shape, 0.31 ms at 3.35 TB/s against the
+// products' 0.531 ms (passes=1), so they are bound by the tensor cores too.
 //
 // Design (simple first): one thread block owns (64 queries, one whole
 // group), so every output slot is written exactly once — no atomics, no
@@ -145,6 +166,14 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// what a block folds its score tiles into
+enum Fold : int {
+  kPacked = 0,    // group top-2 + 3rd-min, codes in the mantissa (K1, K2)
+  kIds = 1,       // group top-2 + 3rd-min with row ids (unpacked)
+  kSlot = 2,      // per-slot min, argmin and 2nd-min (track=True)
+  kSlotMin = 3,   // per-slot min only (track=False)
+};
+
 __device__ __forceinline__ float pack(float c, uint32_t keep, int code) {
   return __int_as_float((__float_as_int(c) & keep) | code);
 }
@@ -201,18 +230,22 @@ struct Args {
   float* a1;
   float* a2;
   float* a3;
-  int* id1;                           // unpacked form only
+  int* id1;                           // unpacked and slot forms
   int* id2;
   int Q, M, d, T, g, pbits;
+  int m_real;                         // slot forms: rows ≥ m_real are pads
 };
 
-// One kernel for the group forms: PASSES 1/3; PAIR pre-reduction; Q8 (K2,
-// int8 slices); XS (x streamed through the ring: the _dchunk forms);
-// PACKED (codes in the mantissa) or the unpacked (a, id) state.
-template <int PASSES, bool PAIR, bool Q8, bool XS, bool PACKED>
+// One kernel for every form: PASSES 1/3; PAIR pre-reduction; Q8 (K2,
+// int8 slices); XS (x streamed through the ring: the _dchunk forms); FOLD
+// (see Fold); MASK (slot forms: rows ≥ m_real score +inf).
+template <int PASSES, bool PAIR, bool Q8, bool XS, int FOLD, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_l2_group_topk_kernel(const Args p, int n_stages) {
-  static_assert(!(Q8 && XS) && !(Q8 && !PACKED) && !(PAIR && !PACKED),
+  constexpr bool PACKED = FOLD == kPacked;
+  constexpr bool SLOT = FOLD == kSlot || FOLD == kSlotMin;
+  static_assert(!(Q8 && XS) && !(Q8 && !PACKED) && !(PAIR && !PACKED) &&
+                    !(MASK && !SLOT),
                 "no such form");
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = p.d;
@@ -313,12 +346,14 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = q0 + wq * 16 + gid + 8 * h;
-    xh[h] = (PACKED && q < Q) ? p.xxh[q] : 0.f;
+    xh[h] = ((PACKED || SLOT) && q < Q) ? p.xxh[q] : 0.f;
   }
 
   const float init = PACKED ? kPackPad : __int_as_float(0x7f800000);
+  // slot forms: a1, id1, a2 are the slot state of the current tile and a3
+  // the running min over this block's tiles of a2 (min-only: of a1)
   float acc[8][4], a1[8][4], a2[8][4], a3[8][4];
-  int id1[8][4], id2[8][4];   // unpacked only (dead otherwise)
+  int id1[8][4], id2[8][4];   // unpacked and slot only (dead otherwise)
   float c_even[8][4];         // PAIR: the even chunk's values
 #pragma unroll
   for (int t = 0; t < 8; ++t)
@@ -408,7 +443,61 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
       // (one branch a chunk, outside the unrolled loops: with PAIR an even
       // chunk only waits for its odd partner)
       const float* yy = yyh_s + (s % n_stages) * kLanes;
-      if (PAIR && (c & 1) == 0) {
+      if constexpr (SLOT) {
+        // d2 = (xx + yy) − 2·s, masked, into the slot state of its tile
+        const int ci0 = static_cast<int>(row0) + c * kLanes;
+#pragma unroll
+        for (int t = 0; t < 8; ++t) {
+          const int ln = wn * 64 + t * 8 + tig * 2;
+          const float y0 = yy[ln], y1 = yy[ln + 1];
+#pragma unroll
+          for (int i = 0; i < 4; ++i) {
+            const int ci = ci0 + ln + (i & 1);
+            float v = __fsub_rn(__fadd_rn(xh[i >> 1], (i & 1) ? y1 : y0),
+                                2.f * acc[t][i]);
+            acc[t][i] = 0.f;
+            if (MASK) v = ci < p.m_real ? v : __int_as_float(0x7f800000);
+            if (FOLD == kSlot) {
+              const bool lt1 = v < a1[t][i];
+              a2[t][i] = lt1 ? a1[t][i] : min_nan(a2[t][i], v);
+              a1[t][i] = lt1 ? v : a1[t][i];
+              id1[t][i] = lt1 ? ci : id1[t][i];
+            } else {
+              a1[t][i] = min_nan(a1[t][i], v);
+            }
+          }
+        }
+        if (c % n_ch == n_ch - 1) {
+          // the tile's last chunk: write its slots, fold a2 into the
+          // block's running min, start the next tile afresh
+          const long S = static_cast<long>(n_tiles) * kLanes;
+          const int tile = grp * g + c / n_ch;
+#pragma unroll
+          for (int t = 0; t < 8; ++t) {
+            const int col = tile * kLanes + wn * 64 + t * 8 + tig * 2;
+#pragma unroll
+            for (int h = 0; h < 2; ++h) {
+              const int q = q0 + wq * 16 + gid + 8 * h;
+              if (q < Q) {
+                const long o = static_cast<long>(q) * S + col;
+                *reinterpret_cast<float2*>(p.a1 + o) =
+                    make_float2(a1[t][2 * h], a1[t][2 * h + 1]);
+                *reinterpret_cast<int2*>(p.id1 + o) =
+                    FOLD == kSlot
+                        ? make_int2(id1[t][2 * h], id1[t][2 * h + 1])
+                        : make_int2(0, 0);
+              }
+            }
+#pragma unroll
+            for (int i = 0; i < 4; ++i) {
+              a3[t][i] = min_nan(a3[t][i],
+                                 FOLD == kSlot ? a2[t][i] : a1[t][i]);
+              a1[t][i] = a2[t][i] = __int_as_float(0x7f800000);
+              id1[t][i] = -1;
+            }
+          }
+        }
+      } else if (PAIR && (c & 1) == 0) {
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
           const int ln = wn * 64 + t * 8 + tig * 2;
@@ -461,6 +550,23 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     if (n_stages == 1 && more) load_step(s + 1);
   }
 
+  if constexpr (SLOT) {
+    // ---- this block's partial of m2min: [group, Q, 128] ----
+#pragma unroll
+    for (int t = 0; t < 8; ++t) {
+      const int ln = wn * 64 + t * 8 + tig * 2;
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int q = q0 + wq * 16 + gid + 8 * h;
+        if (q < Q)
+          *reinterpret_cast<float2*>(
+              p.a2 + (static_cast<long>(grp) * Q + q) * kLanes + ln) =
+              make_float2(a3[t][2 * h], a3[t][2 * h + 1]);
+      }
+    }
+    return;
+  }
+
   // ---- every bucket slot of this (query block, group) is written once ----
   const int S = gridDim.y * kLanes;
 #pragma unroll
@@ -488,6 +594,18 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
   }
 }
 
+// m2min[q, lane] = min over the blocks' partials [n_groups, Q, 128],
+// NaN-propagating
+__global__ void slot_m2min_kernel(const float* __restrict__ part,
+                                  float* __restrict__ m2min, int n_groups,
+                                  long n) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float m = part[i];
+  for (int gi = 1; gi < n_groups; ++gi) m = min_nan(m, part[gi * n + i]);
+  m2min[i] = m;
+}
+
 size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
   const size_t x_arrays = passes == 3 ? 2 : 1;
   const size_t xs_bytes = xs ? 0 : x_arrays * kBQ * (d + 8) * 2;
@@ -501,7 +619,8 @@ size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
                                           kLanes * 4);
 }
 
-template <int PASSES, bool PAIR, bool Q8, bool XS, bool PACKED>
+template <int PASSES, bool PAIR, bool Q8, bool XS, int FOLD,
+          bool MASK = false>
 int launch(const Args& a, cudaStream_t stream) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
@@ -511,23 +630,40 @@ int launch(const Args& a, cudaStream_t stream) {
   if (smem_bytes(a.d, PASSES, 2, Q8, XS) > static_cast<size_t>(limit))
     n_stages = 1;
   const size_t smem = smem_bytes(a.d, PASSES, n_stages, Q8, XS);
-  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, Q8, XS, PACKED>;
+  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, Q8, XS, FOLD, MASK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
   dim3 grid((a.Q + kBQ - 1) / kBQ, n_groups);
   kern<<<grid, kThreads, smem, stream>>>(a, n_stages);
+  if (FOLD == kSlot || FOLD == kSlotMin) {
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err) return err;
+    const long n = static_cast<long>(a.Q) * kLanes;
+    slot_m2min_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                        stream>>>(a.a2, a.a3, n_groups, n);
+  }
   return static_cast<int>(cudaGetLastError());
+}
+
+// the resident slot forms: passes × fold × mask
+template <int PASSES>
+int dispatch_slot(const Args& a, int mask, int track, cudaStream_t st) {
+  if (track)
+    return mask ? launch<PASSES, false, false, false, kSlot, true>(a, st)
+                : launch<PASSES, false, false, false, kSlot, false>(a, st);
+  return mask ? launch<PASSES, false, false, false, kSlotMin, true>(a, st)
+              : launch<PASSES, false, false, false, kSlotMin, false>(a, st);
 }
 
 // the packed forms: K1 resident or streamed x (XS), and K2
 template <bool Q8, bool XS>
 int dispatch_packed(const Args& a, int passes, int pair, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (passes == 3 && pair) return launch<3, true, Q8, XS, true>(a, st);
-  if (passes == 3) return launch<3, false, Q8, XS, true>(a, st);
-  if (pair) return launch<1, true, Q8, XS, true>(a, st);
-  return launch<1, false, Q8, XS, true>(a, st);
+  if (passes == 3 && pair) return launch<3, true, Q8, XS, kPacked>(a, st);
+  if (passes == 3) return launch<3, false, Q8, XS, kPacked>(a, st);
+  if (pair) return launch<1, true, Q8, XS, kPacked>(a, st);
+  return launch<1, false, Q8, XS, kPacked>(a, st);
 }
 
 Args make_args(const void* x, const void* x_hi, const void* x_lo,
@@ -551,6 +687,7 @@ Args make_args(const void* x, const void* x_hi, const void* x_lo,
   a.id1 = static_cast<int*>(id1);
   a.id2 = static_cast<int*>(id2);
   a.Q = Q; a.M = M; a.d = d; a.T = T; a.g = g; a.pbits = pbits;
+  a.m_real = M;
   return a;
 }
 
@@ -599,10 +736,10 @@ extern "C" int fused_l2_group_topk_launch(
                            nullptr, a1, a2, a3, id1, id2, Q, M, d, T, g, 8);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (xs)
-    return passes == 3 ? launch<3, false, false, true, false>(a, st)
-                       : launch<1, false, false, true, false>(a, st);
-  return passes == 3 ? launch<3, false, false, false, false>(a, st)
-                     : launch<1, false, false, false, false>(a, st);
+    return passes == 3 ? launch<3, false, false, true, kIds>(a, st)
+                       : launch<1, false, false, true, kIds>(a, st);
+  return passes == 3 ? launch<3, false, false, false, kIds>(a, st)
+                     : launch<1, false, false, false, kIds>(a, st);
 }
 
 // K2. Shapes: x [Q, d] f32, y_q [M, d] int8, scale [M/(g·T)] f32 (one per
@@ -617,4 +754,39 @@ extern "C" int fused_l2_group_topk_packed_q8_launch(
                            scale, yyh, xxh, a1, a2, a3, nullptr, nullptr,
                            Q, M, d, T, g, pbits);
   return dispatch_packed<true, false>(a, passes, pair, stream);
+}
+
+// K1's slot forms. Shapes: x [Q, d] f32, y_hi/y_lo [M, d] bf16 (y_lo
+// unused at passes=1), xx [Q] f32, yy [M] f32, m1 [Q, (M/T)·128] f32, i1
+// the same shape int32, part [ceil(M/T/tpb), Q, 128] f32 (scratch: one
+// partial of m2min per group of tpb tiles), m2min [Q, 128] f32; d % 128 ==
+// 0, T % 128 == 0, M % T == 0. mask / track select the form (rows ≥ m_real
+// score +inf; track = 0 is the min-only fold).
+extern "C" int fused_l2_slot_topk_launch(
+    const void* x, const void* y_hi, const void* y_lo, const void* xx,
+    const void* yy, void* m1, void* i1, void* part, void* m2min, int Q,
+    int M, int d, int T, int tpb, int m_real, int passes, int mask,
+    int track, void* stream) {
+  Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, nullptr, nullptr, yy,
+                     xx, m1, part, m2min, i1, nullptr, Q, M, d, T, tpb, 8);
+  a.m_real = m_real;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return passes == 3 ? dispatch_slot<3>(a, mask, track, st)
+                     : dispatch_slot<1>(a, mask, track, st);
+}
+
+// K1's slot form, d-chunked (wide features; always masked and tracked):
+// x_hi/x_lo [ceil(Q/64)·64, d] bf16 as fused_l2_group_topk_packed_dchunk_
+// launch takes them; the rest as fused_l2_slot_topk_launch.
+extern "C" int fused_l2_slot_topk_dchunk_launch(
+    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
+    const void* xx, const void* yy, void* m1, void* i1, void* part,
+    void* m2min, int Q, int M, int d, int T, int tpb, int m_real, int passes,
+    void* stream) {
+  Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yy,
+                     xx, m1, part, m2min, i1, nullptr, Q, M, d, T, tpb, 8);
+  a.m_real = m_real;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return passes == 3 ? launch<3, false, false, true, kSlot, true>(a, st)
+                     : launch<1, false, false, true, kSlot, true>(a, st);
 }

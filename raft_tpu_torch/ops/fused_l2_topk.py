@@ -8,10 +8,13 @@ hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``, and so do its
 wide-feature form ``fused_l2_group_topk_packed_dchunk`` (``:1294``), the
 unpacked forms ``fused_l2_group_topk`` (``:1230``) and
 ``fused_l2_group_topk_dchunk`` (``:1254``), and the int8 twins
-``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``, ``:1491``):
-one kernel templated on the form; see that file for the design. This
-module holds the wrappers, their plain PyTorch twins and the packing
-constants the certified KNN decodes with.
+``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``, ``:1491``),
+and K1's first, per-slot forms ``fused_l2_slot_topk`` (``:406``) and
+``fused_l2_slot_topk_dchunk`` (``:474``), which no search path calls (the
+reference's stage ladder, ``benchmarks/profile_fused.py:146-165``, times
+them beside the group forms): one kernel templated on the form; see that
+file for the design. This module holds the wrappers, their plain PyTorch
+twins and the packing constants the certified KNN decodes with.
 
 The wrapper dispatches on the device of the tensors it is given: CPU
 tensors take the twin, CUDA tensors launch the kernel (or raise). There is
@@ -43,11 +46,18 @@ LAUNCHES_Q8 = 0
 LAUNCHES_DCHUNK = 0
 LAUNCHES_GROUP = 0
 LAUNCHES_GROUP_DCHUNK = 0
+# the slot forms' launches (the resident form and its d-chunked form)
+LAUNCHES_SLOT = 0
+LAUNCHES_SLOT_DCHUNK = 0
 
 _FN = None
 _FN_Q8 = None
 _FN_DCHUNK = None
 _FN_GROUP = None
+_FN_SLOT = {}
+# widest d the resident slot form holds in shared memory (K1's resident
+# envelope; past it the d-chunked form streams x)
+_D_RESIDENT = 512
 
 
 def _check_group(x, y_hi, y_lo, yy_half, T: int, passes: int):
@@ -278,16 +288,22 @@ def fused_l2_group_topk_dchunk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
     return out
 
 
-def _half_scores(x, y_hi, y_lo, yy_half, passes: int):
-    """[Q, M] ``yy/2 − x·y`` with x·y the bf16-factor products summed in
-    f32 by ``torch.matmul`` (the twins' contraction)."""
+def _scores(x, y_hi, y_lo, passes: int):
+    """[Q, M] x·y, the bf16-factor products summed in f32 by
+    ``torch.matmul`` (the twins' contraction): hi·hi, then + hi·lo, then
+    + lo·hi at passes=3."""
     xhi = x.to(torch.bfloat16)
     s = xhi.float() @ y_hi.float().T
     if passes == 3:
         xlo = (x - xhi.float()).to(torch.bfloat16)
         s = s + xhi.float() @ y_lo.float().T
         s = s + xlo.float() @ y_hi.float().T
-    return s.neg_().add_(yy_half[None, :])
+    return s
+
+
+def _half_scores(x, y_hi, y_lo, yy_half, passes: int):
+    """[Q, M] ``yy/2 − x·y`` over the twins' contraction."""
+    return _scores(x, y_hi, y_lo, passes).neg_().add_(yy_half[None, :])
 
 
 def fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, *, T: int, g: int,
@@ -548,6 +564,225 @@ def fused_l2_group_topk_packed_q8_ref(x, y_q, yy_half, scale, *, T: int,
     if xxh is not None:
         c += xxh.reshape(Q, 1)
     return _packed_fold(c, T, g, pair, pbits)
+
+
+# ------------------------------------------------------------ slot forms
+def _check_slot(who: str, x, y_hi, y_lo, xx, yy, T: int, Qb: int,
+                passes: int, dc=None):
+    """The reference's ``_check_tiling`` (``:362``) and, for the
+    d-chunked form, its ``d % dc`` check (``:485``), in its order and
+    words; then the operand shapes. ``Qb`` lays out the TPU grid only, so
+    it is checked and not used."""
+    if T % _LANES:
+        raise ValueError(f"T={T} must be a multiple of {_LANES}")
+    if Qb % 8:
+        raise ValueError(f"Qb={Qb} must be a multiple of 8")
+    Q, d = x.shape
+    M = y_hi.shape[0]
+    if dc is not None and d % dc:
+        raise ValueError(
+            f"fused_l2_slot_topk_dchunk: d={d} must be a multiple of "
+            f"dc={dc} (the tail would be silently dropped)")
+    if M % T or M == 0:
+        raise ValueError(f"index rows M={M} must be a whole number of "
+                         f"T={T} tiles")
+    if y_hi.shape[1] != d or xx.numel() != Q or yy.numel() != M:
+        raise ValueError(f"{who}: operand shapes x {tuple(x.shape)}, y_hi "
+                         f"{tuple(y_hi.shape)}, xx {tuple(xx.shape)}, yy "
+                         f"{tuple(yy.shape)} do not agree")
+    if passes not in (1, 3):
+        raise ValueError(f"passes must be 1 or 3, got {passes}")
+    if passes == 3 and (y_lo is None or y_lo.shape != y_hi.shape):
+        raise ValueError("passes=3 needs y_lo shaped like y_hi")
+
+
+def fused_l2_slot_topk(x, y_hi, y_lo, xx, yy, m_real, *, T: int, Qb: int,
+                       passes: int, mask: bool = True, track: bool = True
+                       ) -> Tuple[torch.Tensor, ...]:
+    """K1's slot form (reference ``fused_l2_slot_topk``, ``:406``): per
+    slot, a (tile of T rows, lane = row % 128) bucket, the smallest
+    ``d2 = (xx + yy) − 2·x·y`` and its global row id, and per (query,
+    lane) the min over tiles of each slot's second smallest.
+
+    x [Q, d] f32; y_hi (and y_lo at passes=3) [M, d] bf16, M a whole
+    number of T-row tiles; xx [Q] (or [Q, 1]) and yy [M] (or [1, M])
+    exact f32 squared norms; m_real (an int or a one-element tensor) the
+    real row count: with ``mask`` every row ≥ m_real scores +inf. Returns
+    ``(m1 [Q, S] f32, i1 [Q, S] int32, m2min [Q, 128] f32)``, S = (M/T)·128,
+    slot s = (tile s // 128, lane s % 128); a slot of pads keeps +inf and
+    −1. ``track=False`` is the reference's measurement-only min fold:
+    i1 = 0 and m2min the min over tiles of the slot minima."""
+    _check_slot("fused_l2_slot_topk", x, y_hi, y_lo, xx, yy, T, Qb, passes)
+    if x.device.type == "cpu":
+        return fused_l2_slot_topk_ref(x, y_hi, y_lo, xx, yy, m_real, T=T,
+                                      Qb=Qb, passes=passes, mask=mask,
+                                      track=track)
+    if x.shape[1] > _D_RESIDENT:
+        raise ValueError(
+            f"fused_l2_slot_topk: the resident query block takes d ≤ "
+            f"{_D_RESIDENT} (got d={x.shape[1]}); past it use "
+            f"fused_l2_slot_topk_dchunk")
+    return _slot("fused_l2_slot_topk", x, y_hi, y_lo, xx, yy, m_real, T,
+                 passes, mask, track, False)
+
+
+def fused_l2_slot_topk_dchunk(x, y_hi, y_lo, xx, yy, m_real, *, T: int,
+                              Qb: int, passes: int, dc: int = 256
+                              ) -> Tuple[torch.Tensor, ...]:
+    """Wide-feature form of :func:`fused_l2_slot_topk` (reference
+    ``:474``): the same outputs, always masked and tracked; d must be a
+    multiple of ``dc`` (the reference's padding contract). On the card
+    x's feature slices stream beside y's, as in
+    :func:`fused_l2_group_topk_packed_dchunk`."""
+    _check_slot("fused_l2_slot_topk_dchunk", x, y_hi, y_lo, xx, yy, T, Qb,
+                passes, dc)
+    if x.device.type == "cpu":
+        return fused_l2_slot_topk_dchunk_ref(x, y_hi, y_lo, xx, yy, m_real,
+                                             T=T, Qb=Qb, passes=passes,
+                                             dc=dc)
+    return _slot("fused_l2_slot_topk_dchunk", x, y_hi, y_lo, xx, yy,
+                 m_real, T, passes, True, True, True)
+
+
+def slot_tiles_per_block(Q: int, n_tiles: int, n_sm: int) -> int:
+    """Tiles of one block of the slot kernels: the tiles are cut into
+    enough groups that the 64-query blocks fill the card about eight
+    times over (each group writes one [Q, 128] partial of m2min)."""
+    n_groups = min(n_tiles, max(1, -(-8 * n_sm // -(-Q // 64))))
+    return -(-n_tiles // n_groups)
+
+
+def _slot(who: str, x, y_hi, y_lo, xx, yy, m_real, T: int, passes: int,
+          mask: bool, track: bool, xs: bool):
+    """Launch a slot form: resident x (xs False) or streamed x, and count
+    the launch."""
+    global LAUNCHES_SLOT, LAUNCHES_SLOT_DCHUNK
+    if x.device.type != "cuda":
+        raise DeviceError(f"{who}: no kernel for device {x.device}")
+    Q, d = x.shape
+    M = y_hi.shape[0]
+    if d % _LANES:
+        raise ValueError(f"the Hopper kernel needs d % {_LANES} == 0, got "
+                         f"d={d}")
+    xx, yy = xx.reshape(Q), yy.reshape(M)
+    if y_lo is None:
+        y_lo = y_hi
+    for name, t, dt in (("x", x, torch.float32),
+                        ("y_hi", y_hi, torch.bfloat16),
+                        ("y_lo", y_lo, torch.bfloat16),
+                        ("xx", xx, torch.float32), ("yy", yy, torch.float32)):
+        if t.dtype != dt or t.device != x.device or not t.is_contiguous():
+            raise ValueError(f"{who}: {name} must be a contiguous {dt} "
+                             f"tensor on {x.device}")
+    n_tiles = M // T
+    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
+    tpb = slot_tiles_per_block(Q, n_tiles, n_sm)
+    dev = x.device
+    m1 = torch.empty((Q, n_tiles * _LANES), dtype=torch.float32, device=dev)
+    i1 = torch.empty((Q, n_tiles * _LANES), dtype=torch.int32, device=dev)
+    m2min = torch.empty((Q, _LANES), dtype=torch.float32, device=dev)
+    if Q == 0:
+        return m1, i1, m2min
+    part = torch.empty((-(-n_tiles // tpb), Q, _LANES), dtype=torch.float32,
+                       device=dev)
+    m_real = min(int(m_real), M)
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream().cuda_stream
+        if xs:
+            x_hi, x_lo = _split_x(x, passes)
+            rc = _launcher_slot(True)(
+                x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(),
+                y_lo.data_ptr(), xx.data_ptr(), yy.data_ptr(),
+                m1.data_ptr(), i1.data_ptr(), part.data_ptr(),
+                m2min.data_ptr(), Q, M, d, T, tpb, m_real, passes, stream)
+        else:
+            rc = _launcher_slot(False)(
+                x.data_ptr(), y_hi.data_ptr(), y_lo.data_ptr(),
+                xx.data_ptr(), yy.data_ptr(), m1.data_ptr(), i1.data_ptr(),
+                part.data_ptr(), m2min.data_ptr(), Q, M, d, T, tpb, m_real,
+                passes, int(mask), int(track), stream)
+    _raise_on(who, rc)
+    if xs:
+        LAUNCHES_SLOT_DCHUNK += 1
+    else:
+        LAUNCHES_SLOT += 1
+    return m1, i1, m2min
+
+
+def _launcher_slot(xs: bool):
+    fn = _FN_SLOT.get(xs)
+    if fn is None:
+        lib = _build.load("fused_l2_topk")
+        p, i = ctypes.c_void_p, ctypes.c_int
+        if xs:
+            fn = lib.fused_l2_slot_topk_dchunk_launch
+            fn.argtypes = [p] * 10 + [i] * 7 + [p]
+        else:
+            fn = lib.fused_l2_slot_topk_launch
+            fn.argtypes = [p] * 9 + [i] * 9 + [p]
+        fn.restype = ctypes.c_int
+        _FN_SLOT[xs] = fn
+    return fn
+
+
+def fused_l2_slot_topk_ref(x, y_hi, y_lo, xx, yy, m_real, *, T: int,
+                           Qb: int, passes: int, mask: bool = True,
+                           track: bool = True):
+    """Plain PyTorch twin of :func:`fused_l2_slot_topk`: the reference's
+    ``_fused_kernel`` and ``_fold_and_write`` (``:238-299``) over the
+    twins' contraction. The kernel's test oracle and the CPU path."""
+    _check_slot("fused_l2_slot_topk", x, y_hi, y_lo, xx, yy, T, Qb, passes)
+    Q, M = x.shape[0], y_hi.shape[0]
+    d2 = xx.reshape(Q, 1) + yy.reshape(1, M)
+    d2.sub_(_scores(x, y_hi, y_lo, passes), alpha=2.0)  # (xx + yy) − 2·s
+    return _slot_fold(d2, T, int(m_real), mask, track)
+
+
+def fused_l2_slot_topk_dchunk_ref(x, y_hi, y_lo, xx, yy, m_real, *,
+                                  T: int, Qb: int, passes: int,
+                                  dc: int = 256):
+    """Plain PyTorch twin of :func:`fused_l2_slot_topk_dchunk` (the
+    resident form's twin, masked and tracked: the products do not depend
+    on how d is cut, only the f32 summation order does)."""
+    _check_slot("fused_l2_slot_topk_dchunk", x, y_hi, y_lo, xx, yy, T, Qb,
+                passes, dc)
+    return fused_l2_slot_topk_ref(x, y_hi, y_lo, xx, yy, m_real, T=T,
+                                  Qb=Qb, passes=passes)
+
+
+def _slot_fold(d2, T: int, m_real: int, mask: bool, track: bool):
+    """The reference's per-slot fold of the [Q, M] distances ``d2`` (in
+    place), chunk by chunk in ascending order. Tracked: strict < (on a
+    tie the earlier row stays), a2 through a NaN-propagating minimum,
+    which a later new minimum displaces. Min-only: a NaN-propagating
+    minimum, i1 = 0, a2 = a1. m2min is the NaN-propagating min over
+    tiles of a2."""
+    Q, M = d2.shape
+    if mask:
+        d2.masked_fill_(torch.arange(M, device=d2.device)[None, :]
+                        >= m_real, float("inf"))
+    n_tiles = M // T
+    c = d2.view(Q, n_tiles, T // _LANES, _LANES)
+    a1 = d2.new_full((Q, n_tiles, _LANES), float("inf"))
+    if not track:
+        for r in range(T // _LANES):
+            a1 = torch.minimum(a1, c[:, :, r])
+        a2 = a1
+        i1 = torch.zeros(a1.shape, dtype=torch.int32, device=d2.device)
+    else:
+        a2 = a1.clone()
+        i1 = torch.full(a1.shape, -1, dtype=torch.int32, device=d2.device)
+        col = (torch.arange(n_tiles, device=d2.device)[:, None] * T
+               + torch.arange(_LANES, device=d2.device)[None, :]
+               ).to(torch.int32)                          # [tiles, 128]
+        for r in range(T // _LANES):
+            cr = c[:, :, r]
+            lt1 = cr < a1
+            a2 = torch.where(lt1, a1, torch.minimum(a2, cr))
+            a1 = torch.where(lt1, cr, a1)
+            i1 = torch.where(lt1, col + r * _LANES, i1)
+    S = n_tiles * _LANES
+    return a1.reshape(Q, S), i1.reshape(Q, S), torch.amin(a2, dim=1)
 
 
 def split_hi_lo(y: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -168,3 +168,52 @@ def test_pad_window_and_chunk():
                                  torch.zeros(8, 4), torch.zeros(8),
                                  torch.zeros(8, 3, dtype=torch.int32),
                                  torch.zeros(256, 4), 128)
+
+
+@pytest.mark.parametrize("plant", ["slab", "queries"])
+def test_nonfinite_rows_never_reach_the_pools(case, plant):
+    """NaN and ±inf planted in probed slab rows (or in query rows): every
+    score they make is NaN or +inf, which loses each strict < of the
+    reference's fold (``fine_scan_pallas.py:148-155``) and of the twin's,
+    so no NaN ever enters a1, a2 or a3 and no pool names a planted row;
+    the kernel's partial merge, fed only such pools, takes its min of a3
+    over non-NaN values. The pools still match the reference's."""
+    Q, xx, pp, idx, _ = case
+    Q = Q.copy()
+    slab = np.array(idx.slab)
+    sch = j_schedule(idx, pp[:, :P])
+    Wk = jfs.pad_window(idx.probe_window)
+    offsets, sizes = np.asarray(idx.offsets), np.asarray(idx.sizes)
+    planted = []
+    if plant == "slab":
+        lids = [l for l in np.unique(pp[:4, :P]) if l >= 0 and sizes[l]]
+        for n, lid in enumerate(lids):
+            r = int(offsets[lid]) + n % int(sizes[lid])
+            slab[r, n % D] = (np.nan, np.inf, -np.inf)[n % 3]
+            planted.append(r)
+        assert len(planted) >= 3
+    else:
+        Q[5, 3], Q[9, 0], Q[20, 7] = np.nan, np.inf, -np.inf
+    with np.errstate(over="ignore", invalid="ignore"):
+        xx = (Q * Q).sum(1, keepdims=True).astype(np.float32)
+    ref = jfs.fine_scan_list_major(jnp.asarray(sch.sched), jnp.asarray(Q),
+                                   jnp.asarray(xx), jnp.asarray(pp),
+                                   jnp.asarray(slab), Wk=Wk)
+    mine = tfs.fine_scan_list_major(
+        torch.from_numpy(sch.sched), torch.from_numpy(Q),
+        torch.from_numpy(xx), torch.from_numpy(pp), torch.from_numpy(slab),
+        Wk)
+    for pools in (mine, [torch.from_numpy(np.array(t)) for t in ref]):
+        a1, i1, a2, i2, a3 = pools
+        assert not any(bool(a.isnan().any()) for a in (a1, a2, a3))
+        assert not np.isin(torch.cat([i1, i2]).numpy(), planted).any()
+        assert bool((a1 <= a2).all() and (a2 <= a3).all())
+    live = np.isfinite(Q).all(1)
+    if plant == "queries":
+        a1, i1 = mine[0].numpy(), mine[1].numpy()
+        assert np.isposinf(a1[~live]).all() and (i1[~live] == -1).all()
+    rows = np.isfinite(slab).all(1)
+    tol = np.where(live, _envelope(np.where(live[:, None], Q, 0.0),
+                                   slab[rows]), np.inf)
+    _assert_pools_match(mine, ref, np.where(live[:, None], Q, 0.0), slab,
+                        tol)

@@ -94,6 +94,23 @@ def test_sources_import_no_jax_and_no_reference():
     assert bad == []
 
 
+def test_ops_export_each_kernel_beside_its_twin():
+    """Every kernel wrapper ``raft_tpu_torch.ops`` exports has its plain
+    twin (``<name>_ref``) exported beside it; K1's slot forms included."""
+    from raft_tpu_torch import ops
+
+    names = set(ops.__all__)
+    assert all(hasattr(ops, n) for n in names)
+    kernels = {n for n in names if not n.endswith("_ref")} - {
+        "fold_group_top2", "split_hi_lo"}
+    assert {"fused_l2_slot_topk", "fused_l2_slot_topk_dchunk",
+            "fused_l2_group_topk_packed", "select_slot_topk_packed",
+            "fine_scan_list_major", "pq_scan_list_major", "spmv_tiled",
+            "sddmm_tiled", "unexpanded_pairwise_tiled",
+            "histogram_blocked"} <= kernels
+    assert sorted(n for n in kernels if n + "_ref" not in names) == []
+
+
 def test_entry_points_default_to_cuda():
     y = np.random.default_rng(0).normal(size=(4096, 16)).astype(np.float32)
     if torch.cuda.is_available():

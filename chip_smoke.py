@@ -110,6 +110,17 @@ Phases, each fatal on failure (non-zero exit, no result line):
    tile) order of a TiledPairs layout (16384 × 16384 and 256 × 512). K6b
    runs a Lanczos solve over the pair layout of a band matrix (n = 2²⁰,
    |i − j| ≤ 16, 34.6 M nonzeros) and is held and timed the same way.
+   Then ``k6_checks``, each case against its twin within the same bound
+   and timed: K6c at V = 33 (scalar lanes) and 512 (the envelope's edge)
+   on a scale-18 R-MAT Laplacian; K6c at V = 128 and 33 on a 2¹⁸-row
+   matrix whose row tile 0 holds 129 chunks (its work items split and add
+   with global atomics) and whose row tile 5 is empty (it must read 0,
+   from a NaN-filled allocation); K6b on the band of half-width 1 (runs
+   of 3) and on a scale-16 R-MAT under ``layout="pairs"`` (runs of 1).
+   A line of its own prints the first designs' times (one block a
+   chunk) beside this run's: constants recorded from an earlier full run
+   of this script on an H100 80GB HBM3 at 700 W, not measured here and
+   not part of the ``kernels`` line.
 8. spectral_c4, BASELINE config 4 as ``bench_configs.py:105-129`` runs it
    (scale 17, 1,000,000 edges, ``jit_loop=True``): the fit timed on the
    CSR path and on the tiled path (host-clock median of 3).
@@ -259,6 +270,18 @@ def gpu_name_power() -> str:
         timeout=60)
     check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
     return out.stdout.strip().splitlines()[0]
+
+
+def ptxas_report(name: str, log: str):
+    """Print each kernel's registers and spills from ``nvcc -Xptxas=-v``'s
+    report of library ``name``, each line led by the kernel's (mangled)
+    name."""
+    kernel = "?"
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            kernel = line.split("'")[1] if "'" in line else line.strip()
+        elif "registers" in line or "spill" in line:
+            print(f"ptxas {name} {kernel}: {line.strip()}", flush=True)
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -1553,6 +1576,227 @@ def csr_tensor(A):
                                    size=A.shape)
 
 
+#: the first K6c and K6b designs (one block a chunk), recorded from an
+#: earlier full run of this script on an H100 80GB HBM3 at 700 W (K6c at
+#: V = 16 and 128 on spectral_g22's layout, K6b on the band matrix);
+#: printed beside this run's times, never put in the ``kernels`` line
+K6_FIRST_DESIGN_MS = {"K6c": 13.28, "K6c_V128": 268.37, "K6b": 0.438}
+
+
+def row_degrees(A):
+    """Entries of each row of a port COO/CSR matrix, f32 (the bound's
+    nnz_i; duplicates of a COO matrix count apart, as the kernels add
+    them apart)."""
+    import torch
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+
+    if isinstance(A, CSRMatrix):
+        return (A.indptr[1:] - A.indptr[:-1]).float()
+    return torch.bincount(A.rows.long(), minlength=A.shape[0]).float()
+
+
+def k6c_case(tag: str, T, deg, B, reps: int, Lt=None, res=None):
+    """K6c on layout ``T`` and B against its twin within (nnz_i + 2)·2⁻²⁴·
+    Σ_j |a_ij·b_jv| (``deg`` = nnz_i), then timed (CUDA events) beside the
+    twin and cuSPARSE's SpMM (``Lt @ B``, when ``Lt`` is given). Through
+    ``linalg.spmm`` when ``res`` is given (the path's own entry point),
+    else the wrapper. A first wrapper call starts its Y from a NaN-filled
+    block of the caching allocator (its address is checked), so a row no
+    item wrote would show."""
+    import dataclasses
+
+    import torch
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse import linalg as sl
+
+    V = B.shape[1]
+    poison = torch.full((T.n_row_tiles * T.R, V), float("nan"),
+                        device="cuda")
+    ptr = poison.data_ptr()
+    del poison
+    n0 = k6.LAUNCHES_SPMM
+    Y_nan = k6.spmm_tiled(T, B)
+    check(Y_nan.data_ptr() == ptr,
+          f"{tag}: K6c's Y did not start from the NaN-filled block")
+    Y = Y_nan
+    if res is not None:     # the path's own entry point, counted alone
+        k6.LAUNCHES_SPMM = n0
+        Y = sl.spmm(res, T, B)
+    torch.cuda.synchronize()
+    launches = k6.LAUNCHES_SPMM - n0
+    check(launches > 0, f"{tag}: K6c launched no time")
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k6.spmm_tiled_ref(T, B)), 1,
+                    warmup=0)
+    T_abs = dataclasses.replace(T, vals=T.vals.abs())
+    bound = (deg + 2)[:, None] * 2.0 ** -24 * k6.spmm_tiled_ref(T_abs,
+                                                               B.abs())
+    err = check_bound(tag, Y, hold[0], bound)
+    if Y_nan is not Y:
+        err = max(err, check_bound(f"{tag} from NaN", Y_nan, hold[0], bound))
+    del hold, bound, T_abs, Y_nan
+    ms = cuda_ms(lambda: k6.spmm_tiled(T, B), reps)
+    lib = library_ms(lambda: Lt @ B, reps) if Lt is not None else None
+    b_ms, b_by = spmv_bound_ms(int(deg.sum().item()), T.shape[0],
+                               T.shape[1], V)
+    k6.LAUNCHES_SPMM = n0 + launches    # timing launches do not count
+    VC, W, QP = k6.spmm_geometry(T.R, V, B.data_ptr() % 16 == 0)
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib, "max_abs_err": err, "launches": launches,
+           "V": V, "VC": VC, "W": W, "items": T.n_items,
+           "split_items": int(T.item_split.sum().item()),
+           "zero_tiles": T.zero_tiles.numel()}
+    print(f"K6c {tag}: {json.dumps(row)}", flush=True)
+    return Y, row
+
+
+def k6b_case(tag: str, A, x, reps: int):
+    """K6b over the pair layout of COO matrix ``A`` against its twin within
+    (nnz_i + 2)·2⁻²⁴·Σ_j |a_ij·x_j|, then timed beside the twin and
+    cuSPARSE's SpMV of the same matrix. Returns (layout, row)."""
+    import torch
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse import convert
+    from raft_tpu_torch.sparse import linalg as sl
+
+    t0 = time.perf_counter()
+    TP = sl.prepare_spmv(A, layout="pairs")
+    torch.cuda.synchronize()
+    layout_s = time.perf_counter() - t0
+    n0 = k6.LAUNCHES_PAIR
+    y = k6.spmv_pair_tiled(TP, x)
+    torch.cuda.synchronize()
+    check(k6.LAUNCHES_PAIR == n0 + 1, f"{tag}: K6b launch was not counted")
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k6.spmv_pair_tiled_ref(TP, x)), 1,
+                    warmup=0)
+    Acsr = convert.coo_to_csr(A)
+    rnz = (Acsr.indptr[1:] - Acsr.indptr[:-1]).float()
+    bound = (rnz + 2) * 2.0 ** -24 * sl.spmv(
+        None, Acsr.with_values(Acsr.values.abs()), x.abs())
+    err = check_bound(tag, y, hold[0], bound)
+    del hold, y, bound
+    ms = cuda_ms(lambda: k6.spmv_pair_tiled(TP, x), reps)
+    k6.LAUNCHES_PAIR = n0
+    At = csr_tensor(Acsr)
+    lib = library_ms(lambda: At @ x[:, None], reps)
+    b_ms, b_by = spmv_bound_ms(A.nnz, A.shape[0], A.shape[1])
+    slots = TP.pairs.m_chunks * TP.pairs.E
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib, "max_abs_err": err, "nnz": A.nnz,
+           "slots": slots, "slots_per_nnz": slots / max(1, A.nnz),
+           "layout_s": layout_s}
+    print(f"K6b {tag}: {json.dumps(row)}", flush=True)
+    return TP, row
+
+
+def rmat_adjacency(res, seed: int, scale: int, edge_factor: int = 16):
+    """The symmetrized R-MAT adjacency of spectral_g22's recipe, values
+    1.0, as COO on the card."""
+    import torch
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.random import rmat_rectangular_gen
+
+    n, n_edges = 1 << scale, edge_factor << scale
+    src, dst = rmat_rectangular_gen(res, seed, n_edges, scale, scale)
+    return COOMatrix(torch.cat([src, dst]), torch.cat([dst, src]),
+                     torch.ones(2 * n_edges, device="cuda"), (n, n))
+
+
+def hub_matrix(gen, n: int = 1 << 18, hub_cols: int = 1024,
+               other: int = 8, empty_tile: int = 5, R: int = 256):
+    """n × n COO whose row tile 0 holds ``hub_cols`` random columns a row
+    (≥ 64 chunks at the default tiling, so its work items split), the
+    other rows ``other`` each, and row tile ``empty_tile`` none."""
+    import torch
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+
+    hub = torch.arange(R, device="cuda").repeat_interleave(hub_cols)
+    rest = torch.arange(R, n, device="cuda")
+    rest = rest[(rest // R) != empty_tile].repeat_interleave(other)
+    rows = torch.cat([hub, rest])
+    cols = torch.randint(0, n, (rows.shape[0],), generator=gen,
+                         device="cuda")
+    vals = torch.randn(rows.shape[0], generator=gen, device="cuda")
+    return COOMatrix(rows.to(torch.int32), cols.to(torch.int32), vals,
+                     (n, n))
+
+
+def k6_checks(res, gen, scale: int = 18, hub_n: int = 1 << 18,
+              band_n: int = 1 << 20, pairs_scale: int = 16):
+    """The K6c and K6b cases past the path's own shapes, each against its
+    twin: K6c at V = 33 (scalar lanes) and 512 (the envelope's edge) on a
+    scale-``scale`` R-MAT Laplacian, and at V = 128 and 33 on
+    :func:`hub_matrix` (split items and their global atomics; an unvisited
+    row tile that must read 0); K6b on a band of half-width 1 (runs of 3)
+    and on a scale-``pairs_scale`` R-MAT under ``layout="pairs"`` (runs of
+    length 1); pair tilings past K6b's envelope (16-bit locals, the x and
+    y tiles in a block's shared memory) raise ``ValueError`` on the card
+    before any launch. Returns {"K6c": ..., "K6b": ...}."""
+    import torch
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse.tiled import ITEM_CHUNKS
+
+    out = {"K6c": {}, "K6b": {}}
+    adj = rmat_adjacency(res, 7, scale)
+    L, _ = sl.laplacian_normalized(res, adj)
+    del adj
+    T = sl.prepare_spmv(L)
+    deg, Lt = row_degrees(L), csr_tensor(L)
+    for V in (33, 512):
+        B = torch.randn((L.shape[1], V), generator=gen, device="cuda")
+        _, out["K6c"][f"rmat{scale}_V{V}"] = k6c_case(
+            f"rmat{scale} V={V}", T, deg, B, 5, Lt)
+        del B
+    del T, L, Lt, deg
+    H = hub_matrix(gen, hub_n)
+    TH = sl.prepare_spmv(H)
+    deg = row_degrees(H)
+    ic = TH.item_chunk0.tolist()
+    crt = TH.chunk_row_tile.tolist()
+    hub_chunks = sum(1 for c in crt if c == 0)
+    hub_items = [i for i in range(TH.n_items) if crt[ic[i]] == 0]
+    want = -(-hub_chunks // ITEM_CHUNKS)
+    check(hub_chunks >= 64 and len(hub_items) == want
+          and all(TH.item_split[i].item() == 1 for i in hub_items),
+          f"hub: row tile 0 holds {hub_chunks} chunks in {len(hub_items)} "
+          f"items; want ≥ 64 chunks split over {want} items")
+    check(not bool(TH.visited_row_tiles[5]) and 5 in TH.zero_tiles.tolist(),
+          "hub: row tile 5 should be unvisited and in zero_tiles")
+    for V in (128, 33):
+        B = torch.randn((hub_n, V), generator=gen, device="cuda")
+        Y, row = k6c_case(f"hub V={V}", TH, deg, B, 5)
+        check(bool((Y[5 * TH.R:6 * TH.R] == 0).all()),
+              f"hub V={V}: the unvisited row tile does not read 0")
+        row.update(hub_chunks=hub_chunks, hub_items=len(hub_items))
+        out["K6c"][f"hub_V{V}"] = row
+        del B, Y
+    del TH, H, deg
+    torch.cuda.empty_cache()
+    x = torch.randn(band_n, generator=gen, device="cuda")
+    _, out["K6b"]["band_half1"] = k6b_case(
+        "band half-width 1", band_matrix(band_n, 1, gen), x, 20)
+    A = rmat_adjacency(res, 9, pairs_scale)
+    x = torch.randn(A.shape[1], generator=gen, device="cuda")
+    _, out["K6b"][f"rmat{pairs_scale}_pairs"] = k6b_case(
+        f"rmat{pairs_scale} pairs", A, x, 20)
+    del A, x
+    tiny, n0 = band_matrix(300, 1, gen), k6.LAUNCHES_PAIR
+    for R, C in ((65536, 128), (64, 65664), (64, 65536)):
+        TPx = sl.prepare_spmv(tiny, R=R, C=C, E=512, layout="pairs")
+        try:
+            k6.spmv_pair_tiled(TPx, torch.ones(300, device="cuda"))
+            refused = False
+        except ValueError:
+            refused = True
+        check(refused and k6.LAUNCHES_PAIR == n0,
+              f"K6b: R={R}, C={C} past the kernel's envelope was launched")
+    del tiny, TPx
+    torch.cuda.empty_cache()
+    return out
+
+
 def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
                    c4=(17, 1_000_000), dense_rows: int = 100_000):
     """Phases 7–9 (see the module doc) at R-MAT ``scale``, a band matrix of
@@ -1581,10 +1825,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     n, n_edges = 1 << scale, 16 << scale
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    src, dst = rmat_rectangular_gen(res, 3, n_edges, scale, scale)
-    adj = COOMatrix(torch.cat([src, dst]), torch.cat([dst, src]),
-                    torch.ones(2 * n_edges, device="cuda"), (n, n))
-    del src, dst
+    adj = rmat_adjacency(res, 3, scale)
     torch.cuda.synchronize()
     g22 = {"scale": scale, "n": n, "edges": n_edges, "entries": adj.nnz,
            "graph_s": time.perf_counter() - t0}
@@ -1659,7 +1900,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     hold = []
     plain = cuda_ms(lambda: hold.append(k6.spmv_tiled_ref(T, x)), 1,
                     warmup=0)
-    deg = (L.indptr[1:] - L.indptr[:-1]).float()
+    deg = row_degrees(L)
     T_abs = dataclasses.replace(T, vals=T.vals.abs())
     bound = (deg + 2) * 2.0 ** -24 * k6.spmv_tiled_ref(T_abs, x.abs())
     err = check_bound("K6a", y, hold[0], bound)
@@ -1682,25 +1923,8 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     for V in (16, 128):
         B = torch.randn((n, V), generator=gen, device="cuda")
         set_sparse_counts(zero)
-        Y = sl.spmm(res, T, B)
-        torch.cuda.synchronize()
-        launches = sparse_counts()["K6c"]
-        check(launches > 0, f"spmm V={V}: K6c launched no time")
-        hold = []
-        plain = cuda_ms(lambda: hold.append(k6.spmm_tiled_ref(T, B)), 1,
-                        warmup=0)
-        bound = (deg + 2)[:, None] * 2.0 ** -24 * k6.spmm_tiled_ref(
-            T_abs, B.abs())
-        err = check_bound(f"K6c V={V}", Y, hold[0], bound)
-        del hold, Y, bound
-        ms = cuda_ms(lambda: k6.spmm_tiled(T, B), 5)
-        lib = library_ms(lambda: Lt @ B, 5)
-        b_ms, b_by = spmv_bound_ms(L.nnz, n, n, V)
-        k6c[V] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                  "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
-                  "launches": launches, "V": V}
-        print(f"K6c at V={V}: {json.dumps(k6c[V])}", flush=True)
-        del B
+        Y, k6c[V] = k6c_case(f"spectral_g22 V={V}", T, deg, B, 5, Lt, res)
+        del B, Y
     rows_k["K6c"] = {**k6c[16], "V128": k6c[128]}
     del T_abs, Lt, T, L, emb, model
     torch.cuda.empty_cache()
@@ -1761,11 +1985,10 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
 
     # ---- K6b on a block-clustered (band) matrix, through a Lanczos solve
     Bd = band_matrix(band_n, 16, gen)
-    t0 = time.perf_counter()
-    TP = sl.prepare_spmv(Bd, layout="pairs")
-    torch.cuda.synchronize()
-    band = {"n": band_n, "nnz": Bd.nnz, "layout_s": time.perf_counter() - t0,
-            "slots_per_nnz": TP.pairs.m_chunks * TP.pairs.E / Bd.nnz}
+    x = torch.randn(band_n, generator=gen, device="cuda")
+    TP, row = k6b_case("band half-width 16", Bd, x, 20)
+    band = {"n": band_n, "nnz": Bd.nnz, "layout_s": row["layout_s"],
+            "slots_per_nnz": row["slots_per_nnz"]}
     bcfg = LanczosSolverConfig(n_components=4, max_iterations=60,
                                tolerance=1e-5, seed=1)
     set_sparse_counts(zero)
@@ -1775,31 +1998,23 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     band["eigenvalues"] = bvals.tolist()
     check(band["launches"] > 0 and bool(torch.isfinite(bvals).all()),
           "band: the pair-tiled solve launched K6b no time")
-    x = torch.randn(band_n, generator=gen, device="cuda")
-    saved = sparse_counts()
-    y = k6.spmv_pair_tiled(TP, x)
-    hold = []
-    plain = cuda_ms(lambda: hold.append(k6.spmv_pair_tiled_ref(TP, x)), 1,
-                    warmup=0)
-    Bcsr = convert.coo_to_csr(Bd)
-    rnz = (Bcsr.indptr[1:] - Bcsr.indptr[:-1]).float()
-    bound = (rnz + 2) * 2.0 ** -24 * sl.spmv(
-        None, Bcsr.with_values(Bcsr.values.abs()), x.abs())
-    err = check_bound("K6b", y, hold[0], bound)
-    del hold, y
-    ms = cuda_ms(lambda: k6.spmv_pair_tiled(TP, x), 20)
-    set_sparse_counts(saved)
-    Bt = csr_tensor(Bcsr)
-    lib = library_ms(lambda: Bt @ x[:, None], 20)
-    b_ms, b_by = spmv_bound_ms(Bd.nnz, band_n, band_n)
-    rows_k["K6b"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
-                     "launches": band["launches"]}
+    rows_k["K6b"] = {**row, "launches": band["launches"]}
+    first = {"K6c": [k6c[16]["ms"], K6_FIRST_DESIGN_MS["K6c"]],
+             "K6c_V128": [k6c[128]["ms"], K6_FIRST_DESIGN_MS["K6c_V128"]],
+             "K6b": [row["ms"], K6_FIRST_DESIGN_MS["K6b"]]}
+    print("K6 [this run's ms, first design's ms recorded from an earlier "
+          f"run, not measured here]: {json.dumps(first)}", flush=True)
     report["band_pairs"] = band
     print(f"K6b at the band matrix: {json.dumps(rows_k['K6b'])}; "
           f"{json.dumps(band)}", flush=True)
-    del Bd, TP, Bcsr, Bt
+    del Bd, TP, x
     torch.cuda.empty_cache()
+
+    # ---- K6c and K6b past the path's shapes, each against its twin
+    checks = k6_checks(res, gen)
+    rows_k["K6c"]["checks"] = checks["K6c"]
+    rows_k["K6b"]["checks"] = checks["K6b"]
+    report["k6_checks"] = checks
 
     # ---- phase 8: spectral_c4, BASELINE config 4 as bench_configs runs it
     s4, e4 = c4
@@ -3248,9 +3463,7 @@ def main() -> int:
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+        ptxas_report(name, log)
 
     # ---- phase 2: K1 against its twin ----
     gen = torch.Generator(device="cuda")

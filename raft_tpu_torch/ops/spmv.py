@@ -13,7 +13,11 @@ different orders (the kernels with atomics, in an order that changes from
 run to run), so a row agrees to ``(nnz_i + 2)·2⁻²⁴·Σ_j |a_ij·x_j|``.
 
 The wrappers dispatch on the tensors' device: CPU tensors take the twin,
-CUDA tensors launch the kernel or raise. There is no fallback.
+CUDA tensors launch the kernel or raise. There is no fallback. What the
+kernels read beside the reference's arrays is built once with the layout
+(``sparse/tiled.py``): K6c's work items (``TiledELL.item_chunk0``,
+``item_split``, ``zero_tiles``) and K6b's packed slot stream
+(``TiledPairsSpmv.rowcol``).
 """
 
 from __future__ import annotations
@@ -28,9 +32,12 @@ from raft_tpu_torch.ops import _build
 #: widest dense operand ``spmm_tiled`` takes, the reference's envelope
 #: (``spmv_pallas.py:402``)
 MAX_V = 512
-#: shared memory the SpMM kernel may use for its [R, VC] tile and the
-#: chunk's staged slots
-SPMM_SMEM = 200 * 1024
+#: shared memory of one SpMM block's [R, W·QP] tile: three blocks of 8
+#: warps an SM at R = 256 and 64 columns
+SPMM_SMEM = 64 * 1024
+#: shared memory a block may use on the card (the pair kernel's x and y
+#: tiles, (C + R)·4 bytes)
+BLOCK_SMEM = 232448
 #: gathered f32 elements one step of a twin may hold (bounds the twins'
 #: scratch at the scale-22 graph's 10⁸ slots)
 _TWIN_ELEMS = 1 << 26
@@ -75,6 +82,22 @@ def spmv_tiled(tiled, x) -> torch.Tensor:
     return y
 
 
+def _check_pairs(t):
+    """The pair kernel's envelope: 16-bit row and column locals
+    (``t.rowcol``) and the x and y tiles in one block's shared memory. The
+    CPU twin has no such limit."""
+    p = t.pairs
+    if t.rowcol is None:
+        raise ValueError(
+            f"spmv_pair_tiled: R={p.R}, C={p.C}: the kernel reads row_local "
+            f"and col_local in 16 bits each (R <= 65535, C <= 65536)")
+    if (p.R + p.C) * 4 > BLOCK_SMEM:
+        raise ValueError(
+            f"spmv_pair_tiled: R={p.R}, C={p.C}: the x and y tiles need "
+            f"{(p.R + p.C) * 4} bytes of shared memory, more than a "
+            f"block's {BLOCK_SMEM}")
+
+
 def spmv_pair_tiled(t, x) -> torch.Tensor:
     """y = A @ x for a :class:`raft_tpu_torch.sparse.tiled.TiledPairsSpmv`
     (K6b): gather, multiply and scatter in one pass per chunk."""
@@ -84,12 +107,16 @@ def spmv_pair_tiled(t, x) -> torch.Tensor:
     _check_x(p.shape[1], x, "spmv_pair_tiled")
     if x.device.type == "cpu":
         return spmv_pair_tiled_ref(t, x)
+    _check_pairs(t)
     y = torch.zeros(p.shape[0], dtype=torch.float32, device=x.device)
     if p.m_chunks == 0:
         return y
+    for a in (t.vals, t.rowcol):
+        if a.data_ptr() % 16:
+            raise ValueError("spmv_pair_tiled: vals and rowcol must be "
+                             "16-byte aligned (the kernel's vector loads)")
     _launch("spmv_pair_tiled_launch", [
-        t.vals, p.row_local, p.col_local, p.chunk_row_tile,
-        p.chunk_col_tile, x, y],
+        t.vals, t.rowcol, p.chunk_row_tile, p.chunk_col_tile, x, y],
         [p.m_chunks, p.E, p.C, p.R, p.shape[0], p.shape[1]])
     LAUNCHES_PAIR += 1
     return y
@@ -107,17 +134,20 @@ def _check_B(tiled, B: torch.Tensor) -> int:
     return V
 
 
-def spmm_column_slice(R: int, E: int, V: int) -> int:
-    """Columns of B one SpMM block accumulates (its [R, VC] f32 tile and
-    the chunk's 12·E staged bytes within :data:`SPMM_SMEM`), a multiple of
-    32 when more than 32 fit."""
-    vc = (SPMM_SMEM - 12 * E) // (4 * R)
-    if vc < 1:
-        raise ValueError(f"spmm_tiled: R={R}, E={E} leave no shared "
-                         f"memory for the accumulator tile")
-    if vc >= 32:
-        vc = vc // 32 * 32
-    return max(1, min(V, vc))
+def spmm_geometry(R: int, V: int, vector: bool):
+    """(VC, W, QP) of one SpMM block: VC columns of B, W = 4 (float4
+    lanes) when ``vector`` and V % 4 == 0 else 1, QP lanes a slot (a power
+    of two, W·QP ≥ VC); its [R, W·QP] f32 tile within :data:`SPMM_SMEM`."""
+    W = 4 if vector and V % 4 == 0 else 1
+    VC = max(1, min(V, 64 if W == 4 else 32))    # ≤ 16 or 32 lanes a slot
+    QP = 1 << (-(-VC // W) - 1).bit_length()
+    while R * W * QP * 4 > SPMM_SMEM and QP > 1:
+        QP //= 2
+        VC = min(VC, W * QP)
+    if R * W * QP * 4 > SPMM_SMEM:
+        raise ValueError(f"spmm_tiled: R={R} leaves no shared memory for "
+                         f"the accumulator tile")
+    return VC, W, QP
 
 
 def spmm_tiled(tiled, B) -> torch.Tensor:
@@ -128,18 +158,26 @@ def spmm_tiled(tiled, B) -> torch.Tensor:
     V = _check_B(tiled, B)
     if B.device.type == "cpu":
         return spmm_tiled_ref(tiled, B)
-    Y = torch.zeros((tiled.shape[0], V), dtype=torch.float32,
+    n_rows, R = tiled.shape[0], tiled.R
+    if V == 0:
+        return torch.zeros((n_rows, 0), dtype=torch.float32,
+                           device=B.device)
+    # whole row tiles are stored by their one item: only the row tiles of
+    # ``zero_tiles`` (split or unvisited) start from zeros
+    Y = torch.empty((tiled.n_row_tiles * R, V), dtype=torch.float32,
                     device=B.device)
-    if V == 0 or tiled.m_chunks == 0:
-        return Y
-    VC = spmm_column_slice(tiled.R, tiled.E, V)
+    if tiled.zero_tiles.numel():
+        Y.view(tiled.n_row_tiles, R * V).index_fill_(0, tiled.zero_tiles,
+                                                      0.0)
+    VC, W, QP = spmm_geometry(R, V, B.data_ptr() % 16 == 0)
     _launch("spmm_tiled_launch", [
         tiled.vals, tiled.col_local, tiled.chunk_col_tile, tiled.perm_rows,
-        tiled.row_local, tiled.chunk_row_tile, B, Y],
-        [tiled.m_chunks, tiled.E, tiled.C, tiled.R, V, VC, tiled.shape[0],
+        tiled.row_local, tiled.chunk_row_tile, tiled.item_chunk0,
+        tiled.item_split, B, Y],
+        [tiled.n_items, tiled.E, tiled.C, R, V, VC, W, QP, Y.shape[0],
          tiled.n_chunks * tiled.E // 8])
     LAUNCHES_SPMM += 1
-    return Y
+    return Y[:n_rows]
 
 
 def _launch(name: str, tensors, ints):

@@ -19,14 +19,24 @@ matvec dispatch sparse/solver/detail/lanczos.cuh:263-271.)
   the 8-slot row of the gather stream it holds; ``n_chunks·E/8`` (one past
   the gather stream) marks a pad row.
 - ``visited_row_tiles [n_row_tiles]``: row tiles that hold a chunk.
+- The SpMM kernel's (K6c) work items, built once with the layout by
+  :func:`spmm_items` (the port's own; the reference has no such field):
+  ``item_chunk0 [n_items + 1]``, each item a run of at most
+  :data:`ITEM_CHUNKS` consecutive chunks of one row tile (a row tile with
+  more chunks splits evenly); ``item_split [n_items]``, 1 where the
+  item's row tile is split over several items; ``zero_tiles``, the row
+  tiles that no item covers whole (the unvisited and the split ones).
 
 :class:`TiledPairs` (built by :func:`tile_pairs`): a sparsity structure
 bucketed by (row tile, column tile), each bucket padded to a multiple of
 ``E``, entries sorted by (row, col) inside it; ``pos [nnz]`` maps each
 original entry to its slot. :class:`TiledPairsSpmv` adds the values in slot
-order (:func:`tile_csr_pairs`). The SDDMM kernel computes one dot per
-entry and reads only the structure's ``rows`` and ``cols`` (entry order);
-the buckets are the TPU kernel's blocks, kept for parity and for K6b.
+order (:func:`tile_csr_pairs`) and, for the pair SpMV kernel (K6b), each
+slot's ``row_local << 16 | col_local`` in one int32 (``rowcol``, built
+once beside the reference's arrays, which K7's parity and ``pos`` keep
+using). The SDDMM kernel computes one dot per entry and reads only the
+structure's ``rows`` and ``cols`` (entry order); the buckets are the TPU
+kernel's blocks, kept for parity and for K6b.
 
 The layout pass is written once, in torch, and runs on the device that
 holds the matrix: on the card the layout is built there (the reference's
@@ -43,7 +53,7 @@ from __future__ import annotations
 
 import dataclasses
 import logging
-from typing import Tuple
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -52,6 +62,11 @@ from raft_tpu_torch.core.resources import resolve_device
 from raft_tpu_torch.core.sparse_types import COOMatrix, CSRMatrix, to_device
 
 _log = logging.getLogger(__name__)
+
+#: most chunks one SpMM (K6c) work item takes: R-MAT's hub row tiles hold
+#: hundreds of chunks and split over several blocks (8 and 32 ran within
+#: 2% of 16 on the scale-22 graph, PERF.md §6)
+ITEM_CHUNKS = 16
 
 
 def _arr(obj, name: str, device, dtype) -> torch.Tensor:
@@ -76,6 +91,20 @@ class TiledELL:
     visited_row_tiles: torch.Tensor     # [n_row_tiles] bool
     n_col_tiles: int
     n_row_tiles: int
+    # K6c's work items (see spmm_items), built from chunk_row_tile when
+    # not given
+    item_chunk0: Optional[torch.Tensor] = None   # [n_items + 1] int32
+    item_split: Optional[torch.Tensor] = None    # [n_items] int32
+    zero_tiles: Optional[torch.Tensor] = None    # [*] int64
+
+    def __post_init__(self):
+        if self.item_chunk0 is None:
+            self.item_chunk0, self.item_split, self.zero_tiles = spmm_items(
+                self.chunk_row_tile, self.n_row_tiles)
+
+    @property
+    def n_items(self) -> int:
+        return self.item_split.shape[0]
 
     @property
     def n_chunks(self) -> int:
@@ -168,6 +197,14 @@ class TiledPairsSpmv:
     pairs: TiledPairs
     vals: torch.Tensor
     visited: torch.Tensor
+    # [m_chunks, E] int32 row_local << 16 | col_local (see pack_rowcol),
+    # built from ``pairs`` when not given; None where the locals do not
+    # fit 16 bits
+    rowcol: Optional[torch.Tensor] = None
+
+    def __post_init__(self):
+        if self.rowcol is None:
+            self.rowcol = pack_rowcol(self.pairs)
 
     @property
     def shape(self):
@@ -186,6 +223,43 @@ class TiledPairsSpmv:
                    vals=_arr(t, "vals", dev, torch.float32).reshape(
                        pairs.m_chunks, pairs.E),
                    visited=_arr(t, "visited", dev, torch.bool))
+
+
+def spmm_items(chunk_row_tile: torch.Tensor, n_row_tiles: int,
+               cap: int = ITEM_CHUNKS):
+    """The SpMM kernel's work items over a row-tile-major scatter stream
+    (``chunk_row_tile`` nondecreasing): each visited row tile's chunks cut
+    evenly into ⌈n / cap⌉ runs of consecutive chunks. Returns
+    ``item_chunk0`` ([n_items + 1] int32, the first chunk of each item and
+    ``m_chunks`` last), ``item_split`` ([n_items] int32, 1 where the row
+    tile has several items) and ``zero_tiles`` (int64, the row tiles with
+    no item that covers them whole, in order)."""
+    dev = chunk_row_tile.device
+    crt = chunk_row_tile.long()
+    tiles, counts = torch.unique_consecutive(crt, return_counts=True)
+    if tiles.shape[0] > 1 and not bool((tiles[1:] > tiles[:-1]).all()):
+        raise ValueError("spmm_items: the scatter stream is not "
+                         "row-tile-major (chunk_row_tile decreases)")
+    n_it = (counts + cap - 1) // cap
+    total = int(n_it.sum())
+    tile_of = _ids(n_it, total)
+    k = torch.arange(total, device=dev) - _excl(n_it)[tile_of]
+    start = _excl(counts)[tile_of] + k * counts[tile_of] // n_it[tile_of]
+    item_chunk0 = torch.cat([start, counts.sum().reshape(1)]).to(torch.int32)
+    item_split = (n_it > 1)[tile_of].to(torch.int32)
+    whole = torch.zeros(n_row_tiles, dtype=torch.bool, device=dev)
+    whole[tiles[n_it == 1]] = True
+    return item_chunk0, item_split, torch.nonzero(~whole).squeeze(1)
+
+
+def pack_rowcol(p: TiledPairs) -> Optional[torch.Tensor]:
+    """The pair SpMV kernel's slot stream: ``row_local << 16 | col_local``
+    of every slot as one int32 (pads ``R << 16``), or None where R >
+    65535 or C > 65536 (the locals do not fit 16 bits)."""
+    if p.R > 0xFFFF or p.C > 0x10000:
+        return None
+    v = (p.row_local.long() << 16) | p.col_local.long()
+    return torch.where(v >= 1 << 31, v - (1 << 32), v).to(torch.int32)
 
 
 def _checked_coo_parts(A, C: int, R: int, E: int, name: str, device):

@@ -181,3 +181,85 @@ def test_layout_runs_on_the_matrix_device_and_defaults_to_cuda():
             tt.tile_csr(CSRMatrix(ip, ix, v, m.shape))
         t2 = tt.tile_csr(CSRMatrix(ip, ix, v, m.shape), device="cpu")
         _same(t, t2, ELL_FIELDS)
+
+
+@pytest.mark.parametrize("cap", [1, 2, tt.ITEM_CHUNKS])
+@pytest.mark.parametrize("C,R,E", TILES)
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_spmm_items_cover_every_chunk_once(pattern, C, R, E, cap):
+    """K6c's work items: every scatter chunk once, in order, each item in
+    one row tile and within the cap; a row tile is stored whole exactly
+    when it has one item, and every other row tile is in zero_tiles."""
+    J, T = _pair(_matrix(pattern))
+    t = tt.tile_csr(T, C=C, R=R, E=E)
+    ref = jt.tile_csr(J, C=C, R=R, E=E, impl="numpy")
+    _same(ref, t, ELL_FIELDS)                  # the reference's arrays stay
+    ic, split, zt = tt.spmm_items(t.chunk_row_tile, t.n_row_tiles, cap)
+    if cap == tt.ITEM_CHUNKS:                  # the layout's own table
+        assert torch.equal(ic, t.item_chunk0)
+        assert torch.equal(split, t.item_split)
+        assert torch.equal(zt, t.zero_tiles)
+    ic, split, zt = ic.tolist(), split.tolist(), zt.tolist()
+    crt = t.chunk_row_tile.tolist()
+    assert ic[0] == 0 and ic[-1] == t.m_chunks
+    assert all(b - a >= 1 for a, b in zip(ic, ic[1:]))
+    items_of = {}
+    for i in range(len(split)):
+        tiles = set(crt[ic[i]:ic[i + 1]])
+        assert len(tiles) == 1 and ic[i + 1] - ic[i] <= cap
+        items_of.setdefault(tiles.pop(), []).append(i)
+    for tile, items in items_of.items():
+        assert all(split[i] == (len(items) > 1) for i in items)
+        # an even cut: item sizes differ by at most one chunk
+        sizes = [ic[i + 1] - ic[i] for i in items]
+        assert max(sizes) - min(sizes) <= 1
+    whole = {tile for tile, items in items_of.items() if len(items) == 1}
+    assert zt == [r for r in range(t.n_row_tiles) if r not in whole]
+    if pattern != "empty":          # (the empty form's one pad chunk)
+        visited = t.visited_row_tiles.tolist()
+        assert set(items_of) == {r for r in range(t.n_row_tiles)
+                                 if visited[r]}
+    if pattern == "powerlaw" and R == 64 and cap <= 2:
+        assert any(split), "the hub row tiles should split"
+
+
+def test_spmm_items_reject_a_scatter_stream_out_of_order():
+    with pytest.raises(ValueError, match="row-tile-major"):
+        tt.spmm_items(torch.tensor([0, 0, 2, 1], dtype=torch.int32), 3)
+
+
+def _unpack(rowcol):
+    u = rowcol.long() & 0xFFFFFFFF
+    return (u >> 16).to(torch.int32), (u & 0xFFFF).to(torch.int32)
+
+
+@pytest.mark.parametrize("C,R,E", TILES)
+@pytest.mark.parametrize("pattern", PATTERNS)
+def test_pair_rowcol_unpacks_to_the_locals(pattern, C, R, E):
+    """K6b's packed stream holds row_local and col_local exactly, built by
+    tile_csr_pairs and by the carry-across of the reference's layout."""
+    J, T = _pair(_matrix(pattern))
+    ours = tt.tile_csr_pairs(T, R=R, C=C, E=E)
+    theirs = tt.TiledPairsSpmv.from_numpy(
+        jt.tile_csr_pairs(J, R=R, C=C, E=E, impl="numpy"), device="cpu")
+    for t in (ours, theirs):
+        assert t.rowcol.dtype == torch.int32
+        assert t.rowcol.shape == t.pairs.row_local.shape
+        rl, cl = _unpack(t.rowcol)
+        assert torch.equal(rl, t.pairs.row_local)
+        assert torch.equal(cl, t.pairs.col_local)
+
+
+def test_pair_rowcol_top_bit_and_no_fit():
+    """Row locals past 32767 set the int32's sign bit and still unpack;
+    a tiling whose locals do not fit 16 bits gets no packed stream."""
+    m = sp.random(40000, 300, density=0.001, random_state=2,
+                  dtype=np.float32, format="csr")
+    _, T = _pair(m)
+    t = tt.tile_csr_pairs(T, R=65528, C=128, E=512)
+    assert bool((t.rowcol < 0).any())
+    rl, cl = _unpack(t.rowcol)
+    assert torch.equal(rl, t.pairs.row_local)
+    assert torch.equal(cl, t.pairs.col_local)
+    assert tt.tile_csr_pairs(T, R=65536, C=128, E=512).rowcol is None
+    assert tt.tile_csr_pairs(T, R=64, C=65664, E=512).rowcol is None

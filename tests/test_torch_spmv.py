@@ -10,6 +10,8 @@ so against the reference ``2⁻¹⁵·Σ_j |a_ij·b_jv|`` and against f64 the f3
 bound.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -180,11 +182,17 @@ def test_spmm_v_envelope_and_validation():
     with pytest.raises(TypeError):
         tl.spmm(None, tl.prepare_spmv(T, C=128, R=64, E=512,
                                       layout="pairs"), np.zeros((150, 2)))
-    # the SpMM column slice fits its shared-memory budget
-    for R, E, V in ((256, 2048, 16), (256, 2048, 128), (256, 2048, 512),
-                    (64, 512, 33)):
-        vc = k6.spmm_column_slice(R, E, V)
-        assert 1 <= vc <= V and 4 * R * vc + 12 * E <= k6.SPMM_SMEM
+    # the SpMM block's column slice and tile fit its shared-memory budget
+    for R, V, vector in ((256, 16, True), (256, 128, True), (256, 512, True),
+                         (64, 33, True), (256, 33, True), (256, 12, False),
+                         (1024, 128, True), (64, 1, True)):
+        VC, W, QP = k6.spmm_geometry(R, V, vector)
+        assert 1 <= VC <= min(V, W * QP) and 4 * R * W * QP <= k6.SPMM_SMEM
+        assert W == (4 if vector and V % 4 == 0 else 1)
+        assert QP & (QP - 1) == 0 and 32 % QP == 0
+    assert k6.spmm_geometry(256, 128, True) == (64, 4, 16)  # 2 slices
+    assert k6.spmm_geometry(256, 16, True) == (16, 4, 4)
+    assert k6.spmm_geometry(256, 33, True) == (32, 1, 32)   # scalar tail
 
 
 def test_cpu_twins_launch_no_kernel():
@@ -196,3 +204,88 @@ def test_cpu_twins_launch_no_kernel():
     tl.spmv(None, tl.prepare_spmv(T, C=128, R=64, E=512, layout="pairs"),
             np.ones(150))
     assert (k6.LAUNCHES_SPMV, k6.LAUNCHES_PAIR, k6.LAUNCHES_SPMM) == before
+
+
+def _item_walk(t, B):
+    """K6c's schedule in plain torch: the row tiles of ``zero_tiles`` start
+    at 0 and the rest hold NaN; each work item sums its chunks' slots into
+    an [R, V] tile (the twin's arithmetic) and stores it when it holds its
+    row tile whole, or adds it."""
+    R, E, V = t.R, t.E, B.shape[1]
+    Y = torch.full((t.n_row_tiles * R, V), float("nan"))
+    Y.view(t.n_row_tiles, R * V)[t.zero_tiles] = 0.0
+    ic, split = t.item_chunk0.tolist(), t.item_split.tolist()
+    zero_row = t.n_chunks * E // 8
+    vals, cl = t.vals.reshape(-1), t.col_local.reshape(-1)
+    for i in range(len(split)):
+        s = torch.arange(ic[i] * E, ic[i + 1] * E)
+        pr = t.perm_rows[s // 8].long()
+        rl = t.row_local.reshape(-1)[s].long()
+        real = (pr < zero_row) & (rl < R)
+        g = (pr * 8 + s % 8)[real]
+        col = t.chunk_col_tile[g // E].long() * t.C + cl[g]
+        tile = torch.zeros((R, V)).index_add_(0, rl[real],
+                                              vals[g][:, None] * B[col])
+        row0 = int(t.chunk_row_tile[ic[i]]) * R
+        if split[i]:
+            Y[row0:row0 + R] += tile
+        else:
+            Y[row0:row0 + R] = tile
+    return Y[:t.shape[0]]
+
+
+@pytest.mark.parametrize("cap", [2, tt.ITEM_CHUNKS])
+@pytest.mark.parametrize("V", [1, 4, 33, 128])
+def test_spmm_item_walk_matches_twin_and_reference(V, cap):
+    """The work items alone compute A @ B: bit for bit the twin's sum on
+    integer-valued data, and the reference's spmm_tiled within its bound;
+    cap 2 splits the power-law hub tiles, and row tiles 2-3 are empty."""
+    m = _matrix(600, 500, 0.03, "powerlaw").tolil()
+    m[128:256, :] = 0
+    m = m.tocsr()
+    m.eliminate_zeros()
+    J, T = _both(m)
+    t = tl.prepare_spmv(T, C=128, R=64, E=512)
+    t = dataclasses.replace(t, **dict(zip(
+        ("item_chunk0", "item_split", "zero_tiles"),
+        tt.spmm_items(t.chunk_row_tile, t.n_row_tiles, cap))))
+    assert t.visited_row_tiles[2:4].tolist() == [False, False]
+    if cap == 2:
+        assert int(t.item_split.sum()) > 0
+    r_ = np.random.default_rng(V)
+    ti = dataclasses.replace(t, vals=torch.from_numpy(r_.integers(
+        -4, 5, t.vals.shape).astype(np.float32)))
+    Bi = torch.from_numpy(r_.integers(-4, 5, (500, V)).astype(np.float32))
+    Yw = _item_walk(ti, Bi)
+    assert torch.equal(Yw, k6.spmm_tiled_ref(ti, Bi))
+    assert torch.equal(Yw[128:256], torch.zeros(128, V))
+    B = r_.normal(size=(500, V)).astype(np.float32)
+    Y = _item_walk(t, torch.from_numpy(B)).numpy()
+    ref = np.asarray(jk.spmm_tiled(jt.tile_csr(J, C=128, R=64, E=512,
+                                               impl="numpy"), B))
+    scale = abs(m).astype(np.float64) @ np.abs(B.astype(np.float64))
+    assert np.all(np.abs(Y - ref) <= 2.0 ** -15 * scale)
+    assert np.all(np.abs(Y - _f64(m, B)) <= _bound(m, B))
+
+
+def test_pair_envelope_limits_the_kernel_not_the_twin():
+    """Tilings whose locals do not fit 16 bits, or whose x and y tiles do
+    not fit a block's shared memory, are refused for the kernel
+    (``_check_pairs``, called before a card launch); the CPU twin answers
+    them."""
+    m = sp.random(300, 200, density=0.05, random_state=4, dtype=np.float32,
+                  format="csr")
+    _, T = _both(m)
+    x = np.ones(200, np.float32)
+    y_f64, bound = _f64(m, x)[:, 0], _bound(m, x)[:, 0]
+    for R, C, match in ((65536, 128, "16 bits"), (64, 65664, "16 bits"),
+                        (64, 65536, "shared memory")):
+        t = tt.tile_csr_pairs(T, R=R, C=C, E=512)
+        assert (t.rowcol is None) == (match == "16 bits")
+        with pytest.raises(ValueError, match=match):
+            k6._check_pairs(t)
+        y = k6.spmv_pair_tiled(t, x)
+        assert np.all(np.abs(y.numpy() - y_f64) <= bound)
+    t = tt.tile_csr_pairs(T, R=64, C=57344, E=512)
+    k6._check_pairs(t)
+    assert np.all(np.abs(k6.spmv_pair_tiled(t, x).numpy() - y_f64) <= bound)

@@ -100,9 +100,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    Checks: each returned pair's f64 relative residual ‖L·v − λ·v‖/‖L‖₂ ≤
    1e-4 (the plain CSR SpMV; ‖L‖₂ by power iteration), ‖VᵀV − I‖ ≤ 1e-4,
    and the eigenvalues within 1e-5 of the same solve run through K6a's
-   twin. K6a and K6c (``linalg.spmm`` at V = 16 and 128) are held against
-   their twins on that layout, with the bound (nnz_i + 2)·2⁻²⁴·Σ|a||x|
-   per row, and timed beside the twin, the bound and cuSPARSE's call
+   twin. K6a (``k6a_case``: its y from a NaN-filled allocation, since
+   whole row tiles are stored, not added) and K6c (``linalg.spmm`` at V =
+   16 and 128) are held against their twins on that layout, with the
+   bound (nnz_i + 2)·2⁻²⁴·Σ|a||x| per row, and timed beside the twin, the
+   bound, K6a's own layout traffic and cuSPARSE's call
    (``torch.sparse_csr_tensor @``). K7 (``linalg.sddmm``, d = 64) runs on
    the scale-22 adjacency's CSR structure in entry order, is held to
    (d + 2)·2⁻²⁴·Σ|a·b| and timed beside ``torch.sparse.sampled_addmm``,
@@ -111,11 +113,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    runs a Lanczos solve over the pair layout of a band matrix (n = 2²⁰,
    |i − j| ≤ 16, 34.6 M nonzeros) and is held and timed the same way.
    Then ``k6_checks``, each case against its twin within the same bound
-   and timed: K6c at V = 33 (scalar lanes) and 512 (the envelope's edge)
-   on a scale-18 R-MAT Laplacian; K6c at V = 128 and 33 on a 2¹⁸-row
-   matrix whose row tile 0 holds 129 chunks (its work items split and add
-   with global atomics) and whose row tile 5 is empty (it must read 0,
-   from a NaN-filled allocation); K6b on the band of half-width 1 (runs
+   and timed: K6a, then K6c at V = 33 (scalar lanes) and 512 (the
+   envelope's edge), on a scale-18 R-MAT Laplacian; K6a, then K6c at V =
+   128 and 33, on a 2¹⁸-row matrix whose row tile 0 holds 129 chunks (its
+   work items split and add with global atomics) and whose row tile 5 is
+   empty (it must read 0, from a NaN-filled allocation); K6b on the band of half-width 1 (runs
    of 3) and on a scale-16 R-MAT under ``layout="pairs"`` (runs of 1).
    A line of its own prints the first designs' times (one block a
    chunk) beside this run's: constants recorded from an earlier full run
@@ -214,15 +216,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    the packed envelope) on the wide data and on phase 3's 1M × 128 data
    (2048 queries, k = 64): ids identical to the oracle's up to proven
    ties, n_fail printed (one group: most queries take the fixup); K1's
-   unpacked form and its d-chunked form against their twins (values
+   unpacked form and its d-chunked form, whose one group is cut into S
+   segments (``group_segments``) folded by their own blocks and merged by
+   a second kernel: at the chosen S and at S = 1 bit for bit equal, the
+   merge equal bit for bit to the split twin's ``merge_segments`` over the
+   kernel's own segment summaries, and against their twins (values
    within the f32 summation bound, non-finite slots equal in kind, ids
    equal except where both rows score within twice the bound in f64),
-   timed beside twin, bound and ``torch.matmul``. K1's d-chunked slot form
+   timed at both S beside twin, bound and ``torch.matmul``. K1's d-chunked slot form
    (``slot_dchunk_rows``) on wide_knn's operands at p1 and p3: held
    against its twin, then timed with its count zeroed before and read
    after, beside twin, bound and ``torch.matmul``.
-14. A JSON ``kernels`` line, ``nonfinite_k1_k2`` (with the slot forms'
-   cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
+14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, the slot
+   forms, K6b and K6c against their times recorded from earlier full runs
+   (``GUARD_MS``), failing where one is more than 5% slower on the card
+   they were recorded on. A JSON ``kernels`` line, ``nonfinite_k1_k2``
+   (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
    ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
    line ``{"ok": true, "device": {...}}``.
@@ -243,6 +252,9 @@ import time
 H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM)
 H100_BYTES_PER_S = 3.35e12      # HBM3
 H100_F32_FLOPS = 67e12          # f32 off the tensor cores (SXM)
+#: what the K1/K2 rows' ``library_ms`` is
+MATMUL_NOTE = ("torch.matmul bf16 of the same product, a reference point: "
+               "no PyTorch call computes the fold")
 
 N_INDEX, DIM, N_QUERIES, K = 1_000_000, 128, 2048, 64
 # the serving phase: bench_serving.py's chip shape (rows, d, k, requests,
@@ -777,7 +789,11 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
           f"whole slab, a reference point only: "
           f"{report['matmul_whole_slab_bf16_ms']} ms", flush=True)
     common = {"route": "cuda", "source": "raft_tpu_torch/ops/csrc/"
-              "fine_scan.cu"}
+              "fine_scan.cu",
+              "library_note": "null: no one PyTorch call computes the "
+                              "masked gather-and-fold over the probed "
+                              "lists (f32 slab, or int8 codes with their "
+                              "row scales)"}
     k4_entry = {"name": "fine_scan_list_major", **common,
                 "replaces": "raft_tpu/ops/fine_scan_pallas.py:280",
                 "launches": report["ivf_p32"]["launches"]["K4"]
@@ -1576,11 +1592,13 @@ def csr_tensor(A):
                                    size=A.shape)
 
 
-#: the first K6c and K6b designs (one block a chunk), recorded from an
-#: earlier full run of this script on an H100 80GB HBM3 at 700 W (K6c at
-#: V = 16 and 128 on spectral_g22's layout, K6b on the band matrix);
-#: printed beside this run's times, never put in the ``kernels`` line
-K6_FIRST_DESIGN_MS = {"K6c": 13.28, "K6c_V128": 268.37, "K6b": 0.438}
+#: the first K6a, K6c and K6b designs (one block a chunk), recorded from
+#: earlier full runs of this script on an H100 80GB HBM3 at 700 W (K6a
+#: and K6c at V = 16 and 128 on spectral_g22's layout, K6b on the band
+#: matrix); printed beside this run's times, never put in the ``kernels``
+#: line
+K6_FIRST_DESIGN_MS = {"K6a": 2.132, "K6c": 13.28, "K6c_V128": 268.37,
+                      "K6b": 0.438}
 
 
 def row_degrees(A):
@@ -1648,6 +1666,70 @@ def k6c_case(tag: str, T, deg, B, reps: int, Lt=None, res=None):
            "zero_tiles": T.zero_tiles.numel()}
     print(f"K6c {tag}: {json.dumps(row)}", flush=True)
     return Y, row
+
+
+def k6a_layout_bound_ms(T):
+    """Least time for K6a's own traffic: every scatter slot's in-tile row
+    (4 bytes) and gather row (4 bytes an 8-slot row) read once, each real
+    scatter row's eight values and columns (64 bytes) once, the item
+    table, x read and y's row tiles written once, at HBM's rate."""
+    import torch
+
+    m_slots = T.m_chunks * T.E
+    zero_row = T.n_chunks * T.E // 8
+    real_rows = int((T.perm_rows < zero_row).sum().item())
+    nbytes = (m_slots * 4 + m_slots // 8 * 4 + real_rows * 64
+              + (2 * T.n_items + 1) * 4 + T.shape[1] * 4
+              + T.n_row_tiles * T.R * 4)
+    torch.cuda.synchronize()
+    return 1e3 * nbytes / H100_BYTES_PER_S, real_rows * 8
+
+
+def k6a_case(tag: str, T, deg, x, reps: int, Lt=None):
+    """K6a on layout ``T`` and x against its twin within (nnz_i + 2)·
+    2⁻²⁴·Σ_j |a_ij·x_j| (``deg`` = nnz_i), its y from a NaN-filled block
+    of the caching allocator (its address is checked), so a row no item
+    wrote would show; then timed (CUDA events) beside the twin, the CSR
+    bound, the layout's own traffic and cuSPARSE's SpMV (``Lt @ x``, when
+    ``Lt`` is given). The launches here are not counted."""
+    import dataclasses
+
+    import torch
+    from raft_tpu_torch.ops import spmv as k6
+
+    poison = torch.full((T.n_row_tiles * T.R,), float("nan"),
+                        device="cuda")
+    ptr = poison.data_ptr()
+    del poison
+    n0 = k6.LAUNCHES_SPMV
+    y = k6.spmv_tiled(T, x)
+    torch.cuda.synchronize()
+    check(y.data_ptr() == ptr,
+          f"{tag}: K6a's y did not start from the NaN-filled block")
+    check(k6.LAUNCHES_SPMV == n0 + 1, f"{tag}: K6a launch was not counted")
+    hold = []
+    plain = cuda_ms(lambda: hold.append(k6.spmv_tiled_ref(T, x)), 1,
+                    warmup=0)
+    T_abs = dataclasses.replace(T, vals=T.vals.abs())
+    bound = (deg + 2) * 2.0 ** -24 * k6.spmv_tiled_ref(T_abs, x.abs())
+    err = check_bound(tag, y, hold[0], bound)
+    del hold, bound, T_abs
+    ms = cuda_ms(lambda: k6.spmv_tiled(T, x), reps)
+    k6.LAUNCHES_SPMV = n0
+    lib = library_ms(lambda: Lt @ x[:, None], reps) if Lt is not None \
+        else None
+    b_ms, b_by = spmv_bound_ms(int(deg.sum().item()), T.shape[0],
+                               T.shape[1])
+    lay_ms, real_slots = k6a_layout_bound_ms(T)
+    row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "library_ms": lib, "max_abs_err": err,
+           "layout_bound_ms": lay_ms, "scatter_slots": T.m_chunks * T.E,
+           "real_slots": real_slots, "items": T.n_items,
+           "split_items": int(T.item_split.sum().item()),
+           "zero_tiles": T.zero_tiles.numel(),
+           "geometry": list(k6.SPMV_GEOMETRY)}
+    print(f"K6a {tag}: {json.dumps(row)}", flush=True)
+    return y, row
 
 
 def k6b_case(tag: str, A, x, reps: int):
@@ -1724,26 +1806,31 @@ def hub_matrix(gen, n: int = 1 << 18, hub_cols: int = 1024,
 
 def k6_checks(res, gen, scale: int = 18, hub_n: int = 1 << 18,
               band_n: int = 1 << 20, pairs_scale: int = 16):
-    """The K6c and K6b cases past the path's own shapes, each against its
-    twin: K6c at V = 33 (scalar lanes) and 512 (the envelope's edge) on a
-    scale-``scale`` R-MAT Laplacian, and at V = 128 and 33 on
-    :func:`hub_matrix` (split items and their global atomics; an unvisited
-    row tile that must read 0); K6b on a band of half-width 1 (runs of 3)
+    """The K6a, K6c and K6b cases past the path's own shapes, each against
+    its twin: K6a, then K6c at V = 33 (scalar lanes) and 512 (the
+    envelope's edge), on a scale-``scale`` R-MAT Laplacian; K6a, then K6c
+    at V = 128 and 33, on :func:`hub_matrix` (split items and their global
+    atomics; an unvisited row tile that must read 0, each from a
+    NaN-filled allocation); K6b on a band of half-width 1 (runs of 3)
     and on a scale-``pairs_scale`` R-MAT under ``layout="pairs"`` (runs of
     length 1); pair tilings past K6b's envelope (16-bit locals, the x and
     y tiles in a block's shared memory) raise ``ValueError`` on the card
-    before any launch. Returns {"K6c": ..., "K6b": ...}."""
+    before any launch. Returns {"K6a": ..., "K6c": ..., "K6b": ...}."""
     import torch
     from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse import convert
     from raft_tpu_torch.sparse import linalg as sl
     from raft_tpu_torch.sparse.tiled import ITEM_CHUNKS
 
-    out = {"K6c": {}, "K6b": {}}
+    out = {"K6a": {}, "K6c": {}, "K6b": {}}
     adj = rmat_adjacency(res, 7, scale)
     L, _ = sl.laplacian_normalized(res, adj)
     del adj
     T = sl.prepare_spmv(L)
     deg, Lt = row_degrees(L), csr_tensor(L)
+    x = torch.randn(L.shape[1], generator=gen, device="cuda")
+    _, out["K6a"][f"rmat{scale}"] = k6a_case(f"rmat{scale}", T, deg, x, 20,
+                                            Lt)
     for V in (33, 512):
         B = torch.randn((L.shape[1], V), generator=gen, device="cuda")
         _, out["K6c"][f"rmat{scale}_V{V}"] = k6c_case(
@@ -1764,6 +1851,14 @@ def k6_checks(res, gen, scale: int = 18, hub_n: int = 1 << 18,
           f"items; want ≥ 64 chunks split over {want} items")
     check(not bool(TH.visited_row_tiles[5]) and 5 in TH.zero_tiles.tolist(),
           "hub: row tile 5 should be unvisited and in zero_tiles")
+    x = torch.randn(hub_n, generator=gen, device="cuda")
+    y, row = k6a_case("hub", TH, deg, x, 20, csr_tensor(convert.coo_to_csr(
+        H)))
+    check(bool((y[5 * TH.R:6 * TH.R] == 0).all()),
+          "hub K6a: the unvisited row tile does not read 0")
+    row.update(hub_chunks=hub_chunks, hub_items=len(hub_items))
+    out["K6a"]["hub"] = row
+    del x, y
     for V in (128, 33):
         B = torch.randn((hub_n, V), generator=gen, device="cuda")
         Y, row = k6c_case(f"hub V={V}", TH, deg, B, 5)
@@ -1803,13 +1898,10 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     ``band_n`` rows, config 4 at ``c4`` = (scale, edges) and config 3 at
     ``dense_rows`` × 1000. Returns (the ``spectral`` report, the K6/K7
     ``kernels`` entries)."""
-    import dataclasses
-
     import torch
     from raft_tpu_torch.core.sparse_types import COOMatrix
     from raft_tpu_torch.models import SpectralEmbedding
     from raft_tpu_torch.ops import sddmm as k7
-    from raft_tpu_torch.ops import spmv as k6
     from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
     from raft_tpu_torch.sparse import convert
     from raft_tpu_torch.sparse import linalg as sl
@@ -1895,28 +1987,12 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
 
     # K6a against its twin, timed, on the run's own layout
     x = torch.randn(n, generator=gen, device="cuda")
-    saved = sparse_counts()
-    y = k6.spmv_tiled(T, x)
-    hold = []
-    plain = cuda_ms(lambda: hold.append(k6.spmv_tiled_ref(T, x)), 1,
-                    warmup=0)
     deg = row_degrees(L)
-    T_abs = dataclasses.replace(T, vals=T.vals.abs())
-    bound = (deg + 2) * 2.0 ** -24 * k6.spmv_tiled_ref(T_abs, x.abs())
-    err = check_bound("K6a", y, hold[0], bound)
-    del hold, y
-    ms = cuda_ms(lambda: k6.spmv_tiled(T, x), 20)
-    set_sparse_counts(saved)
     Lt = csr_tensor(L)
-    lib = library_ms(lambda: Lt @ x[:, None], 20)
-    b_ms, b_by = spmv_bound_ms(L.nnz, n, n)
-    rows_k["K6a"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                     "bound_by": b_by, "library_ms": lib,
-                     "max_abs_err": err,
-                     "launches": g22["launches"]["K6a"]}
+    _, row = k6a_case("spectral_g22", T, deg, x, 20, Lt)
+    rows_k["K6a"] = {**row, "launches": g22["launches"]["K6a"]}
     g22["matvecs_per_fit"] = g22["launches"]["K6a"]
-    g22["k6a_ms"] = ms
-    print(f"K6a at spectral_g22: {json.dumps(rows_k['K6a'])}", flush=True)
+    g22["k6a_ms"] = row["ms"]
 
     # K6c (SpMM) on the same layout, V = 16 and 128, through linalg.spmm
     k6c = {}
@@ -1926,7 +2002,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
         Y, k6c[V] = k6c_case(f"spectral_g22 V={V}", T, deg, B, 5, Lt, res)
         del B, Y
     rows_k["K6c"] = {**k6c[16], "V128": k6c[128]}
-    del T_abs, Lt, T, L, emb, model
+    del Lt, T, L, emb, model
     torch.cuda.empty_cache()
 
     # ---- K7 on the adjacency structure, d = 64, through linalg.sddmm ----
@@ -1999,7 +2075,8 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     check(band["launches"] > 0 and bool(torch.isfinite(bvals).all()),
           "band: the pair-tiled solve launched K6b no time")
     rows_k["K6b"] = {**row, "launches": band["launches"]}
-    first = {"K6c": [k6c[16]["ms"], K6_FIRST_DESIGN_MS["K6c"]],
+    first = {"K6a": [rows_k["K6a"]["ms"], K6_FIRST_DESIGN_MS["K6a"]],
+             "K6c": [k6c[16]["ms"], K6_FIRST_DESIGN_MS["K6c"]],
              "K6c_V128": [k6c[128]["ms"], K6_FIRST_DESIGN_MS["K6c_V128"]],
              "K6b": [row["ms"], K6_FIRST_DESIGN_MS["K6b"]]}
     print("K6 [this run's ms, first design's ms recorded from an earlier "
@@ -2012,6 +2089,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
 
     # ---- K6c and K6b past the path's shapes, each against its twin
     checks = k6_checks(res, gen)
+    rows_k["K6a"]["checks"] = checks["K6a"]
     rows_k["K6c"]["checks"] = checks["K6c"]
     rows_k["K6b"]["checks"] = checks["K6b"]
     report["k6_checks"] = checks
@@ -2898,10 +2976,25 @@ def padded_queries(index, Qx):
         else Qx
 
 
+def same_bits(a, b) -> bool:
+    """Equal bit for bit, any NaN matching any NaN (ids: equal)."""
+    import torch
+
+    if a.dtype != torch.float32:
+        return bool(torch.equal(a, b))
+    return bool(((a.view(torch.int32) == b.view(torch.int32))
+                 | (torch.isnan(a) & torch.isnan(b))).all())
+
+
 def unpacked_kernel_row(index, Qx, reps: int = 3):
     """The unpacked form (or its d-chunked form) on a path's own inputs:
-    against its twin, timed beside the twin, the bound and the bf16
-    product of the same shape."""
+    at the chosen segment count S (``ops.fused_l2_topk.group_segments``)
+    and at S = 1, bit for bit equal to each other; at S > 1 the merge
+    kernel bit for bit equal to ``merge_segments`` (the split twin's
+    merge) over the kernel's own segment summaries; against its twin
+    (``compare_unpacked``); then both S timed beside the twin, the bound
+    and the bf16 product of the same shape. Its launches here are not
+    counted."""
     import torch
     from raft_tpu_torch.ops import fused_l2_topk as k1
 
@@ -2912,16 +3005,34 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
             else k1.fused_l2_group_topk_ref)
     args = (x, index.y_hi, index.y_lo, index.yyh_k)
     kw = dict(T=index.T, g=index.g, passes=index.passes)
-    counts = k1_counts()
-    out = kern(*args, **kw)
-    ref = twin(*args, **kw)
-    err, n_diff = compare_unpacked(out, ref, x, index.y_hi, index.y_lo,
-                                   index.yyh_k, index.passes)
-    del out, ref
-    ms = cuda_ms(lambda: kern(*args, **kw), reps)
-    plain_ms = cuda_ms(lambda: twin(*args, **kw), 1, warmup=0)
     M = index.prepared_rows
-    S = -(-(M // index.T) // index.g) * 128
+    n_groups = -(-(M // index.T) // index.g)
+    chunks = min(index.g, M // index.T) * (index.T // 128)
+    segs = k1.group_segments(
+        x.shape[0], n_groups, chunks,
+        torch.cuda.get_device_properties(0).multi_processor_count)
+    counts = k1_counts()
+    out, part = k1._group(*args, index.T, index.g, index.passes, wide,
+                          None, keep_part=True)
+    one = kern(*args, **kw, segments=1)
+    torch.cuda.synchronize()
+    check(all(same_bits(a, b) for a, b in zip(out, one)),
+          f"unpacked S={segs} and S=1 differ (not bit for bit)")
+    if part is not None:
+        merged = k1.merge_segments(part)
+        check(all(same_bits(a, b) for a, b in zip(out, merged)),
+              f"unpacked S={segs}: the merge kernel differs from the split "
+              f"twin's merge of its own segment summaries")
+        del merged
+    del part, one
+    hold = []
+    plain_ms = cuda_ms(lambda: hold.append(twin(*args, **kw)), 1, warmup=0)
+    err, n_diff = compare_unpacked(out, hold[0], x, index.y_hi, index.y_lo,
+                                   index.yyh_k, index.passes)
+    del out, hold
+    ms = cuda_ms(lambda: kern(*args, **kw), reps)
+    ms_one = cuda_ms(lambda: kern(*args, **kw, segments=1), reps)
+    S = n_groups * 128
     nq = x.shape[0]
     ops = 2.0 * nq * M * index.d_orig * (3 if index.passes == 3 else 1)
     nbytes = (nq * index.d_orig * 4 + M * index.d_orig * 2
@@ -2936,7 +3047,9 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms, "max_abs_err": err,
             "tie_slots": n_diff, "shape": [nq, M, index.d_orig],
-            "passes": index.passes}
+            "passes": index.passes, "segments": segs,
+            "ms_one_segment": ms_one,
+            "library_note": MATMUL_NOTE}
 
 
 # ------------------------------------------------ K1's slot forms, ladder
@@ -3193,8 +3306,7 @@ def k1_ladder(idx1, idx3, Qx, reps: int = 10):
              "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:406",
              "launches": launches, **kernel_row("slot_p1"),
              "max_abs_err": max(h["max_abs_err"] for h in held.values()),
-             "shape": [nq, M, d], "T": T,
-             "library_note": "torch.matmul bf16 of the same product",
+             "shape": [nq, M, d], "T": T, "library_note": MATMUL_NOTE,
              "p3": kernel_row("slot_p3"),
              "min_only": kernel_row("slot_minonly")}
     return report, entry
@@ -3258,8 +3370,7 @@ def slot_dchunk_rows(indexes, Qx, reps: int = 5):
              "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
              "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:474",
              "launches": launches, **{k: first[k] for k in keys},
-             "shape": first["shape"],
-             "library_note": "torch.matmul bf16 of the same product",
+             "shape": first["shape"], "library_note": MATMUL_NOTE,
              **{k: r for k, r in rows.items() if r is not first}}
     return rows, entry
 
@@ -3396,22 +3507,65 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
          "source": src,
          "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1294",
          "launches": dchunk_launches, **{k: rows["p1"][k] for k in keys},
-         "shape": rows["p1"]["shape"], "p3": rows["p3"]},
+         "shape": rows["p1"]["shape"], "p3": rows["p3"],
+         "library_note": MATMUL_NOTE},
         {"name": "fused_l2_group_topk", "route": "cuda", "source": src,
          "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1230",
          "launches": ucells["main"]["launches"],
          **{k: main_row[k] for k in keys}, "shape": main_row["shape"],
-         "passes": 3, "tie_slots": main_row["tie_slots"]},
+         "passes": 3, "tie_slots": main_row["tie_slots"],
+         "segments": main_row["segments"],
+         "ms_one_segment": main_row["ms_one_segment"],
+         "library_note": MATMUL_NOTE},
         {"name": "fused_l2_group_topk_dchunk", "route": "cuda",
          "source": src,
          "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1254",
          "launches": ucells["wide"]["launches"],
          **{k: wide_row[k] for k in keys}, "shape": wide_row["shape"],
-         "passes": 3, "tie_slots": wide_row["tie_slots"]}, slot_entry]
+         "passes": 3, "tie_slots": wide_row["tie_slots"],
+         "segments": wide_row["segments"],
+         "ms_one_segment": wide_row["ms_one_segment"],
+         "library_note": MATMUL_NOTE}, slot_entry]
     report["kernel_rows"] = {"dchunk": rows, "unpacked_main": main_row,
                              "unpacked_wide": wide_row,
                              "slot_dchunk": slot_rows}
     return report, entries
+
+
+#: kernels this run holds to their times recorded from earlier full runs
+#: of this script (PERF.md §6), with the card they were taken on; a
+#: kernel may run at most GUARD_SLACK times slower on that card
+GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
+GUARD_MS = {"K1_p1": 4.302, "K1_p3": 6.765, "K2_p1": 5.821, "K2_p3": 6.392,
+            "slot_p1": 4.173, "slot_p3": 6.390, "slot_minonly": 3.750,
+            "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538}
+GUARD_SLACK = 1.05
+
+
+def speed_guard(card: str, entries) -> dict:
+    """This run's times of the kernels of ``GUARD_MS`` against their
+    recorded ones: fails where one is more than ``GUARD_SLACK`` times
+    slower on the card they were recorded on; elsewhere only printed."""
+    by = {e["name"]: e for e in entries}
+    k1, k2 = by["fused_l2_group_topk_packed"], by[
+        "fused_l2_group_topk_packed_q8"]
+    slot, k6c = by["fused_l2_slot_topk"], by["spmm_tiled"]
+    now = {"K1_p1": k1["ms"], "K1_p3": k1["p3"]["ms"], "K2_p1": k2["ms"],
+           "K2_p3": k2["p3"]["ms"], "slot_p1": slot["ms"],
+           "slot_p3": slot["p3"]["ms"],
+           "slot_minonly": slot["min_only"]["ms"],
+           "K6b": by["spmv_pair_tiled"]["ms"], "K6c_V16": k6c["ms"],
+           "K6c_V128": k6c["V128"]["ms"]}
+    ratio = {k: now[k] / GUARD_MS[k] for k in GUARD_MS}
+    held = card.strip() == GUARD_CARD
+    out = {"card": card.strip(), "held": held, "ms": now,
+           "recorded_ms": GUARD_MS, "ratio": ratio}
+    print(json.dumps({"speed_guard": out}), flush=True)
+    if held:
+        slow = {k: r for k, r in ratio.items() if r > GUARD_SLACK}
+        check(not slow, f"kernels slower than their recorded times by more "
+              f"than {GUARD_SLACK}x: {slow}")
+    return out
 
 
 def main() -> int:
@@ -3615,7 +3769,7 @@ def main() -> int:
                      "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1269",
                      "launches": sum(launches[n] for n in ("p1", "p3",
                                                            "p1_f32")),
-                     **row}
+                     **row, "library_note": MATMUL_NOTE}
         else:
             entry["p3"] = row
         print(f"K1 at the main path, passes={index.passes} pair={pair}: "
@@ -3657,7 +3811,7 @@ def main() -> int:
                 "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
                 "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1465",
                 "launches": launches["int8_p1"] + launches["int8_p3"],
-                **row}
+                **row, "library_note": MATMUL_NOTE}
         else:
             k2_entry["p3"] = row
         print(f"K2 at the main path, passes={index.passes} pair={pair}: "
@@ -3717,12 +3871,12 @@ def main() -> int:
     print(json.dumps({"pairwise_stats": pairwise_stats}), flush=True)
     print(json.dumps({"select_k": select}), flush=True)
     print(json.dumps({"wide_knn": wide}), flush=True)
+    kernels = [entry, k2_entry, slot_entry, k3_entry, *wide_entries,
+               *k4_entries, *k5_entries, *sparse_entries, *k89_entries]
+    speed_guard(card, kernels)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
-    print(json.dumps({"kernels": [entry, k2_entry, slot_entry, k3_entry,
-                                  *wide_entries, *k4_entries, *k5_entries,
-                                  *sparse_entries, *k89_entries]}),
-          flush=True)
+    print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -49,7 +49,12 @@
 // order with strict < (on a tie the earlier id stays), over the plain
 // half-score yyh − x·y (no query norm: the caller recovers 2·a + xx).
 // Padded rows carry yyh = +inf, which never wins a strict <, so a group
-// of pads keeps a = +inf, id = −1.
+// of pads keeps a = +inf, id = −1. Its geometries hold few groups (one
+// group at T = 512, g = 4096 on 1M rows: 16–32 blocks for 132 SMs), so
+// the wrapper may cut each group's chunks into S contiguous segments,
+// one block each (gridDim.z); a segment block writes a summary
+// (seg_insert) that a second kernel (seg_merge_kernel) merges into the
+// outputs, bit for bit the one-block fold at every S.
 //
 // The slot forms (_fused_kernel + _fold_and_write, :238-299) fold the
 // distance itself, d2 = (xx[q] + yy[n]) − 2·x·y with exact f32 norms, per
@@ -88,9 +93,10 @@
 // products' 0.531 ms (passes=1), so they are bound by the tensor cores too.
 //
 // Design (simple first): one thread block owns (64 queries, one whole
-// group), so every output slot is written exactly once — no atomics, no
-// second pass, deterministic. The query block is converted to bf16 hi(/lo)
-// once and stays in shared memory. The group's rows stream through a
+// group, or one segment of a split unpacked group), so every output slot
+// (or partial) is written exactly once — no atomics, deterministic. The
+// query block is converted to bf16 hi(/lo) once and stays in shared
+// memory. The group's rows stream through a
 // 2-stage cp.async ring in [128 rows × 128 features] slices; 8 warps
 // (4 along queries × 2 along the 128 lanes) run mma.sync m16n8k16 bf16
 // with f32 accumulators. A thread's accumulator positions are the same
@@ -172,6 +178,7 @@ enum Fold : int {
   kIds = 1,       // group top-2 + 3rd-min with row ids (unpacked)
   kSlot = 2,      // per-slot min, argmin and 2nd-min (track=True)
   kSlotMin = 3,   // per-slot min only (track=False)
+  kSeg = 4,       // a segment of a split group: its (e1, e2, i3, r) summary
 };
 
 __device__ __forceinline__ float pack(float c, uint32_t keep, int code) {
@@ -217,6 +224,24 @@ __device__ __forceinline__ void merge_ids(float c, int ci, float& a1,
   a3 = min_nan(a3, b2);
 }
 
+// the unpacked form's split groups: a segment's summary, entries in
+// arrival (id) order: (e1, i1), (e2, i2) its two (value, arrival)-smallest
+// (strict <), i3 the third's id where its value equals e2 (else −1), r the
+// NaN-propagating min of all its other entries (the third's included)
+__device__ __forceinline__ void seg_insert(float c, int ci, float& e1,
+                                           int& i1, float& e2, int& i2,
+                                           int& i3, float& r) {
+  const bool lt1 = c < e1;
+  const bool lt2 = c < e2;
+  r = min_nan(r, lt2 ? e2 : c);
+  i3 = lt1 ? (e1 == e2 ? i2 : -1)
+           : lt2 ? -1 : (c == e2 && i3 < 0) ? ci : i3;
+  i2 = lt1 ? i1 : lt2 ? ci : i2;
+  e2 = lt1 ? e1 : lt2 ? c : e2;
+  i1 = lt1 ? ci : i1;
+  e1 = lt1 ? c : e1;
+}
+
 struct Args {
   const float* x;                     // [Q, d] f32 (resident forms)
   const __nv_bfloat16* x_hi;          // [Qp, d] bf16 (streamed forms;
@@ -232,6 +257,7 @@ struct Args {
   float* a3;
   int* id1;                           // unpacked and slot forms
   int* id2;
+  int* id3;                           // a split group's segments
   int Q, M, d, T, g, pbits;
   int m_real;                         // slot forms: rows ≥ m_real are pads
 };
@@ -276,7 +302,18 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
   const int tiles = min(g, n_tiles - grp * g);
   const int n_chunks = tiles * n_ch;
   const int ksl = d / kKS;
-  const int steps = n_chunks * ksl;
+  // a split group's block takes a contiguous segment of its group's
+  // chunks (blockIdx.z of gridDim.z; the other forms: the whole group)
+  const int seg_c0 =
+      FOLD == kSeg ? static_cast<int>(static_cast<long>(n_chunks) *
+                                      blockIdx.z / gridDim.z)
+                   : 0;
+  const int seg_c1 =
+      FOLD == kSeg ? static_cast<int>(static_cast<long>(n_chunks) *
+                                      (blockIdx.z + 1) / gridDim.z)
+                   : n_chunks;
+  const int s_begin = seg_c0 * ksl;
+  const int steps = seg_c1 * ksl;
   const long row0 = static_cast<long>(grp) * g * T;
   const float gscale = Q8 ? p.scale[grp] : 1.f;
 
@@ -354,6 +391,7 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
   // the running min over this block's tiles of a2 (min-only: of a1)
   float acc[8][4], a1[8][4], a2[8][4], a3[8][4];
   int id1[8][4], id2[8][4];   // unpacked and slot only (dead otherwise)
+  int id3[8][4];              // kSeg only
   float c_even[8][4];         // PAIR: the even chunk's values
 #pragma unroll
   for (int t = 0; t < 8; ++t)
@@ -361,11 +399,11 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     for (int i = 0; i < 4; ++i) {
       acc[t][i] = 0.f;
       a1[t][i] = a2[t][i] = a3[t][i] = init;
-      id1[t][i] = id2[t][i] = -1;
+      id1[t][i] = id2[t][i] = id3[t][i] = -1;
     }
 
-  load_step(0);
-  for (int s = 0; s < steps; ++s) {
+  if (s_begin < steps) load_step(s_begin);   // an empty segment loads none
+  for (int s = s_begin; s < steps; ++s) {
     const bool more = s + 1 < steps;
     if (n_stages == 2 && more) {
       load_step(s + 1);
@@ -522,8 +560,12 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
               acc[t][i] = 0.f;
               const int ci =
                   static_cast<int>(row0) + c * kLanes + ln + (i & 1);
-              merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
-                        a3[t][i]);
+              if constexpr (FOLD == kSeg)
+                seg_insert(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                           id3[t][i], a3[t][i]);
+              else
+                merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                          a3[t][i]);
             } else {
               // K2: the group scale multiplies the finished d-sum, rounded
               // on its own (no fused multiply-add), as the twin computes it
@@ -567,8 +609,11 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     return;
   }
 
-  // ---- every bucket slot of this (query block, group) is written once ----
+  // ---- every bucket slot of this (query block, group) is written once
+  // (a split group: into its segment's partial [gridDim.z, Q, S]) ----
   const int S = gridDim.y * kLanes;
+  const long seg_off =
+      FOLD == kSeg ? static_cast<long>(blockIdx.z) * Q * S : 0;
 #pragma unroll
   for (int t = 0; t < 8; ++t) {
     const int col = grp * kLanes + wn * 64 + t * 8 + tig * 2;
@@ -576,7 +621,7 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     for (int h = 0; h < 2; ++h) {
       const int q = q0 + wq * 16 + gid + 8 * h;
       if (q < Q) {
-        const long o = static_cast<long>(q) * S + col;
+        const long o = seg_off + static_cast<long>(q) * S + col;
         *reinterpret_cast<float2*>(p.a1 + o) =
             make_float2(a1[t][2 * h], a1[t][2 * h + 1]);
         *reinterpret_cast<float2*>(p.a2 + o) =
@@ -589,6 +634,9 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
           *reinterpret_cast<int2*>(p.id2 + o) =
               make_int2(id2[t][2 * h], id2[t][2 * h + 1]);
         }
+        if constexpr (FOLD == kSeg)
+          *reinterpret_cast<int2*>(p.id3 + o) =
+              make_int2(id3[t][2 * h], id3[t][2 * h + 1]);
       }
     }
   }
@@ -606,6 +654,60 @@ __global__ void slot_m2min_kernel(const float* __restrict__ part,
   m2min[i] = m;
 }
 
+// the unpacked form's split groups: merge the segments' summaries [segs,
+// n] (n = Q·S; see seg_insert) into the sequential fold's state. That
+// fold's ids depend only on the first two arrivals of the smallest value
+// and of the second smallest and on their order, and each such entry is
+// one of a segment's candidates (e1, i1), (e2, i2) and, where i3 ≥ 0,
+// (e2, i3). So merge_ids over each segment's candidates in id (arrival)
+// order, segment after segment, gives the fold's (a1, id1, a2, id2) bit
+// for bit, and a3 is that run's a3 NaN-min every segment's r.
+__global__ void seg_merge_kernel(const float* __restrict__ pe1,
+                                 const int* __restrict__ pi1,
+                                 const float* __restrict__ pe2,
+                                 const int* __restrict__ pi2,
+                                 const int* __restrict__ pi3,
+                                 const float* __restrict__ pr,
+                                 float* __restrict__ a1, int* __restrict__ id1,
+                                 float* __restrict__ a2, int* __restrict__ id2,
+                                 float* __restrict__ a3, int segs, long n) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  const float inf = __int_as_float(0x7f800000);
+  float b1 = inf, b2 = inf, b3 = inf;
+  int j1 = -1, j2 = -1;
+  for (int sg = 0; sg < segs; ++sg) {
+    const long o = sg * n + i;
+    const int t3 = pi3[o];
+    float v[3] = {pe1[o], pe2[o], inf};
+    int id[3] = {pi1[o], pi2[o], 0x7fffffff};
+    if (t3 >= 0) {
+      v[2] = v[1];
+      id[2] = t3;
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) {          // sort the three by id
+      const int p = k == 1 ? 1 : 0;
+      if (id[p + 1] < id[p]) {
+        const float tv = v[p];
+        v[p] = v[p + 1];
+        v[p + 1] = tv;
+        const int ti = id[p];
+        id[p] = id[p + 1];
+        id[p + 1] = ti;
+      }
+    }
+#pragma unroll
+    for (int k = 0; k < 3; ++k) merge_ids(v[k], id[k], b1, j1, b2, j2, b3);
+    b3 = min_nan(b3, pr[o]);
+  }
+  a1[i] = b1;
+  id1[i] = j1;
+  a2[i] = b2;
+  id2[i] = j2;
+  a3[i] = b3;
+}
+
 size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
   const size_t x_arrays = passes == 3 ? 2 : 1;
   const size_t xs_bytes = xs ? 0 : x_arrays * kBQ * (d + 8) * 2;
@@ -621,7 +723,7 @@ size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
 
 template <int PASSES, bool PAIR, bool Q8, bool XS, int FOLD,
           bool MASK = false>
-int launch(const Args& a, cudaStream_t stream) {
+int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
@@ -634,7 +736,7 @@ int launch(const Args& a, cudaStream_t stream) {
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
-  dim3 grid((a.Q + kBQ - 1) / kBQ, n_groups);
+  dim3 grid((a.Q + kBQ - 1) / kBQ, n_groups, segs);
   kern<<<grid, kThreads, smem, stream>>>(a, n_stages);
   if (FOLD == kSlot || FOLD == kSlotMin) {
     const int err = static_cast<int>(cudaGetLastError());
@@ -686,6 +788,7 @@ Args make_args(const void* x, const void* x_hi, const void* x_lo,
   a.a3 = static_cast<float*>(a3);
   a.id1 = static_cast<int*>(id1);
   a.id2 = static_cast<int*>(id2);
+  a.id3 = nullptr;
   a.Q = Q; a.M = M; a.d = d; a.T = T; a.g = g; a.pbits = pbits;
   a.m_real = M;
   return a;
@@ -726,20 +829,50 @@ extern "C" int fused_l2_group_topk_packed_dchunk_launch(
 // K1, unpacked: a1/a2/a3 [Q, ceil(M/T/g)·128] f32, id1/id2 the same shape
 // int32; yyh carries +inf on padded rows. xs = 0 reads x [Q, d] f32
 // (resident, the single-shot form); xs = 1 reads x_hi/x_lo as the
-// d-chunked packed form does.
+// d-chunked packed form does. segs = 1: one block a (query block, group)
+// folds the group and writes the outputs. segs > 1: each group's chunks
+// are cut into segs contiguous segments, one block each, which write
+// their summaries into part (6 arrays [segs, Q, ceil(M/T/g)·128]: e1, i1,
+// e2, i2, i3, r; ids int32), and a second kernel merges them into the
+// outputs.
 extern "C" int fused_l2_group_topk_launch(
     const void* x, const void* x_hi, const void* x_lo, const void* y_hi,
     const void* y_lo, const void* yyh, void* a1, void* id1, void* a2,
-    void* id2, void* a3, int Q, int M, int d, int T, int g, int passes,
-    int xs, void* stream) {
-  const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yyh,
-                           nullptr, a1, a2, a3, id1, id2, Q, M, d, T, g, 8);
+    void* id2, void* a3, void* part, int Q, int M, int d, int T, int g,
+    int passes, int xs, int segs, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (segs < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (segs == 1) {
+    const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr,
+                             yyh, nullptr, a1, a2, a3, id1, id2, Q, M, d, T,
+                             g, 8);
+    if (xs)
+      return passes == 3 ? launch<3, false, false, true, kIds>(a, st)
+                         : launch<1, false, false, true, kIds>(a, st);
+    return passes == 3 ? launch<3, false, false, false, kIds>(a, st)
+                       : launch<1, false, false, false, kIds>(a, st);
+  }
+  const long n = static_cast<long>(Q) * ((M / T + g - 1) / g) * kLanes;
+  float* pf = static_cast<float*>(part);
+  int* pi = static_cast<int*>(part);
+  Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yyh,
+                     nullptr, pf, pf + 2 * segs * n, pf + 5 * segs * n,
+                     pi + segs * n, pi + 3 * segs * n, Q, M, d, T, g, 8);
+  a.id3 = pi + 4 * segs * n;
+  int err;
   if (xs)
-    return passes == 3 ? launch<3, false, false, true, kIds>(a, st)
-                       : launch<1, false, false, true, kIds>(a, st);
-  return passes == 3 ? launch<3, false, false, false, kIds>(a, st)
-                     : launch<1, false, false, false, kIds>(a, st);
+    err = passes == 3 ? launch<3, false, false, true, kSeg>(a, st, segs)
+                      : launch<1, false, false, true, kSeg>(a, st, segs);
+  else
+    err = passes == 3 ? launch<3, false, false, false, kSeg>(a, st, segs)
+                      : launch<1, false, false, false, kSeg>(a, st, segs);
+  if (err) return err;
+  seg_merge_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
+      pf, pi + segs * n, pf + 2 * segs * n, pi + 3 * segs * n,
+      pi + 4 * segs * n, pf + 5 * segs * n, static_cast<float*>(a1),
+      static_cast<int*>(id1), static_cast<float*>(a2),
+      static_cast<int*>(id2), static_cast<float*>(a3), segs, n);
+  return static_cast<int>(cudaGetLastError());
 }
 
 // K2. Shapes: x [Q, d] f32, y_q [M, d] int8, scale [M/(g·T)] f32 (one per

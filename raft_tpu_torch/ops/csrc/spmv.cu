@@ -14,7 +14,12 @@
 // x, Y [n_rows, V].
 //
 // Precision. f32 products and f32 sums, in an order that changes from run
-// to run (shared-memory and global atomics): |Δy_i| ≤ (nnz_i + 2)·2⁻²⁴·
+// to run: K6a adds a slot's product (or, where a lane's slots hold a run
+// of equal rows and the run option is on, the run's f32 sum) into a
+// shared-memory row tile with shared atomics, and a row tile split over
+// several work items reaches y through global atomics; K6b and K6c alike.
+// No contribution array goes through device memory. Every order is a sum
+// of the row's nnz_i products starting from 0: |Δy_i| ≤ (nnz_i + 2)·2⁻²⁴·
 // Σ_j |a_ij·x_j| against an exact sum (nnz_i + 1 additions, one product).
 //
 // Bound on this card. Each nonzero costs 2·V flops and at least 8 bytes
@@ -27,12 +32,20 @@
 // Design. The TPU ran a gather kernel, an XLA row gather (perm_rows) and
 // a scatter kernel because it has no gather; here a block does all three
 // and no contribution array goes through device memory.
-// - K6a: one block per scatter chunk of E slots; each thread walks slots
-//   s = t, t + 256, ..., finds its gather slot through perm_rows,
-//   multiplies by x read from global memory (x is L2-resident: 16 MB at
-//   4M columns) and adds into an R-float y tile in shared memory with
-//   shared atomics; the tile reaches y with global atomics, so the caller
-//   passes y zeroed.
+// - K6a: the first design (one block a chunk, a thread walking slots s =
+//   t, t + 256, ... through the dependent chain perm_rows → value and
+//   column → x, one load of each in flight) ran at a third of HBM's rate.
+//   Now one block takes a work item (≤ 16 chunks of one row tile, the
+//   layout's item table that K6c reads too). A lane owns M (4 or 8)
+//   consecutive slots of one 8-slot scatter row, so its slots are M
+//   consecutive gather slots: one perm_rows read, then the in-tile rows,
+//   values and columns in 16-byte loads (a warp's rows and in-tile rows
+//   coalesced), the gather row and in-tile rows a step ahead; then M
+//   __ldg gathers of x in flight (x is L2-resident: 16 MB at 4M
+//   columns) and one shared atomic a slot (or a run) into an R-float y
+//   tile. An item that holds its whole row tile stores the tile with
+//   plain stores; a split one adds it with global atomics, so y is zeroed
+//   only in the layout's zero_tiles.
 // - K6b: one block per chunk, x tile and y tile in shared memory. The
 //   layout packs each slot's row and column into one int32 (16 bits each),
 //   so a slot costs 8 bytes, read four slots to a thread with 16-byte
@@ -74,34 +87,140 @@ __device__ __forceinline__ void flush_tile(const float* tile, float* y,
   }
 }
 
-// K6a: one block per scatter chunk.
-__global__ void __launch_bounds__(kThreads)
-spmv_ell_kernel(const float* __restrict__ vals,
-                const int* __restrict__ col_local,
-                const int* __restrict__ chunk_col_tile,
-                const int* __restrict__ perm_rows,
-                const int* __restrict__ row_local,
-                const int* __restrict__ chunk_row_tile,
-                const float* __restrict__ x, float* __restrict__ y, int E,
-                int C, int R, int n_rows, int zero_row) {
+// K6a: a lane's M slots as 16-byte loads (M a multiple of 4, the slots
+// 16-byte aligned: E % 8 == 0 and the arrays' bases aligned)
+template <int M>
+__device__ __forceinline__ void load_m(int (&v)[M], const int* p) {
+#pragma unroll
+  for (int k = 0; k < M / 4; ++k) {
+    const int4 q = __ldg(reinterpret_cast<const int4*>(p) + k);
+    v[4 * k] = q.x;
+    v[4 * k + 1] = q.y;
+    v[4 * k + 2] = q.z;
+    v[4 * k + 3] = q.w;
+  }
+}
+template <int M>
+__device__ __forceinline__ void load_m(float (&v)[M], const float* p) {
+#pragma unroll
+  for (int k = 0; k < M / 4; ++k) {
+    const float4 q = __ldg(reinterpret_cast<const float4*>(p) + k);
+    v[4 * k] = q.x;
+    v[4 * k + 1] = q.y;
+    v[4 * k + 2] = q.z;
+    v[4 * k + 3] = q.w;
+  }
+}
+
+// K6a: one block per work item; M slots a lane, RUNS sums a run of equal
+// rows among a lane's slots before its shared atomic, BLOCKS the blocks
+// an SM the registers are capped for (3, 4 or 6).
+template <int M, bool RUNS, int BLOCKS>
+__global__ void __launch_bounds__(kThreads, BLOCKS)
+spmv_item_kernel(const float* __restrict__ vals,
+                 const int* __restrict__ col_local,
+                 const int* __restrict__ chunk_col_tile,
+                 const int* __restrict__ perm_rows,
+                 const int* __restrict__ row_local,
+                 const int* __restrict__ chunk_row_tile,
+                 const int* __restrict__ item_chunk0,
+                 const int* __restrict__ item_split,
+                 const float* __restrict__ x, float* __restrict__ y, int E,
+                 int C, int R, int zero_row) {
+  static_assert(M == 4 || M == 8, "a lane takes half or all of an 8-slot "
+                "scatter row");
   extern __shared__ float ytile[];
-  const int c = blockIdx.x;
-  for (int r = threadIdx.x; r < R; r += blockDim.x) ytile[r] = 0.f;
+  const int item = blockIdx.x;
+  const int c0 = item_chunk0[item];
+  const int c1 = item_chunk0[item + 1];
+  for (int r = threadIdx.x; r < R; r += kThreads) ytile[r] = 0.f;
+  const int E8 = E >> 3;
+  const long long s_end = static_cast<long long>(c1) * E;
+  constexpr long long stride = static_cast<long long>(kThreads) * M;
+  // a lane's slots s .. s + M − 1 lie in one scatter row (pad rows:
+  // perm_rows ≥ zero_row; pad slots: row_local == R); E % 512 == 0, so
+  // they are all inside the item or all past it. Each step's metadata
+  // arrives in two rounds issued ahead of its gathers: the gather row and
+  // in-tile rows two steps ahead, the values and columns one step ahead.
+  auto round1 = [&](long long ss, int& pr, int (&rl)[M]) {
+    pr = zero_row;
+#pragma unroll
+    for (int m = 0; m < M; ++m) rl[m] = R;
+    if (ss < s_end) {
+      pr = __ldg(perm_rows + (ss >> 3));
+      load_m<M>(rl, row_local + ss);
+    }
+  };
+  auto round2 = [&](long long ss, int pr, float (&a)[M], int (&col)[M]) {
+    if (pr < zero_row) {
+      const long long g = static_cast<long long>(pr) * 8 + (ss & 7);
+      load_m<M>(a, vals + g);
+      load_m<M>(col, col_local + g);
+      const int c = __ldg(chunk_col_tile + pr / E8) * C;
+#pragma unroll
+      for (int m = 0; m < M; ++m) col[m] += c;
+    }
+  };
+  long long s = static_cast<long long>(c0) * E + threadIdx.x * M;
+  int pr0, pr1, rl0[M], rl1[M];
+  float a0[M], a1[M];
+  int col0[M], col1[M];
+  round1(s, pr0, rl0);
+  round2(s, pr0, a0, col0);
+  round1(s + stride, pr1, rl1);
   __syncthreads();
-  const long long base = static_cast<long long>(c) * E;
-  for (int s = threadIdx.x; s < E; s += blockDim.x) {
-    const int rl = row_local[base + s];
-    if (rl >= R) continue;                       // pad slot
-    const int pr = perm_rows[(base + s) >> 3];
-    if (pr >= zero_row) continue;                // pad row (never real)
-    const long long g = static_cast<long long>(pr) * 8 + (s & 7);
-    const long long col =
-        static_cast<long long>(chunk_col_tile[g / E]) * C + col_local[g];
-    atomicAdd(&ytile[rl], vals[g] * __ldg(&x[col]));
+  for (; s < s_end; s += stride) {
+    round2(s + stride, pr1, a1, col1);
+    int pr2, rl2[M];
+    round1(s + 2 * stride, pr2, rl2);
+    if (pr0 < zero_row) {
+      float p[M];
+#pragma unroll
+      for (int m = 0; m < M; ++m)            // pad slots gather nothing
+        p[m] = rl0[m] < R ? a0[m] * __ldg(x + col0[m]) : 0.f;
+      if constexpr (RUNS) {
+        // neighbours of one row (a bucket keeps its entries' input
+        // order, rows ascending for CSR input) are summed first
+        int cur = rl0[0];
+        float acc = p[0];
+#pragma unroll
+        for (int m = 1; m < M; ++m) {
+          if (rl0[m] == cur) {
+            acc += p[m];
+          } else {
+            if (cur < R) atomicAdd(&ytile[cur], acc);
+            cur = rl0[m];
+            acc = p[m];
+          }
+        }
+        if (cur < R) atomicAdd(&ytile[cur], acc);
+      } else {
+#pragma unroll
+        for (int m = 0; m < M; ++m)
+          if (rl0[m] < R) atomicAdd(&ytile[rl0[m]], p[m]);
+      }
+    }
+    pr0 = pr1;
+    pr1 = pr2;
+#pragma unroll
+    for (int m = 0; m < M; ++m) {
+      rl0[m] = rl1[m];
+      rl1[m] = rl2[m];
+      a0[m] = a1[m];
+      col0[m] = col1[m];
+    }
   }
   __syncthreads();
-  flush_tile(ytile, y, static_cast<long long>(chunk_row_tile[c]) * R, R,
-             n_rows, 1, 0, 1);
+  // the whole row tile: plain stores, zeros included; a split one: atomics
+  float* yt = y + static_cast<long long>(chunk_row_tile[c0]) * R;
+  const bool split = item_split[item] != 0;
+  for (int r = threadIdx.x; r < R; r += kThreads) {
+    const float v = ytile[r];
+    if (!split)
+      yt[r] = v;
+    else if (v != 0.f)
+      atomicAdd(yt + r, v);
+  }
 }
 
 // K6b: one block per chunk of a pair-tiled operand.
@@ -435,6 +554,27 @@ int spmm_items_launch(const void* vals, const void* col_local,
   return static_cast<int>(cudaGetLastError());
 }
 
+template <int M, bool RUNS, int BLOCKS>
+int spmv_items_launch(const void* vals, const void* col_local,
+                      const void* chunk_col_tile, const void* perm_rows,
+                      const void* row_local, const void* chunk_row_tile,
+                      const void* item_chunk0, const void* item_split,
+                      const void* x, void* y, int n_items, int E, int C,
+                      int R, int zero_row, cudaStream_t stream) {
+  const size_t smem = static_cast<size_t>(R) * 4;
+  int e = set_smem(spmv_item_kernel<M, RUNS, BLOCKS>, smem);
+  if (e) return e;
+  spmv_item_kernel<M, RUNS, BLOCKS><<<n_items, kThreads, smem, stream>>>(
+      static_cast<const float*>(vals), static_cast<const int*>(col_local),
+      static_cast<const int*>(chunk_col_tile),
+      static_cast<const int*>(perm_rows), static_cast<const int*>(row_local),
+      static_cast<const int*>(chunk_row_tile),
+      static_cast<const int*>(item_chunk0),
+      static_cast<const int*>(item_split), static_cast<const float*>(x),
+      static_cast<float*>(y), E, C, R, zero_row);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace
 
 // C entry points (loaded with ctypes). Layout arrays are int32 (vals f32)
@@ -444,27 +584,34 @@ int spmm_items_launch(const void* vals, const void* col_local,
 
 // K6a. vals, col_local [n_chunks·E]; chunk_col_tile [n_chunks]; perm_rows
 // [m_chunks·E/8]; row_local [m_chunks·E]; chunk_row_tile [m_chunks];
-// x [n_cols]; y [n_rows], zeroed; zero_row = n_chunks·E/8.
+// item_chunk0 [n_items + 1], item_split [n_items] (sparse/tiled.py:
+// spmm_items); x [n_cols]; y [n_row_tiles·R], zeroed in the row tiles that
+// no item holds whole; zero_row = n_chunks·E/8. vals, col_local and
+// row_local 16-byte aligned, E % 512 == 0. M (4 or 8) slots a lane, runs
+// (0 or 1) and blocks (3, 4 or 6 an SM) pick the instance.
 extern "C" int spmv_tiled_launch(const void* vals, const void* col_local,
                                  const void* chunk_col_tile,
                                  const void* perm_rows, const void* row_local,
-                                 const void* chunk_row_tile, const void* x,
-                                 void* y, int m_chunks, int E, int C, int R,
-                                 int n_rows, int zero_row, void* stream) {
-  const size_t smem = static_cast<size_t>(R) * 4;
-  int e = set_smem(spmv_ell_kernel, smem);
-  if (e) return e;
-  if (m_chunks > 0)
-    spmv_ell_kernel<<<m_chunks, kThreads, smem,
-                      static_cast<cudaStream_t>(stream)>>>(
-        static_cast<const float*>(vals), static_cast<const int*>(col_local),
-        static_cast<const int*>(chunk_col_tile),
-        static_cast<const int*>(perm_rows),
-        static_cast<const int*>(row_local),
-        static_cast<const int*>(chunk_row_tile),
-        static_cast<const float*>(x), static_cast<float*>(y), E, C, R, n_rows,
-        zero_row);
-  return static_cast<int>(cudaGetLastError());
+                                 const void* chunk_row_tile,
+                                 const void* item_chunk0,
+                                 const void* item_split, const void* x,
+                                 void* y, int n_items, int E, int C, int R,
+                                 int zero_row, int M, int runs, int blocks,
+                                 void* stream) {
+  if (n_items <= 0) return 0;
+  const cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define K6A_CASE(m, r, b)                                                  \
+  if (M == m && runs == r && blocks == b)                                  \
+    return spmv_items_launch<m, r, b>(vals, col_local, chunk_col_tile,     \
+                                      perm_rows, row_local, chunk_row_tile, \
+                                      item_chunk0, item_split, x, y,       \
+                                      n_items, E, C, R, zero_row, st);
+  K6A_CASE(8, false, 3) K6A_CASE(8, false, 4) K6A_CASE(8, false, 6)
+  K6A_CASE(8, true, 3) K6A_CASE(8, true, 4) K6A_CASE(8, true, 6)
+  K6A_CASE(4, false, 3) K6A_CASE(4, false, 4) K6A_CASE(4, false, 6)
+  K6A_CASE(4, true, 3) K6A_CASE(4, true, 4) K6A_CASE(4, true, 6)
+#undef K6A_CASE
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 // K6b. vals, rowcol (row_local << 16 | col_local) [m_chunks·E], both

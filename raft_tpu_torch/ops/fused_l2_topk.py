@@ -231,59 +231,109 @@ def fused_l2_group_topk_packed_dchunk_ref(x, y_hi, y_lo, yy_half, *,
         pbits=pbits, xxh=xxh)
 
 
+def group_segments(Q: int, n_groups: int, chunks: int, n_sm: int) -> int:
+    """Segments each group of the unpacked form is cut into. One block
+    runs an SM, so ``blocks·S`` blocks take ⌈blocks·S / n_sm⌉ whole waves:
+    1 when the (64-query block, group) blocks already fill the card; else
+    the fewest S ≤ min(chunks, ⌈4·n_sm / blocks⌉) whose waves keep 90% of
+    the SMs busy (or the busiest). Fewer segments merge fewer partial
+    states: on the card one full wave beat two (PERF.md §6)."""
+    blocks = -(-Q // 64) * n_groups
+    if blocks >= n_sm:
+        return 1
+
+    def busy(S):
+        return blocks * S / (n_sm * -(-blocks * S // n_sm))
+
+    top = max(1, min(chunks, -(-4 * n_sm // blocks)))
+    fits = [S for S in range(1, top + 1) if busy(S) >= 0.9]
+    return fits[0] if fits else max(range(1, top + 1),
+                                    key=lambda S: (busy(S), -S))
+
+
 def _group(x, y_hi, y_lo, yy_half, T: int, g: int, passes: int,
-           xs: bool):
-    """Launch the unpacked form, resident (xs False) or streamed x."""
+           xs: bool, segments=None, keep_part: bool = False):
+    """Launch the unpacked form, resident (xs False) or streamed x, over
+    ``segments`` segments a group (None: :func:`group_segments`). With
+    ``keep_part`` returns (the outputs, the segments' summaries as
+    :func:`merge_segments` takes them, or None at one segment)."""
     who = "fused_l2_group_topk_dchunk" if xs else "fused_l2_group_topk"
     y_lo, _ = _cuda_operands(who, x, y_hi, y_lo, yy_half, None)
     Q, d = x.shape
     M = y_hi.shape[0]
     a1, a2, a3, id1, id2 = _outputs(x, Q, M, T, g, 5)
     id1, id2 = id1.view(torch.int32), id2.view(torch.int32)
-    if Q == 0:
-        return a1, id1, a2, id2, a3
-    x_hi, x_lo = _split_x(x, passes) if xs else (x, x)
-    with torch.cuda.device(x.device):
-        rc = _launcher_group()(
-            x.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(), y_hi.data_ptr(),
-            y_lo.data_ptr(), yy_half.data_ptr(), a1.data_ptr(),
-            id1.data_ptr(), a2.data_ptr(), id2.data_ptr(), a3.data_ptr(),
-            Q, M, d, T, g, passes, int(xs),
-            torch.cuda.current_stream().cuda_stream)
-    _raise_on(who, rc)
-    return a1, id1, a2, id2, a3
+    chunks = min(g, M // T) * (T // _LANES)
+    if segments is None:
+        n_sm = torch.cuda.get_device_properties(
+            x.device).multi_processor_count
+        segments = group_segments(Q, a1.shape[1] // _LANES, chunks, n_sm)
+    if not 1 <= segments <= chunks:
+        raise ValueError(f"{who}: segments={segments} outside [1, "
+                         f"{chunks}] (the chunks of a group)")
+    out = (a1, id1, a2, id2, a3)
+    part = None
+    if segments > 1:
+        part = torch.empty((6, segments, Q, a1.shape[1]),
+                           dtype=torch.float32, device=x.device)
+    if Q > 0:
+        x_hi, x_lo = _split_x(x, passes) if xs else (x, x)
+        with torch.cuda.device(x.device):
+            rc = _launcher_group()(
+                x.data_ptr(), x_hi.data_ptr(), x_lo.data_ptr(),
+                y_hi.data_ptr(), y_lo.data_ptr(), yy_half.data_ptr(),
+                a1.data_ptr(), id1.data_ptr(), a2.data_ptr(), id2.data_ptr(),
+                a3.data_ptr(), 0 if part is None else part.data_ptr(), Q, M,
+                d, T, g, passes, int(xs), segments,
+                torch.cuda.current_stream().cuda_stream)
+        _raise_on(who, rc)
+    if not keep_part:
+        return out
+    if part is not None:
+        part = tuple(part[k].view(torch.int32) if k in (1, 3, 4)
+                     else part[k] for k in range(6))
+    return out, part
 
 
 def fused_l2_group_topk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
-                        passes: int) -> Tuple[torch.Tensor, ...]:
+                        passes: int, segments=None
+                        ) -> Tuple[torch.Tensor, ...]:
     """The unpacked fold (reference ``fused_l2_group_topk``, ``:1230``):
     per (query, bucket) the two smallest half-scores ``yy/2 − x·y`` with
     their global row ids, and the third smallest, for geometries whose
     g·T/128 codes do not fit the packed mantissa. yy_half carries +inf on
     padded rows (never wins; a bucket of pads keeps +inf and id −1); there
     is no query norm: callers recover d2 as 2·a + ‖x‖². Returns ``(a1,
-    id1, a2, id2, a3)``, each [Q, ceil(M/T/g)·128] (ids int32)."""
+    id1, a2, id2, a3)``, each [Q, ceil(M/T/g)·128] (ids int32).
+
+    ``segments`` cuts each group's chunks into that many contiguous
+    segments folded apart and merged in segment order (None: as many as
+    fill the card, :func:`group_segments`; 1: one block a group); every
+    count gives the same bits."""
     global LAUNCHES_GROUP
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
     if x.device.type == "cpu":
         return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
-                                       passes=passes)
-    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, False)
+                                       passes=passes, segments=segments)
+    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, False, segments)
     LAUNCHES_GROUP += 1
     return out
 
 
 def fused_l2_group_topk_dchunk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
-                               passes: int) -> Tuple[torch.Tensor, ...]:
+                               passes: int, segments=None
+                               ) -> Tuple[torch.Tensor, ...]:
     """Wide-feature form of :func:`fused_l2_group_topk` (reference
     ``:1254``): the same outputs, x's feature slices streamed beside
-    y's as in :func:`fused_l2_group_topk_packed_dchunk`."""
+    y's as in :func:`fused_l2_group_topk_packed_dchunk`; ``segments`` as
+    there."""
     global LAUNCHES_GROUP_DCHUNK
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
     if x.device.type == "cpu":
         return fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, T=T,
-                                              g=g, passes=passes)
-    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, True)
+                                              g=g, passes=passes,
+                                              segments=segments)
+    out = _group(x, y_hi, y_lo, yy_half, T, g, passes, True, segments)
     LAUNCHES_GROUP_DCHUNK += 1
     return out
 
@@ -307,27 +357,30 @@ def _half_scores(x, y_hi, y_lo, yy_half, passes: int):
 
 
 def fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, *, T: int, g: int,
-                            passes: int):
+                            passes: int, segments=None):
     """Plain PyTorch twin of :func:`fused_l2_group_topk`: the twins'
-    contraction, then :func:`_group_fold`. The kernel's test oracle and
-    the CPU path."""
+    contraction, then :func:`_group_fold` (over ``segments`` > 1: the
+    split fold, :func:`_group_fold_split`, which gives the same bits). The
+    kernel's test oracle and the CPU path."""
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
-    return _group_fold(_half_scores(x, y_hi, y_lo, yy_half, passes), T, g)
+    c = _half_scores(x, y_hi, y_lo, yy_half, passes)
+    if segments is not None and segments > 1:
+        return _group_fold_split(c, T, g, segments)[0]
+    return _group_fold(c, T, g)
 
 
 def fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, *, T: int,
-                                   g: int, passes: int):
+                                   g: int, passes: int, segments=None):
     """Plain PyTorch twin of :func:`fused_l2_group_topk_dchunk` (the
     resident form's twin)."""
     return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
-                                   passes=passes)
+                                   passes=passes, segments=segments)
 
 
-def _group_fold(c, T: int, g: int):
-    """The unpacked fold of the [Q, M] half-scores ``c`` in chunk order,
-    with ``_merge_chunk_top2``'s compare/selects (strict <: on a tie the
-    earlier id stays) and a NaN-propagating a3. Chunks past the last
-    tile are skipped (a +inf chunk changes nothing)."""
+def _group_geometry(c, T: int, g: int):
+    """The half-scores ``c`` [Q, M] as [Q, n_groups, cpg, 128] chunks (a
+    partial last group padded with +inf chunks, which change nothing),
+    and each group's first global row id per lane, [n_groups, 128]."""
     Q, M = c.shape
     n_chunks = M // _LANES
     n_groups = -(-(M // T) // g)
@@ -335,30 +388,137 @@ def _group_fold(c, T: int, g: int):
     pad = n_groups * cpg * _LANES - M
     if pad:
         c = torch.cat([c, c.new_full((Q, pad), float("inf"))], dim=1)
-    c = c.reshape(Q, n_groups, cpg, _LANES)
     col = (torch.arange(n_groups, device=c.device)[:, None] * cpg
            * _LANES + torch.arange(_LANES, device=c.device)[None, :]
-           ).to(torch.int32)                                    # [G, 128]
-    a1 = c.new_full((Q, n_groups, _LANES), float("inf"))
+           ).to(torch.int32)
+    return c.reshape(Q, n_groups, cpg, _LANES), col
+
+
+def _merge_ids(cr, ci, a1, id1, a2, id2, a3):
+    """One entry (value ``cr``, id ``ci``) into the state with
+    ``_merge_chunk_top2``'s compare/selects: strict < (on a tie the
+    earlier entry stays), the displaced entry into a NaN-propagating
+    a3."""
+    lt1 = cr < a1
+    b1 = torch.where(lt1, a1, cr)
+    bid1 = torch.where(lt1, id1, ci)
+    a1 = torch.where(lt1, cr, a1)
+    id1 = torch.where(lt1, ci, id1)
+    lt2 = b1 < a2
+    b2 = torch.where(lt2, a2, b1)
+    a2 = torch.where(lt2, b1, a2)
+    id2 = torch.where(lt2, bid1, id2)
+    return a1, id1, a2, id2, torch.minimum(a3, b2)
+
+
+def _group_fold(c, T: int, g: int):
+    """The unpacked fold of the [Q, M] half-scores ``c`` in chunk order,
+    with ``_merge_chunk_top2``'s compare/selects (strict <: on a tie the
+    earlier id stays) and a NaN-propagating a3. Chunks past the last
+    tile are skipped (a +inf chunk changes nothing)."""
+    Q = c.shape[0]
+    c, col = _group_geometry(c, T, g)
+    a1 = c.new_full((Q, c.shape[1], _LANES), float("inf"))
     a2, a3 = a1.clone(), a1.clone()
     id1 = torch.full(a1.shape, -1, dtype=torch.int32, device=c.device)
     id2 = id1.clone()
-    for r in range(cpg):
-        cr = c[:, :, r]
+    for r in range(c.shape[2]):
         ci = (col + r * _LANES).expand_as(id1)
-        lt1 = cr < a1
-        b1 = torch.where(lt1, a1, cr)
-        bid1 = torch.where(lt1, id1, ci)
-        a1 = torch.where(lt1, cr, a1)
-        id1 = torch.where(lt1, ci, id1)
-        lt2 = b1 < a2
-        b2 = torch.where(lt2, a2, b1)
-        a2 = torch.where(lt2, b1, a2)
-        id2 = torch.where(lt2, bid1, id2)
-        a3 = torch.minimum(a3, b2)
-    S = n_groups * _LANES
-    return (a1.reshape(Q, S), id1.reshape(Q, S), a2.reshape(Q, S),
-            id2.reshape(Q, S), a3.reshape(Q, S))
+        a1, id1, a2, id2, a3 = _merge_ids(c[:, :, r], ci, a1, id1, a2, id2,
+                                          a3)
+    S = c.shape[1] * _LANES
+    return tuple(a.reshape(Q, S) for a in (a1, id1, a2, id2, a3))
+
+
+def merge_segments(parts):
+    """The merge of split groups (the kernel's second pass) in plain
+    torch. ``parts`` = (e1, i1, e2, i2, i3, r), each [segs, ...]: each
+    segment's :func:`_fold_segment` summary. The sequential fold's ids
+    depend only on the first two arrivals of the smallest value and of
+    the second smallest and on their order, and every such entry is
+    among the segments' candidates (e1, i1), (e2, i2) and, where i3 ≥ 0,
+    (e2, i3). So the fold's compare/selects run over each segment's
+    candidates in arrival (id) order, segment after segment, give its
+    (a1, id1, a2, id2) bit for bit; a3 is that run's a3 NaN-min every
+    segment's r (which holds all its other entries)."""
+    e1, i1, e2, i2, i3, r = parts
+    inf = torch.tensor(float("inf"), device=e1.device)
+    big = torch.tensor(torch.iinfo(torch.int32).max, dtype=torch.int32,
+                       device=e1.device)
+    a1 = torch.full_like(e1[0], float("inf"))
+    a2, a3 = a1.clone(), a1.clone()
+    id1 = torch.full_like(i1[0], -1)
+    id2 = id1.clone()
+    for k in range(e1.shape[0]):
+        tie = i3[k] >= 0
+        cand = [(e1[k], i1[k]), (e2[k], i2[k]),
+                (torch.where(tie, e2[k], inf), torch.where(tie, i3[k], big))]
+        for p, q in ((0, 1), (1, 2), (0, 1)):      # sort the three by id
+            sw = cand[q][1] < cand[p][1]
+            lo = tuple(torch.where(sw, u, v) for u, v in zip(cand[q],
+                                                              cand[p]))
+            hi = tuple(torch.where(sw, v, u) for u, v in zip(cand[q],
+                                                              cand[p]))
+            cand[p], cand[q] = lo, hi
+        for cv, ci in cand:
+            a1, id1, a2, id2, a3 = _merge_ids(cv, ci, a1, id1, a2, id2, a3)
+        a3 = torch.minimum(a3, r[k])
+    return a1, id1, a2, id2, a3
+
+
+def _fold_segment(c, col, r0: int, r1: int):
+    """One segment's summary, chunks [r0, r1) of ``c`` [Q, G, cpg, 128]
+    in arrival order: its two (value, arrival)-smallest entries (e1, i1),
+    (e2, i2) (strict <: a later equal entry never passes an earlier one;
+    +inf and −1 where there are fewer), i3 the id of the third smallest
+    where its value equals e2's (else −1), and r the NaN-propagating min
+    of every other entry's value (the third's included). Returns (e1, i1,
+    e2, i2, i3, r), each [Q, G, 128]."""
+    e1 = c.new_full((c.shape[0], c.shape[1], _LANES), float("inf"))
+    e2, r = e1.clone(), e1.clone()
+    i1 = torch.full(e1.shape, -1, dtype=torch.int32, device=c.device)
+    i2, i3 = i1.clone(), i1.clone()
+    none = torch.tensor(-1, dtype=torch.int32, device=c.device)
+    for k in range(r0, r1):
+        cr = c[:, :, k]
+        ci = (col + k * _LANES).expand_as(i1)
+        lt1 = cr < e1
+        lt2 = cr < e2
+        r = torch.minimum(r, torch.where(lt2, e2, cr))
+        i3 = torch.where(lt1, torch.where(e1 == e2, i2, none),
+                         torch.where(lt2, none, torch.where(
+                             (cr == e2) & (i3 < 0), ci, i3)))
+        i2 = torch.where(lt1, i1, torch.where(lt2, ci, i2))
+        e2 = torch.where(lt1, e1, torch.where(lt2, cr, e2))
+        i1 = torch.where(lt1, ci, i1)
+        e1 = torch.where(lt1, cr, e1)
+    return e1, i1, e2, i2, i3, r
+
+
+def _group_fold_split(c, T: int, g: int, segments: int):
+    """The split twin of :func:`_group_fold`, cut as the kernel cuts a
+    group: segment k of a group of n chunks (the last group counts its
+    real tiles only) takes chunks [⌊n·k/segs⌋, ⌊n·(k+1)/segs⌋) and is
+    summarized by :func:`_fold_segment`; then :func:`merge_segments`.
+    Returns (the outputs, the summaries, each [segs, Q, n_groups·128])."""
+    Q, M = c.shape
+    c, col = _group_geometry(c, T, g)
+    G, cpg = c.shape[1], c.shape[2]
+    n_tiles = M // T
+    parts = [[] for _ in range(6)]
+    for k in range(segments):
+        seg = [[] for _ in range(6)]
+        for grp in range(G):
+            n = min(g, n_tiles - grp * g) * (T // _LANES) if G > 1 else cpg
+            st = _fold_segment(c[:, grp:grp + 1], col[grp:grp + 1],
+                               n * k // segments, n * (k + 1) // segments)
+            for j in range(6):
+                seg[j].append(st[j])
+        for j in range(6):
+            parts[j].append(torch.cat(seg[j], dim=1).reshape(Q, G * _LANES))
+    parts = tuple(torch.stack(p) for p in parts)
+    S = G * _LANES
+    return tuple(a.reshape(Q, S) for a in merge_segments(parts)), parts
 
 
 def _launcher():
@@ -389,7 +549,7 @@ def _launcher_group():
     if _FN_GROUP is None:
         fn = _build.load("fused_l2_topk").fused_l2_group_topk_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 7 + [p]
+        fn.argtypes = [p] * 12 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
         _FN_GROUP = fn
     return _FN_GROUP

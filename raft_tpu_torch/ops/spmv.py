@@ -15,9 +15,9 @@ run to run), so a row agrees to ``(nnz_i + 2)·2⁻²⁴·Σ_j |a_ij·x_j|``.
 The wrappers dispatch on the tensors' device: CPU tensors take the twin,
 CUDA tensors launch the kernel or raise. There is no fallback. What the
 kernels read beside the reference's arrays is built once with the layout
-(``sparse/tiled.py``): K6c's work items (``TiledELL.item_chunk0``,
-``item_split``, ``zero_tiles``) and K6b's packed slot stream
-(``TiledPairsSpmv.rowcol``).
+(``sparse/tiled.py``): the work items K6a and K6c share
+(``TiledELL.item_chunk0``, ``item_split``, ``zero_tiles``) and K6b's
+packed slot stream (``TiledPairsSpmv.rowcol``).
 """
 
 from __future__ import annotations
@@ -38,6 +38,10 @@ SPMM_SMEM = 64 * 1024
 #: shared memory a block may use on the card (the pair kernel's x and y
 #: tiles, (C + R)·4 bytes)
 BLOCK_SMEM = 232448
+#: K6a's instance: slots a lane (4 or 8), runs of equal rows summed in
+#: registers before their shared atomic, blocks an SM the registers are
+#: capped for (3, 4 or 6); chosen on the card (PERF.md §6)
+SPMV_GEOMETRY = (8, True, 3)
 #: gathered f32 elements one step of a twin may hold (bounds the twins'
 #: scratch at the scale-22 graph's 10⁸ slots)
 _TWIN_ELEMS = 1 << 26
@@ -70,16 +74,26 @@ def spmv_tiled(tiled, x) -> torch.Tensor:
     _check_x(tiled.shape[1], x, "spmv_tiled")
     if x.device.type == "cpu":
         return spmv_tiled_ref(tiled, x)
-    y = torch.zeros(tiled.shape[0], dtype=torch.float32, device=x.device)
-    if tiled.m_chunks == 0:
-        return y
+    for a in (tiled.vals, tiled.col_local, tiled.row_local):
+        if a.data_ptr() % 16:
+            raise ValueError("spmv_tiled: vals, col_local and row_local "
+                             "must be 16-byte aligned (the kernel's vector "
+                             "loads)")
+    # whole row tiles are stored by their one item, as in spmm_tiled
+    y = torch.empty(tiled.n_row_tiles * tiled.R, dtype=torch.float32,
+                    device=x.device)
+    if tiled.zero_tiles.numel():
+        y.view(tiled.n_row_tiles, tiled.R).index_fill_(0, tiled.zero_tiles,
+                                                       0.0)
+    M, runs, blocks = SPMV_GEOMETRY
     _launch("spmv_tiled_launch", [
         tiled.vals, tiled.col_local, tiled.chunk_col_tile, tiled.perm_rows,
-        tiled.row_local, tiled.chunk_row_tile, x, y],
-        [tiled.m_chunks, tiled.E, tiled.C, tiled.R, tiled.shape[0],
-         tiled.n_chunks * tiled.E // 8])
+        tiled.row_local, tiled.chunk_row_tile, tiled.item_chunk0,
+        tiled.item_split, x, y],
+        [tiled.n_items, tiled.E, tiled.C, tiled.R,
+         tiled.n_chunks * tiled.E // 8, M, int(runs), blocks])
     LAUNCHES_SPMV += 1
-    return y
+    return y[:tiled.shape[0]]
 
 
 def _check_pairs(t):

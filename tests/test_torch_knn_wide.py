@@ -147,6 +147,100 @@ def test_unpacked_fold_keeps_the_first_id_on_a_tie():
     assert torch.all(torch.isinf(a1)) and torch.all(id1 == -1)
 
 
+def _integer_operands(d, seed):
+    """Integer-valued x and y (|v| ≤ 3: every bf16 product and f32 sum is
+    exact, so any summation order gives the same half-scores, and ties
+    are common) with planted rows: duplicates of chunk 15's rows in chunk
+    16 and of chunk 9's in chunk 10 (across the segment boundaries at
+    S = 2 and 3), a NaN row, a +inf and a −inf half-norm carrier, and a
+    padded tail of 300 rows (yyh = +inf)."""
+    r_ = np.random.default_rng(seed)
+    x = r_.integers(-3, 4, (Q, d)).astype(np.float32)
+    y = r_.integers(-3, 4, (M, d)).astype(np.float32)
+    y[16 * 128:17 * 128] = y[15 * 128:16 * 128]
+    y[10 * 128:11 * 128] = y[9 * 128:10 * 128]
+    y[700, 5] = np.nan
+    yyh = (0.5 * (y * y).sum(1)).astype(np.float32)
+    yyh[901], yyh[1902] = np.inf, -np.inf
+    yyh[-300:] = np.inf
+    return x, y, yyh
+
+
+def _bits(a):
+    """A float array's bits with every NaN as one pattern (ids as they
+    are), for comparisons bit for bit."""
+    a = np.asarray(a)
+    if a.dtype != np.float32:
+        return a
+    return np.where(np.isnan(a), np.float32(np.nan), a).view(np.int32)
+
+
+@pytest.mark.parametrize("segments", [1, 2, 3, 40])
+@pytest.mark.parametrize("d,dchunk", [(128, False), (640, True)])
+def test_split_twin_matches_fold_and_pallas_bit_for_bit(d, dchunk,
+                                                        segments):
+    """The split twin (segment summaries merged in segment order, what
+    the card's merge kernel is held to) gives the sequential fold's bits
+    and ids, and so the reference's Pallas kernels', at S = 1, 2, 3
+    (uneven: 32 chunks) and 40 (more segments than chunks), with ties
+    planted across segment boundaries, NaN and ±inf scores and pads."""
+    x, y, yyh = _integer_operands(d, 31)
+    kw = dict(tpg=G_UNPACKED)
+    if dchunk:
+        ref = _jax_kernel(jk.fused_l2_group_topk_dchunk, x, y, yyh, 768, 3,
+                          dc=256, **kw)
+        fn = tk.fused_l2_group_topk_dchunk_ref
+    else:
+        ref = _jax_kernel(jk.fused_l2_group_topk, x, y, yyh, d, 3, **kw)
+        fn = tk.fused_l2_group_topk_ref
+    xt, hi, lo = _torch_split(x, y)
+    yt = torch.from_numpy(yyh)
+    seq = fn(xt, hi, lo, yt, T=T, g=G_UNPACKED, passes=3)
+    got = fn(xt, hi, lo, yt, T=T, g=G_UNPACKED, passes=3,
+             segments=segments)
+    for a, b, r in zip(got, seq, ref):
+        assert np.array_equal(_bits(a.numpy()), _bits(b.numpy()))
+        assert np.array_equal(_bits(a.numpy()), _bits(r))
+    a1, id1, a2, id2, a3 = (t.numpy() for t in got)
+    assert np.isnan(a3).any() and np.isneginf(a1).any()
+    assert (a1 == a2).any()                        # ties were folded
+    assert id1.max() < M - 300 and id2.max() < M - 300
+
+
+def test_split_merge_keeps_the_fold_s_tie_order():
+    """The one place a naive merge of (a1, a2) states goes wrong: two
+    equal entries before a smaller one in a later segment. The fold keeps
+    the later equal entry in a2 (its strict < drops the earlier one when
+    the smaller arrives); the merge of segment summaries keeps it too."""
+    c = torch.full((1, 4 * 128), 5.0)
+    c[0, 0], c[0, 256], c[0, 384] = -2.0, -2.0, -3.0
+    seq = tk._group_fold(c, 128, 4)
+    assert [int(seq[1][0, 0]), int(seq[3][0, 0])] == [384, 256]
+    for segments in (2, 3, 4):
+        out, parts = tk._group_fold_split(c, 128, 4, segments)
+        for a, b in zip(out, seq):
+            assert torch.equal(a, b)
+        assert parts[0].shape == (segments, 1, 128)
+
+
+def test_group_segments_fills_the_card():
+    """S fills the 132 SMs in whole waves with the fewest segments, is
+    capped by a group's chunks, and is 1 when the (query block, group)
+    blocks already fill the card."""
+    assert tk.group_segments(2048, 1, 7816, 132) == 4      # 32 blocks
+    assert tk.group_segments(1000, 1, 7816, 132) == 8      # 16 blocks
+    assert tk.group_segments(1000, 1, 5, 132) == 5         # chunk cap
+    assert tk.group_segments(2048, 16, 256, 132) == 1      # 512 blocks
+    assert tk.group_segments(64, 132, 32, 132) == 1
+    for q, groups in ((1, 1), (100, 2), (6400, 1), (64 * 100, 1)):
+        blocks = -(-q // 64) * groups
+        S = tk.group_segments(q, groups, 10 ** 6, 132)
+        busy = blocks * S / (132 * -(-blocks * S // 132))
+        assert busy >= 0.9 and all(
+            blocks * s / (132 * -(-blocks * s // 132)) < 0.9
+            for s in range(1, S))
+
+
 # ---- knn_fused and distance.knn ----
 MODES = [(3, "kernel"), (1, "f32"), (1, "kernel")]
 

@@ -229,8 +229,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after, beside twin, bound and ``torch.matmul``.
 14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, the slot
    forms, K6b and K6c against their times recorded from earlier full runs
-   (``GUARD_MS``), failing where one is more than 5% slower on the card
-   they were recorded on. A JSON ``kernels`` line, ``nonfinite_k1_k2``
+   (``GUARD_MS``), failing where one is more than 10% slower on the card
+   they were recorded on and naming those more than 5% slower. The wall
+   seconds of each phase (``phase_s``). A JSON ``kernels`` line, ``nonfinite_k1_k2``
    (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
    ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
@@ -1726,8 +1727,7 @@ def k6a_case(tag: str, T, deg, x, reps: int, Lt=None):
            "layout_bound_ms": lay_ms, "scatter_slots": T.m_chunks * T.E,
            "real_slots": real_slots, "items": T.n_items,
            "split_items": int(T.item_split.sum().item()),
-           "zero_tiles": T.zero_tiles.numel(),
-           "geometry": list(k6.SPMV_GEOMETRY)}
+           "zero_tiles": T.zero_tiles.numel()}
     print(f"K6a {tag}: {json.dumps(row)}", flush=True)
     return y, row
 
@@ -2988,8 +2988,9 @@ def same_bits(a, b) -> bool:
 
 def unpacked_kernel_row(index, Qx, reps: int = 3):
     """The unpacked form (or its d-chunked form) on a path's own inputs:
-    at the chosen segment count S (``ops.fused_l2_topk.group_segments``)
-    and at S = 1, bit for bit equal to each other; at S > 1 the merge
+    at the segment count S its wrapper chooses (``ops.fused_l2_topk.
+    group_segments``; read back from the summaries it kept) and at S = 1,
+    bit for bit equal to each other; at S > 1 the merge
     kernel bit for bit equal to ``merge_segments`` (the split twin's
     merge) over the kernel's own segment summaries; against its twin
     (``compare_unpacked``); then both S timed beside the twin, the bound
@@ -3006,14 +3007,11 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
     args = (x, index.y_hi, index.y_lo, index.yyh_k)
     kw = dict(T=index.T, g=index.g, passes=index.passes)
     M = index.prepared_rows
-    n_groups = -(-(M // index.T) // index.g)
-    chunks = min(index.g, M // index.T) * (index.T // 128)
-    segs = k1.group_segments(
-        x.shape[0], n_groups, chunks,
-        torch.cuda.get_device_properties(0).multi_processor_count)
     counts = k1_counts()
     out, part = k1._group(*args, index.T, index.g, index.passes, wide,
                           None, keep_part=True)
+    segs = 1 if part is None else part[0].shape[0]
+    S = out[0].shape[1]                    # n_groups·128 buckets a query
     one = kern(*args, **kw, segments=1)
     torch.cuda.synchronize()
     check(all(same_bits(a, b) for a, b in zip(out, one)),
@@ -3032,7 +3030,6 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
     del out, hold
     ms = cuda_ms(lambda: kern(*args, **kw), reps)
     ms_one = cuda_ms(lambda: kern(*args, **kw, segments=1), reps)
-    S = n_groups * 128
     nq = x.shape[0]
     ops = 2.0 * nq * M * index.d_orig * (3 if index.passes == 3 else 1)
     nbytes = (nq * index.d_orig * 4 + M * index.d_orig * 2
@@ -3533,19 +3530,26 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
 
 
 #: kernels this run holds to their times recorded from earlier full runs
-#: of this script (PERF.md §6), with the card they were taken on; a
-#: kernel may run at most GUARD_SLACK times slower on that card
+#: of this script (PERF.md §6), with the card they were taken on. A kernel
+#: fails the run where it is more than GUARD_SLACK times slower on that
+#: card: the widest run-to-run spread of one kernel on one input recorded
+#: in PERF.md §7 (K4's times), while these kernels themselves have moved
+#: by at most 2% between full runs. Those past GUARD_NOTE are named in the
+#: line; a parent build timed in the same call (``port_scripts/ab_*.py``)
+#: is the finer comparison.
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 GUARD_MS = {"K1_p1": 4.302, "K1_p3": 6.765, "K2_p1": 5.821, "K2_p3": 6.392,
             "slot_p1": 4.173, "slot_p3": 6.390, "slot_minonly": 3.750,
             "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538}
-GUARD_SLACK = 1.05
+GUARD_SLACK = 1.10
+GUARD_NOTE = 1.05
 
 
 def speed_guard(card: str, entries) -> dict:
     """This run's times of the kernels of ``GUARD_MS`` against their
     recorded ones: fails where one is more than ``GUARD_SLACK`` times
-    slower on the card they were recorded on; elsewhere only printed."""
+    slower on the card they were recorded on (elsewhere only printed),
+    and names those more than ``GUARD_NOTE`` times slower."""
     by = {e["name"]: e for e in entries}
     k1, k2 = by["fused_l2_group_topk_packed"], by[
         "fused_l2_group_topk_packed_q8"]
@@ -3559,7 +3563,9 @@ def speed_guard(card: str, entries) -> dict:
     ratio = {k: now[k] / GUARD_MS[k] for k in GUARD_MS}
     held = card.strip() == GUARD_CARD
     out = {"card": card.strip(), "held": held, "ms": now,
-           "recorded_ms": GUARD_MS, "ratio": ratio}
+           "recorded_ms": GUARD_MS, "ratio": ratio,
+           f"past_{GUARD_NOTE}": [k for k, r in ratio.items()
+                                  if r > GUARD_NOTE]}
     print(json.dumps({"speed_guard": out}), flush=True)
     if held:
         slow = {k: r for k, r in ratio.items() if r > GUARD_SLACK}
@@ -3593,6 +3599,13 @@ def main() -> int:
     from raft_tpu_torch.random import make_blobs
 
     t_start = time.perf_counter()
+    phase_s, t_phase = {}, [t_start]
+
+    def phase_end(name: str):
+        now = time.perf_counter()
+        phase_s[name] = now - t_phase[0]
+        t_phase[0] = now
+
     # ---- phase 1: device and build ----
     card = gpu_name_power()
     print(f"device: {card} ({torch.cuda.get_device_name(0)}, "
@@ -3618,6 +3631,7 @@ def main() -> int:
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
         ptxas_report(name, log)
+    phase_end("build")
 
     # ---- phase 2: K1 against its twin ----
     gen = torch.Generator(device="cuda")
@@ -3673,6 +3687,7 @@ def main() -> int:
     # K1 and K2 once more, with ±inf and NaN planted; then K1's slot forms
     nonfinite = nonfinite_k1_k2(gen)
     nonfinite.update(nonfinite_slot(gen))
+    phase_end("twins")
 
     # ---- phase 3: the main path at full size ----
     res = raft_tpu_torch.DeviceResources(device="cuda", seed=0)
@@ -3828,37 +3843,45 @@ def main() -> int:
     ladder, slot_entry = k1_ladder(idx1, idx3, Qx)
     del X, Qx, idx1, idx3, o_vals, o_ids
     torch.cuda.empty_cache()
+    phase_end("main_path")
 
     # ---- phase 10 (run here, on a fresh index): serving ----
     serving, serve_launches = serving_phase(res)
     entry["serving_launches"] = serve_launches["brute_bf16"]
     k2_entry["serving_launches"] = serve_launches["brute_int8"]
     torch.cuda.empty_cache()
+    phase_end("serving")
 
     # ---- phases 4–6: K4 against its twin, IVF-Flat, then IVF-PQ ----
     data = ann_data(res, N_INDEX, N_QUERIES)
     ivf, k4_entries = ivf_phase(res, N_INDEX, N_QUERIES, IVF_LISTS,
                                 data=data)
     torch.cuda.empty_cache()
+    phase_end("ivf")
     ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS)
     del data
     torch.cuda.empty_cache()
+    phase_end("ivf_pq")
 
     # ---- phases 7–9: the spectral path ----
     spectral, sparse_entries = spectral_phase(res)
     torch.cuda.empty_cache()
+    phase_end("spectral")
 
     # ---- phase 11: pairwise distances and stats ----
     pairwise_stats, k89_entries = pairwise_stats_phase(res)
     torch.cuda.empty_cache()
+    phase_end("pairwise_stats")
 
     # ---- phase 12: select_k and K3 ----
     select, k3_entry = select_k_phase(res)
     torch.cuda.empty_cache()
+    phase_end("select_k")
 
     # ---- phase 13: wide and unpacked brute-force KNN ----
     wide, wide_entries = wide_knn_phase(res)
     torch.cuda.empty_cache()
+    phase_end("wide_knn")
 
     # ---- phase 14: the summary ----
     print(json.dumps({"nonfinite_k1_k2": nonfinite}), flush=True)
@@ -3874,6 +3897,7 @@ def main() -> int:
     kernels = [entry, k2_entry, slot_entry, k3_entry, *wide_entries,
                *k4_entries, *k5_entries, *sparse_entries, *k89_entries]
     speed_guard(card, kernels)
+    print(json.dumps({"phase_s": phase_s}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)
     print(card, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """CUDA-event times of K6a (SpMV), K6c (SpMM) and K6b (pair SpMV) of
 several checkouts of the port within one card call, and of diagnostic
-variants of this checkout's K6a and K6c.
+variants of this checkout's K6c.
 
     python3 port_scripts/ab_k6.py [--variants] TREE [TREE ...]
 
@@ -19,10 +19,8 @@ K6b) launches between two CUDA events after a warm-up. With
 with item tables cut at 8 and 32 chunks, and two builds of its
 ``spmv.cu`` changed by text: shared atomics replaced by plain adds (the
 sums race, so that build is timed, not checked: what the atomics cost)
-and a cap of three blocks an SM at every geometry; and two builds of
-K6a (``K6A_VARIANTS``, timed, not checked): its shared atomics as plain
-adds, and its x gathers replaced by a value made from the column. One
-JSON line per tree, after the card's name and power limit.
+and a cap of three blocks an SM at every geometry. One JSON line per
+tree, after the card's name and power limit.
 """
 
 import ctypes
@@ -43,19 +41,6 @@ VARIANTS = {
         "__launch_bounds__(kThreads, W * QP >= 64 ? 3 : 4)",
         "__launch_bounds__(kThreads, 3)"),
 }
-#: K6a's diagnostic builds (timed, not checked): its shared atomics as
-#: plain adds (the sums race), and its x gathers replaced by a value made
-#: from the column (the metadata loads stay)
-K6A_VARIANTS = {
-    "k6a_no_shared_atomics": (
-        ("if (cur < R) atomicAdd(&ytile[cur], acc);",
-         "if (cur < R) ytile[cur] += acc;"),
-        ("if (rl0[m] < R) atomicAdd(&ytile[rl0[m]], p[m]);",
-         "if (rl0[m] < R) ytile[rl0[m]] += p[m];")),
-    "k6a_no_x_gather": (
-        ("a0[m] * __ldg(x + col0[m])",
-         "a0[m] * static_cast<float>(col0[m] & 1)"),),
-}
 
 
 def smoke():
@@ -74,21 +59,17 @@ def within(got, ref, bound) -> bool:
     return bool(((got - ref).abs() <= bound).all())
 
 
-def build_variant(root: str, name: str, old, new=None) -> str:
-    """This tree's ``spmv.cu`` with ``old`` replaced by ``new`` (or each
-    (old, new) pair of ``old``), built into ``build/ab_k6``."""
+def build_variant(root: str, name: str, old: str, new: str) -> str:
     from raft_tpu_torch.ops import _build
 
     src = open(os.path.join(_build.CSRC, "spmv.cu")).read()
-    for o, n in ([(old, new)] if new is not None else old):
-        if o not in src:
-            raise SystemExit(f"ab_k6: variant {name}: text not found")
-        src = src.replace(o, n)
+    if old not in src:
+        raise SystemExit(f"ab_k6: variant {name}: text not found")
     out = os.path.join(root, "build", "ab_k6")
     os.makedirs(out, exist_ok=True)
     cu, so = (os.path.join(out, f"{name}.{e}") for e in ("cu", "so"))
     with open(cu, "w") as f:
-        f.write(src)
+        f.write(src.replace(old, new))
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
                    check=True, capture_output=True)
     return so
@@ -118,15 +99,6 @@ def measure(root: str, variants: bool) -> dict:
     bound = (deg + 2) * 2.0 ** -24 * k6.spmv_tiled_ref(T_abs, x.abs())
     out["K6a_ok"] = within(k6.spmv_tiled(T, x), ref, bound)
     out["K6a_ms"] = cuda_ms(lambda: k6.spmv_tiled(T, x), 20)
-    if variants and hasattr(k6, "SPMV_GEOMETRY"):
-        shipped = _build.load("spmv")
-        for name, pairs in K6A_VARIANTS.items():
-            k6._FNS.clear()
-            _build._libs["spmv"] = ctypes.CDLL(build_variant(root, name,
-                                                             pairs))
-            out[f"{name}_ms"] = cuda_ms(lambda: k6.spmv_tiled(T, x), 20)
-        k6._FNS.clear()
-        _build._libs["spmv"] = shipped
     del x, ref, bound
     for V in (16, 128):
         B = torch.randn((n, V), generator=gen, device="cuda")

@@ -3,7 +3,7 @@
 several checkouts of the port, to compare two commits within one card
 call.
 
-    python3 port_scripts/ab_unpacked.py TREE [TREE ...]
+    python3 port_scripts/ab_unpacked.py [--sweep] TREE [TREE ...]
 
 Each TREE (a directory holding ``raft_tpu_torch``, e.g. this checkout and
 a ``git archive`` of its parent under the git-ignored ``build/``) runs in
@@ -15,7 +15,8 @@ clusters, std 2.0, seed 0; the first 2048 rows as queries) and
 unpacked form (``fused_l2_group_topk``) and its d-chunked form
 (``_dchunk``) timed over 3 launches between two CUDA events after a
 warm-up, at the tree's own segment count and, where the tree takes a
-``segments`` argument, at one segment. Each tree prints one JSON line
+``segments`` argument, at one segment (with ``--sweep``, at 1, 2, 4, 8
+and 16 segments too). Each tree prints one JSON line
 with the times and a digest of the five outputs' bytes; the digests of
 every tree must agree (the split gives the same bits), else the script
 exits 1.
@@ -28,7 +29,7 @@ import subprocess
 import sys
 
 
-def measure(root: str) -> dict:
+def measure(root: str, sweep: bool) -> dict:
     sys.path.insert(0, os.path.abspath(root))
     import inspect
 
@@ -72,18 +73,23 @@ def measure(root: str) -> dict:
         if "segments" in inspect.signature(kern).parameters:
             out[f"{name}_ms_one_segment"] = cuda_ms(
                 lambda: kern(*args, **kw, segments=1))
+            if sweep:
+                out[f"{name}_ms_by_segments"] = {
+                    S: cuda_ms(lambda: kern(*args, **kw, segments=S))
+                    for S in (1, 2, 4, 8, 16)}
         del X, idx, x, args
         torch.cuda.empty_cache()
     return out
 
 
 def main() -> int:
-    trees = sys.argv[1:]
+    sweep = "--sweep" in sys.argv[1:]
+    trees = [a for a in sys.argv[1:] if a != "--sweep"]
     if not trees:
         print(__doc__, file=sys.stderr)
         return 2
     if os.environ.get("AB_UNPACKED_TREE"):
-        print(json.dumps(measure(os.environ["AB_UNPACKED_TREE"])),
+        print(json.dumps(measure(os.environ["AB_UNPACKED_TREE"], sweep)),
               flush=True)
         return 0
     here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -95,7 +101,7 @@ def main() -> int:
     for tree in trees:
         env = dict(os.environ, AB_UNPACKED_TREE=tree)
         proc = subprocess.run([sys.executable, os.path.abspath(__file__),
-                               tree], env=env, capture_output=True,
+                               *sys.argv[1:]], env=env, capture_output=True,
                               text=True)
         sys.stdout.write(proc.stdout)
         if proc.returncode:

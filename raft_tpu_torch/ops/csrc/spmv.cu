@@ -14,8 +14,8 @@
 // x, Y [n_rows, V].
 //
 // Precision. f32 products and f32 sums, in an order that changes from run
-// to run: K6a adds a slot's product (or, where a lane's slots hold a run
-// of equal rows and the run option is on, the run's f32 sum) into a
+// to run: K6a adds the f32 sum of each run of equal rows among a lane's
+// slots (a slot's product where the run is one slot long) into a
 // shared-memory row tile with shared atomics, and a row tile split over
 // several work items reaches y through global atomics; K6b and K6c alike.
 // No contribution array goes through device memory. Every order is a sum
@@ -36,16 +36,15 @@
 //   t, t + 256, ... through the dependent chain perm_rows → value and
 //   column → x, one load of each in flight) ran at a third of HBM's rate.
 //   Now one block takes a work item (≤ 16 chunks of one row tile, the
-//   layout's item table that K6c reads too). A lane owns M (4 or 8)
-//   consecutive slots of one 8-slot scatter row, so its slots are M
-//   consecutive gather slots: one perm_rows read, then the in-tile rows,
-//   values and columns in 16-byte loads (a warp's rows and in-tile rows
-//   coalesced), the gather row and in-tile rows a step ahead; then M
-//   __ldg gathers of x in flight (x is L2-resident: 16 MB at 4M
-//   columns) and one shared atomic a slot (or a run) into an R-float y
-//   tile. An item that holds its whole row tile stores the tile with
-//   plain stores; a split one adds it with global atomics, so y is zeroed
-//   only in the layout's zero_tiles.
+//   layout's item table that K6c reads too). A lane owns one 8-slot
+//   scatter row, so its slots are 8 consecutive gather slots: one
+//   perm_rows read, then the in-tile rows, values and columns in 16-byte
+//   loads (a warp's rows and in-tile rows coalesced), the gather row and
+//   in-tile rows two steps ahead; then 8 __ldg gathers of x in flight (x
+//   is L2-resident: 16 MB at 4M columns) and one shared atomic a run of
+//   equal rows into an R-float y tile. An item that holds its whole row
+//   tile stores the tile with plain stores; a split one adds it with
+//   global atomics, so y is zeroed only in the layout's zero_tiles.
 // - K6b: one block per chunk, x tile and y tile in shared memory. The
 //   layout packs each slot's row and column into one int32 (16 bits each),
 //   so a slot costs 8 bytes, read four slots to a thread with 16-byte
@@ -112,11 +111,15 @@ __device__ __forceinline__ void load_m(float (&v)[M], const float* p) {
   }
 }
 
-// K6a: one block per work item; M slots a lane, RUNS sums a run of equal
-// rows among a lane's slots before its shared atomic, BLOCKS the blocks
-// an SM the registers are capped for (3, 4 or 6).
-template <int M, bool RUNS, int BLOCKS>
-__global__ void __launch_bounds__(kThreads, BLOCKS)
+// K6a: one block per work item; a lane takes one whole 8-slot scatter row
+// (kM slots), sums each run of equal rows among them before its shared
+// atomic, and the registers are capped for kBlocks blocks an SM (chosen on
+// the card, PERF.md §6: fewer slots a lane, no run sums or more blocks an
+// SM were slower, and past 3 blocks the lane's state spills).
+constexpr int kM = 8;
+constexpr int kBlocks = 3;
+
+__global__ void __launch_bounds__(kThreads, kBlocks)
 spmv_item_kernel(const float* __restrict__ vals,
                  const int* __restrict__ col_local,
                  const int* __restrict__ chunk_col_tile,
@@ -127,8 +130,6 @@ spmv_item_kernel(const float* __restrict__ vals,
                  const int* __restrict__ item_split,
                  const float* __restrict__ x, float* __restrict__ y, int E,
                  int C, int R, int zero_row) {
-  static_assert(M == 4 || M == 8, "a lane takes half or all of an 8-slot "
-                "scatter row");
   extern __shared__ float ytile[];
   const int item = blockIdx.x;
   const int c0 = item_chunk0[item];
@@ -136,74 +137,69 @@ spmv_item_kernel(const float* __restrict__ vals,
   for (int r = threadIdx.x; r < R; r += kThreads) ytile[r] = 0.f;
   const int E8 = E >> 3;
   const long long s_end = static_cast<long long>(c1) * E;
-  constexpr long long stride = static_cast<long long>(kThreads) * M;
-  // a lane's slots s .. s + M − 1 lie in one scatter row (pad rows:
-  // perm_rows ≥ zero_row; pad slots: row_local == R); E % 512 == 0, so
-  // they are all inside the item or all past it. Each step's metadata
-  // arrives in two rounds issued ahead of its gathers: the gather row and
-  // in-tile rows two steps ahead, the values and columns one step ahead.
-  auto round1 = [&](long long ss, int& pr, int (&rl)[M]) {
+  constexpr long long stride = static_cast<long long>(kThreads) * kM;
+  // a lane's slots s .. s + 7 are one scatter row (pad rows: perm_rows ≥
+  // zero_row; pad slots: row_local == R), gather slots perm_rows·8 ..
+  // perm_rows·8 + 7; E % 512 == 0, so a warp's rows are all inside the
+  // item or all past it. Each step's metadata arrives in two rounds
+  // issued ahead of its gathers: the gather row and in-tile rows two steps
+  // ahead, the values and columns one step ahead.
+  auto round1 = [&](long long ss, int& pr, int (&rl)[kM]) {
     pr = zero_row;
 #pragma unroll
-    for (int m = 0; m < M; ++m) rl[m] = R;
+    for (int m = 0; m < kM; ++m) rl[m] = R;
     if (ss < s_end) {
       pr = __ldg(perm_rows + (ss >> 3));
-      load_m<M>(rl, row_local + ss);
+      load_m<kM>(rl, row_local + ss);
     }
   };
-  auto round2 = [&](long long ss, int pr, float (&a)[M], int (&col)[M]) {
+  auto round2 = [&](long long ss, int pr, float (&a)[kM], int (&col)[kM]) {
     if (pr < zero_row) {
-      const long long g = static_cast<long long>(pr) * 8 + (ss & 7);
-      load_m<M>(a, vals + g);
-      load_m<M>(col, col_local + g);
+      const long long g = static_cast<long long>(pr) * 8;
+      load_m<kM>(a, vals + g);
+      load_m<kM>(col, col_local + g);
       const int c = __ldg(chunk_col_tile + pr / E8) * C;
 #pragma unroll
-      for (int m = 0; m < M; ++m) col[m] += c;
+      for (int m = 0; m < kM; ++m) col[m] += c;
     }
   };
-  long long s = static_cast<long long>(c0) * E + threadIdx.x * M;
-  int pr0, pr1, rl0[M], rl1[M];
-  float a0[M], a1[M];
-  int col0[M], col1[M];
+  long long s = static_cast<long long>(c0) * E + threadIdx.x * kM;
+  int pr0, pr1, rl0[kM], rl1[kM];
+  float a0[kM], a1[kM];
+  int col0[kM], col1[kM];
   round1(s, pr0, rl0);
   round2(s, pr0, a0, col0);
   round1(s + stride, pr1, rl1);
   __syncthreads();
   for (; s < s_end; s += stride) {
     round2(s + stride, pr1, a1, col1);
-    int pr2, rl2[M];
+    int pr2, rl2[kM];
     round1(s + 2 * stride, pr2, rl2);
     if (pr0 < zero_row) {
-      float p[M];
+      float p[kM];
 #pragma unroll
-      for (int m = 0; m < M; ++m)            // pad slots gather nothing
+      for (int m = 0; m < kM; ++m)            // pad slots gather nothing
         p[m] = rl0[m] < R ? a0[m] * __ldg(x + col0[m]) : 0.f;
-      if constexpr (RUNS) {
-        // neighbours of one row (a bucket keeps its entries' input
-        // order, rows ascending for CSR input) are summed first
-        int cur = rl0[0];
-        float acc = p[0];
+      // neighbours of one row (a bucket keeps its entries' input order,
+      // rows ascending for CSR input) are summed first
+      int cur = rl0[0];
+      float acc = p[0];
 #pragma unroll
-        for (int m = 1; m < M; ++m) {
-          if (rl0[m] == cur) {
-            acc += p[m];
-          } else {
-            if (cur < R) atomicAdd(&ytile[cur], acc);
-            cur = rl0[m];
-            acc = p[m];
-          }
+      for (int m = 1; m < kM; ++m) {
+        if (rl0[m] == cur) {
+          acc += p[m];
+        } else {
+          if (cur < R) atomicAdd(&ytile[cur], acc);
+          cur = rl0[m];
+          acc = p[m];
         }
-        if (cur < R) atomicAdd(&ytile[cur], acc);
-      } else {
-#pragma unroll
-        for (int m = 0; m < M; ++m)
-          if (rl0[m] < R) atomicAdd(&ytile[rl0[m]], p[m]);
       }
+      if (cur < R) atomicAdd(&ytile[cur], acc);
     }
     pr0 = pr1;
     pr1 = pr2;
 #pragma unroll
-    for (int m = 0; m < M; ++m) {
+    for (int m = 0; m < kM; ++m) {
       rl0[m] = rl1[m];
       rl1[m] = rl2[m];
       a0[m] = a1[m];
@@ -554,7 +550,6 @@ int spmm_items_launch(const void* vals, const void* col_local,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int M, bool RUNS, int BLOCKS>
 int spmv_items_launch(const void* vals, const void* col_local,
                       const void* chunk_col_tile, const void* perm_rows,
                       const void* row_local, const void* chunk_row_tile,
@@ -562,9 +557,9 @@ int spmv_items_launch(const void* vals, const void* col_local,
                       const void* x, void* y, int n_items, int E, int C,
                       int R, int zero_row, cudaStream_t stream) {
   const size_t smem = static_cast<size_t>(R) * 4;
-  int e = set_smem(spmv_item_kernel<M, RUNS, BLOCKS>, smem);
+  int e = set_smem(spmv_item_kernel, smem);
   if (e) return e;
-  spmv_item_kernel<M, RUNS, BLOCKS><<<n_items, kThreads, smem, stream>>>(
+  spmv_item_kernel<<<n_items, kThreads, smem, stream>>>(
       static_cast<const float*>(vals), static_cast<const int*>(col_local),
       static_cast<const int*>(chunk_col_tile),
       static_cast<const int*>(perm_rows), static_cast<const int*>(row_local),
@@ -587,8 +582,7 @@ int spmv_items_launch(const void* vals, const void* col_local,
 // item_chunk0 [n_items + 1], item_split [n_items] (sparse/tiled.py:
 // spmm_items); x [n_cols]; y [n_row_tiles·R], zeroed in the row tiles that
 // no item holds whole; zero_row = n_chunks·E/8. vals, col_local and
-// row_local 16-byte aligned, E % 512 == 0. M (4 or 8) slots a lane, runs
-// (0 or 1) and blocks (3, 4 or 6 an SM) pick the instance.
+// row_local 16-byte aligned, E % 512 == 0.
 extern "C" int spmv_tiled_launch(const void* vals, const void* col_local,
                                  const void* chunk_col_tile,
                                  const void* perm_rows, const void* row_local,
@@ -596,22 +590,12 @@ extern "C" int spmv_tiled_launch(const void* vals, const void* col_local,
                                  const void* item_chunk0,
                                  const void* item_split, const void* x,
                                  void* y, int n_items, int E, int C, int R,
-                                 int zero_row, int M, int runs, int blocks,
-                                 void* stream) {
+                                 int zero_row, void* stream) {
   if (n_items <= 0) return 0;
-  const cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define K6A_CASE(m, r, b)                                                  \
-  if (M == m && runs == r && blocks == b)                                  \
-    return spmv_items_launch<m, r, b>(vals, col_local, chunk_col_tile,     \
-                                      perm_rows, row_local, chunk_row_tile, \
-                                      item_chunk0, item_split, x, y,       \
-                                      n_items, E, C, R, zero_row, st);
-  K6A_CASE(8, false, 3) K6A_CASE(8, false, 4) K6A_CASE(8, false, 6)
-  K6A_CASE(8, true, 3) K6A_CASE(8, true, 4) K6A_CASE(8, true, 6)
-  K6A_CASE(4, false, 3) K6A_CASE(4, false, 4) K6A_CASE(4, false, 6)
-  K6A_CASE(4, true, 3) K6A_CASE(4, true, 4) K6A_CASE(4, true, 6)
-#undef K6A_CASE
-  return static_cast<int>(cudaErrorInvalidValue);
+  return spmv_items_launch(vals, col_local, chunk_col_tile, perm_rows,
+                           row_local, chunk_row_tile, item_chunk0, item_split,
+                           x, y, n_items, E, C, R, zero_row,
+                           static_cast<cudaStream_t>(stream));
 }
 
 // K6b. vals, rowcol (row_local << 16 | col_local) [m_chunks·E], both

@@ -306,15 +306,16 @@ def fused_l2_group_topk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
     is no query norm: callers recover d2 as 2·a + ‖x‖². Returns ``(a1,
     id1, a2, id2, a3)``, each [Q, ceil(M/T/g)·128] (ids int32).
 
-    ``segments`` cuts each group's chunks into that many contiguous
-    segments folded apart and merged in segment order (None: as many as
-    fill the card, :func:`group_segments`; 1: one block a group); every
-    count gives the same bits."""
+    On the card, ``segments`` cuts each group's chunks into that many
+    contiguous segments folded apart and merged in segment order (None:
+    as many as fill the card, :func:`group_segments`; 1: one block a
+    group); every count gives the same bits, so the CPU twin ignores
+    it."""
     global LAUNCHES_GROUP
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
     if x.device.type == "cpu":
         return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
-                                       passes=passes, segments=segments)
+                                       passes=passes)
     out = _group(x, y_hi, y_lo, yy_half, T, g, passes, False, segments)
     LAUNCHES_GROUP += 1
     return out
@@ -331,8 +332,7 @@ def fused_l2_group_topk_dchunk(x, y_hi, y_lo, yy_half, *, T: int, g: int,
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
     if x.device.type == "cpu":
         return fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, T=T,
-                                              g=g, passes=passes,
-                                              segments=segments)
+                                              g=g, passes=passes)
     out = _group(x, y_hi, y_lo, yy_half, T, g, passes, True, segments)
     LAUNCHES_GROUP_DCHUNK += 1
     return out
@@ -357,24 +357,20 @@ def _half_scores(x, y_hi, y_lo, yy_half, passes: int):
 
 
 def fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, *, T: int, g: int,
-                            passes: int, segments=None):
+                            passes: int):
     """Plain PyTorch twin of :func:`fused_l2_group_topk`: the twins'
-    contraction, then :func:`_group_fold` (over ``segments`` > 1: the
-    split fold, :func:`_group_fold_split`, which gives the same bits). The
-    kernel's test oracle and the CPU path."""
+    contraction, then :func:`_group_fold`. The kernel's test oracle and
+    the CPU path."""
     _check_group(x, y_hi, y_lo, yy_half, T, passes)
-    c = _half_scores(x, y_hi, y_lo, yy_half, passes)
-    if segments is not None and segments > 1:
-        return _group_fold_split(c, T, g, segments)[0]
-    return _group_fold(c, T, g)
+    return _group_fold(_half_scores(x, y_hi, y_lo, yy_half, passes), T, g)
 
 
 def fused_l2_group_topk_dchunk_ref(x, y_hi, y_lo, yy_half, *, T: int,
-                                   g: int, passes: int, segments=None):
+                                   g: int, passes: int):
     """Plain PyTorch twin of :func:`fused_l2_group_topk_dchunk` (the
     resident form's twin)."""
     return fused_l2_group_topk_ref(x, y_hi, y_lo, yy_half, T=T, g=g,
-                                   passes=passes, segments=segments)
+                                   passes=passes)
 
 
 def _group_geometry(c, T: int, g: int):

@@ -38,10 +38,6 @@ SPMM_SMEM = 64 * 1024
 #: shared memory a block may use on the card (the pair kernel's x and y
 #: tiles, (C + R)·4 bytes)
 BLOCK_SMEM = 232448
-#: K6a's instance: slots a lane (4 or 8), runs of equal rows summed in
-#: registers before their shared atomic, blocks an SM the registers are
-#: capped for (3, 4 or 6); chosen on the card (PERF.md §6)
-SPMV_GEOMETRY = (8, True, 3)
 #: gathered f32 elements one step of a twin may hold (bounds the twins'
 #: scratch at the scale-22 graph's 10⁸ slots)
 _TWIN_ELEMS = 1 << 26
@@ -85,13 +81,12 @@ def spmv_tiled(tiled, x) -> torch.Tensor:
     if tiled.zero_tiles.numel():
         y.view(tiled.n_row_tiles, tiled.R).index_fill_(0, tiled.zero_tiles,
                                                        0.0)
-    M, runs, blocks = SPMV_GEOMETRY
     _launch("spmv_tiled_launch", [
         tiled.vals, tiled.col_local, tiled.chunk_col_tile, tiled.perm_rows,
         tiled.row_local, tiled.chunk_row_tile, tiled.item_chunk0,
         tiled.item_split, x, y],
         [tiled.n_items, tiled.E, tiled.C, tiled.R,
-         tiled.n_chunks * tiled.E // 8, M, int(runs), blocks])
+         tiled.n_chunks * tiled.E // 8])
     LAUNCHES_SPMV += 1
     return y[:tiled.shape[0]]
 

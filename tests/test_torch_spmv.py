@@ -268,14 +268,13 @@ def test_spmm_item_walk_matches_twin_and_reference(V, cap):
     assert np.all(np.abs(Y - _f64(m, B)) <= _bound(m, B))
 
 
-def _k6a_walk(t, x, M=8, runs=False):
+def _k6a_walk(t, x):
     """K6a's schedule in plain numpy: y from an allocation filled with NaN
-    whose ``zero_tiles`` start at 0; each work item's lanes take M
-    consecutive slots of one 8-slot scatter row (one perm_rows read, M
-    consecutive gather slots), pad rows and pad slots add nothing, a run
-    of equal rows among a lane's slots is summed first when ``runs``; the
-    item's R tile is stored when it holds its row tile whole, else
-    added."""
+    whose ``zero_tiles`` start at 0; each work item's lanes take one 8-slot
+    scatter row each (one perm_rows read, 8 consecutive gather slots), pad
+    rows and pad slots add nothing, and a run of equal rows among a lane's
+    slots is summed before it adds; the item's R tile is stored when it
+    holds its row tile whole, else added."""
     R, E, C = t.R, t.E, t.C
     y = np.full(t.n_row_tiles * R, np.nan, np.float32)
     y.reshape(t.n_row_tiles, R)[t.zero_tiles.numpy()] = 0.0
@@ -286,16 +285,16 @@ def _k6a_walk(t, x, M=8, runs=False):
     cct, xs = t.chunk_col_tile.numpy(), np.asarray(x, np.float32)
     for i in range(len(split)):
         tile = np.zeros(R, np.float32)
-        for s in range(ic[i] * E, ic[i + 1] * E, M):
+        for s in range(ic[i] * E, ic[i + 1] * E, 8):
             pr = int(pr_all[s // 8])
             if pr >= zero_row:
                 continue
-            g = pr * 8 + s % 8
-            rl = rl_all[s:s + M]
-            p = vals[g:g + M] * xs[cct[pr // E8] * C + cl[g:g + M]]
+            g = pr * 8
+            rl = rl_all[s:s + 8]
+            p = vals[g:g + 8] * xs[cct[pr // E8] * C + cl[g:g + 8]]
             adds = []
             for r, v in zip(rl.tolist(), p.tolist()):
-                if runs and adds and adds[-1][0] == r:
+                if adds and adds[-1][0] == r:
                     adds[-1][1] = np.float32(adds[-1][1] + np.float32(v))
                 else:
                     adds.append([r, np.float32(v)])
@@ -311,32 +310,30 @@ def _k6a_walk(t, x, M=8, runs=False):
 
 
 @pytest.fixture(scope="module")
-def hub_case():
-    """A power-law matrix (its hub row tiles hold many chunks) with row
-    tiles 2-3 empty, its port layout, and the reference's spmv_tiled
-    (interpret mode) and the f64 product for one x."""
+def hub_matrix():
+    """A power-law matrix (its hub row tiles hold many chunks) with rows
+    128-255 empty (row tiles 2-3 at R = 64), and one x."""
     m = _matrix(600, 500, 0.03, "powerlaw").tolil()
     m[128:256, :] = 0
     m = m.tocsr()
     m.eliminate_zeros()
-    J, T = _both(m)
-    t = tl.prepare_spmv(T, C=128, R=64, E=512)
     x = np.random.default_rng(23).normal(size=500).astype(np.float32)
-    ref = np.asarray(jk.spmv_tiled(jt.tile_csr(J, C=128, R=64, E=512,
-                                               impl="numpy"), x))
-    return m, t, x, ref
+    return m, x
 
 
-@pytest.mark.parametrize("M,runs", [(8, False), (8, True), (4, False),
-                                    (4, True)])
+@pytest.mark.parametrize("C,E", [(128, 512), (256, 512), (128, 1024),
+                                 (512, 1024)])
 @pytest.mark.parametrize("cap", [2, tt.ITEM_CHUNKS])
-def test_spmv_item_walk_matches_twin_and_reference(hub_case, cap, M, runs):
-    """K6a's walk over the work items alone computes A @ x: bit for bit
-    the twin's sum on integer-valued data (every summation order is exact
-    there), and the reference's spmv_tiled and the f64 product within the
-    stated bound; cap 2 splits the hub tiles, whose split items add, and
-    the empty row tiles 2-3 read 0 from a NaN-filled allocation."""
-    m, t, x, ref = hub_case
+def test_spmv_item_walk_matches_twin_and_reference(hub_matrix, cap, C, E):
+    """K6a's walk over the work items alone computes A @ x, at several
+    column tiles C and chunk lengths E: bit for bit the twin's sum on
+    integer-valued data (every summation order is exact there), and the
+    reference's spmv_tiled (interpret mode) and the f64 product within
+    the stated bound; cap 2 splits the hub tiles, whose split items add,
+    and the empty row tiles 2-3 read 0 from a NaN-filled allocation."""
+    m, x = hub_matrix
+    J, T = _both(m)
+    t = tl.prepare_spmv(T, C=C, R=64, E=E)
     t = dataclasses.replace(t, **dict(zip(
         ("item_chunk0", "item_split", "zero_tiles"),
         tt.spmm_items(t.chunk_row_tile, t.n_row_tiles, cap))))
@@ -344,24 +341,34 @@ def test_spmv_item_walk_matches_twin_and_reference(hub_case, cap, M, runs):
     assert {2, 3} <= set(t.zero_tiles.tolist())
     if cap == 2:
         assert int(t.item_split.sum()) > 0
-    r_ = np.random.default_rng(cap + M)
+    r_ = np.random.default_rng(cap + C + E)
     ti = dataclasses.replace(t, vals=torch.from_numpy(r_.integers(
         -4, 5, t.vals.shape).astype(np.float32)))
     xi = r_.integers(-4, 5, 500).astype(np.float32)
-    yw = _k6a_walk(ti, xi, M, runs)
+    yw = _k6a_walk(ti, xi)
     assert torch.equal(yw, k6.spmv_tiled_ref(ti, xi))
     assert torch.equal(yw[128:256], torch.zeros(128))
-    y = _k6a_walk(t, x, M, runs).numpy()
+    y = _k6a_walk(t, x).numpy()
+    ref = np.asarray(jk.spmv_tiled(jt.tile_csr(J, C=C, R=64, E=E,
+                                               impl="numpy"), x))
     tol = _bound(m, x)[:, 0]
     assert np.all(np.abs(y - ref) <= tol)
     assert np.all(np.abs(y - _f64(m, x)[:, 0]) <= tol)
 
 
-def test_spmv_geometry_names_a_kernel_instance():
-    """The shipped K6a instance is one the kernel has (slots a lane 4 or
-    8, a run flag, 3, 4 or 6 blocks an SM)."""
-    M, runs, blocks = k6.SPMV_GEOMETRY
-    assert M in (4, 8) and isinstance(runs, bool) and blocks in (3, 4, 6)
+def test_spmv_item_walk_of_an_empty_matrix_reads_zeros():
+    """A matrix with no entries is laid out as one chunk of pad slots:
+    its one item stores row tile 0 whole (pads add nothing), the other
+    row tiles are zero tiles, so y reads 0 from a NaN-filled allocation,
+    as the twin's product."""
+    m = sp.csr_matrix((300, 200), dtype=np.float32)
+    _, T = _both(m)
+    t = tl.prepare_spmv(T, C=128, R=64, E=512)
+    assert t.item_chunk0.tolist() == [0, 1] and t.item_split.tolist() == [0]
+    assert t.zero_tiles.tolist() == list(range(1, t.n_row_tiles))
+    x = np.ones(200, np.float32)
+    assert torch.equal(_k6a_walk(t, x), torch.zeros(300))
+    assert torch.equal(k6.spmv_tiled(t, x), torch.zeros(300))
 
 
 def test_pair_envelope_limits_the_kernel_not_the_twin():

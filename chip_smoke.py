@@ -6,11 +6,17 @@
 Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Device and build: the card's name and power limit, then every CUDA
-   kernel of the port built from the sources in this checkout.
-2. K1 against its plain PyTorch twin on the card, at Q=512 × M=131072 ×
-   d=128 for passes {1, 3} × pair {False, True}; then K2 (K1 over an int8
-   database) against its twin at Q=256 × 4 groups of 16 × 2048 rows × 128,
-   the same four modes: values (code bits cleared) within the f32
+   kernel of the port built from the sources in this checkout; every
+   instance of the packed wgmma kernel (K1, K2) must build without a
+   spill (``ptxas_packed``), and its fold's SASS instructions a score are
+   counted (``sass_fold_ops``).
+2. K1 against its plain PyTorch twin on the card, at d = 128 and d = 512
+   (the resident envelope's edge), Q=500 (not a whole number of the
+   kernel's 128-query blocks) × M = 65 tiles of 2048 rows (a partial last
+   group) with a padded tail, for passes {1, 3} × pair {False, True};
+   then K2 (K1 over an int8 database) against its twin at Q=300 × 4
+   groups of 16 × 2048 rows at both widths, the same four modes
+   (``k1_k2_twins``): values (code bits cleared) within the f32
    summation bound (d + 2)·2⁻²⁴·Σ|x||ŷ| plus the norm terms' roundings and
    two units of the packing truncation; a slot's code may differ only
    where the two rows it names score within that bound (a tie, proven in
@@ -19,7 +25,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    three index rows (K2: in the rows' half-norm carrier) and a −inf
    carrier in chunk 0: every slot is NaN, +inf or −inf exactly where the
    twin's is (the merge's min/max propagate NaN), and the finite slots
-   hold the bound above, taken over the finite rows. Then K1's slot forms
+   hold the bound above, taken over the finite rows (Q=500). Then K1's slot forms
    (``nonfinite_slot``) with the same planted rows, a −inf norm and a
    padded tail: the resident form at passes 1/3 × mask × track, the
    d-chunked form at d = 768, held by ``compare_slot`` (m1 and m2min
@@ -231,7 +237,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    forms, K6b and K6c against their times recorded from earlier full runs
    (``GUARD_MS``), failing where one is more than 10% slower on the card
    they were recorded on and naming those more than 5% slower. The wall
-   seconds of each phase (``phase_s``). A JSON ``kernels`` line, ``nonfinite_k1_k2``
+   seconds of each phase (``phase_s``). A JSON ``kernels`` line (K1's
+   and K2's rows also carry each instance's ptxas registers and spill
+   bytes and ``fold_issue_ms``, the fold's SASS issue time, which
+   ``bound_ms`` leaves out), ``nonfinite_k1_k2``
    (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
    ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
@@ -295,6 +304,80 @@ def ptxas_report(name: str, log: str):
             kernel = line.split("'")[1] if "'" in line else line.strip()
         elif "registers" in line or "spill" in line:
             print(f"ptxas {name} {kernel}: {line.strip()}", flush=True)
+
+
+#: SASS opcodes of the packed fold: the score's adds (FADD), K2's scale
+#: (FMUL), the pack (LOP3), the min/max network (FMNMX) and pair's code
+#: select (FSETP, SEL)
+FOLD_OPCODES = ("FADD", "FMUL", "LOP3", "FMNMX", "FSETP", "SEL", "FSEL")
+#: FP32/ALU instructions the card issues a second (132 SMs × 128 lanes ×
+#: 1.98 GHz: the 67 TFLOP/s FP32 peak over 2)
+H100_ISSUE_PER_S = 33.45e12
+
+
+def sass_fold_ops(lib: str = "fused_l2_packed_sm90") -> dict:
+    """Per instance of the packed kernel (``p{passes}`` + ``_pair`` +
+    ``_q8``): the SASS instructions of the fold's opcodes
+    (``FOLD_OPCODES``, from ``cuobjdump -sass`` of the built library) over
+    the scores its unrolled chunk pair folds a thread (2 × 32), and the
+    FMNMX count. The count takes every such instruction of the kernel,
+    so the prologue's and the producer's few are in it: an upper
+    estimate of the fold's issue a score."""
+    import re
+    import shutil
+
+    from raft_tpu_torch.ops import _build
+
+    tool = shutil.which("cuobjdump") or "/usr/local/cuda/bin/cuobjdump"
+    out = subprocess.run([tool, "-sass", _build.library_path(lib)],
+                         capture_output=True, text=True, timeout=300)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr[-2000:]}")
+    res, name, counts = {}, None, None
+    for line in out.stdout.splitlines() + ["Function : end"]:
+        if "Function :" in line:
+            if name is not None:
+                res[name] = {"per_score": sum(
+                    counts[o] for o in FOLD_OPCODES) / 64.0,
+                    "fmnmx": counts["FMNMX"]}
+            m = re.search(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E", line)
+            name = (f"p{m.group(1)}{'_pair' if m.group(2) == '1' else ''}"
+                    f"{'_q8' if m.group(3) == '1' else ''}") if m else None
+            counts = {o: 0 for o in FOLD_OPCODES}
+        elif name is not None:
+            m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
+                          line)
+            if m and m.group(1) in counts:
+                counts[m.group(1)] += 1
+    return res
+
+
+def fold_issue_ms(per_score: float, Q: int, M: int) -> float:
+    """The fold's issue time for Q·M scores at ``per_score`` SASS
+    instructions each: a floor beside ``bound_ms``, not part of it."""
+    return 1e3 * per_score * Q * M / H100_ISSUE_PER_S
+
+
+def ptxas_packed(log: str) -> dict:
+    """Registers and spill bytes of each instance of the packed kernel
+    (``p{passes}`` + ``_pair`` + ``_q8``) from ``nvcc -Xptxas=-v``'s
+    report. The registers are the launch's (384 threads); setmaxnreg then
+    gives the consumer warpgroups 232 and the producer 40."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        m = re.search(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E", line)
+        if "Compiling entry function" in line and m:
+            name = (f"p{m.group(1)}{'_pair' if m.group(2) == '1' else ''}"
+                    f"{'_q8' if m.group(3) == '1' else ''}")
+            out[name] = {}
+        elif name is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name is not None and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+    return out
 
 
 def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
@@ -2575,7 +2658,72 @@ WIDE_SHAPE = (1_000_000, 960, 1000, 100)
 UNPACKED_T, UNPACKED_G = 512, 4096
 
 
-def nonfinite_k1_k2(gen, Q: int = 512, M: int = 131072, d: int = 128,
+def k1_k2_twins(gen, d: int, Q: int = 500, tiles: int = 65, Q2: int = 300,
+                groups: int = 4, T: int = 2048, g: int = 16, pbits: int = 8):
+    """Phase 2's first half at one width d: K1 against its twin at Q
+    queries (not a whole number of the kernel's 128-query blocks) ×
+    ``tiles``·T rows (a partial last group) with a padded tail of 100
+    rows, passes {1, 3} × pair {False, True} (``compare_k1``); then K2 at
+    Q2 × ``groups`` whole groups of int8 rows, quantized as
+    prepare_knn_index(db_dtype="int8") does, with a padded tail, the same
+    four modes (``compare_k2``). Each launch must be counted. Returns
+    {tag: max abs error}."""
+    import torch
+    from raft_tpu_torch.distance.knn_fused import _prepare_ops_q8
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    out_errs = {}
+    M = tiles * T
+    x = torch.randn(Q, d, device="cuda", generator=gen)
+    y = torch.randn(M, d, device="cuda", generator=gen)
+    y_hi, y_lo = k1.split_hi_lo(y)
+    yyh = 0.5 * (y * y).sum(1)
+    yyh[-100:] = k1._PACK_PAD                      # a padded tail
+    xxh = 0.5 * (x * x).sum(1)
+    for passes in (1, 3):
+        for pair in (False, True):
+            n0 = k1.LAUNCHES
+            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
+                      xxh=xxh)
+            out = k1.fused_l2_group_topk_packed(x, y_hi, y_lo, yyh, **kw)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES == n0 + 1, "K1 launch was not counted")
+            ref = k1.fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yyh,
+                                                    **kw)
+            err = compare_k1(out, ref, x, y_hi, pbits, pair)
+            tag = f"K1 d={d} p{passes} pair={pair}"
+            out_errs[tag] = err
+            print(f"K1 vs twin Q={Q} M={M} d={d} passes={passes} "
+                  f"pair={pair}: max_abs_err={err}", flush=True)
+    del x, y, y_hi, y_lo, yyh, xxh, out, ref
+    x = torch.randn(Q2, d, device="cuda", generator=gen)
+    y = 2.0 * torch.randn(groups * g * T, d, device="cuda",
+                          generator=gen) + 0.5
+    _, y_q, scales, yyh, _, _ = _prepare_ops_q8(y, T, g, "l2")
+    yyh[-100:] = k1._PACK_PAD
+    xxh = 0.5 * (x * x).sum(1)
+    for passes in (1, 3):
+        for pair in (False, True):
+            n0 = k1.LAUNCHES_Q8
+            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
+                      xxh=xxh)
+            out = k1.fused_l2_group_topk_packed_q8(x, y_q, yyh, scales, **kw)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES_Q8 == n0 + 1, "K2 launch was not counted")
+            ref = k1.fused_l2_group_topk_packed_q8_ref(x, y_q, yyh, scales,
+                                                       **kw)
+            err, n_diff = compare_k2(out, ref, x, y_q, scales, yyh, xxh, T,
+                                     g, passes, pbits, pair)
+            out_errs[f"K2 d={d} p{passes} pair={pair}"] = err
+            print(f"K2 vs twin Q={Q2} M={y_q.shape[0]} d={d} "
+                  f"passes={passes} pair={pair}: max_abs_err={err} "
+                  f"tie_slots={n_diff}", flush=True)
+    del x, y, y_q, scales, yyh, xxh, out, ref
+    torch.cuda.empty_cache()
+    return out_errs
+
+
+def nonfinite_k1_k2(gen, Q: int = 500, M: int = 131072, d: int = 128,
                     T: int = 2048, g: int = 16, pbits: int = 8):
     """Phase 2's second half: K1 and K2 against their twins with +inf,
     −inf and NaN planted in query rows and index rows (K2: in the rows'
@@ -3197,7 +3345,8 @@ def nonfinite_slot(gen, Q: int = 512, M: int = 131072, d: int = 128,
 def k1_ladder(idx1, idx3, Qx, reps: int = 10):
     """The reference's K1 stage ladder (``benchmarks/profile_fused.py:
     146-165``) on the main path's operands: packed K1 at p1 (pair, the
-    path's own launch) and p3, the unpacked group form at T = 2048 (p1,
+    path's own launch) and p3 (the wgmma kernel since its redesign, beside
+    the mma.sync forms below), the unpacked group form at T = 2048 (p1,
     p3), the slot form at T = 2048 (p1, p3) and its min-only fold
     (track=False, p1), each timed by CUDA events beside its bound and
     ``torch.matmul`` in bf16 of the same [Q, d] × [d, M]. First, outside
@@ -3284,6 +3433,10 @@ def k1_ladder(idx1, idx3, Qx, reps: int = 10):
     torch.cuda.empty_cache()
     report = {"shape": [nq, M, d], "T": T, "g": idx1.g, "rows": ladder,
               "held": held, "slot_launches": launches,
+              "note": "kernel_pck_* is the wgmma + TMA packed kernel "
+                      "(fused_l2_packed_sm90.cu); kernel_grp_* and "
+                      "kernel_slot_* are the mma.sync kernel "
+                      "(fused_l2_topk.cu)",
               "split_p1_ms": {
                   "contraction_and_min_fold":
                       ladder["kernel_slot_minonly"]["ms"],
@@ -3538,7 +3691,7 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
 #: line; a parent build timed in the same call (``port_scripts/ab_*.py``)
 #: is the finer comparison.
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
-GUARD_MS = {"K1_p1": 4.302, "K1_p3": 6.765, "K2_p1": 5.821, "K2_p3": 6.392,
+GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.907, "K2_p3": 3.394,
             "slot_p1": 4.173, "slot_p3": 6.390, "slot_minonly": 3.750,
             "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538}
 GUARD_SLACK = 1.10
@@ -3612,7 +3765,8 @@ def main() -> int:
           f"{torch.cuda.device_count()} visible; torch {torch.__version__}, "
           f"CUDA {torch.version.cuda})", flush=True)
     t0 = time.perf_counter()
-    _build.build_all(["fused_l2_topk", "fine_scan", "pq_scan", "spmv",
+    _build.build_all(["fused_l2_packed_sm90", "fused_l2_topk", "fine_scan",
+                      "pq_scan", "spmv",
                       "sddmm", "unexpanded", "histogram", "select_slotted"])
     k1._launcher()
     k1._launcher_q8()
@@ -3631,59 +3785,26 @@ def main() -> int:
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
         ptxas_report(name, log)
+    # the packed kernel (K1, K2): every instance built without a spill; its
+    # fold's SASS instructions a score (fold_issue_ms beside bound_ms)
+    packed_regs = ptxas_packed(_build.BUILD_LOG.get("fused_l2_packed_sm90",
+                                                    ""))
+    if "fused_l2_packed_sm90" in _build.BUILD_LOG:   # (not when reloaded)
+        check(len(packed_regs) == 8 and all(
+            r.get("spill_bytes") == 0 for r in packed_regs.values()),
+            f"the packed kernel's instances spill or are missing: "
+            f"{packed_regs}")
+    fold_ops = sass_fold_ops()
+    print(json.dumps({"packed_ptxas": packed_regs,
+                      "packed_sass_fold_ops": fold_ops}), flush=True)
     phase_end("build")
 
-    # ---- phase 2: K1 against its twin ----
+    # ---- phase 2: K1 and K2 against their twins ----
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
-    Q, M, d, T, g, pbits = 512, 131072, 128, 2048, 16, 8
-    x = torch.randn(Q, d, device="cuda", generator=gen)
-    y = torch.randn(M, d, device="cuda", generator=gen)
-    y_hi, y_lo = k1.split_hi_lo(y)
-    yyh = 0.5 * (y * y).sum(1)
-    yyh[-100:] = k1._PACK_PAD                      # a padded tail
-    xxh = 0.5 * (x * x).sum(1)
-    for passes in (1, 3):
-        for pair in (False, True):
-            n0 = k1.LAUNCHES
-            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
-                      xxh=xxh)
-            out = k1.fused_l2_group_topk_packed(x, y_hi, y_lo, yyh, **kw)
-            torch.cuda.synchronize()
-            check(k1.LAUNCHES == n0 + 1, "K1 launch was not counted")
-            ref = k1.fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yyh,
-                                                    **kw)
-            err = compare_k1(out, ref, x, y_hi, pbits, pair)
-            print(f"K1 vs twin Q={Q} M={M} d={d} passes={passes} "
-                  f"pair={pair}: max_abs_err={err}", flush=True)
-    del x, y, y_hi, y_lo, yyh, xxh, out, ref
-
-    # K2 against its twin: 4 whole groups of int8 rows, quantized as
-    # prepare_knn_index(db_dtype="int8") does, with a padded tail
-    from raft_tpu_torch.distance.knn_fused import _prepare_ops_q8
-
-    Q2 = 256
-    x = torch.randn(Q2, d, device="cuda", generator=gen)
-    y = 2.0 * torch.randn(4 * g * T, d, device="cuda", generator=gen) + 0.5
-    _, y_q, scales, yyh, _, _ = _prepare_ops_q8(y, T, g, "l2")
-    yyh[-100:] = k1._PACK_PAD
-    xxh = 0.5 * (x * x).sum(1)
-    for passes in (1, 3):
-        for pair in (False, True):
-            n0 = k1.LAUNCHES_Q8
-            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
-                      xxh=xxh)
-            out = k1.fused_l2_group_topk_packed_q8(x, y_q, yyh, scales, **kw)
-            torch.cuda.synchronize()
-            check(k1.LAUNCHES_Q8 == n0 + 1, "K2 launch was not counted")
-            ref = k1.fused_l2_group_topk_packed_q8_ref(x, y_q, yyh, scales,
-                                                       **kw)
-            err, n_diff = compare_k2(out, ref, x, y_q, scales, yyh, xxh, T,
-                                     g, passes, pbits, pair)
-            print(f"K2 vs twin Q={Q2} M={y_q.shape[0]} d={d} "
-                  f"passes={passes} pair={pair}: max_abs_err={err} "
-                  f"tie_slots={n_diff}", flush=True)
-    del x, y, y_q, scales, yyh, xxh, out, ref
+    twins = {}
+    for d_twin in (128, 512):
+        twins.update(k1_k2_twins(gen, d=d_twin))
     # K1 and K2 once more, with ±inf and NaN planted; then K1's slot forms
     nonfinite = nonfinite_k1_k2(gen)
     nonfinite.update(nonfinite_slot(gen))
@@ -3775,12 +3896,17 @@ def main() -> int:
                                       S, index.passes)
         xb, yb = xq.to(torch.bfloat16), index.y_hi
         library_ms = cuda_ms(lambda: torch.matmul(xb, yb.T), 10)
+        inst = f"p{index.passes}{'_pair' if pair else ''}"
         row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": bound_by, "library_ms": library_ms,
-               "max_abs_err": err}
+               "max_abs_err": err,
+               "fold_issue_ms": fold_issue_ms(
+                   fold_ops[inst]["per_score"], N_QUERIES, Mi),
+               "ptxas": packed_regs.get(inst)}
         if index.passes == 1:
             entry = {"name": "fused_l2_group_topk_packed", "route": "cuda",
-                     "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+                     "source": "raft_tpu_torch/ops/csrc/"
+                               "fused_l2_packed_sm90.cu",
                      "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1269",
                      "launches": sum(launches[n] for n in ("p1", "p3",
                                                            "p1_f32")),
@@ -3816,14 +3942,18 @@ def main() -> int:
         xb, qb = xq.to(torch.bfloat16), index.y_q.to(torch.bfloat16)
         lib_ms = cuda_ms(lambda: torch.matmul(xb, qb.T), 10)
         del qb
+        inst = f"p{index.passes}{'_pair' if pair else ''}_q8"
         row = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
                "bound_by": bound_by, "library_ms": lib_ms,
                "max_abs_err": err, "tie_slots": n_diff,
-               "launches_per_batch": launches[f"int8_p{index.passes}"]}
+               "launches_per_batch": launches[f"int8_p{index.passes}"],
+               "fold_issue_ms": fold_issue_ms(
+                   fold_ops[inst]["per_score"], N_QUERIES, M8),
+               "ptxas": packed_regs.get(inst)}
         if index.passes == 1:
             k2_entry = {
                 "name": "fused_l2_group_topk_packed_q8", "route": "cuda",
-                "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+                "source": "raft_tpu_torch/ops/csrc/fused_l2_packed_sm90.cu",
                 "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1465",
                 "launches": launches["int8_p1"] + launches["int8_p3"],
                 **row, "library_note": MATMUL_NOTE}

@@ -7,8 +7,9 @@ checkouts of the port, to compare two commits within one card call.
 Each TREE (a directory holding ``raft_tpu_torch``, e.g. this checkout and
 a ``git archive`` of its parent under the git-ignored ``build/``) runs in
 its own process, in the order given (run parent, change, change, parent),
-and builds its own ``fused_l2_topk.cu``: make_blobs 1,000,000 × 128 (64
-clusters, std 2.0), the first 2048 rows as queries, the bf16 and int8
+and builds its own kernels (``fused_l2_packed_sm90.cu`` for K1 and K2
+where the tree has it, else ``fused_l2_topk.cu``): make_blobs 1,000,000 ×
+128 (64 clusters, std 2.0), the first 2048 rows as queries, the bf16 and int8
 indexes at passes 1 and 3, then the mean of 20 back-to-back launches of
 K1 and K2 between two CUDA events (pair at passes=1, as knn_fused runs
 them) and the host-clock median of 10 ``distance.knn`` calls at passes 1.

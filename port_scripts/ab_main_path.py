@@ -8,10 +8,12 @@ Each TREE (a directory holding ``raft_tpu_torch``, e.g. this checkout and
 a ``git archive`` of its parent) runs in its own process, in the order
 given (run parent, change, change, parent): make_blobs 1,000,000 × 128
 (64 clusters, std 2.0), the first 2048 rows as queries, ``distance.knn``
-at passes 1 and 3 (k=64), two warm-up calls, then the median, min and max
+(k=64) at passes 1 and 3, at passes 1 with ``certify="f32"`` (the exact
+fixup of every query) and over the int8 index at passes 1 (K2 and its
+fixup), two warm-up calls each, then the median, min and max
 of 10 host-clock calls, and the mean of 10 back-to-back calls between two
 CUDA events. Prints one JSON line per tree. ``--profile`` adds, per
-pass, one torch.profiler trace of a call: the number of aten calls, the
+run, one torch.profiler trace of a call: the number of aten calls, the
 host time of the call and the ten ops with the most host time.
 """
 
@@ -54,30 +56,37 @@ def measure(root: str, with_profile: bool = False) -> dict:
                       cluster_std=2.0)
     Qx = X[:2048].clone()
     out = {"tree": root}
-    for p in (1, 3):
-        idx = distance.prepare_knn_index(X, passes=p)
+    runs = (("p1", 1, "bf16", "kernel"), ("p3", 3, "bf16", "kernel"),
+            ("p1_f32", 1, "bf16", "f32"), ("int8_p1", 1, "int8", "kernel"))
+    idx = None
+    for name, p, db, certify in runs:
+        if idx is None or (idx.passes, idx.db_dtype) != (p, db):
+            idx = None          # free the previous index first
+            idx = distance.prepare_knn_index(X, passes=p, db_dtype=db)
+
+        def call():
+            return distance.knn(res, idx, Qx, k=64, certify=certify)
         for _ in range(2):
-            distance.knn(res, idx, Qx, k=64)
+            call()
         t = []
         for _ in range(10):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
-            distance.knn(res, idx, Qx, k=64)
+            call()
             torch.cuda.synchronize()
             t.append(1e3 * (time.perf_counter() - t0))
         start = torch.cuda.Event(enable_timing=True)
         stop = torch.cuda.Event(enable_timing=True)
         start.record()
         for _ in range(10):
-            distance.knn(res, idx, Qx, k=64)
+            call()
         stop.record()
         torch.cuda.synchronize()
-        out[f"p{p}"] = {"median_ms": statistics.median(t), "min_ms": min(t),
-                        "max_ms": max(t),
-                        "events_ms": start.elapsed_time(stop) / 10}
+        out[name] = {"median_ms": statistics.median(t), "min_ms": min(t),
+                     "max_ms": max(t),
+                     "events_ms": start.elapsed_time(stop) / 10}
         if with_profile:
-            out[f"p{p}"]["profile"] = host_profile(
-                lambda: distance.knn(res, idx, Qx, k=64))
+            out[name]["profile"] = host_profile(call)
     return out
 
 

@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """A short first check of K1 and K2 on one CUDA card, before a full
-``chip_smoke.py`` run: builds ``fused_l2_topk.cu``, holds K1 (Q=512 ×
+``chip_smoke.py`` run: builds ``fused_l2_packed_sm90.cu`` (K1's packed
+form and K2) and ``fused_l2_topk.cu``, holds K1 (Q=512 ×
 M=131072 × 128) and K2 (Q=256 × 4 groups of 16 × 2048 rows × 128) against
 their twins at passes 1/3 × pair off/on and times each (CUDA events, mean
 of 5), runs int8 ``knn_fused`` at passes 1 and 3 over 262,144 × 128 blobs
@@ -36,7 +37,7 @@ def main() -> int:
     print(cs.gpu_name_power(), torch.__version__, torch.version.cuda,
           flush=True)
     t0 = time.time()
-    _build.build_all(["fused_l2_topk"])
+    _build.build_all(["fused_l2_packed_sm90", "fused_l2_topk"])
     print(f"build: {time.time() - t0:.1f} s", flush=True)
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)

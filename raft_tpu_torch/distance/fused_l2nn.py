@@ -23,6 +23,7 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.kvp import KeyValuePair
 from raft_tpu_torch.core.resources import as_f32, ensure_resources
+from raft_tpu_torch.matrix.select_k_slotted import lax_top_k
 
 _INT32_MAX = 2 ** 31 - 1
 
@@ -96,11 +97,14 @@ def fused_l2_nn(res, x, y, sqrt: bool = False) -> KeyValuePair:
 
 
 def _merge_topk(best_v, best_i, tile_v, tile_i, k: int, select_min: bool):
-    """Merge a running top-k with a new tile and reselect."""
+    """Merge a running top-k with a new tile and reselect in
+    ``jax.lax.top_k``'s order (the reference's ``_xla_select_k``): ties go
+    to the lower position, and the running best sits before the tile, so
+    an exact tie keeps the lower id."""
     allv = torch.cat([best_v, tile_v], dim=1)
     alli = torch.cat([best_i, tile_i], dim=1)
-    v, pos = torch.topk(allv, k, dim=1, largest=not select_min, sorted=True)
-    return v, torch.gather(alli, 1, pos)
+    v, pos = lax_top_k(-allv if select_min else allv, k)
+    return (-v if select_min else v), torch.gather(alli, 1, pos)
 
 
 def _knn_sweep(x_sq, x, y_padded, m_real: int, k: int, tile: int):

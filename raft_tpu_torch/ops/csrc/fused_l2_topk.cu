@@ -1,27 +1,20 @@
-// Fused expanded-L2 contraction + packed group top-2 / 3rd-min fold (K1,
-// and its int8-database form K2) for Hopper (sm_90a), bound to Python
-// through plain C entry points.
+// K1's wide-feature, unpacked and slot forms for Hopper (sm_90a): the
+// fused expanded-L2 contraction and a group or slot fold, one mma.sync
+// kernel templated on the form, bound to Python through plain C entry
+// points. (K1's resident packed form and its int8 form K2 are the wgmma
+// kernel of fused_l2_packed_sm90.cu.)
 //
-// Replaces raft_tpu/ops/fused_l2_topk_pallas.py:fused_l2_group_topk_packed
-// (and its database-major forms _packed_db / _packed_dbuf, which compute
-// the same outputs in another TPU grid order) — K1 —, its wide-feature
+// Replaces raft_tpu/ops/fused_l2_topk_pallas.py's wide-feature packed
 // form fused_l2_group_topk_packed_dchunk (:1294), the unpacked forms
-// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254),
-// fused_l2_group_topk_packed_db_q8 / _dbuf_q8 — K2 —, and K1's first,
-// per-slot forms fused_l2_slot_topk (:406) and fused_l2_slot_topk_dchunk
-// (:474).
+// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254), and
+// K1's first, per-slot forms fused_l2_slot_topk (:406) and
+// fused_l2_slot_topk_dchunk (:474).
 //
 // What it computes. For every query q and database row n (rows padded to
 // whole tiles of T; padded rows carry the finite 2^125 sentinel in yyh):
 //     c[q, n] = (yyh[n] - x[q]·y[n]) + xxh[q]            (= d2/2 for l2)
 // with x·y a bf16 contraction accumulated in f32: passes=1 is
 // bf16(x)·y_hi; passes=3 adds bf16(x)·y_lo + bf16(x - bf16(x))·y_hi.
-// K2 streams int8 codes q8 instead, one symmetric scale per group G:
-//     c[q, n] = (yyh[n] - scale[G]·(bf16(x)·q8[n] (+ bf16(x - bf16(x))·q8[n]
-//               at passes=3))) + xxh[q]
-// The codes (|q| <= 127) are exact in bf16, so there is no y_lo; the
-// scale multiplies the whole f32 d-sum once (never per element), and yyh
-// holds the dequantized rows' half-norms, so c is d2(x, ŷ)/2.
 // A bucket is (lane = n % 128, group of g consecutive tiles); group G owns
 // output columns [G·128, (G+1)·128). Row n sits in chunk
 // (n - G·g·T) / 128 of its group, and its code is that chunk index
@@ -31,9 +24,7 @@
 // order: a1 ≤ a2 are the bucket's two smallest packed values, a3 the
 // third smallest. With `pair` (knn_fused sets it at passes=1) chunks 2i
 // and 2i+1 are first min-combined: the loser goes straight into a3 and
-// the winner carries code 2i (+1 when it came from the odd chunk). K2's
-// outputs have K1's layout bit for bit, so the decode and the
-// certificate downstream are the same.
+// the winner carries code 2i (+1 when it came from the odd chunk).
 //
 // NaN. The min/max of the merge and of the pair step propagate NaN
 // (PTX min.NaN / max.NaN), as the reference's jnp.minimum/jnp.maximum
@@ -78,17 +69,12 @@
 // tensor cores accumulate in f32 — the arithmetic the certificate's error
 // bounds (knn_fused._err_bound_coeff / _err_bound_coeff_p1) are written
 // for. TF32 would keep only 10 mantissa bits of each f32 factor and is
-// not used anywhere here. K2 does not use the int8 tensor cores
-// (mma.sync m16n8k32.s8): they need the query quantized too, which is
-// another score function, one the certificate's error bounds
-// (_err_bound_coeff*, widened by the quantization bound Eq of the rows
-// only) do not cover. Its codes are widened to bf16 in shared memory and
-// run through K1's bf16 mma.sync.
+// not used anywhere here.
 //
 // Bound on this card. At the main path's shape (2048 queries × ~1M rows ×
-// 128) K1 does 2·Q·M·d = 5.3e11 bf16 FLOP at passes=1 (×3 at passes=3;
-// K2 ×2) against 0.26 GB (×2) of y (K2: 0.13 GB) and 0.1 GB of outputs:
-// both are bound by the tensor cores, not by HBM. The slot forms write
+// 128) K1 does 2·Q·M·d = 5.3e11 bf16 FLOP at passes=1 (×3 at passes=3)
+// against 0.26 GB (×2) of y and 0.1 GB of outputs: bound by the tensor
+// cores, not by HBM. The slot forms write
 // 8 bytes a slot: 1.03 GB at that shape, 0.31 ms at 3.35 TB/s against the
 // products' 0.531 ms (passes=1), so they are bound by the tensor cores too.
 //
@@ -103,11 +89,9 @@
 // (query, lane) pairs for every chunk, so the fold state lives in
 // registers and the distance tile never leaves the SM. Blocks of one
 // group run side by side (query block is the fast grid index), so the
-// group's rows are read from HBM about once and re-read from L2. K2's
-// ring holds int8 slices (half of bf16's bytes); each slice is widened
-// into one bf16 slice in shared memory (exact) before ldmatrix, and the
-// group's scale is read once per block. wgmma, TMA and a persistent
-// schedule are later work.
+// group's rows are read from HBM about once and re-read from L2. wgmma,
+// TMA and a persistent schedule (fused_l2_packed_sm90.cu's mainloop) are
+// later work for these forms.
 //
 // Wide features (the _dchunk forms, d > 512). The resident query block
 // is 64·(d + 8)·2 bytes per bf16 array: at d = 960 and passes=3 that is
@@ -133,8 +117,6 @@ constexpr int kThreads = 256;   // 8 warps: 4 (queries) × 2 (lanes)
 constexpr int kKS = 128;        // features per staged slice
 constexpr int kYStride = kKS + 8;   // bf16 row stride of a y slice (+16 B
                                     // so ldmatrix rows hit distinct banks)
-constexpr int kQStride = kKS + 16;  // byte row stride of an int8 slice
-constexpr int kQStage = kLanes * kQStride;   // bytes of one int8 stage
 constexpr float kPackPad = 4.2535295865117308e37f;   // 2^125
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -248,8 +230,6 @@ struct Args {
   const __nv_bfloat16* x_lo;          //  Qp = Q rounded up to kBQ)
   const __nv_bfloat16* y_hi;
   const __nv_bfloat16* y_lo;
-  const int8_t* y_q;
-  const float* scale;
   const float* yyh;
   const float* xxh;
   float* a1;
@@ -262,32 +242,28 @@ struct Args {
   int m_real;                         // slot forms: rows ≥ m_real are pads
 };
 
-// One kernel for every form: PASSES 1/3; PAIR pre-reduction; Q8 (K2,
-// int8 slices); XS (x streamed through the ring: the _dchunk forms); FOLD
-// (see Fold); MASK (slot forms: rows ≥ m_real score +inf).
-template <int PASSES, bool PAIR, bool Q8, bool XS, int FOLD, bool MASK>
+// One kernel for every form: PASSES 1/3; PAIR pre-reduction; XS (x
+// streamed through the ring: the _dchunk forms); FOLD (see Fold); MASK
+// (slot forms: rows ≥ m_real score +inf).
+template <int PASSES, bool PAIR, bool XS, int FOLD, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_l2_group_topk_kernel(const Args p, int n_stages) {
   constexpr bool PACKED = FOLD == kPacked;
   constexpr bool SLOT = FOLD == kSlot || FOLD == kSlotMin;
-  static_assert(!(Q8 && XS) && !(Q8 && !PACKED) && !(PAIR && !PACKED) &&
-                    !(MASK && !SLOT),
+  static_assert(!(PAIR && !PACKED) && !(MASK && !SLOT),
                 "no such form");
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = p.d;
   const int xstride = d + 8;
   constexpr int x_arrays = PASSES == 3 ? 2 : 1;
-  // bf16 ring (K1: y_hi, and y_lo at passes=3, then for XS the x
-  // slices) or, for K2, one widened bf16 slice followed by the int8 ring
-  constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
+  // bf16 ring: y_hi, and y_lo at passes=3, then for XS the x slices
+  constexpr int y_arrays = x_arrays;
   constexpr int y_elems = y_arrays * kLanes * kYStride;
   constexpr int stage_elems = y_elems + (XS ? x_arrays * kBQ * kYStride : 0);
   __nv_bfloat16* xs_hi = reinterpret_cast<__nv_bfloat16*>(smem);
   __nv_bfloat16* xs_lo = xs_hi + kBQ * xstride;            // PASSES == 3
   __nv_bfloat16* ys = XS ? xs_hi : xs_hi + x_arrays * kBQ * xstride;
-  int8_t* qring = reinterpret_cast<int8_t*>(ys + kLanes * kYStride);
-  float* yyh_s = Q8 ? reinterpret_cast<float*>(qring + n_stages * kQStage)
-                    : reinterpret_cast<float*>(ys + n_stages * stage_elems);
+  float* yyh_s = reinterpret_cast<float*>(ys + n_stages * stage_elems);
 
   const int tid = threadIdx.x;
   const int warp = tid >> 5, lane = tid & 31;
@@ -315,7 +291,6 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
   const int s_begin = seg_c0 * ksl;
   const int steps = seg_c1 * ksl;
   const long row0 = static_cast<long>(grp) * g * T;
-  const float gscale = Q8 ? p.scale[grp] : 1.f;
 
   if constexpr (!XS) {
     // ---- the query block, rounded to bf16 hi (and lo) once ----
@@ -335,41 +310,31 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
   auto load_step = [&](int s) {
     const int c = s / ksl, kk = s - c * ksl;
     const long rbase = row0 + static_cast<long>(c) * kLanes;
-    if constexpr (Q8) {
-      // 128 rows × 128 int8 = 1024 16-byte pieces
-      int8_t* dst = qring + (s % n_stages) * kQStage;
-      for (int i = tid; i < kLanes * (kKS / 16); i += kThreads) {
-        const int r = i >> 3, seg = i & 7;
-        cp_async16(smem_u32(dst + r * kQStride + seg * 16),
-                   p.y_q + (rbase + r) * d + kk * kKS + seg * 16);
-      }
-    } else {
-      __nv_bfloat16* dst = ys + (s % n_stages) * stage_elems;
-      // 128 rows × 128 bf16 = 2048 16-byte pieces per array
-      for (int i = tid; i < kLanes * (kKS / 8); i += kThreads) {
+    __nv_bfloat16* dst = ys + (s % n_stages) * stage_elems;
+    // 128 rows × 128 bf16 = 2048 16-byte pieces per array
+    for (int i = tid; i < kLanes * (kKS / 8); i += kThreads) {
+      const int r = i >> 4, seg = i & 15;
+      const long goff = (rbase + r) * d + kk * kKS + seg * 8;
+      cp_async16(smem_u32(dst + r * kYStride + seg * 8), p.y_hi + goff);
+      if (PASSES == 3)
+        cp_async16(
+            smem_u32(dst + kLanes * kYStride + r * kYStride + seg * 8),
+            p.y_lo + goff);
+    }
+    if constexpr (XS) {
+      // 64 query rows × 128 bf16 = 1024 pieces per array (x_hi/x_lo
+      // are padded to whole query blocks)
+      __nv_bfloat16* xdst = dst + y_elems;
+      for (int i = tid; i < kBQ * (kKS / 8); i += kThreads) {
         const int r = i >> 4, seg = i & 15;
-        const long goff = (rbase + r) * d + kk * kKS + seg * 8;
-        cp_async16(smem_u32(dst + r * kYStride + seg * 8), p.y_hi + goff);
+        const long goff =
+            static_cast<long>(q0 + r) * d + kk * kKS + seg * 8;
+        cp_async16(smem_u32(xdst + r * kYStride + seg * 8),
+                   p.x_hi + goff);
         if (PASSES == 3)
           cp_async16(
-              smem_u32(dst + kLanes * kYStride + r * kYStride + seg * 8),
-              p.y_lo + goff);
-      }
-      if constexpr (XS) {
-        // 64 query rows × 128 bf16 = 1024 pieces per array (x_hi/x_lo
-        // are padded to whole query blocks)
-        __nv_bfloat16* xdst = dst + y_elems;
-        for (int i = tid; i < kBQ * (kKS / 8); i += kThreads) {
-          const int r = i >> 4, seg = i & 15;
-          const long goff =
-              static_cast<long>(q0 + r) * d + kk * kKS + seg * 8;
-          cp_async16(smem_u32(xdst + r * kYStride + seg * 8),
-                     p.x_hi + goff);
-          if (PASSES == 3)
-            cp_async16(
-                smem_u32(xdst + kBQ * kYStride + r * kYStride + seg * 8),
-                p.x_lo + goff);
-        }
+              smem_u32(xdst + kBQ * kYStride + r * kYStride + seg * 8),
+              p.x_lo + goff);
       }
     }
     if (kk == ksl - 1 && tid < kLanes / 4)
@@ -413,28 +378,8 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     }
     __syncthreads();
 
-    if constexpr (Q8) {
-      // widen the int8 slice into the bf16 slice (exact: |q| <= 127)
-      const int8_t* qs = qring + (s % n_stages) * kQStage;
-      for (int i = tid; i < kLanes * (kKS / 16); i += kThreads) {
-        const int r = i >> 3, seg = i & 7;
-        const int4 raw =
-            *reinterpret_cast<const int4*>(qs + r * kQStride + seg * 16);
-        const int8_t* b = reinterpret_cast<const int8_t*>(&raw);
-        __align__(16) __nv_bfloat162 w[8];
-#pragma unroll
-        for (int j = 0; j < 8; ++j)
-          w[j] = __floats2bfloat162_rn(static_cast<float>(b[2 * j]),
-                                       static_cast<float>(b[2 * j + 1]));
-        int4* out = reinterpret_cast<int4*>(ys + r * kYStride + seg * 16);
-        out[0] = reinterpret_cast<const int4*>(w)[0];
-        out[1] = reinterpret_cast<const int4*>(w)[1];
-      }
-      __syncthreads();
-    }
-
     const int c = s / ksl, kk = s - c * ksl;
-    const __nv_bfloat16* ys_hi = Q8 ? ys : ys + (s % n_stages) * stage_elems;
+    const __nv_bfloat16* ys_hi = ys + (s % n_stages) * stage_elems;
     const __nv_bfloat16* ys_lo = ys_hi + kLanes * kYStride;
     // A operand: the resident block (column kk·128 of the row), or this
     // step's streamed slice
@@ -466,12 +411,10 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
         if (PASSES == 3) {
           mma_bf16(acc[2 * tp], alo, b[0], b[1]);
           mma_bf16(acc[2 * tp + 1], alo, b[2], b[3]);
-          if (!Q8) {
-            ldsm_x4(smem_u32(ys_lo + brow * kYStride + bcol), b[0], b[1],
-                    b[2], b[3]);
-            mma_bf16(acc[2 * tp], ahi, b[0], b[1]);
-            mma_bf16(acc[2 * tp + 1], ahi, b[2], b[3]);
-          }
+          ldsm_x4(smem_u32(ys_lo + brow * kYStride + bcol), b[0], b[1],
+                  b[2], b[3]);
+          mma_bf16(acc[2 * tp], ahi, b[0], b[1]);
+          mma_bf16(acc[2 * tp + 1], ahi, b[2], b[3]);
         }
       }
     }
@@ -542,8 +485,8 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
           const float y0 = yy[ln], y1 = yy[ln + 1];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            const float dot = Q8 ? __fmul_rn(acc[t][i], gscale) : acc[t][i];
-            c_even[t][i] = __fadd_rn(((i & 1) ? y1 : y0) - dot, xh[i >> 1]);
+            c_even[t][i] =
+                __fadd_rn(((i & 1) ? y1 : y0) - acc[t][i], xh[i >> 1]);
             acc[t][i] = 0.f;
           }
         }
@@ -567,12 +510,8 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
                 merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
                           a3[t][i]);
             } else {
-              // K2: the group scale multiplies the finished d-sum, rounded
-              // on its own (no fused multiply-add), as the twin computes it
-              const float dot =
-                  Q8 ? __fmul_rn(acc[t][i], gscale) : acc[t][i];
               const float cv =
-                  __fadd_rn(((i & 1) ? y1 : y0) - dot, xh[i >> 1]);
+                  __fadd_rn(((i & 1) ? y1 : y0) - acc[t][i], xh[i >> 1]);
               acc[t][i] = 0.f;
               if (PAIR) {
                 const float c0 = c_even[t][i];
@@ -708,12 +647,9 @@ __global__ void seg_merge_kernel(const float* __restrict__ pe1,
   a3[i] = b3;
 }
 
-size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
+size_t smem_bytes(int d, int passes, int n_stages, bool xs) {
   const size_t x_arrays = passes == 3 ? 2 : 1;
   const size_t xs_bytes = xs ? 0 : x_arrays * kBQ * (d + 8) * 2;
-  if (q8)
-    return xs_bytes + static_cast<size_t>(kLanes) * kYStride * 2 +
-           static_cast<size_t>(n_stages) * (kQStage + kLanes * 4);
   const size_t stage_rows =
       x_arrays * kLanes + (xs ? x_arrays * kBQ : 0);   // y_arrays = x_arrays
   return xs_bytes +
@@ -721,18 +657,17 @@ size_t smem_bytes(int d, int passes, int n_stages, bool q8, bool xs) {
                                           kLanes * 4);
 }
 
-template <int PASSES, bool PAIR, bool Q8, bool XS, int FOLD,
-          bool MASK = false>
+template <int PASSES, bool PAIR, bool XS, int FOLD, bool MASK = false>
 int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   int n_stages = 2;
-  if (smem_bytes(a.d, PASSES, 2, Q8, XS) > static_cast<size_t>(limit))
+  if (smem_bytes(a.d, PASSES, 2, XS) > static_cast<size_t>(limit))
     n_stages = 1;
-  const size_t smem = smem_bytes(a.d, PASSES, n_stages, Q8, XS);
-  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, Q8, XS, FOLD, MASK>;
+  const size_t smem = smem_bytes(a.d, PASSES, n_stages, XS);
+  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, XS, FOLD, MASK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
@@ -752,35 +687,32 @@ int launch(const Args& a, cudaStream_t stream, int segs = 1) {
 template <int PASSES>
 int dispatch_slot(const Args& a, int mask, int track, cudaStream_t st) {
   if (track)
-    return mask ? launch<PASSES, false, false, false, kSlot, true>(a, st)
-                : launch<PASSES, false, false, false, kSlot, false>(a, st);
-  return mask ? launch<PASSES, false, false, false, kSlotMin, true>(a, st)
-              : launch<PASSES, false, false, false, kSlotMin, false>(a, st);
+    return mask ? launch<PASSES, false, false, kSlot, true>(a, st)
+                : launch<PASSES, false, false, kSlot, false>(a, st);
+  return mask ? launch<PASSES, false, false, kSlotMin, true>(a, st)
+              : launch<PASSES, false, false, kSlotMin, false>(a, st);
 }
 
-// the packed forms: K1 resident or streamed x (XS), and K2
-template <bool Q8, bool XS>
-int dispatch_packed(const Args& a, int passes, int pair, void* stream) {
+// the packed form with x streamed (d-chunked)
+int dispatch_packed_dchunk(const Args& a, int passes, int pair,
+                           void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (passes == 3 && pair) return launch<3, true, Q8, XS, kPacked>(a, st);
-  if (passes == 3) return launch<3, false, Q8, XS, kPacked>(a, st);
-  if (pair) return launch<1, true, Q8, XS, kPacked>(a, st);
-  return launch<1, false, Q8, XS, kPacked>(a, st);
+  if (passes == 3 && pair) return launch<3, true, true, kPacked>(a, st);
+  if (passes == 3) return launch<3, false, true, kPacked>(a, st);
+  if (pair) return launch<1, true, true, kPacked>(a, st);
+  return launch<1, false, true, kPacked>(a, st);
 }
 
 Args make_args(const void* x, const void* x_hi, const void* x_lo,
-               const void* y_hi, const void* y_lo, const void* y_q,
-               const void* scale, const void* yyh, const void* xxh,
-               void* a1, void* a2, void* a3, void* id1, void* id2, int Q,
-               int M, int d, int T, int g, int pbits) {
+               const void* y_hi, const void* y_lo, const void* yyh,
+               const void* xxh, void* a1, void* a2, void* a3, void* id1,
+               void* id2, int Q, int M, int d, int T, int g, int pbits) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.x_hi = static_cast<const __nv_bfloat16*>(x_hi);
   a.x_lo = static_cast<const __nv_bfloat16*>(x_lo);
   a.y_hi = static_cast<const __nv_bfloat16*>(y_hi);
   a.y_lo = static_cast<const __nv_bfloat16*>(y_lo);
-  a.y_q = static_cast<const int8_t*>(y_q);
-  a.scale = static_cast<const float*>(scale);
   a.yyh = static_cast<const float*>(yyh);
   a.xxh = static_cast<const float*>(xxh);
   a.a1 = static_cast<float*>(a1);
@@ -799,31 +731,18 @@ Args make_args(const void* x, const void* x_hi, const void* x_lo,
 // C entry points (loaded with ctypes). Return cudaGetLastError() after the
 // launch (0 = success).
 //
-// K1. Shapes: x [Q, d] f32, y_hi/y_lo [M, d] bf16 (y_lo unused at
-// passes=1), yyh [M] f32, xxh [Q] f32, a1/a2/a3 [Q, ceil(M/T/g)·128] f32;
-// d % 128 == 0, T % 128 == 0, M % T == 0.
-extern "C" int fused_l2_group_topk_packed_launch(
-    const void* x, const void* y_hi, const void* y_lo, const void* yyh,
-    const void* xxh, void* a1, void* a2, void* a3, int Q, int M, int d,
-    int T, int g, int passes, int pair, int pbits, void* stream) {
-  const Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, nullptr,
-                           nullptr, yyh, xxh, a1, a2, a3, nullptr, nullptr,
-                           Q, M, d, T, g, pbits);
-  return dispatch_packed<false, false>(a, passes, pair, stream);
-}
-
 // K1, d-chunked (wide features): x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the
-// split of x, zero rows past Q; x_lo unused at passes=1); the rest as
-// fused_l2_group_topk_packed_launch.
+// split of x, zero rows past Q; x_lo unused at passes=1), y_hi/y_lo [M, d]
+// bf16 (y_lo unused at passes=1), yyh [M] f32, xxh [Q] f32, a1/a2/a3 [Q,
+// ceil(M/T/g)·128] f32; d % 128 == 0, T % 128 == 0, M % T == 0.
 extern "C" int fused_l2_group_topk_packed_dchunk_launch(
     const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
     const void* yyh, const void* xxh, void* a1, void* a2, void* a3, int Q,
     int M, int d, int T, int g, int passes, int pair, int pbits,
     void* stream) {
-  const Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, nullptr,
-                           nullptr, yyh, xxh, a1, a2, a3, nullptr, nullptr,
-                           Q, M, d, T, g, pbits);
-  return dispatch_packed<false, true>(a, passes, pair, stream);
+  const Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, yyh, xxh, a1,
+                           a2, a3, nullptr, nullptr, Q, M, d, T, g, pbits);
+  return dispatch_packed_dchunk(a, passes, pair, stream);
 }
 
 // K1, unpacked: a1/a2/a3 [Q, ceil(M/T/g)·128] f32, id1/id2 the same shape
@@ -843,29 +762,28 @@ extern "C" int fused_l2_group_topk_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (segs < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (segs == 1) {
-    const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr,
-                             yyh, nullptr, a1, a2, a3, id1, id2, Q, M, d, T,
-                             g, 8);
+    const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, nullptr, a1,
+                             a2, a3, id1, id2, Q, M, d, T, g, 8);
     if (xs)
-      return passes == 3 ? launch<3, false, false, true, kIds>(a, st)
-                         : launch<1, false, false, true, kIds>(a, st);
-    return passes == 3 ? launch<3, false, false, false, kIds>(a, st)
-                       : launch<1, false, false, false, kIds>(a, st);
+      return passes == 3 ? launch<3, false, true, kIds>(a, st)
+                         : launch<1, false, true, kIds>(a, st);
+    return passes == 3 ? launch<3, false, false, kIds>(a, st)
+                       : launch<1, false, false, kIds>(a, st);
   }
   const long n = static_cast<long>(Q) * ((M / T + g - 1) / g) * kLanes;
   float* pf = static_cast<float*>(part);
   int* pi = static_cast<int*>(part);
-  Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yyh,
-                     nullptr, pf, pf + 2 * segs * n, pf + 5 * segs * n,
+  Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, nullptr, pf,
+                     pf + 2 * segs * n, pf + 5 * segs * n,
                      pi + segs * n, pi + 3 * segs * n, Q, M, d, T, g, 8);
   a.id3 = pi + 4 * segs * n;
   int err;
   if (xs)
-    err = passes == 3 ? launch<3, false, false, true, kSeg>(a, st, segs)
-                      : launch<1, false, false, true, kSeg>(a, st, segs);
+    err = passes == 3 ? launch<3, false, true, kSeg>(a, st, segs)
+                      : launch<1, false, true, kSeg>(a, st, segs);
   else
-    err = passes == 3 ? launch<3, false, false, false, kSeg>(a, st, segs)
-                      : launch<1, false, false, false, kSeg>(a, st, segs);
+    err = passes == 3 ? launch<3, false, false, kSeg>(a, st, segs)
+                      : launch<1, false, false, kSeg>(a, st, segs);
   if (err) return err;
   seg_merge_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       pf, pi + segs * n, pf + 2 * segs * n, pi + 3 * segs * n,
@@ -873,20 +791,6 @@ extern "C" int fused_l2_group_topk_launch(
       static_cast<int*>(id1), static_cast<float*>(a2),
       static_cast<int*>(id2), static_cast<float*>(a3), segs, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K2. Shapes: x [Q, d] f32, y_q [M, d] int8, scale [M/(g·T)] f32 (one per
-// group), yyh [M] f32 (the dequantized rows' half-norms), xxh [Q] f32,
-// a1/a2/a3 [Q, (M/T/g)·128] f32; d % 128 == 0, T % 128 == 0,
-// M % (g·T) == 0.
-extern "C" int fused_l2_group_topk_packed_q8_launch(
-    const void* x, const void* y_q, const void* scale, const void* yyh,
-    const void* xxh, void* a1, void* a2, void* a3, int Q, int M, int d,
-    int T, int g, int passes, int pair, int pbits, void* stream) {
-  const Args a = make_args(x, nullptr, nullptr, nullptr, nullptr, y_q,
-                           scale, yyh, xxh, a1, a2, a3, nullptr, nullptr,
-                           Q, M, d, T, g, pbits);
-  return dispatch_packed<true, false>(a, passes, pair, stream);
 }
 
 // K1's slot forms. Shapes: x [Q, d] f32, y_hi/y_lo [M, d] bf16 (y_lo
@@ -900,8 +804,8 @@ extern "C" int fused_l2_slot_topk_launch(
     const void* yy, void* m1, void* i1, void* part, void* m2min, int Q,
     int M, int d, int T, int tpb, int m_real, int passes, int mask,
     int track, void* stream) {
-  Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, nullptr, nullptr, yy,
-                     xx, m1, part, m2min, i1, nullptr, Q, M, d, T, tpb, 8);
+  Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, yy, xx, m1, part,
+                     m2min, i1, nullptr, Q, M, d, T, tpb, 8);
   a.m_real = m_real;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   return passes == 3 ? dispatch_slot<3>(a, mask, track, st)
@@ -916,10 +820,10 @@ extern "C" int fused_l2_slot_topk_dchunk_launch(
     const void* xx, const void* yy, void* m1, void* i1, void* part,
     void* m2min, int Q, int M, int d, int T, int tpb, int m_real, int passes,
     void* stream) {
-  Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, nullptr, nullptr, yy,
-                     xx, m1, part, m2min, i1, nullptr, Q, M, d, T, tpb, 8);
+  Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, yy, xx, m1, part,
+                     m2min, i1, nullptr, Q, M, d, T, tpb, 8);
   a.m_real = m_real;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return passes == 3 ? launch<3, false, false, true, kSlot, true>(a, st)
-                     : launch<1, false, false, true, kSlot, true>(a, st);
+  return passes == 3 ? launch<3, false, true, kSlot, true>(a, st)
+                     : launch<1, false, true, kSlot, true>(a, st);
 }

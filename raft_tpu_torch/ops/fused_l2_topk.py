@@ -3,18 +3,20 @@ database) — the port's hot step.
 
 Counterpart of ``raft_tpu/ops/fused_l2_topk_pallas.py``. The TPU kernel
 ``fused_l2_group_topk_packed`` (``:1269``; its database-major forms
-``_packed_db``/``_packed_dbuf`` compute the same outputs) becomes the
-hand-written Hopper kernel in ``csrc/fused_l2_topk.cu``, and so do its
-wide-feature form ``fused_l2_group_topk_packed_dchunk`` (``:1294``), the
-unpacked forms ``fused_l2_group_topk`` (``:1230``) and
-``fused_l2_group_topk_dchunk`` (``:1254``), and the int8 twins
-``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``, ``:1491``),
-and K1's first, per-slot forms ``fused_l2_slot_topk`` (``:406``) and
-``fused_l2_slot_topk_dchunk`` (``:474``), which no search path calls (the
-reference's stage ladder, ``benchmarks/profile_fused.py:146-165``, times
-them beside the group forms): one kernel templated on the form; see that
-file for the design. This module holds the wrappers, their plain PyTorch
-twins and the packing constants the certified KNN decodes with.
+``_packed_db``/``_packed_dbuf`` compute the same outputs) and its int8
+twins ``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``,
+``:1491``) become the hand-written Hopper kernel in
+``csrc/fused_l2_packed_sm90.cu`` (wgmma fed by TMA through an mbarrier
+ring; see that file for the design). The wide-feature form
+``fused_l2_group_topk_packed_dchunk`` (``:1294``), the unpacked forms
+``fused_l2_group_topk`` (``:1230``) and ``fused_l2_group_topk_dchunk``
+(``:1254``), and K1's first, per-slot forms ``fused_l2_slot_topk``
+(``:406``) and ``fused_l2_slot_topk_dchunk`` (``:474``), which no search
+path calls (the reference's stage ladder,
+``benchmarks/profile_fused.py:146-165``, times them beside the group
+forms), are one ``mma.sync`` kernel templated on the form in
+``csrc/fused_l2_topk.cu``. This module holds the wrappers, their plain
+PyTorch twins and the packing constants the certified KNN decodes with.
 
 The wrapper dispatches on the device of the tensors it is given: CPU
 tensors take the twin, CUDA tensors launch the kernel (or raise). There is
@@ -107,9 +109,12 @@ def fused_l2_group_topk_packed(x, y_hi, y_lo, yy_half, *, T: int, g: int,
     ``g`` tiles). Returns ``(a1p, a2p, a3p)``, each [Q, ceil(M/T/g)·128]
     f32, whose low ``pbits`` mantissa bits hold the within-group code
     ``tile_offset·(T/128) + chunk`` (a3p's code means nothing). ``pair``
-    min-combines chunk pairs before the fold (reference ``:697``)."""
+    min-combines chunk pairs before the fold (reference ``:697``). d is
+    at most 512 (the resident query block; past it
+    :func:`fused_l2_group_topk_packed_dchunk`)."""
     global LAUNCHES
     _check(x, y_hi, y_lo, yy_half, T, g, passes, pair, pbits)
+    _check_resident("fused_l2_group_topk_packed", x)
     if x.device.type == "cpu":
         return fused_l2_group_topk_packed_ref(
             x, y_hi, y_lo, yy_half, T=T, g=g, passes=passes, pair=pair,
@@ -130,6 +135,16 @@ def fused_l2_group_topk_packed(x, y_hi, y_lo, yy_half, *, T: int, g: int,
     _raise_on("fused_l2_group_topk_packed", rc)
     LAUNCHES += 1
     return tuple(outs)
+
+
+def _check_resident(who: str, x):
+    """The packed kernels keep the query block in shared memory: d ≤
+    ``_D_RESIDENT``."""
+    if x.shape[1] > _D_RESIDENT:
+        raise ValueError(
+            f"{who}: the resident query block takes d ≤ {_D_RESIDENT} (got "
+            f"d={x.shape[1]}); past it use "
+            f"fused_l2_group_topk_packed_dchunk")
 
 
 def _cuda_operands(who: str, x, y_hi, y_lo, yy_half, xxh):
@@ -520,7 +535,8 @@ def _group_fold_split(c, T: int, g: int, segments: int):
 def _launcher():
     global _FN
     if _FN is None:
-        fn = _build.load("fused_l2_topk").fused_l2_group_topk_packed_launch
+        fn = _build.load(
+            "fused_l2_packed_sm90").fused_l2_group_topk_packed_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 8 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
@@ -643,9 +659,11 @@ def fused_l2_group_topk_packed_q8(x, y_q, yy_half, scale, *, T: int,
     f32 holds one scale per group; yy_half [M] the dequantized rows'
     half-norms (``_PACK_PAD`` on pads). The contraction is bf16(x)·q (plus
     bf16(x − bf16(x))·q at passes=3) in f32, times the group's scale once
-    the d-sum is done. Outputs, codes and ``pair`` are K1's."""
+    the d-sum is done. Outputs, codes and ``pair`` are K1's; d is at most
+    512, as for K1."""
     global LAUNCHES_Q8
     _check_q8(x, y_q, yy_half, scale, T, g, passes, pair, pbits)
+    _check_resident("fused_l2_group_topk_packed_q8", x)
     if x.device.type == "cpu":
         return fused_l2_group_topk_packed_q8_ref(
             x, y_q, yy_half, scale, T=T, g=g, passes=passes, pair=pair,
@@ -690,7 +708,8 @@ def fused_l2_group_topk_packed_q8(x, y_q, yy_half, scale, *, T: int,
 def _launcher_q8():
     global _FN_Q8
     if _FN_Q8 is None:
-        fn = _build.load("fused_l2_topk").fused_l2_group_topk_packed_q8_launch
+        fn = _build.load(
+            "fused_l2_packed_sm90").fused_l2_group_topk_packed_q8_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 8 + [i] * 8 + [p]
         fn.restype = ctypes.c_int

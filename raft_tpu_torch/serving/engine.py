@@ -80,9 +80,11 @@ DEADLINE_ENV = "RAFT_TPU_SERVING_DEADLINE_S"
 _MAX_REQUEUES = 1
 
 #: the kernel libraries each plane can reach (warm-up loads them all)
-_PLANE_LIBS = {"brute": ("fused_l2_topk",),
-               "ivf_flat": ("fine_scan", "fused_l2_topk"),
-               "ivf_pq": ("pq_scan", "fused_l2_topk")}
+_PLANE_LIBS = {"brute": ("fused_l2_packed_sm90", "fused_l2_topk"),
+               "ivf_flat": ("fine_scan", "fused_l2_packed_sm90",
+                            "fused_l2_topk"),
+               "ivf_pq": ("pq_scan", "fused_l2_packed_sm90",
+                          "fused_l2_topk")}
 
 #: options of the reference engine not in the port yet: (ROADMAP item,
 #: what they are)

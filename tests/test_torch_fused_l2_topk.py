@@ -118,3 +118,25 @@ def test_wrapper_checks_envelope(data):
             torch.from_numpy(x), hi[:384 * 4], lo[:384 * 4],
             torch.from_numpy(yyh[:384 * 4]), T=384, g=G, passes=1,
             pair=True)
+
+
+def test_packed_wrappers_refuse_wide_queries():
+    # the packed kernels keep the query block in shared memory: d ≤ 512;
+    # past it the d-chunked form takes the same operands
+    rng = np.random.default_rng(2)
+    x = torch.from_numpy(rng.normal(size=(4, 640)).astype(np.float32))
+    y = torch.from_numpy(rng.normal(size=(512, 640)).astype(np.float32))
+    hi, lo = tk.split_hi_lo(y)
+    yyh = 0.5 * (y * y).sum(1)
+    with pytest.raises(ValueError, match="resident query block"):
+        tk.fused_l2_group_topk_packed(x, hi, lo, yyh, T=512, g=1, passes=3)
+    q8 = torch.zeros((512, 640), dtype=torch.int8)
+    with pytest.raises(ValueError, match="resident query block"):
+        tk.fused_l2_group_topk_packed_q8(x, q8, yyh, torch.ones(1), T=512,
+                                         g=1, passes=1)
+    out = tk.fused_l2_group_topk_packed_dchunk(x, hi, lo, yyh, T=512, g=1,
+                                               passes=3)
+    ref = tk.fused_l2_group_topk_packed_ref(x, hi, lo, yyh, T=512, g=1,
+                                            passes=3)
+    for a, b in zip(out, ref):
+        assert torch.equal(a, b)

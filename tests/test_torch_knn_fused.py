@@ -144,6 +144,44 @@ def test_lite_mode_matches_reference():
                     np.asarray(i_ref), rtol=2.0 ** (idx.pbits - 22))
 
 
+def _repeated_rows(seed, repeats):
+    """8192 × 16 integer-valued rows, each of 8192 / repeats rows
+    ``repeats`` times, and 48 integer queries: exact ties at the k-th
+    place in most rows (at 128, a tie class spans both k and the k + 32
+    nominated candidates)."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(-2, 3, size=(8192 // repeats, 16)).astype(np.float32)
+    y = np.tile(u, (repeats, 1))[rng.permutation(8192)]
+    x = rng.integers(-2, 3, size=(48, 16)).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.parametrize("repeats", [2, 128])
+@pytest.mark.parametrize("store_yp", [False, True])
+def test_exact_rows_ties_match_reference(store_yp, repeats, monkeypatch):
+    # the queries whose certificate fails on the ties take the exact
+    # fixup (_exact_rows): their ids must be the reference's exactly
+    x, y = _repeated_rows(41, repeats)
+    jidx = jkf.prepare_knn_index(y, passes=3, T=T, Qb=QB, g=G,
+                                 store_yp=store_yp, grid_order="query")
+    v_ref, i_ref = jkf.knn_fused(x, jidx, k=40)
+    idx = tkf.prepare_knn_index(y, passes=3, T=T, g=G, store_yp=store_yp,
+                                device="cpu")
+    fixed = []
+    exact_rows = tkf._exact_rows
+
+    def spy(xq, index, k):
+        fixed.extend(bytes(r) for r in xq[:, :x.shape[1]].numpy())
+        return exact_rows(xq, index, k)
+
+    monkeypatch.setattr(tkf, "_exact_rows", spy)
+    v, i, n_fail = tkf.knn_fused(x, idx, k=40, with_stats=True)
+    rows = [q for q in range(len(x)) if bytes(x[q]) in fixed]
+    assert n_fail == len(fixed) == len(rows) > 0
+    np.testing.assert_array_equal(i.numpy()[rows], np.asarray(i_ref)[rows])
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+
+
 def _export(jidx):
     """A reference KnnIndex's state as numpy (what from_numpy takes)."""
     return {"yp": np.asarray(jidx.yp), "y_hi": np.asarray(jidx.y_hi),
@@ -205,3 +243,23 @@ def test_pad_query_rows():
     assert tkf.pad_query_rows(x, 3) is x
     with pytest.raises(ValueError):
         tkf.pad_query_rows(x, 2)
+
+
+@pytest.mark.parametrize("kk", [1, 7, 40, 300])
+def test_nominate_is_smallest_k_bit_for_bit(kk):
+    # the f32 top-k with its ties redone equals the int64-key selection:
+    # ties across the cut, ±0, ±inf and NaN, rows with fewer finite values
+    # than kk
+    rng = np.random.default_rng(kk)
+    d2 = rng.integers(0, 6, size=(64, 300)).astype(np.float32)
+    d2[3, ::7] = -0.0
+    d2[5, :] = np.inf
+    d2[7, :250] = np.nan
+    d2[9, ::3] = -np.inf
+    d2[11, 10:20] = np.nan
+    d2 = torch.from_numpy(d2)
+    v, i = tkf._nominate(d2.clone(), kk)
+    v_ref, i_ref = tkf._smallest_k(d2.clone(), None, kk)
+    assert i.dtype == i_ref.dtype == torch.int32
+    assert torch.equal(v.view(torch.int32), v_ref.view(torch.int32))
+    assert torch.equal(i, i_ref)

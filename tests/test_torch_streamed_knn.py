@@ -121,3 +121,28 @@ def test_select_k_algos(res):
         v, i = select_k(res, vals, k=10, algo=algo)
         torch.testing.assert_close(v, v0)
         torch.testing.assert_close(i, i0)
+
+
+@pytest.fixture(scope="module")
+def tied_data():
+    """Integer-valued rows, each drawn from a small pool, so exact ties
+    sit at many k-th places."""
+    rng = np.random.default_rng(31)
+    pool = rng.integers(-3, 4, size=(600, 8)).astype(np.float32)
+    y = pool[rng.integers(0, len(pool), size=4097)]
+    x = rng.integers(-3, 4, size=(33, 8)).astype(np.float32)
+    return x, y
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+@pytest.mark.parametrize("tile", [512, 128])
+def test_streamed_knn_exact_ties_match_reference(res, jres, tied_data,
+                                                 metric, tile):
+    # tile 128 puts 4097 rows past 16 tiles: the certified sweep, whose
+    # count fails on these ties and falls back to the merge sweep
+    x, y = tied_data
+    v_ref, i_ref = j_knn(jres, y, x, 100, metric=metric, algo="streamed",
+                         tile=tile)
+    v, i = knn(res, y, x, 100, metric=metric, algo="streamed", tile=tile)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))

@@ -61,9 +61,9 @@
 //     __grid_constant__ parameters.
 //   - K2: TMA brings 64 × 64 int8 slices into a 4-stage int8 ring; the
 //     producer warpgroup's 128 threads widen each into the bf16 ring's
-//     swizzled slice (two LOP3s, half a PRMT and one bf16x2 subtract per
-//     pair of codes, exact: bf16(0x4300 | b & 0x7f) − bf16(0x4300 | b &
-//     0x80) = b), so the consumers see K1's ring; the warpgroup's thread 0
+//     swizzled slice (a PRMT, two ANDs and one bf16x2 subtract per pair of
+//     codes, exact: bf16(0x4300 | b & 0x7f) − bf16(0x4300 | b & 0x80) =
+//     b), so the consumers see K1's ring; the warpgroup's thread 0
 //     reissues an int8 stage's TMA once all 128 have read it (a named
 //     barrier). 128 queries a block halve the widening a query against 64.
 //   - The query block is rounded to bf16 hi (and lo) once and written,
@@ -298,14 +298,15 @@ __device__ __forceinline__ void merge(float cp, float& a1, float& a2,
 
 // four int8 codes (one 32-bit word, bytes b0..b3) → two bf16x2 words,
 // exactly: bf16(0x4300 | b & 0x7f) − bf16(0x4300 | b & 0x80) is 128 + r −
-// 128 = r for b >= 0 and 128 + r − 256 = b for b < 0 (r = b & 0x7f)
+// 128 = r for b >= 0 and 128 + r − 256 = b for b < 0 (r = b & 0x7f). One
+// PRMT puts two codes under 0x43 high bytes, one AND each makes the two
+// operands: 4 ALU instructions and a subtract per pair of codes
 __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
                                        uint32_t& hi) {
-  const uint32_t p0 = __byte_perm(w, 0, 0x4140);   // b1 in [16,24), b0
-  const uint32_t p1 = __byte_perm(w, 0, 0x4342);   // b3, b2
-  const uint32_t m7 = 0x007F007Fu, m8 = 0x00800080u, e = 0x43004300u;
-  const uint32_t x0 = (p0 & m7) | e, y0 = (p0 & m8) | e;
-  const uint32_t x1 = (p1 & m7) | e, y1 = (p1 & m8) | e;
+  const uint32_t z0 = __byte_perm(w, 0x43434343u, 0x4140);   // 43 b1 43 b0
+  const uint32_t z1 = __byte_perm(w, 0x43434343u, 0x4342);   // 43 b3 43 b2
+  const uint32_t x0 = z0 & 0xFF7FFF7Fu, y0 = z0 & 0xFF80FF80u;
+  const uint32_t x1 = z1 & 0xFF7FFF7Fu, y1 = z1 & 0xFF80FF80u;
   asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(lo) : "r"(x0), "r"(y0));
   asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(hi) : "r"(x1), "r"(y1));
 }

@@ -4,13 +4,14 @@ K2, ``raft_tpu_torch/ops/csrc/fused_l2_packed_sm90.cu``): queries a block
 (QB) and ring stages (NS), the k-slice being fixed at 64 features (one
 128-byte swizzle row) and two of them of the next chunk in flight while a
 chunk folds. The shipped source picks the geometry itself
-(``pick_geo``); this script compiles a copy of it with one extra entry
-point that takes the geometry as arguments (into ``build/sweep/``, one
-``nvcc``), then times each geometry at the main path's shape (2048 × 1M ×
-128 N(0, 1), T = 2048, g = 16; CUDA events, mean of 10) for K1 p1 pair,
-K1 p3, K2 p1 pair and K2 p3, and checks every geometry's outputs bit for
-bit against the shipped kernel's (the fold and the k order do not depend
-on the geometry). Exits 1 if any differs.
+(``pick_geo``); this script compiles a copy of it (into ``build/sweep/``,
+one ``nvcc``) whose ``pick_geo`` returns a geometry set by one extra
+entry point, which then launches; it times each geometry at the main
+path's shape (2048 × 1M × 128 N(0, 1), T = 2048, g = 16; CUDA events,
+mean of 10) for K1 p1 pair, K1 p3, K2 p1 pair and K2 p3, and checks
+every geometry's outputs bit for bit against the shipped kernel's (the
+fold and the k order do not depend on the geometry). Exits 1 if any
+differs.
 
     python3 port_scripts/sweep_packed_geometry.py
 """
@@ -29,6 +30,15 @@ import torch  # noqa: E402
 
 import chip_smoke as cs  # noqa: E402
 
+#: the copy's pick_geo returns the geometry packed_geo_launch sets (the
+#: shipped envelope check is skipped: the sweep runs at d = 128)
+PICK = "bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {"
+FORCED = """Geo g_sweep_geo{0, 0};
+bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {
+  if (g_sweep_geo.QB) {
+    *g = g_sweep_geo;
+    return true;
+  }"""
 EXTRA = r'''
 extern "C" int packed_geo_launch(
     const void* x, const void* y_hi, const void* y_lo, const void* scale,
@@ -37,17 +47,11 @@ extern "C" int packed_geo_launch(
     int QB, int NS, void* stream) {
   const Args a = make_args(x, scale, yyh, xxh, a1, a2, a3, Q, M, d, T, g,
                            pbits);
-  const Geo geo{QB, NS};
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (q8)
-    return passes == 3 ? (pair ? launch<3, true, true>(a, y_hi, y_lo, st, &geo)
-                               : launch<3, false, true>(a, y_hi, y_lo, st, &geo))
-                       : (pair ? launch<1, true, true>(a, y_hi, y_lo, st, &geo)
-                               : launch<1, false, true>(a, y_hi, y_lo, st, &geo));
-  return passes == 3 ? (pair ? launch<3, true, false>(a, y_hi, y_lo, st, &geo)
-                             : launch<3, false, false>(a, y_hi, y_lo, st, &geo))
-                     : (pair ? launch<1, true, false>(a, y_hi, y_lo, st, &geo)
-                             : launch<1, false, false>(a, y_hi, y_lo, st, &geo));
+  g_sweep_geo = Geo{QB, NS};
+  const int rc = q8 ? dispatch<true>(a, y_hi, y_lo, passes, pair, stream)
+                    : dispatch<false>(a, y_hi, y_lo, passes, pair, stream);
+  g_sweep_geo = Geo{0, 0};
+  return rc;
 }
 '''
 # (QB, NS): a consumer holds at most 3 stages (the held one and the two
@@ -59,7 +63,11 @@ def build_sweep():
     from raft_tpu_torch.ops import _build
 
     src = open(os.path.join(_build.CSRC, "fused_l2_packed_sm90.cu")).read()
-    src += EXTRA
+    if src.count(PICK) != 1:
+        print("sweep_packed_geometry: pick_geo not found in the source",
+              file=sys.stderr)
+        raise SystemExit(1)
+    src = src.replace(PICK, FORCED) + EXTRA
     out_dir = os.path.join(ROOT, "build", "sweep")
     os.makedirs(out_dir, exist_ok=True)
     cu = os.path.join(out_dir, "fused_l2_packed_sweep.cu")

@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.kvp import order_key
 from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
                                            ensure_resources, resolve_device)
 from raft_tpu_torch.ops.fine_scan import (
@@ -274,15 +275,12 @@ def _rescore_smallest(x, xx, rows, cid, slab, yy_slab, k: int):
     return vals, torch.where(torch.isfinite(vals), out, -1)
 
 
-def _nominate(d2, C: int):
+def _nominate_columns(d2, C: int):
     """The columns of each row's ``C`` smallest values, in column order.
-    The key (value bits, column) is unique, so the set does not depend on
-    the top-k algorithm a batch size selects."""
-    bits = d2.view(torch.int32)
-    key = (torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long() << 32) \
-        | torch.arange(d2.shape[1], device=d2.device)
-    return torch.sort(torch.topk(key, C, dim=1, largest=False).indices,
-                      dim=1).values
+    The key (value, column) is unique, so the set does not depend on the
+    top-k algorithm a batch size selects."""
+    return torch.sort(torch.topk(order_key(d2), C, dim=1,
+                                 largest=False).indices, dim=1).values
 
 
 def _fine_scan(x, slab, ids, yy_slab, starts, psizes, k: int, P: int,
@@ -298,7 +296,7 @@ def _fine_scan(x, slab, ids, yy_slab, starts, psizes, k: int, P: int,
     xx = (x * x).sum(1, keepdim=True)
     d2 = _scores(x, xx, slab[rows], yy_slab[rows])
     d2 = torch.where(valid, d2.clamp_min(0.0), float("inf"))
-    pos = _nominate(d2, min(k + _IVF_RESCORE_PAD, P * W))
+    pos = _nominate_columns(d2, min(k + _IVF_RESCORE_PAD, P * W))
     return _rescore_smallest(x, xx, torch.gather(rows, 1, pos),
                              torch.gather(torch.where(valid, cid, -1), 1,
                                           pos), slab, yy_slab, k)

@@ -21,11 +21,12 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.kvp import KeyValuePair
+from raft_tpu_torch.core.kvp import KeyValuePair, ranked_head, smallest_by_key
 from raft_tpu_torch.core.resources import as_f32, ensure_resources
-from raft_tpu_torch.matrix.select_k_slotted import lax_top_k
 
 _INT32_MAX = 2 ** 31 - 1
+#: entries the streamed sweeps keep past the k (see _sweep)
+_MERGE_PAD = 8
 
 
 def _pad_rows(y, tile: int):
@@ -96,27 +97,66 @@ def fused_l2_nn(res, x, y, sqrt: bool = False) -> KeyValuePair:
     return KeyValuePair(key=i, value=v)
 
 
-def _merge_topk(best_v, best_i, tile_v, tile_i, k: int, select_min: bool):
+def _merge_topk(best_v, best_i, tile_v, tile_i, k: int, select_min: bool,
+                unsure=None):
     """Merge a running top-k with a new tile and reselect in
     ``jax.lax.top_k``'s order (the reference's ``_xla_select_k``): ties go
     to the lower position, and the running best sits before the tile, so
-    an exact tie keeps the lower id."""
+    an exact tie keeps the lower id. The largest are the smallest of the
+    negation (which reverses IEEE total order exactly). With ``unsure``
+    [n] bool, the merge keeps k + _MERGE_PAD by :func:`ranked_head` and
+    ors in the rows whose first k it may have got wrong; without, it
+    keeps k through the int64 key. Neither waits on the device."""
     allv = torch.cat([best_v, tile_v], dim=1)
     alli = torch.cat([best_i, tile_i], dim=1)
-    v, pos = lax_top_k(-allv if select_min else allv, k)
-    return (-v if select_min else v), torch.gather(alli, 1, pos)
+    v = allv if select_min else -allv
+    if unsure is None:
+        v, pos = smallest_by_key(v, k)
+    else:
+        v, pos, tied = ranked_head(v, k, _MERGE_PAD)
+        unsure |= tied
+    return (v if select_min else -v), torch.gather(alli, 1, pos)
+
+
+def _sweep(tile_fn, n_tiles: int, n: int, k: int, select_min: bool, dev):
+    """Merge every tile ``tile_fn(i)`` → (values [n, tile], column ids
+    [tile]) into a running top-k. The host waits once a sweep, not once a
+    tile. The running best keeps _MERGE_PAD entries past the k, so only a
+    tie that runs from the k-th past them all leaves a row unsure (or a
+    NaN); those rows are swept again with the key's merges at the end,
+    over the same tile values (a smaller product could round
+    differently)."""
+    def run(rows):
+        r = n if rows is None else rows.numel()
+        width = k + _MERGE_PAD if rows is None else k
+        best_v = torch.full((r, width),
+                            float("inf" if select_min else "-inf"),
+                            device=dev)
+        best_i = torch.full((r, width), -1, dtype=torch.int32, device=dev)
+        unsure = torch.zeros((r,), dtype=torch.bool, device=dev) \
+            if rows is None else None
+        for i in range(n_tiles):
+            tv, col = tile_fn(i)
+            if rows is not None:
+                tv = tv[rows]
+            best_v, best_i = _merge_topk(best_v, best_i, tv,
+                                         col[None, :].expand_as(tv), k,
+                                         select_min, unsure)
+        return best_v[:, :k], best_i[:, :k], unsure
+
+    best_v, best_i, unsure = run(None)
+    rows = unsure.nonzero().squeeze(1)
+    if rows.numel():
+        best_v[rows], best_i[rows], _ = run(rows)
+    return best_v, best_i
 
 
 def _knn_sweep(x_sq, x, y_padded, m_real: int, k: int, tile: int):
     """Streamed exact top-k: merge every tile into the running top-k."""
-    n = x.shape[0]
-    best_v = x.new_full((n, k), float("inf"))
-    best_i = torch.full((n, k), -1, dtype=torch.int32, device=x.device)
-    for i in range(y_padded.shape[0] // tile):
-        d2, col = _tile_d2(x, x_sq, y_padded, i, tile, m_real)
-        best_v, best_i = _merge_topk(best_v, best_i, d2,
-                                     col[None, :].expand_as(d2), k, True)
-    return best_v, best_i
+    def tile_fn(i):
+        return _tile_d2(x, x_sq, y_padded, i, tile, m_real)
+    return _sweep(tile_fn, y_padded.shape[0] // tile, x.shape[0], k, True,
+                  x.device)
 
 
 def _knn_certified_approx(x, y_padded, m_real: int, k: int, tile: int):
@@ -142,17 +182,14 @@ def _knn_certified_approx(x, y_padded, m_real: int, k: int, tile: int):
 
 
 def _ip_sweep(x, y_padded, m_real: int, k: int, tile: int):
-    n = x.shape[0]
-    best_v = x.new_full((n, k), float("-inf"))
-    best_i = torch.full((n, k), -1, dtype=torch.int32, device=x.device)
-    for i in range(y_padded.shape[0] // tile):
+    def tile_fn(i):
         yt = y_padded[i * tile:(i + 1) * tile]
         col = torch.arange(i * tile, (i + 1) * tile, dtype=torch.int32,
                            device=x.device)
-        ip = (x @ yt.T).masked_fill(col[None, :] >= m_real, float("-inf"))
-        best_v, best_i = _merge_topk(best_v, best_i, ip,
-                                     col[None, :].expand_as(ip), k, False)
-    return best_v, best_i
+        return (x @ yt.T).masked_fill(col[None, :] >= m_real,
+                                      float("-inf")), col
+    return _sweep(tile_fn, y_padded.shape[0] // tile, x.shape[0], k, False,
+                  x.device)
 
 
 def _unit(a):

@@ -57,6 +57,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch.core.kvp import order_key, select_smallest
 from raft_tpu_torch.core.resources import as_f32, resolve_device
 from raft_tpu_torch.ops.fused_l2_topk import (
     _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk,
@@ -508,42 +509,15 @@ def _rescore(x, xx, idx: KnnIndex, pid):
 
 def _smallest_k(vals, ids, k: int):
     """The k smallest ``vals`` [Q, n] (f32) with their ``ids``, ties
-    broken by id: one top-k over a unique (value, id) int64 key, so the
-    result does not depend on the top-k algorithm a batch size selects.
-    ``ids`` None takes the positions (int32) as the ids."""
-    bits = vals.view(torch.int32)
-    key = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits).long()
-    key <<= 32
-    if ids is None:
-        key |= torch.arange(vals.shape[1], device=vals.device)
-    else:
-        key |= ids.long() & 0xFFFFFFFF
+    broken by id: one top-k over the unique (value, id) key
+    (:func:`order_key`), so the result does not depend on the top-k
+    algorithm a batch size selects. ``ids`` None takes the positions
+    (int32) as the ids."""
+    key = order_key(vals, ids)
     _, pos = torch.topk(key, k, dim=1, largest=False, sorted=True)
     del key                       # [Q, n] int64: freed before the gathers
     out = pos.to(torch.int32) if ids is None else torch.gather(ids, 1, pos)
     return torch.gather(vals, 1, pos), out
-
-
-def _nominate(d2, kk: int):
-    """``_smallest_k(d2, None, kk)`` — the kk smallest of ``d2`` [F, n] in
-    (value, column) order, ties at the lower column as the reference's
-    ``jax.lax.top_k(−d2, kk)`` — at the cost of an f32 ``torch.topk``,
-    which picks an arbitrary member of a tie. It takes one value past the
-    cut: the rows where that value equals the kk-th (a tie reaching past
-    the cut) or whose selection holds a NaN are selected again through
-    the int64 key; the rest are only put in (value, column) order."""
-    n = d2.shape[1]
-    vals, pos = torch.topk(d2, min(kk + 1, n), dim=1, largest=False,
-                           sorted=True)
-    redo = torch.isnan(vals[:, :kk]).any(1)
-    if kk < n:
-        redo |= vals[:, kk] == vals[:, kk - 1]
-    vals, ids = _smallest_k(vals[:, :kk].contiguous(),
-                            pos[:, :kk].to(torch.int32), kk)
-    rows = redo.nonzero().squeeze(1)
-    if rows.numel():
-        vals[rows], ids[rows] = _smallest_k(d2[rows], None, kk)
-    return vals, ids
 
 
 def _exact_rows(xq, idx: KnnIndex, k: int):
@@ -571,17 +545,15 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
         d2 = (xs[:, None] + yy[None, :] - 2.0 * s).clamp_min(0.0)
     del s
     d2 = d2.masked_fill(~idx.live_columns()[None, :], float("inf"))
-    # with stored rows, the GEMM only nominates k + _POOL_PAD candidates:
-    # its rounding depends on how many query rows it multiplies, the
-    # row-wise rescore does not, so a query's answer is the same bits
-    # whichever batch (and path) it rides in. Either way the nomination
-    # breaks exact ties at the lower column, as the reference's
-    # jax.lax.top_k(−d2, k) does
-    if idx.yp is None:
-        vals, ids = _smallest_k(d2, None, k)
-    else:
-        vals, ids = _nominate(d2, min(k + _POOL_PAD, d2.shape[1]))
-    ids = torch.where(torch.isfinite(vals), ids, -1)
+    # the nomination breaks exact ties at the lower column, as the
+    # reference's jax.lax.top_k(−d2, k) does. With stored rows it only
+    # nominates k + _POOL_PAD candidates: the GEMM's rounding depends on
+    # how many query rows it multiplies, the row-wise rescore does not,
+    # so a query's answer is the same bits whichever batch (and path) it
+    # rides in
+    kk = k if idx.yp is None else min(k + _POOL_PAD, d2.shape[1])
+    vals, pos = select_smallest(d2, kk)
+    ids = torch.where(torch.isfinite(vals), pos.to(torch.int32), -1)
     if idx.yp is not None:
         vals, ids = _smallest_k(_rescore(xq, xs, idx, ids), ids, k)
     return vals, ids

@@ -26,6 +26,7 @@ from typing import Tuple
 
 import torch
 
+from raft_tpu_torch.core.kvp import order_key
 from raft_tpu_torch.ops.folds import fold_group_top2
 from raft_tpu_torch.ops.select_slotted import select_slot_topk_packed
 
@@ -38,15 +39,12 @@ _STREAM_MIN_L = 4096
 
 def lax_top_k(v, k: int):
     """``jax.lax.top_k`` on a [B, n] f32 tensor: the k largest per row in
-    IEEE total order (−NaN < −inf < … < +inf < +NaN), ties to the lower
-    position, descending. ``torch.topk`` ranks every NaN above +inf and
-    leaves ties unordered; this keys each value by (order, position) so
-    the answer is the reference's. Returns (values, positions int64)."""
-    bits = v.contiguous().view(torch.int32)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
-    pos = torch.arange(v.shape[1], device=v.device)
-    key = ((~order).long() << 32) | pos
-    _, sel = torch.topk(key, k, dim=1, largest=False, sorted=True)
+    IEEE total order, ties to the lower position, descending.
+    ``torch.topk`` ranks every NaN above +inf and leaves ties unordered;
+    this selects by :func:`order_key` so the answer is the reference's.
+    Returns (values, positions int64)."""
+    _, sel = torch.topk(order_key(v, descending=True), k, dim=1,
+                        largest=False, sorted=True)
     return torch.gather(v, 1, sel), sel
 
 

@@ -770,18 +770,15 @@ bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {
   return false;
 }
 
-// `force` (a measurement's geometry) replaces pick_geo's choice
 template <int PASSES, bool PAIR, bool Q8>
 int launch(const Args& a, const void* y_hi, const void* y_lo,
-           cudaStream_t stream, const Geo* force = nullptr) {
+           cudaStream_t stream) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
   Geo geo;
-  if (force != nullptr)
-    geo = *force;
-  else if (!pick_geo(a.d, PASSES, Q8, limit, &geo))
+  if (!pick_geo(a.d, PASSES, Q8, limit, &geo))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(a.yyh) % 16 ||
       reinterpret_cast<uintptr_t>(a.x) % 16)

@@ -21,7 +21,9 @@ from raft_tpu.distance import fused_l2nn as jl2nn
 from raft_tpu.distance import knn_fused as jkf
 from raft_tpu_torch import distance as tdist
 from raft_tpu_torch.core import DeviceResources
+from raft_tpu_torch.core.kvp import select_smallest
 from raft_tpu_torch.distance import knn_fused as tkf
+from raft_tpu_torch.matrix.select_k_slotted import lax_top_k
 
 T, QB, G = 512, 64, 8
 CASES = [(64, 8192, 128, 10), (130, 8192, 100, 64)]
@@ -245,21 +247,52 @@ def test_pad_query_rows():
         tkf.pad_query_rows(x, 2)
 
 
-@pytest.mark.parametrize("kk", [1, 7, 40, 300])
-def test_nominate_is_smallest_k_bit_for_bit(kk):
-    # the f32 top-k with its ties redone equals the int64-key selection:
-    # ties across the cut, ±0, ±inf and NaN, rows with fewer finite values
-    # than kk
-    rng = np.random.default_rng(kk)
+def _planted_scores(seed):
+    """[64, 300] f32 scores with ties across and inside every cut, ±0,
+    ±inf, +NaN and −NaN (first in total order, last for torch.topk: in
+    rows 13 and 17 past every cut, in rows with no other tie), rows with
+    fewer finite values than the selections take, and two rows with no
+    tie and no NaN (19, 21), which the f32 top-k answers alone."""
+    rng = np.random.default_rng(seed)
     d2 = rng.integers(0, 6, size=(64, 300)).astype(np.float32)
+    neg_nan = np.array([0xFFC00000], dtype=np.uint32).view(np.float32)[0]
     d2[3, ::7] = -0.0
     d2[5, :] = np.inf
     d2[7, :250] = np.nan
     d2[9, ::3] = -np.inf
     d2[11, 10:20] = np.nan
-    d2 = torch.from_numpy(d2)
-    v, i = tkf._nominate(d2.clone(), kk)
+    d2[13] = rng.permutation(300)       # no tie at any cut: only the
+    d2[13, 299] = neg_nan               # −NaN calls for the redo
+    d2[15, 100:] = neg_nan
+    d2[17] = rng.permutation(300)
+    d2[17, ::5] = neg_nan
+    d2[19] = rng.permutation(300)       # no tie, no NaN: kept from the
+    d2[21] = rng.permutation(300) - 150.0   # f32 top-k (with a −0)
+    d2[21, d2[21] == 0] = -0.0
+    assert np.signbit(d2[13, 299]) and np.isnan(d2[13, 299])
+    return torch.from_numpy(d2)
+
+
+@pytest.mark.parametrize("kk", [1, 7, 40, 300])
+def test_nominate_is_smallest_k_bit_for_bit(kk):
+    # the nomination of _exact_rows (the f32 top-k with its tied and NaN
+    # rows redone) equals the int64-key selection
+    d2 = _planted_scores(kk)
+    v, pos = select_smallest(d2.clone(), kk)
     v_ref, i_ref = tkf._smallest_k(d2.clone(), None, kk)
-    assert i.dtype == i_ref.dtype == torch.int32
+    assert pos.dtype == torch.int64
     assert torch.equal(v.view(torch.int32), v_ref.view(torch.int32))
-    assert torch.equal(i, i_ref)
+    assert torch.equal(pos.to(torch.int32), i_ref)
+
+
+@pytest.mark.parametrize("kk", [1, 7, 40, 300])
+def test_select_smallest_of_negation_is_lax_top_k(kk):
+    # the streamed sweep's merge: the largest in jax.lax.top_k's order
+    # are the smallest of the negation, NaNs of either sign included
+    d2 = _planted_scores(kk)
+    for v in (d2, -d2):
+        got_v, got_p = select_smallest(-v, kk)
+        want_v, want_p = lax_top_k(v, kk)
+        assert torch.equal((-got_v).view(torch.int32),
+                           want_v.view(torch.int32))
+        assert torch.equal(got_p, want_p)

@@ -16,6 +16,7 @@ from raft_tpu.distance import knn as j_knn
 from raft_tpu.matrix import select_k as j_select_k
 from raft_tpu_torch.core import DeviceResources
 from raft_tpu_torch.distance import fused_l2_nn, fused_l2_nn_argmin, knn
+from raft_tpu_torch.distance.fused_l2nn import _MERGE_PAD
 from raft_tpu_torch.matrix import SelectAlgo, select_k
 
 RTOL, ATOL = 1e-5, 1e-4
@@ -144,5 +145,48 @@ def test_streamed_knn_exact_ties_match_reference(res, jres, tied_data,
     v_ref, i_ref = j_knn(jres, y, x, 100, metric=metric, algo="streamed",
                          tile=tile)
     v, i = knn(res, y, x, 100, metric=metric, algo="streamed", tile=tile)
+    np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+@pytest.fixture(scope="module")
+def partly_tied_data():
+    """Quarter-integer rows (every product and sum exact in f32) with ten
+    rows repeated once and one row 24 times, and queries of which the
+    first six sit next to a repeated row: some queries meet an exact tie
+    among their nearest, one a tie that runs from the k-th past the
+    entries the sweep keeps beyond it, the rest none."""
+    rng = np.random.default_rng(37)
+    y = (rng.integers(-64, 64, size=(4097, 8)) / 4).astype(np.float32)
+    y[2000:2010] = y[:10]
+    y[3000:3023] = y[10]
+    x = (rng.integers(-64, 64, size=(33, 8)) / 4).astype(np.float32)
+    x[:5] = y[:5] + 0.25
+    x[5] = y[10] + 0.25
+    return x, y
+
+
+@pytest.mark.parametrize("metric,tile", [("sqeuclidean", 512),
+                                         ("inner_product", 512),
+                                         ("inner_product", 128)])
+def test_streamed_knn_some_rows_tied_match_reference(res, jres,
+                                                     partly_tied_data,
+                                                     metric, tile):
+    # the merge sweeps order ties inside the kept entries at once and
+    # sweep again only the queries whose tie runs from the k-th past them:
+    # all three kinds of query in one batch. (l2 at tile 128 takes the
+    # certified sweep, whose reference keeps approx_min_k's order of the
+    # ties inside a certified top-k: not the lower id)
+    x, y = partly_tied_data
+    k = 10
+    s = x @ y.T if metric == "inner_product" else -(
+        (x * x).sum(1)[:, None] + (y * y).sum(1)[None, :] - 2 * x @ y.T)
+    head = -np.sort(-s, axis=1)[:, :k + _MERGE_PAD + 1]
+    tied = (head[:, 1:k] == head[:, :k - 1]).any(1)
+    redone = head[:, k - 1] == head[:, k + _MERGE_PAD]
+    assert redone.any() and (tied & ~redone).any() and not tied.all()
+    v_ref, i_ref = j_knn(jres, y, x, k, metric=metric, algo="streamed",
+                         tile=tile)
+    v, i = knn(res, y, x, k, metric=metric, algo="streamed", tile=tile)
     np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))

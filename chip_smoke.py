@@ -7,9 +7,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from the sources in this checkout; every
-   instance of the packed wgmma kernel (K1, K2) must build without a
-   spill (``ptxas_packed``), and its fold's SASS instructions a score are
-   counted (``sass_fold_ops``).
+   instance of the packed wgmma kernels (K1, K2, and K1's d-chunked form)
+   must build without a spill (``ptxas_packed``), and the resident
+   form's fold's SASS instructions a score are counted
+   (``sass_fold_ops``).
 2. K1 against its plain PyTorch twin on the card, at d = 128 and d = 512
    (the resident envelope's edge), Q=500 (not a whole number of the
    kernel's 128-query blocks) × M = 65 tiles of 2048 rows (a partial last
@@ -30,7 +31,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    padded tail: the resident form at passes 1/3 × mask × track, the
    d-chunked form at d = 768, held by ``compare_slot`` (m1 and m2min
    equal in kind and within K1's f32 bound for d2, ids equal but at
-   ties proven in f64).
+   ties proven in f64). Then K1's d-chunked form (``dchunk_twins``) at
+   (d, Q) = (640, 300) and (1024, 550) (``DCHUNK_TWINS``: the launcher's
+   every geometry, queries resident or streamed × clusters of 1 and 2,
+   the last cluster completed by a block that stores nothing) × 40 tiles
+   with a padded tail and ±inf/NaN planted, passes × pair, held like
+   ``nonfinite_k1_k2``.
 3. The main path at full size, as ``bench.py`` configures it: make_blobs
    1,000,000 × 128 (64 clusters, std 2.0), the first 2048 rows as queries,
    k=64; ``prepare_knn_index`` at passes 1 and 3, bf16 and int8, then
@@ -76,16 +82,22 @@ Phases, each fatal on failure (non-zero exit, no result line):
    builds after warm-up, p50/p99 and requests/s.
 6. IVF-PQ on phase 5's data and lists: ``build_ivf_pq`` (max_iter=8,
    seed=3, pq_dim 32) at 8 and 4 bits, the build seconds split into
-   coarse, codebooks and encode. (a) K5 against its twin on one real
-   schedule (the first 64 queries at P=32) at depths 2, 4 and 8: pool
-   values bit for bit, rows equal except at exact ties. (b) pq8_p32,
+   coarse, codebooks and encode. (a) K5 against its twin on real
+   schedules (the first 64 queries at P=32 and P=128) at depths 2, 4 and
+   8, 8- and 4-bit: pool values bit for bit, rows equal except at exact
+   ties. (b) pq8_p32,
    pq8_p128, pq4_p32, pq4_p128: ``search_ivf_pq(pq_scan="pq")`` with the
    counts zeroed just before and read just after; recall@10, the
    certificate rungs (certified, widened, exact rerun), id sets identical
    to ``pq_scan="flat"`` over the same probes up to proven ties (a hard
    check), the host-clock median of 5, K5 on the run's own inputs (CUDA
-   events, beside its bound and, at P=32, its twin), the chooser's pick
-   under ``auto`` and one profiled call. (d) serve_ivf_pq: an ``ivf_pq``
+   events, beside its bound and, at P=32, its twin; depth 2 also alone
+   under torch.profiler, ``kernel_ms``, what the speed guard holds) at
+   every rung (depth 2, 4, 8) with each rung's launches in the run
+   (``LAUNCHES_DEPTH``),
+   on a ``k5`` line of its own beside the modelled lookup ceiling
+   (``k5_lookup_ms``, not a measurement), the chooser's pick under
+   ``auto`` and one profiled call. (d) serve_ivf_pq: an ``ivf_pq``
    engine over the 8-bit index at P=32, 500 requests with
    ``bench_serving.py``'s recipe (8 clients, Exp(1 ms), Poisson(16) on
    (16, 64, 256)), parity probes bit-identical to ``search_ivf_pq``
@@ -181,7 +193,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    after (both must be > 0), and first, outside the counts, K8 held to its
    twin at the silhouette's chunks (the first 1,024 and the last 672 rows
    against all 100,000, l1, where d = 128 leaves a ragged 32-column
-   tile): moments (relative 1e-4 of f64), ``KMeans(16)
+   tile; the first chunk, the path's launch shape, is also timed beside
+   its bound): moments (relative 1e-4 of f64), ``KMeans(16)
    .fit``, ARI (equal to a numpy evaluation to 1e-12) and V-measure
    against the true labels, ``stats.histogram`` of the labels (K9, equal
    to ``torch.bincount``), ``silhouette_score_batched`` with sqeuclidean
@@ -203,7 +216,12 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``torch.topk`` of the same [B, L, k] (the path's library time; K3's
    own ``library_ms`` is null: no PyTorch call computes the packed
    fold). (c) BITONIC, CHUNKED and RADIX once each at [256, 1,048,576],
-   k = 64, equal to ``torch.topk``.
+   k = 64, equal to ``torch.topk``. (d) AUTO (``XLA_TOPK``, in
+   ``jax.lax.top_k``'s order) on [256, 1,048,576] integer rows from
+   0..3 with ±0, ±inf and ±NaN planted, k ∈ {16, 64, 256}, select_min
+   either way: values and ids equal to ``core.kvp.smallest_by_key``'s bit
+   for bit; then AUTO timed there and on N(0, 1) rows (host median of
+   five).
 13. Wide and unpacked brute-force KNN (``wide_knn_phase``). wide_knn:
    ann-benchmarks' gist-960-euclidean shape as make_blobs 1,000,000 × 960
    (64 clusters, std 2.0), the first 1,000 rows as queries, k = 100;
@@ -217,7 +235,10 @@ Phases, each fatal on failure (non-zero exit, no result line):
    take the fused pipeline. ms, n_fail, launches and GB/s of the [1000,
    1M] f32 matrix. K1's d-chunked form against its twin on the path's
    own inputs (``compare_k1``), timed beside the twin, its bound and
-   ``torch.matmul`` in bf16 of the same shape. unpacked_knn:
+   ``torch.matmul`` in bf16 of the same shape, its ``K1 dchunk at`` line
+   also giving the launcher's geometry and the L2 → shared-memory bytes
+   that geometry moves by a model (``dchunk_l2_bytes``, not a
+   measurement). unpacked_knn:
    ``prepare_knn_index(Y, T=512, g=4096, passes=3)`` (16,384 codes, past
    the packed envelope) on the wide data and on phase 3's 1M × 128 data
    (2048 queries, k = 64): ids identical to the oracle's up to proven
@@ -233,8 +254,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    (``slot_dchunk_rows``) on wide_knn's operands at p1 and p3: held
    against its twin, then timed with its count zeroed before and read
    after, beside twin, bound and ``torch.matmul``.
-14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, the slot
-   forms, K6b and K6c against their times recorded from earlier full runs
+14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, K1's
+   d-chunked form, K5, the slot forms, K6b and K6c against their times recorded from earlier full runs
    (``GUARD_MS``), failing where one is more than 10% slower on the card
    they were recorded on and naming those more than 5% slower. The wall
    seconds of each phase (``phase_s``). A JSON ``kernels`` line (K1's
@@ -358,18 +379,25 @@ def fold_issue_ms(per_score: float, Q: int, M: int) -> float:
 
 
 def ptxas_packed(log: str) -> dict:
-    """Registers and spill bytes of each instance of the packed kernel
-    (``p{passes}`` + ``_pair`` + ``_q8``) from ``nvcc -Xptxas=-v``'s
-    report. The registers are the launch's (384 threads); setmaxnreg then
-    gives the consumer warpgroups 232 and the producer 40."""
+    """Registers and spill bytes of each instance of the packed kernels
+    (``p{passes}`` + ``_pair`` + ``_q8``; the d-chunked form ``wide_p
+    {passes}`` + ``_pair`` + ``_stream`` where x streams) from ``nvcc
+    -Xptxas=-v``'s report. The registers are the launch's (384 threads);
+    setmaxnreg then gives the consumer warpgroups 232 and the producer
+    40."""
     import re
 
     out, name = {}, None
     for line in log.splitlines():
-        m = re.search(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E", line)
+        m = re.search(r"(packed|wide)_sm90_kernelILi(\d)ELb(\d)ELb(\d)E",
+                      line)
         if "Compiling entry function" in line and m:
-            name = (f"p{m.group(1)}{'_pair' if m.group(2) == '1' else ''}"
-                    f"{'_q8' if m.group(3) == '1' else ''}")
+            kind, passes, pair, flag = m.groups()
+            name = f"p{passes}{'_pair' if pair == '1' else ''}"
+            if kind == "packed":
+                name += "_q8" if flag == "1" else ""
+            else:
+                name = "wide_" + name + ("" if flag == "1" else "_stream")
             out[name] = {}
         elif name is not None and "spill stores" in line:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
@@ -394,6 +422,29 @@ def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
+
+
+def kernel_ms(fn, name: str, reps: int = 5):
+    """Mean device milliseconds of the kernels whose name holds ``name``
+    over ``reps`` calls of ``fn()`` after one more, from torch.profiler's
+    kernel records: the kernel alone, without its wrapper's host work or
+    other device work (None where the profiler saw no such kernel)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    total, count = 0.0, 0
+    for e in prof.key_averages():
+        if name in e.key:
+            t = getattr(e, "device_time_total", None)
+            total += e.cuda_time_total if t is None else t
+            count += e.count
+    return total / count / 1e3 if count else None
 
 
 def unpack(a, pbits: int):
@@ -912,6 +963,18 @@ def k5_bound_ms(nq: int, S: int, bits: int, P: int, depth: int,
                                        else "bytes")
 
 
+#: 4-byte shared-memory reads the card serves a second: one a lane a
+#: clock, 32 lanes × 132 SMs × 1.98 GHz (K5's table lookups)
+H100_LDS_PER_S = 32 * 132 * 1.98e9
+
+
+def k5_lookup_ms(S: int, pair_rows: int) -> float:
+    """K5's lookup ceiling: the S table reads of every scored (query, row)
+    pair at one conflict-free 4-byte read a lane a clock. A floor beside
+    ``bound_ms``, not part of it."""
+    return 1e3 * S * pair_rows / H100_LDS_PER_S
+
+
 def k5_inputs(res, index, Qx, P: int):
     """K5's operands for one batch at ``P`` probes, built by the path's own
     ``adc_operands``, with the batch's streamed rows and scored pairs."""
@@ -931,7 +994,8 @@ def pq_counts():
     from raft_tpu_torch.ops import pq_scan as k5
 
     return {"K1": k1.LAUNCHES, "K5": k5.LAUNCHES_8BIT,
-            "K5_4bit": k5.LAUNCHES_4BIT}
+            "K5_4bit": k5.LAUNCHES_4BIT,
+            **{f"K5_depth{t}": n for t, n in k5.LAUNCHES_DEPTH.items()}}
 
 
 def set_pq_counts(c):
@@ -940,22 +1004,23 @@ def set_pq_counts(c):
 
     k1.LAUNCHES, k5.LAUNCHES_8BIT, k5.LAUNCHES_4BIT = (
         c["K1"], c["K5"], c["K5_4bit"])
+    for t in k5.LAUNCHES_DEPTH:
+        k5.LAUNCHES_DEPTH[t] = c.get(f"K5_depth{t}", 0)
 
 
 def k5_lb(args, bits: int, S: int, q: int, row: int) -> float:
     """The twin's arithmetic for one (query, slab row): the row's entry in
-    the schedule, the table sum in subspace order, the certified bound."""
+    the schedule, the table sum as the kernel takes it (``adc_sum`` at the
+    row's window column), the certified bound."""
     import torch
-    from raft_tpu_torch.ops.pq_scan import decode_codes
+    from raft_tpu_torch.ops.pq_scan import adc_sum
 
     sched, xx, _, cdot, lut, codes, yy, eq, _ = args
     lo = sched[0] + sched[2]
     j = int(((row >= lo) & (row < lo + sched[1]) & (sched[3] >= 0))
             .nonzero()[0, 0])
-    code = decode_codes(codes[row:row + 1], S, bits)[0]
-    adc = torch.zeros((), device=lut.device)
-    for s in range(S):
-        adc = adc + lut[q, s * (1 << bits) + code[s]]
+    col = torch.tensor([row - int(sched[0, j])], device=lut.device)
+    adc = adc_sum(lut[q:q + 1], codes[row:row + 1], col, S, bits)[0, 0]
     d2 = (xx[q, 0] + yy.reshape(-1)[row]) - 2.0 * cdot[q, j] - 2.0 * adc
     v = (d2.clamp_min(0.0).sqrt() - eq.reshape(-1)[row]).clamp_min(0.0)
     return float(v * v)
@@ -1040,7 +1105,13 @@ def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
     bits, S = index.pq_bits, index.pq_dim
     out = k5.pq_scan_list_major(*inp["args"], pq_bits=bits)
     ms = cuda_ms(lambda: k5.pq_scan_list_major(*inp["args"], pq_bits=bits),
-                 5)
+                 10, warmup=2)
+    # the kernel alone: the wrapper's probe inversion and allocations run
+    # on the host and the card around it
+    kms = kernel_ms(lambda: k5.pq_scan_list_major(*inp["args"],
+                                                  pq_bits=bits),
+                    "pq_scan_kernel")
+    check(kms is not None, f"{name}: the profiler saw no pq_scan_kernel")
     # the certificate's margin (pooled bound − θ − e_k) over θ, the
     # quantity the rungs decide on
     pr = inp["probes"]
@@ -1051,11 +1122,23 @@ def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
     set_pq_counts(saved)            # comparison launches do not count
     bound, bound_by = k5_bound_ms(nq, S, bits, P, 2, inp["stream_rows"],
                                   inp["pair_rows"])
-    k5_row = {"ms": ms, "bound_ms": bound, "bound_by": bound_by,
-              "library_ms": None, "lists": inp["lists"],
-              "stream_rows": inp["stream_rows"],
+    # every rung on the batch's own operands, with its launches in the run
+    rungs_k5 = {}
+    for depth in (2, 4, 8):
+        r_bound, _ = k5_bound_ms(nq, S, bits, P, depth, inp["stream_rows"],
+                                 inp["pair_rows"])
+        rungs_k5[depth] = {
+            "ms": ms if depth == 2 else cuda_ms(
+                lambda: k5.pq_scan_list_major(*inp["args"], pq_bits=bits,
+                                              pool_depth=depth), 10),
+            "bound_ms": r_bound,
+            "launches": launches[f"K5_depth{depth}"]}
+    set_pq_counts(saved)
+    k5_row = {"ms": ms, "kernel_ms": kms, "bound_ms": bound,
+              "bound_by": bound_by, "library_ms": None,
+              "lists": inp["lists"], "stream_rows": inp["stream_rows"],
               "pair_rows": inp["pair_rows"],
-              "launches_per_call": launches[kname]}
+              "launches_per_call": launches[kname], "rungs": rungs_k5}
     if plain:
         hold = []
         k5_row["plain_ms"] = cuda_ms(lambda: hold.append(
@@ -1065,6 +1148,9 @@ def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
             out, hold[0], inp, f"K5 {name}")
         del hold
     del out
+    model = {"lookup_ceiling_ms_modelled": k5_lookup_ms(S,
+                                                         inp["pair_rows"])}
+    print(f"k5 {name}: {json.dumps({**k5_row, **model})}", flush=True)
     pick = resolve_pq_scan(index, nq, IVF_K, P, index.probe_window, "auto",
                            probes_np=inp["probes"].cpu().numpy())
     del inp
@@ -1228,9 +1314,9 @@ def pq_phase(res, data, n_lists: int, probes=(32, 128)):
     for bits in (8, 4):
         index[bits] = build(f"pq{bits}", X, pq_bits=bits)
 
-    # ---- phase 6a: K5 against its twin on one real schedule ----
-    for bits in (8, 4):
-        inp = k5_inputs(res, index[bits], Q[:64], probes[0])
+    # ---- phase 6a: K5 against its twin on real schedules, every rung ----
+    for bits, P in ((b, p) for b in (8, 4) for p in probes):
+        inp = k5_inputs(res, index[bits], Q[:64], P)
         for depth in (2, 4, 8):
             saved = pq_counts()
             out = k5.pq_scan_list_major(*inp["args"], pq_bits=bits,
@@ -1242,7 +1328,7 @@ def pq_phase(res, data, n_lists: int, probes=(32, 128)):
                                             pool_depth=depth)
             err, ties = compare_k5(out, ref, inp, f"K5 {bits}-bit d{depth}")
             print(f"K5 vs twin ({bits}-bit, depth {depth}, 64 queries, "
-                  f"P={probes[0]}, {inp['lists']} lists): max_abs_err={err} "
+                  f"P={P}, {inp['lists']} lists): max_abs_err={err} "
                   f"tie_slots={ties}", flush=True)
             del out, ref
         del inp
@@ -1287,8 +1373,8 @@ def pq_phase(res, data, n_lists: int, probes=(32, 128)):
             "name": label, **common,
             "launches": p32["launches"][kname] + p128["launches"][kname],
             **{k: p32["k5"][k] for k in (
-                "max_abs_err", "ms", "plain_ms", "bound_ms", "bound_by",
-                "library_ms")},
+                "max_abs_err", "ms", "kernel_ms", "plain_ms", "bound_ms",
+                "bound_by", "library_ms", "rungs")},
             "p128": p128["k5"]})
     entries[0]["serving_launches"] = serve_launches
     print("K5 library_ms: null (no one PyTorch call computes the masked "
@@ -2555,6 +2641,17 @@ def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
         sil_chunks[tag] = {"rows": q.shape[0], "max_abs_err": err,
                            "worst_diff_over_bound": worst}
         del out, ref
+        if tag == "first":
+            # the stats path's own launch shape, timed beside its bound
+            bound, by = k8_bound_ms("l1", q.shape[0], n_s, Xs.shape[1])
+            sil_chunks[tag].update(
+                ms=cuda_ms(lambda: k8.unexpanded_pairwise_tiled(
+                    q, Xs, DistanceType.L1), 10),
+                bound_ms=bound, bound_by=by,
+                shape=[q.shape[0], n_s, Xs.shape[1]])
+            print(f"K8 at the stats path's chunk shape {q.shape[0]} × {n_s} "
+                  f"× {Xs.shape[1]} l1: ms={sil_chunks[tag]['ms']} "
+                  f"bound_ms={bound} ({by})", flush=True)
     checks["silhouette_l1_chunks"] = sil_chunks
     max_err = max(max_err, *(r["max_abs_err"] for r in sil_chunks.values()))
     print(f"K8 vs twin at the silhouette chunks: {json.dumps(sil_chunks)}",
@@ -2721,6 +2818,97 @@ def k1_k2_twins(gen, d: int, Q: int = 500, tiles: int = 65, Q2: int = 300,
     del x, y, y_q, scales, yyh, xxh, out, ref
     torch.cuda.empty_cache()
     return out_errs
+
+
+def dchunk_l2_bytes(Q: int, M: int, d: int, passes: int, T: int, g: int,
+                    geo) -> float:
+    """Bytes K1's d-chunked kernel moves from L2 into shared memory in
+    geometry ``geo`` = (xres, stages, cluster), by a model (no counter
+    measures them): y once a cluster of query blocks, x once a block
+    (resident) or once a chunk (streamed), yyh once a block's chunk."""
+    xres, _, cluster = geo
+    xa = 2 if passes == 3 else 1
+    blocks = -(-(-(-Q // 64)) // cluster) * cluster
+    y = xa * M * d * 2 * blocks / cluster
+    x = xa * 64 * d * 2 * blocks * (-(-(M // T) // g) if xres else M // 128)
+    return y + x + blocks * M * 4
+
+
+#: K1's d-chunked twins, (d, Q): every shipped geometry is reached, the
+#: queries resident at passes=1 and streamed at passes=3 at both widths;
+#: 300 queries are 5 blocks (one a cluster, the last one partial), 550 are
+#: 9 (clusters of 2, the last one completed by a block that stores
+#: nothing)
+DCHUNK_TWINS = ((640, 300), (1024, 550))
+
+
+def dchunk_twins(gen, d: int, Q: int, tiles: int = 40, T: int = 2048,
+                 g: int = 16, pbits: int = 8):
+    """K1's d-chunked form against its twin at width d: Q queries ×
+    ``tiles``·T rows (a partial last group), a padded tail of 100 rows,
+    +inf, −inf and NaN planted in query and index rows and a −inf norm;
+    passes {1, 3} × pair {False, True}, each in the geometry the launcher
+    picks (``fused_l2_topk.dchunk_geometry``). Non-finite slots equal the
+    twin's in kind and finite ones hold ``finite_slots_close``'s bound.
+    Each launch is counted. Returns ({tag: max abs error}, the (queries
+    resident, cluster) pairs reached)."""
+    import torch
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    inf, nan = float("inf"), float("nan")
+    M = tiles * T
+    x = torch.randn(Q, d, device="cuda", generator=gen)
+    x[5, 3], x[77, 100], x[200, 0] = inf, -inf, nan
+    y = torch.randn(M, d, device="cuda", generator=gen)
+    y[1000, 7], y[40000, 50], y[70001, 1] = inf, -inf, nan
+    y_hi, y_lo = k1.split_hi_lo(y)
+    yyh = 0.5 * (y * y).sum(1)
+    yyh[5] = -inf
+    yyh[-100:] = k1._PACK_PAD
+    xxh = 0.5 * (x * x).sum(1)
+    live = torch.isfinite(y).all(1)
+    ymax = y_hi.float()[live].norm(dim=1).max().item()
+    yymax = yyh[torch.isfinite(yyh) & (yyh < 2.0 ** 123)].max().item()
+    errs, reached = {}, set()
+    for passes in (1, 3):
+        geo = k1.dchunk_geometry(Q, d, passes)
+        reached.add((geo[0], geo[2]))
+        for pair in (False, True):
+            kw = dict(T=T, g=g, passes=passes, pair=pair, pbits=pbits,
+                      xxh=xxh)
+            args = (x, y_hi, y_lo, yyh)
+            n0 = k1.LAUNCHES_DCHUNK
+            out = k1.fused_l2_group_topk_packed_dchunk(*args, **kw)
+            torch.cuda.synchronize()
+            check(k1.LAUNCHES_DCHUNK == n0 + 1, "K1 dchunk launch was not "
+                  "counted")
+            ref = k1.fused_l2_group_topk_packed_dchunk_ref(*args, **kw)
+            tag = f"K1 dchunk Q={Q} d={d} p{passes} pair={pair}"
+            kinds = same_in_kind(out, ref, tag)
+            errs[tag] = finite_slots_close(out, ref, x, ymax, yymax, pbits,
+                                           pair, tag)
+            del out, ref
+            print(f"{tag} (geometry {geo}, ±inf/NaN planted): "
+                  f"max_abs_err={errs[tag]} {json.dumps(kinds)}",
+                  flush=True)
+    k1.LAUNCHES_DCHUNK = 0
+    torch.cuda.empty_cache()
+    return errs, reached
+
+
+def dchunk_twins_all(gen):
+    """``dchunk_twins`` at every case of ``DCHUNK_TWINS``; fails unless
+    they reach every (queries resident, cluster of 1 or 2) the launcher
+    ships. Returns {tag: max abs error}."""
+    errs, reached = {}, set()
+    for d, Q in DCHUNK_TWINS:
+        e, r = dchunk_twins(gen, d, Q)
+        errs.update(e)
+        reached |= r
+    want = {(xres, c) for xres in (True, False) for c in (1, 2)}
+    check(reached == want, f"K1 dchunk twins reached the geometries "
+          f"{sorted(reached)}, not every shipped one {sorted(want)}")
+    return errs
 
 
 def nonfinite_k1_k2(gen, Q: int = 500, M: int = 131072, d: int = 128,
@@ -2988,6 +3176,40 @@ def select_k_phase(res, cells=SELECT_CELLS, k3_shape=(256, 1_048_576),
     del v, ref_v, vals, ids
     torch.cuda.empty_cache()
     k3.LAUNCHES = 0
+
+    # ---- 12d: AUTO (the XLA_TOPK order) on tied integer rows ----
+    from raft_tpu_torch.core.kvp import smallest_by_key
+
+    vt = torch.randint(0, 4, k3_shape, device="cuda",
+                       generator=gen).float()
+    vn = torch.randn(*k3_shape, device="cuda", generator=gen)
+    vt[5, 100], vt[9, 7], vt[17, 3], vt[17, 4] = nan, -nan, inf, -0.0
+    report["auto"] = {}
+    for k in (16, 64, 256):
+        for select_min in (True, False):
+            vals, ids = select_k(res, vt, k=k, select_min=select_min)
+            want_v, want_i = smallest_by_key(vt, k,
+                                             descending=not select_min)
+            check(torch.equal(ids.long(), want_i)
+                  and torch.equal(vals.view(torch.int32),
+                                  want_v.view(torch.int32)),
+                  f"select_k AUTO k={k} select_min={select_min}: not "
+                  f"smallest_by_key's order on tied rows")
+        row = {}
+        for name, t in (("normal", vn), ("tied_integers", vt)):
+            times = []
+            for _ in range(6):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                select_k(res, t, k=k)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            row[f"ms_{name}"] = 1e3 * statistics.median(times[1:])
+        report["auto"][k] = row
+    print(f"select_k AUTO at {list(k3_shape)} (ids equal to "
+          f"smallest_by_key's on tied integer rows with ±0, ±inf, ±NaN): "
+          f"{json.dumps(report['auto'])}", flush=True)
+    del vt, vn
 
     main_key = (k3_shape[0], k3_shape[1], 4)
     main = k3_rows.get(main_key) or next(iter(k3_rows.values()))
@@ -3585,8 +3807,13 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
             "bound_by": bound_by, "library_ms": library_ms,
             "max_abs_err": err, "shape": [nq, M, d],
             "stream_width": index.stream_width}
+        geo = k1.dchunk_geometry(nq, index.stream_width, index.passes)
+        model = {"geometry": list(geo), "l2_gb_modelled": dchunk_l2_bytes(
+            nq, M, index.stream_width, index.passes, index.T, index.g,
+            geo) / 1e9}
         print(f"K1 dchunk at wide_knn, passes={index.passes}: "
-              f"{json.dumps(rows[f'p{index.passes}'])}", flush=True)
+              f"{json.dumps({**rows[f'p{index.passes}'], **model})}",
+              flush=True)
     # ---- K1's d-chunked slot form on the same operands ----
     slot_rows, slot_entry = slot_dchunk_rows((idx1, idx3), Qx)
     del idx1, idx3
@@ -3654,7 +3881,7 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
             "max_abs_err")
     entries = [
         {"name": "fused_l2_group_topk_packed_dchunk", "route": "cuda",
-         "source": src,
+         "source": "raft_tpu_torch/ops/csrc/fused_l2_packed_sm90.cu",
          "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:1294",
          "launches": dchunk_launches, **{k: rows["p1"][k] for k in keys},
          "shape": rows["p1"]["shape"], "p3": rows["p3"],
@@ -3682,8 +3909,9 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
     return report, entries
 
 
-#: kernels this run holds to their times recorded from earlier full runs
-#: of this script (PERF.md §6), with the card they were taken on. A kernel
+#: kernels this run holds to their times recorded from earlier runs of
+#: this script or of an A/B script on the same inputs (PERF.md §6), with
+#: the card they were taken on. A kernel
 #: fails the run where it is more than GUARD_SLACK times slower on that
 #: card: the widest run-to-run spread of one kernel on one input recorded
 #: in PERF.md §7 (K4's times), while these kernels themselves have moved
@@ -3693,7 +3921,14 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.644, "K2_p3": 3.215,
             "slot_p1": 4.173, "slot_p3": 6.390, "slot_minonly": 3.750,
-            "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538}
+            "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538,
+            # K1 dchunk: the passing run of this script on its code's git
+            # archive; K5 alone (``kernel_ms``: its wrapper's time follows
+            # host load by 10% and more), the slower of the final tree's
+            # two runs in port_scripts/ab_dchunk_k5.py's call
+            "K1_dchunk_p1": 6.364, "K1_dchunk_p3": 13.323,
+            "K5_p32": 0.960, "K5_p128": 3.494, "K5_4bit_p32": 0.579,
+            "K5_4bit_p128": 1.982}
 GUARD_SLACK = 1.10
 GUARD_NOTE = 1.05
 
@@ -3713,6 +3948,12 @@ def speed_guard(card: str, entries) -> dict:
            "slot_minonly": slot["min_only"]["ms"],
            "K6b": by["spmv_pair_tiled"]["ms"], "K6c_V16": k6c["ms"],
            "K6c_V128": k6c["V128"]["ms"]}
+    wide = by["fused_l2_group_topk_packed_dchunk"]
+    now.update(K1_dchunk_p1=wide["ms"], K1_dchunk_p3=wide["p3"]["ms"])
+    for name, tag in (("pq_scan_list_major", "K5"),
+                      ("pq_scan_list_major_4bit", "K5_4bit")):
+        now[f"{tag}_p32"] = by[name]["kernel_ms"]
+        now[f"{tag}_p128"] = by[name]["p128"]["kernel_ms"]
     ratio = {k: now[k] / GUARD_MS[k] for k in GUARD_MS}
     held = card.strip() == GUARD_CARD
     out = {"card": card.strip(), "held": held, "ms": now,
@@ -3790,7 +4031,7 @@ def main() -> int:
     packed_regs = ptxas_packed(_build.BUILD_LOG.get("fused_l2_packed_sm90",
                                                     ""))
     if "fused_l2_packed_sm90" in _build.BUILD_LOG:   # (not when reloaded)
-        check(len(packed_regs) == 8 and all(
+        check(len(packed_regs) == 16 and all(
             r.get("spill_bytes") == 0 for r in packed_regs.values()),
             f"the packed kernel's instances spill or are missing: "
             f"{packed_regs}")
@@ -3805,6 +4046,8 @@ def main() -> int:
     twins = {}
     for d_twin in (128, 512):
         twins.update(k1_k2_twins(gen, d=d_twin))
+    # K1's d-chunked form: resident and streamed queries, every cluster
+    twins.update(dchunk_twins_all(gen))
     # K1 and K2 once more, with ±inf and NaN planted; then K1's slot forms
     nonfinite = nonfinite_k1_k2(gen)
     nonfinite.update(nonfinite_slot(gen))

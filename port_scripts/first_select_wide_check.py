@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """A short first check of select_k (K3) and the wide and unpacked KNN on
 one CUDA card, before a full ``chip_smoke.py`` run: builds
-``fused_l2_topk.cu`` (K1, K2 and K1's d-chunked and unpacked forms) and
+``fused_l2_packed_sm90.cu`` (K1, K2 and K1's d-chunked form),
+``fused_l2_topk.cu`` (K1's unpacked and slot forms) and
 ``select_slotted.cu`` (K3), prints their ``ptxas`` register and spill
 reports, holds K1 and K2 against their twins with ±inf and NaN planted
 (phase 2's second half), then runs ``chip_smoke.select_k_phase`` and
@@ -38,7 +39,8 @@ def main() -> int:
     print(cs.gpu_name_power(), torch.__version__, torch.version.cuda,
           flush=True)
     t0 = time.time()
-    _build.build_all(["fused_l2_topk", "select_slotted"])
+    _build.build_all(["fused_l2_packed_sm90", "fused_l2_topk",
+                      "select_slotted"])
     print(f"build: {time.time() - t0:.1f} s {_build.BUILD_SECONDS}",
           flush=True)
     for name, log in _build.BUILD_LOG.items():

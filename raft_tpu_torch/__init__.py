@@ -12,10 +12,11 @@ Entry points run on the CUDA device unless the caller passes
 Ported so far: certified fused brute-force KNN (``distance.knn``,
 ``prepare_knn_index``, ``knn_fused``) with its kernel K1, and its
 int8-streamed index (``db_dtype="int8"``) with the kernel K2 — the
-packed K1 and K2 on ``wgmma`` fed by TMA through an ``mbarrier`` ring
-(``ops/csrc/fused_l2_packed_sm90.cu``), K1's wide-feature (d-chunked),
-unpacked (past the packed-code envelope, groups split into segments) and
-per-slot forms on ``mma.sync`` (``ops/csrc/fused_l2_topk.cu``); the
+packed K1, its wide-feature (d-chunked) form and K2 on ``wgmma`` fed by
+TMA through an ``mbarrier`` ring (``ops/csrc/fused_l2_packed_sm90.cu``),
+K1's unpacked (past the packed-code envelope, groups split into
+segments) and per-slot forms on ``mma.sync``
+(``ops/csrc/fused_l2_topk.cu``); the
 serving engine over it (``serving.ServingEngine``: micro-batching to a
 bucket ladder, admission control, deadlines, snapshot swap; brute
 bf16/int8, IVF-Flat and IVF-PQ planes) with its entry

@@ -14,19 +14,32 @@ class KeyValuePair(NamedTuple):
     value: Any
 
 
+def total_order(v):
+    """``v``'s place in IEEE total order (−NaN < −inf < … < −0 < +0 < … <
+    +inf < +NaN), as an int64 tensor of its shape, for a floating ``v`` of
+    16, 32 or 64 bits; an integer ``v`` is its own order."""
+    if not v.dtype.is_floating_point:
+        return v.long()
+    width = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+        v.element_size()]
+    bits = v.contiguous().view(width)
+    return torch.where(bits < 0, bits ^ torch.iinfo(width).max,
+                       bits).long()
+
+
 def order_key(v, ids=None, descending: bool = False):
-    """A unique int64 key for each entry of ``v`` [B, n] (f32): its place
-    in IEEE total order (−NaN < −inf < … < +inf < +NaN; reversed when
-    ``descending``) in the high word and its id in the low word (``ids``
-    [B, n], or the position when None). An ascending ``torch.topk`` or
-    sort of the key ranks the values with exact ties at the lower id,
-    whatever algorithm it picks for the shape."""
-    bits = v.contiguous().view(torch.int32)
-    order = torch.where(bits < 0, bits ^ 0x7FFFFFFF, bits)
+    """A unique int64 key for each entry of ``v`` [B, n] (a type of at
+    most 32 bits): its :func:`total_order` (reversed when ``descending``)
+    in the high word and its id in the low word (``ids`` [B, n], or the
+    position when None). An ascending ``torch.topk`` or sort of the key
+    ranks the values with exact ties at the lower id, whatever algorithm
+    it picks for the shape."""
+    if v.element_size() > 4:
+        raise ValueError(f"order_key: {v.dtype} leaves no room for the id; "
+                         f"rank it by a stable sort of total_order")
+    key = total_order(v)
     if descending:
-        order = ~order
-    key = order.long()
-    del order
+        key = ~key
     key <<= 32                    # in place: the key is [B, n] int64
     if ids is None:
         key |= torch.arange(v.shape[1], device=v.device)
@@ -35,11 +48,20 @@ def order_key(v, ids=None, descending: bool = False):
     return key
 
 
-def smallest_by_key(v, k: int):
-    """The k smallest of ``v`` [B, n] (f32) in :func:`order_key` order —
-    exact ties at the lower position, as ``jax.lax.top_k(−v, k)`` — by
-    one int64 top-k over the key. Returns (values, positions int64)."""
-    _, pos = torch.topk(order_key(v), k, dim=1, largest=False, sorted=True)
+def smallest_by_key(v, k: int, descending: bool = False):
+    """The k smallest of ``v`` [B, n] in :func:`order_key` order (the k
+    largest when ``descending``) — exact ties at the lower position, as
+    ``jax.lax.top_k(−v, k)`` (``jax.lax.top_k(v, k)``) — by one int64
+    top-k over the key; a 64-bit ``v`` by a stable sort of its
+    :func:`total_order`. Returns (values, positions int64)."""
+    if v.element_size() > 4:
+        order = total_order(v)
+        if descending:
+            order = ~order
+        pos = torch.sort(order, dim=1, stable=True).indices[:, :k]
+    else:
+        _, pos = torch.topk(order_key(v, descending=descending), k, dim=1,
+                            largest=False, sorted=True)
     return torch.gather(v, 1, pos), pos
 
 

@@ -35,9 +35,10 @@ from the original rows, so returned ids are certified against the f32
 oracle.
 
 Wide features (512 < d ≤ 4096) take K1's d-chunked form
-(``fused_l2_group_topk_packed_dchunk``), which streams the queries' feature
-slices instead of holding them; features pad to a multiple of 128, what
-the kernel slices by (not the reference's 256). A geometry whose g·T/128
+(``fused_l2_group_topk_packed_dchunk``), 64 queries a block, held or
+streamed beside the index's feature slices as shared memory allows;
+features pad to a multiple of 128, what the kernel slices by (not the
+reference's 256). A geometry whose g·T/128
 codes do not fit the packed mantissa (2¹³) takes the unpacked form
 (``fused_l2_group_topk``, or ``_dchunk`` for d > 512): the pool is the
 2S′ values (a1, a2) with their row ids, recovered as 2·a + ‖x‖², padded

@@ -4,17 +4,19 @@ ref: cpp/include/raft/matrix/select_k.cuh:75).
 Semantics kept from the reference: batched rows, optional input indices
 (default 0..len-1 per row), ``select_min``, sorted output.
 
-Algorithms. ``XLA_TOPK`` — the framework's own top-k, here ``torch.topk``.
-``SLOTTED`` — the certified slot fold (``select_k_slotted``: K3 on rows
-of 4,096 or more). ``CHUNKED`` — the exact per-chunk top-k and merge
-(``select_k_chunked``). The reference names keep dispatching to the
-algorithms that play their roles: ``RADIX`` → CHUNKED, ``BITONIC`` →
-SLOTTED. An explicit request outside its algorithm's envelope warns
-(``RuntimeWarning``) and answers with ``torch.topk``; under AUTO that
-fallback is silent. ``APPROX`` has no approximate counterpart in
-PyTorch: the exact answer meets any recall target. AUTO picks
-``XLA_TOPK``: the reference's table of measured timings is TPU data, and
-the port has none of its own yet.
+Algorithms. ``XLA_TOPK`` — ``jax.lax.top_k``'s selection (:func:`_topk_
+select`): IEEE total order, exact ties at the lower position, a −NaN first
+and a +NaN last for ``select_min`` (the mirror otherwise), so values and
+ids are the reference's bit for bit. ``SLOTTED`` — the certified slot
+fold (``select_k_slotted``: K3 on rows of 4,096 or more). ``CHUNKED`` —
+the exact per-chunk top-k and merge (``select_k_chunked``). The reference
+names keep dispatching to the algorithms that play their roles: ``RADIX``
+→ CHUNKED, ``BITONIC`` → SLOTTED. An explicit request outside its
+algorithm's envelope warns (``RuntimeWarning``) and answers with
+``XLA_TOPK``; under AUTO that fallback is silent. ``APPROX`` has no
+approximate counterpart in PyTorch: the exact answer meets any recall
+target. AUTO picks ``XLA_TOPK``: the reference's table of measured
+timings is TPU data, and the port has none of its own yet.
 """
 
 from __future__ import annotations
@@ -25,6 +27,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.kvp import select_smallest, smallest_by_key
 from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.matrix.select_k_chunked import (chunked_envelope,
                                                     select_k_chunked)
@@ -55,8 +58,31 @@ def choose_select_k_algorithm(n_rows: int, length: int, k: int,
 
 
 def _topk_select(in_val, in_idx, k: int, select_min: bool):
-    out_val, pos = torch.topk(in_val, k, dim=1, largest=not select_min,
-                              sorted=True)
+    """``jax.lax.top_k`` as the reference calls it: the k largest of
+    ``−in_val`` (of ``in_val`` when not ``select_min``) in IEEE total
+    order, exact ties at the lower position. For a float that is the k
+    smallest (largest) in total order, a sign flip reversing it bit for
+    bit: f32 goes through :func:`select_smallest` (one f32 top-k; rows
+    with a tie across the cut or a NaN are selected again by the key) of
+    the values or of their sign-flipped bits, other floats through their
+    own key. No float is negated arithmetically: on the card and for
+    16-bit types on the CPU that need not flip a NaN's or a zero's sign.
+    An integer ``−in_val`` is ranked as the reference negates it, its wrap
+    included. Values are gathered as bits."""
+    if in_val.dtype == torch.float32:
+        flipped = (in_val.view(torch.int32) ^ -2 ** 31).view(torch.float32)
+        _, pos = select_smallest(in_val if select_min else flipped, k)
+    elif in_val.dtype.is_floating_point:
+        _, pos = smallest_by_key(in_val, k, descending=not select_min)
+    else:
+        _, pos = smallest_by_key(-in_val if select_min else in_val, k,
+                                 descending=True)
+    if in_val.dtype.is_floating_point:
+        bits = {2: torch.int16, 4: torch.int32, 8: torch.int64}[
+            in_val.element_size()]
+        out_val = torch.gather(in_val.view(bits), 1, pos).view(in_val.dtype)
+    else:
+        out_val = torch.gather(in_val, 1, pos)
     return out_val, torch.gather(in_idx, 1, pos)
 
 
@@ -102,5 +128,5 @@ def select_k(res, in_val, in_idx=None, k: int = 1, select_min: bool = True,
             warnings.warn(
                 f"select_k: explicit algo={algo.name} outside its envelope "
                 f"(len={length}, k={k}, dtype={in_val.dtype}); falling "
-                f"back to torch.topk", RuntimeWarning, stacklevel=2)
+                f"back to XLA_TOPK", RuntimeWarning, stacklevel=2)
     return _topk_select(in_val, in_idx, k, select_min)

@@ -1,15 +1,16 @@
-// K1 packed and its int8-database form K2 for Hopper (sm_90a): the fused
-// expanded-L2 contraction and the packed group top-2 / 3rd-min fold, on
-// wgmma fed by TMA through an mbarrier ring. Bound to Python through plain
-// C entry points.
+// K1's packed forms and its int8-database form K2 for Hopper (sm_90a): the
+// fused expanded-L2 contraction and the packed group top-2 / 3rd-min fold,
+// on wgmma fed by TMA through an mbarrier ring. Bound to Python through
+// plain C entry points.
 //
 // Replaces raft_tpu/ops/fused_l2_topk_pallas.py:fused_l2_group_topk_packed
 // (:1269; its database-major forms _packed_db :1425 and _packed_dbuf :1444
-// compute the same outputs in another TPU grid order) — K1 — and
+// compute the same outputs in another TPU grid order) — K1 — its
+// wide-feature form fused_l2_group_topk_packed_dchunk (:1294), and
 // fused_l2_group_topk_packed_db_q8 / _dbuf_q8 (:1465, :1491) — K2.
 //
-// What it computes (the function of fused_l2_topk.cu's packed forms, bit
-// for bit in what it promises). For every query q and database row n
+// What it computes (the reference's packed forms' function, bit for bit in
+// what it promises). For every query q and database row n
 // (rows padded to whole tiles of T; padded rows carry 2^125 in yyh):
 //     c[q, n] = (yyh[n] - x[q]·y[n]) + xxh[q]            (= d2/2 for l2)
 // with x·y a bf16 contraction accumulated in f32: passes=1 is
@@ -81,6 +82,33 @@
 //     that read it is complete.
 //   - The producer runs with 40 registers, the consumers with 232
 //     (setmaxnreg).
+//
+// The d-chunked form (d > 512 on the path: wide_knn's 1000 queries × 1M ×
+// 1024 after padding). Its products, 2·Q·M·d = 2.05e12 FLOP at passes=1,
+// take 1.944 ms at the bf16 peak, and the fold runs once per d/64 = 16
+// k-slices, so what bounds it is feeding the tensor cores: at 64 queries ×
+// 128 rows a tile, streaming both operands moves (1/64 + 1/128)·Q·M·d·2 ≈
+// 48 GB from L2 into shared memory at passes=1 (×2 at passes=3), ~24 TB/s
+// at the tensor bound, several times what L2 delivers. The design cuts
+// that traffic:
+//   - blockIdx = (64-query block, group): both consumer warpgroups share
+//     the block's A (64 queries) and take the two lane halves of every
+//     chunk, so a block folds whole chunks and each y row reaches it once.
+//   - Where x_arrays·d·128 bytes leave room for 4 ring stages (passes=1
+//     to d = 1024) the block's queries stay resident (one TMA load of
+//     x_hi, and x_lo), else their 64-row k-slices stream beside y's.
+//   - Clusters of ncta consecutive query blocks of one group (ncta = 1 or
+//     2, picked on the host by pick_wide_geo) share y: each block's
+//     producer loads 128/ncta rows of every y slice and multicasts them
+//     to all, so the group's rows leave L2 Q/(64·ncta) times instead of
+//     Q/64. A stage is refilled only when every block's 8 consumer warps
+//     have arrived on the loading block's empty barrier (each warp
+//     arrives on all of them).
+//   Modelled at wide_knn's shape, passes=1 resident with ncta = 2: y 2.05
+//   GB × 16/2 = 16.4 GB, x and yyh 0.13 GB; passes=3 streamed: y 4.1 GB ×
+//   8 = 32.8 GB plus x 32.8 GB (16 KB a block a step: x_hi and x_lo are
+//   re-read once a chunk), against ~96 GB before.
+//   The consumer loop (issue, fold, release) is the resident form's.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -223,6 +251,51 @@ __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
+// ---- thread block clusters (the d-chunked form) ----
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+// every thread of every block of the cluster arrives and waits
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+// the address of this block's shared word `addr` in block `rank` of the
+// cluster
+__device__ __forceinline__ uint32_t map_cta(uint32_t addr, uint32_t rank) {
+  uint32_t r;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n"
+               : "=r"(r)
+               : "r"(addr), "r"(rank));
+  return r;
+}
+// one arrival on a cluster barrier address where `pred` holds
+__device__ __forceinline__ void mbar_arrive_remote_if(uint32_t bar,
+                                                      bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %1, 0;\n"
+      "@p mbarrier.arrive.shared::cluster.b64 _, [%0];\n}\n" ::"r"(bar),
+      "r"(static_cast<int>(pred))
+      : "memory");
+}
+// a TMA load written at the same offset into every block of `mask`, each
+// block's barrier at `bar`'s offset counting its bytes
+__device__ __forceinline__ void tma_2d_multicast(uint32_t dst,
+                                                 const CUtensorMap* map,
+                                                 int c0, int c1, uint32_t bar,
+                                                 uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes.multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n" ::"r"(
+          dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar),
+      "h"(mask)
+      : "memory");
+}
+
 // ---- wgmma ----
 // a K-major operand in 128-byte swizzled rows (TMA's SWIZZLE_128B): 8-row
 // groups 1024 B apart; a step of 16 features adds 32 B to the start
@@ -311,15 +384,33 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
   asm("sub.rn.bf16x2 %0, %1, %2;" : "=r"(hi) : "r"(x1), "r"(y1));
 }
 
-// A consumer warpgroup: its 64 queries of the block against the chunk
-// halves of the ring, and the fold state of its 64 × 64 buckets (32 a
-// thread). acc[c & 1] takes chunk c.
-template <int PASSES, bool PAIR, bool Q8>
+// the forms one Consumer serves: the resident packed kernel (K1, K2), and
+// the d-chunked one with its query block resident or streamed
+enum Mode : int { kResident = 0, kWideRes = 1, kWideStream = 2 };
+
+// bytes of a d-chunked stage: a 128-row y slice a y array (the block's
+// whole chunk), then where x streams the 64-row x slices
+constexpr int kWSlice = 2 * kSlice;        // 128 rows × 64 features bf16
+constexpr int kWYY = 2 * kYY;              // a chunk's 128 yyh values
+
+// A consumer warpgroup. Resident packed form: its 64 queries of the
+// block against the chunk halves of the ring. d-chunked form: the block's
+// 64 queries against its lane half (wg) of each chunk. Either way the fold
+// state of its 64 × 64 buckets (32 a thread) lives in registers.
+// acc[c & 1] takes chunk c.
+template <int PASSES, bool PAIR, bool Q8, int MODE = kResident>
 struct Consumer {
+  static constexpr int x_arrays = PASSES == 3 ? 2 : 1;
   static constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
-  static constexpr int stage_bytes = y_arrays * kSlice;
-  uint32_t a_hi, a_lo, ring, yy, full0, empty0;
-  int NS, ksl, tile_bytes, lane, lq, n_chunks;
+  static constexpr int y_slice = MODE == kResident ? kSlice : kWSlice;
+  static constexpr int stage_bytes =
+      y_arrays * y_slice + (MODE == kWideStream ? x_arrays * kSlice : 0);
+  static constexpr int yy_bytes = MODE == kResident ? kYY : kWYY;
+  uint32_t a_hi, a_lo, ring, yy, full0, empty0, empty_r;
+  int NS, ksl, tile_bytes, lane, lq, n_chunks, ncta;
+  // d-chunked form: this warpgroup's lane half of a stage's y slice and
+  // of its yyh values
+  uint32_t b_off, yy_off;
   uint32_t keep;
   float gscale, xh[2];
   // steps (chunk, k-slice) counted without a division: the next one to
@@ -335,11 +426,24 @@ struct Consumer {
   __device__ __forceinline__ void issue() {
     const int st = iss_st, kk = iss_kk;
     mbar_wait(full0 + 8 * st, iss_ph);
-    const uint64_t dah = desc_sw128(a_hi + kk * tile_bytes);
-    const uint64_t dal = desc_sw128(a_lo + kk * tile_bytes);
-    const uint32_t b = ring + st * stage_bytes;
+    uint64_t dah, dal;
+    uint32_t b;
+    if constexpr (MODE == kResident) {
+      dah = desc_sw128(a_hi + kk * tile_bytes);
+      dal = desc_sw128(a_lo + kk * tile_bytes);
+      b = ring + st * stage_bytes;
+    } else {
+      const uint32_t stage = ring + st * stage_bytes;
+      // A: the resident query block's k-slice, or the stage's x slices
+      const uint32_t ah = MODE == kWideStream ? stage + y_arrays * y_slice
+                                              : a_hi + kk * tile_bytes;
+      dah = desc_sw128(ah);
+      dal = desc_sw128(MODE == kWideStream ? ah + kSlice
+                                           : a_lo + kk * tile_bytes);
+      b = stage + b_off;
+    }
     const uint64_t dbh = desc_sw128(b);
-    const uint64_t dbl = desc_sw128(b + (Q8 ? 0 : kSlice));
+    const uint64_t dbl = desc_sw128(b + (Q8 ? 0 : y_slice));
     fence_acc(acc[B]);
     wgmma_fence();
 #pragma unroll
@@ -365,11 +469,21 @@ struct Consumer {
     iss_ph ^= st + 1 == NS;
   }
 
+  // one arrival a warp on stage st's empty barrier where `pred`: the
+  // block's own, or (d-chunked) every block's of the cluster, whose loads
+  // all write into this stage — lane r arrives on block r's
+  __device__ __forceinline__ void release(int st, bool pred) {
+    if constexpr (MODE == kResident)
+      mbar_arrive_if(empty0 + 8 * st, pred & (lane == 0));
+    else
+      mbar_arrive_remote_if(empty_r + 8 * st, pred & (lane < ncta));
+  }
+
   // release every complete step below `upto` but the held one (its yyh is
-  // read by the fold): one arrival a warp
+  // read by the fold)
   __device__ __forceinline__ void release_upto(int upto) {
     for (; rel < upto; ++rel) {
-      mbar_arrive_if(empty0 + 8 * rel_st, (rel != held) & (lane == 0));
+      release(rel_st, rel != held);
       rel_st = rel_st + 1 == NS ? 0 : rel_st + 1;
     }
   }
@@ -378,7 +492,8 @@ struct Consumer {
   // pair an even chunk only keeps its scores for its odd partner
   template <int B>
   __device__ __forceinline__ void fold(int c) {
-    const uint32_t yy_s = yy + held_st * kYY + 8 * lq;
+    const uint32_t yy_s = yy + held_st * yy_bytes +
+                          (MODE == kResident ? 0u : yy_off) + 8 * lq;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint2 yb = lds64(yy_s + 32 * j);
@@ -434,7 +549,7 @@ struct Consumer {
     fence_acc(acc[B]);
     fold<B>(c);
     __syncwarp();
-    mbar_arrive_if(empty0 + 8 * held_st, lane == 0);
+    release(held_st, true);
     if (more) {
       for (int t = kPre; t < ksl; ++t) {
         issue<1 - B>();
@@ -447,30 +562,21 @@ struct Consumer {
     }
   }
 
-  __device__ __forceinline__ void run(const Args& p, const Geo& geo,
-                                      const Layout& L, uint32_t base,
-                                      uint32_t full, uint32_t empty, int wg,
-                                      int cw, int q0, int grp, int h,
-                                      int chunks, int k_slices, int tb) {
+  // the mainloop and the store of this warpgroup's bucket slots: queries
+  // q_base + its 64 rows of A, output columns col_base + its 64 lanes;
+  // setup(*this) sets the form's ring and operands once lane is known
+  template <class Setup>
+  __device__ __forceinline__ void run(const Args& p, int cw, int q_base,
+                                      int col_base, int grp, Setup setup) {
     const int warp = cw >> 5;
     lane = cw & 31;
     lq = lane & 3;
-    NS = geo.NS;
-    ksl = k_slices;
-    n_chunks = chunks;
-    tile_bytes = tb;
-    full0 = full;
-    empty0 = empty;
-    ring = base + L.ring;
-    yy = base + L.yy;
-    // this warpgroup's 64 rows of each A tile
-    a_hi = base + L.a + wg * 64 * 128;
-    a_lo = a_hi + ksl * tile_bytes;
+    setup(*this);
     keep = ~((1u << p.pbits) - 1u);
     gscale = Q8 ? p.scale[grp] : 1.f;
 #pragma unroll
     for (int hq = 0; hq < 2; ++hq) {
-      const int q = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hq;
+      const int q = q_base + warp * 16 + (lane >> 2) + 8 * hq;
       xh[hq] = q < p.Q ? p.xxh[q] : 0.f;
     }
     // (acc is not initialised: each chunk's first wgmma overwrites it, and
@@ -502,10 +608,10 @@ struct Consumer {
     const int S = gridDim.y * 128;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
-      const int col = grp * 128 + h * kHalf + 8 * j + 2 * lq;
+      const int col = col_base + 8 * j + 2 * lq;
 #pragma unroll
       for (int hq = 0; hq < 2; ++hq) {
-        const int q = q0 + wg * 64 + warp * 16 + (lane >> 2) + 8 * hq;
+        const int q = q_base + warp * 16 + (lane >> 2) + 8 * hq;
         if (q < p.Q) {
           const long o = static_cast<long>(q) * S + col;
           const int i = 4 * j + 2 * hq;
@@ -693,9 +799,174 @@ packed_sm90_kernel(const __grid_constant__ CUtensorMap tm_hi,
   // ================= consumer warpgroups =================
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   if (wg >= n_wg) return;          // a 64-query block uses one
-  Consumer<PASSES, PAIR, Q8> cons;
-  cons.run(p, geo, L, base, full0, empty0, wg, tid & 127, q0, grp, h,
-           n_chunks, ksl, tile_bytes);
+  using Cons = Consumer<PASSES, PAIR, Q8>;
+  Cons cons;
+  cons.run(p, tid & 127, q0 + wg * 64, grp * 128 + h * kHalf, grp,
+           [&](Cons& c) {
+             c.NS = NS;
+             c.ksl = ksl;
+             c.n_chunks = n_chunks;
+             c.tile_bytes = tile_bytes;
+             c.full0 = full0;
+             c.empty0 = empty0;
+             c.ring = base + L.ring;
+             c.yy = base + L.yy;
+             // this warpgroup's 64 rows of each A tile
+             c.a_hi = base + L.a + wg * 64 * 128;
+             c.a_lo = c.a_hi + ksl * tile_bytes;
+           });
+}
+
+// ---- the d-chunked form ----
+// shared memory from a 1024-byte aligned base: the resident query block
+// (XRES: x_arrays × d/64 tiles of 64 rows × 128 B), the ring (NS stages),
+// its yyh slots (a chunk's 128 values), the barriers (full, empty, x)
+struct WideLayout {
+  uint32_t a, ring, yy, bar, total;
+  __host__ __device__ WideLayout(int NS, int d, int passes, bool xres) {
+    const int x_arrays = passes == 3 ? 2 : 1;
+    const int stage = x_arrays * kWSlice + (xres ? 0 : x_arrays * kSlice);
+    a = 0;
+    ring = xres ? static_cast<uint32_t>(x_arrays * d * 128) : 0u;
+    yy = ring + NS * stage;
+    bar = yy + NS * kWYY;
+    total = bar + 8 * (2 * NS + 1);
+  }
+};
+
+// the d-chunked geometry the host picked (pick_wide_geo): ring stages,
+// the cluster (consecutive query blocks of one group that share y), and
+// whether the query block is resident
+struct WideGeo {
+  int NS, ncta, xres;
+};
+
+// The d-chunked form (reference _packed_dchunk): K1's contract for any d.
+// A block owns 64 queries × one whole group (blockIdx = (query block,
+// group)); its two consumer warpgroups take the two lane halves of each
+// chunk against the same A. XRES keeps the block's queries resident
+// (x_hi, and x_lo at passes=3, loaded once by TMA); otherwise their
+// 64-row k-slices stream through the ring beside y's. The blocks of a
+// cluster are consecutive query blocks of one group: each block's
+// producer loads 1/ncta of every y slice and multicasts it to all of
+// them, so the cluster reads the group's rows from L2 once, not ncta
+// times; a stage is refilled only after every block's consumers released
+// it (each consumer warp arrives on every block's empty barrier).
+template <int PASSES, bool PAIR, bool XRES>
+__global__ void __launch_bounds__(kThreads, 1)
+wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_yhi,
+                 const __grid_constant__ CUtensorMap tm_ylo,
+                 const __grid_constant__ CUtensorMap tm_xhi,
+                 const __grid_constant__ CUtensorMap tm_xlo, const Args p,
+                 const WideGeo geo) {
+  constexpr int MODE = XRES ? kWideRes : kWideStream;
+  using Cons = Consumer<PASSES, PAIR, false, MODE>;
+  constexpr int x_arrays = Cons::x_arrays;
+  constexpr int y_arrays = Cons::y_arrays;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = smem_u32(smem_raw);
+  const uint32_t base = (raw + 1023u) & ~1023u;
+
+  const int NS = geo.NS, ncta = geo.ncta;
+  const int d = p.d, ksl = d / kKS;
+  const WideLayout L(NS, d, PASSES, XRES);
+  const uint32_t full0 = base + L.bar, empty0 = full0 + 8 * NS;
+  const uint32_t xfull = empty0 + 8 * NS;
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * 64;
+  // the x rows it loads (a block that only completes a cluster re-reads
+  // the last real block's)
+  const int qx = min(q0, (p.Q + 63) / 64 * 64 - 64);
+  const int grp = blockIdx.y;
+  const int n_ch = p.T / 128;
+  const int n_tiles = p.M / p.T;
+  const int n_chunks = min(p.g, n_tiles - grp * p.g) * n_ch;
+  const int n_steps = n_chunks * ksl;
+  const int row0 = grp * p.g * p.T;          // + c·128 for chunk c
+
+  if (tid == 0) {
+    for (int s = 0; s < NS; ++s) {
+      mbar_init(full0 + 8 * s, 1);
+      mbar_init(empty0 + 8 * s, 8 * ncta);     // 8 consumer warps a block
+    }
+    mbar_init(xfull, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  // every block's barriers exist before any block loads into them
+  cluster_sync();
+
+  const int wg = __shfl_sync(0xffffffffu, tid >> 7, 0);
+  if (wg == 2) {
+    // ================= producer warpgroup =================
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (tid == 256) {
+      const int rank = static_cast<int>(cluster_rank());
+      const int part = 128 / ncta;            // y rows this block loads
+      const uint16_t mask = static_cast<uint16_t>((1u << ncta) - 1u);
+      constexpr int y_bytes = y_arrays * kWSlice;
+      constexpr int stage_bytes = Cons::stage_bytes;
+      if (XRES) {
+        mbar_expect_tx(xfull, x_arrays * d * 128);
+        for (int kk = 0; kk < ksl; ++kk) {
+          tma_2d(base + L.a + kk * kSlice, &tm_xhi, kk * kKS, qx, xfull);
+          if (PASSES == 3)
+            tma_2d(base + L.a + (ksl + kk) * kSlice, &tm_xlo, kk * kKS, qx,
+                   xfull);
+        }
+      }
+      int c = 0, kk = 0, st = 0, ph = 0;
+      for (int s = 0; s < n_steps; ++s) {
+        const bool last = kk == ksl - 1;
+        const int row = row0 + c * 128;
+        if (s >= NS) mbar_wait(empty0 + 8 * st, ph ^ 1);
+        const uint32_t fb = full0 + 8 * st;
+        mbar_expect_tx(fb, y_bytes + (XRES ? 0 : x_arrays * kSlice) +
+                               (last ? kWYY : 0));
+        const uint32_t dst = base + L.ring + st * stage_bytes;
+        const uint32_t mine = dst + rank * part * 128;
+        tma_2d_multicast(mine, &tm_yhi, kk * kKS, row + rank * part, fb,
+                         mask);
+        if (PASSES == 3)
+          tma_2d_multicast(mine + kWSlice, &tm_ylo, kk * kKS,
+                           row + rank * part, fb, mask);
+        if (!XRES) {
+          tma_2d(dst + y_bytes, &tm_xhi, kk * kKS, qx, fb);
+          if (PASSES == 3)
+            tma_2d(dst + y_bytes + kSlice, &tm_xlo, kk * kKS, qx, fb);
+        }
+        if (last) bulk_copy(base + L.yy + st * kWYY, p.yyh + row, kWYY, fb);
+        c += last;
+        kk = last ? 0 : kk + 1;
+        ph ^= st + 1 == NS;
+        st = st + 1 == NS ? 0 : st + 1;
+      }
+    }
+  } else {
+    // ================= consumer warpgroups =================
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    if (XRES) mbar_wait(xfull, 0);
+    Cons cons;
+    cons.run(p, tid & 127, q0, grp * 128 + wg * kHalf, grp, [&](Cons& c) {
+      c.NS = NS;
+      c.ksl = ksl;
+      c.n_chunks = n_chunks;
+      c.tile_bytes = kSlice;                  // 64 query rows × 128 B
+      c.full0 = full0;
+      c.empty0 = empty0;
+      c.ncta = ncta;
+      c.empty_r = map_cta(empty0, c.lane < ncta ? c.lane : 0);
+      c.ring = base + L.ring;
+      c.yy = base + L.yy;
+      c.a_hi = base + L.a;
+      c.a_lo = c.a_hi + ksl * kSlice;
+      c.b_off = wg * kSlice;                  // rows 64·wg of the slice
+      c.yy_off = wg * kYY;
+    });
+  }
+  // no block leaves while another may still arrive on its barriers
+  __syncwarp();
+  cluster_sync();
 }
 
 // ---- host side ----
@@ -728,15 +999,16 @@ EncodeTiled encode_fn() {
   return fn;
 }
 
-// [rows, d] row-major, boxes of 64 features × 64 rows
-bool make_map(CUtensorMap* m, const void* ptr, int rows, int d, bool q8) {
+// [rows, d] row-major, boxes of 64 features × box_rows rows
+bool make_map(CUtensorMap* m, const void* ptr, int rows, int d, bool q8,
+              int box_rows = kHalf) {
   EncodeTiled enc = encode_fn();
   if (enc == nullptr || reinterpret_cast<uintptr_t>(ptr) % 16) return false;
   const int esize = q8 ? 1 : 2;
   cuuint64_t dims[2] = {static_cast<cuuint64_t>(d),
                         static_cast<cuuint64_t>(rows)};
   cuuint64_t strides[1] = {static_cast<cuuint64_t>(d) * esize};
-  cuuint32_t box[2] = {kKS, kHalf};
+  cuuint32_t box[2] = {kKS, static_cast<cuuint32_t>(box_rows)};
   cuuint32_t estr[2] = {1, 1};
   return enc(m, q8 ? CU_TENSOR_MAP_DATA_TYPE_UINT8
                    : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16,
@@ -810,6 +1082,100 @@ int dispatch(const Args& a, const void* y_hi, const void* y_lo, int passes,
   return launch<1, false, Q8>(a, y_hi, y_lo, st);
 }
 
+// the d-chunked geometry: the block's 64 queries stay resident (read from
+// L2 once a block, not once a chunk) where that leaves room for kPre + 2
+// ring stages (passes=1 to d = 1024, passes=3 to d = 256), else they
+// stream beside y; as many stages as fit, at most kMaxStages. Clusters of
+// 2 consecutive query blocks share every y slice, halving y's L2 reads,
+// where the blocks that only complete the last cluster add at most 1/8 of
+// the query blocks; else one block a cluster. (Clusters of 4 read less
+// but were slower at wide_knn's shape, every stage waiting on the slowest
+// of four blocks: port_scripts/sweep_dchunk_geometry.py.)
+bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g) {
+  if (d % 128) return false;
+  const int blocks = (Q + 63) / 64;
+  for (int xres = 1; xres >= 0; --xres) {
+    int NS = kMaxStages;
+    while (NS > kPre + 1 && WideLayout(NS, d, passes, xres).total + 1024 >
+                                static_cast<uint32_t>(limit))
+      --NS;
+    if (NS > kPre + 1) {
+      g->NS = NS;
+      g->xres = xres;
+      g->ncta = blocks >= 2 && (blocks + 1) / 2 * 16 <= blocks * 9 ? 2 : 1;
+      return true;
+    }
+  }
+  return false;
+}
+
+int smem_limit() {
+  int dev = 0, limit = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
+                         dev);
+  return limit;
+}
+
+// The d-chunked form at geometry geo. x_hi/x_lo are [Qp, d] bf16, Qp = Q
+// rounded up to 64.
+template <int PASSES, bool PAIR, bool XRES>
+int launch_wide(const Args& a, const void* x_hi, const void* x_lo,
+                const void* y_hi, const void* y_lo, const WideGeo& geo,
+                cudaStream_t stream) {
+  const int ncta = geo.ncta;
+  const size_t smem = WideLayout(geo.NS, a.d, PASSES, XRES).total + 1024;
+  if (reinterpret_cast<uintptr_t>(a.yyh) % 16)
+    return static_cast<int>(cudaErrorMisalignedAddress);
+  const int Qp = (a.Q + 63) / 64 * 64;
+  CUtensorMap tm_yhi, tm_ylo, tm_xhi, tm_xlo;
+  if (!make_map(&tm_yhi, y_hi, a.M, a.d, false, 128 / ncta) ||
+      !make_map(&tm_ylo, y_lo, a.M, a.d, false, 128 / ncta) ||
+      !make_map(&tm_xhi, x_hi, Qp, a.d, false) ||
+      !make_map(&tm_xlo, x_lo, Qp, a.d, false))
+    return static_cast<int>(cudaErrorInvalidValue);
+  auto kern = wide_sm90_kernel<PASSES, PAIR, XRES>;
+  cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                       static_cast<int>(smem));
+  const int n_groups = (a.M / a.T + a.g - 1) / a.g;
+  // whole clusters: a query block past Qp loads the last real block's x
+  // and stores nothing
+  const int n_qb = ((Qp / 64) + ncta - 1) / ncta * ncta;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(n_qb, n_groups, 1);
+  cfg.blockDim = dim3(kThreads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = ncta;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  const cudaError_t e =
+      cudaLaunchKernelEx(&cfg, kern, tm_yhi, tm_ylo, tm_xhi, tm_xlo, a, geo);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  return static_cast<int>(cudaGetLastError());
+}
+
+int dispatch_wide(const Args& a, const void* x_hi, const void* x_lo,
+                  const void* y_hi, const void* y_lo, int passes, int pair,
+                  void* stream) {
+  WideGeo geo;
+  if (!pick_wide_geo(a.Q, a.d, passes, smem_limit(), &geo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define WIDE(P, PR, XR)                                                   \
+  if (passes == P && (pair != 0) == PR && (geo.xres != 0) == XR)          \
+    return launch_wide<P, PR, XR>(a, x_hi, x_lo, y_hi, y_lo, geo, st);
+  WIDE(1, false, true) WIDE(1, false, false) WIDE(1, true, true)
+  WIDE(1, true, false) WIDE(3, false, true) WIDE(3, false, false)
+  WIDE(3, true, true) WIDE(3, true, false)
+#undef WIDE
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
 Args make_args(const void* x, const void* scale, const void* yyh,
                const void* xxh, void* a1, void* a2, void* a3, int Q, int M,
                int d, int T, int g, int pbits) {
@@ -854,4 +1220,32 @@ extern "C" int fused_l2_group_topk_packed_q8_launch(
   const Args a = make_args(x, scale, yyh, xxh, a1, a2, a3, Q, M, d, T, g,
                            pbits);
   return dispatch<true>(a, y_q, y_q, passes, pair, stream);
+}
+
+// K1, d-chunked (wide features): x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the
+// split of x, zero rows past Q; x_lo unused at passes=1), y_hi/y_lo [M, d]
+// bf16 (y_lo unused at passes=1), yyh [M] f32, xxh [Q] f32, a1/a2/a3 [Q,
+// ceil(M/T/g)·128] f32; d % 128 == 0, T % 128 == 0, M % T == 0.
+extern "C" int fused_l2_group_topk_packed_dchunk_launch(
+    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
+    const void* yyh, const void* xxh, void* a1, void* a2, void* a3, int Q,
+    int M, int d, int T, int g, int passes, int pair, int pbits,
+    void* stream) {
+  const Args a = make_args(nullptr, nullptr, yyh, xxh, a1, a2, a3, Q, M, d,
+                           T, g, pbits);
+  return dispatch_wide(a, x_hi, x_lo, y_hi, y_lo, passes, pair, stream);
+}
+
+// the geometry the launch above takes for Q queries of d features on the
+// current device: out = (xres, stages, cluster)
+extern "C" int fused_l2_group_topk_packed_dchunk_geometry(int Q, int d,
+                                                          int passes,
+                                                          int* out) {
+  WideGeo geo;
+  if (!pick_wide_geo(Q, d, passes, smem_limit(), &geo))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = geo.xres;
+  out[1] = geo.NS;
+  out[2] = geo.ncta;
+  return 0;
 }

@@ -1,38 +1,24 @@
-// K1's wide-feature, unpacked and slot forms for Hopper (sm_90a): the
-// fused expanded-L2 contraction and a group or slot fold, one mma.sync
-// kernel templated on the form, bound to Python through plain C entry
-// points. (K1's resident packed form and its int8 form K2 are the wgmma
-// kernel of fused_l2_packed_sm90.cu.)
+// K1's unpacked and slot forms for Hopper (sm_90a): the fused expanded-L2
+// contraction and a group or slot fold, one mma.sync kernel templated on
+// the form, bound to Python through plain C entry points. (K1's packed
+// forms, resident and d-chunked, and its int8 form K2 are the wgmma
+// kernels of fused_l2_packed_sm90.cu.)
 //
-// Replaces raft_tpu/ops/fused_l2_topk_pallas.py's wide-feature packed
-// form fused_l2_group_topk_packed_dchunk (:1294), the unpacked forms
+// Replaces raft_tpu/ops/fused_l2_topk_pallas.py's unpacked forms
 // fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254), and
 // K1's first, per-slot forms fused_l2_slot_topk (:406) and
 // fused_l2_slot_topk_dchunk (:474).
 //
 // What it computes. For every query q and database row n (rows padded to
-// whole tiles of T; padded rows carry the finite 2^125 sentinel in yyh):
-//     c[q, n] = (yyh[n] - x[q]·y[n]) + xxh[q]            (= d2/2 for l2)
-// with x·y a bf16 contraction accumulated in f32: passes=1 is
-// bf16(x)·y_hi; passes=3 adds bf16(x)·y_lo + bf16(x - bf16(x))·y_hi.
-// A bucket is (lane = n % 128, group of g consecutive tiles); group G owns
-// output columns [G·128, (G+1)·128). Row n sits in chunk
-// (n - G·g·T) / 128 of its group, and its code is that chunk index
-// (= tile_offset·T/128 + chunk). The code replaces the low `pbits`
-// mantissa bits of c, so one f32 carries value and id, and the fold is the
-// reference's 5-op min/max network (_merge_chunk_top2_packed) run in chunk
-// order: a1 ≤ a2 are the bucket's two smallest packed values, a3 the
-// third smallest. With `pair` (knn_fused sets it at passes=1) chunks 2i
-// and 2i+1 are first min-combined: the loser goes straight into a3 and
-// the winner carries code 2i (+1 when it came from the odd chunk).
+// whole tiles of T) the half-score yyh[n] − x[q]·y[n], with x·y a bf16
+// contraction accumulated in f32: passes=1 is bf16(x)·y_hi; passes=3 adds
+// bf16(x)·y_lo + bf16(x - bf16(x))·y_hi. A bucket is (lane = n % 128,
+// group of g consecutive tiles); group G owns output columns [G·128,
+// (G+1)·128).
 //
-// NaN. The min/max of the merge and of the pair step propagate NaN
-// (PTX min.NaN / max.NaN), as the reference's jnp.minimum/jnp.maximum
-// and the twin's torch.minimum/torch.maximum do. A ±inf half-score turns
-// into NaN once code bits are OR'd into its mantissa; that NaN must
-// reach a3 so the query fails the certificate and takes the exact fixup
-// (fminf/fmaxf would drop the entry and could certify a top-k without
-// it).
+// NaN. Every min here is PTX min.NaN, as the reference's jnp.minimum and
+// the twin's torch.minimum: fminf would drop a NaN entry and could
+// certify a top-k without it.
 //
 // The unpacked form (knn_fused for g·T/128 beyond the 2^13-code
 // envelope) keeps per bucket (a1, id1, a2, id2, a3) with global row ids
@@ -117,7 +103,6 @@ constexpr int kThreads = 256;   // 8 warps: 4 (queries) × 2 (lanes)
 constexpr int kKS = 128;        // features per staged slice
 constexpr int kYStride = kKS + 8;   // bf16 row stride of a y slice (+16 B
                                     // so ldmatrix rows hit distinct banks)
-constexpr float kPackPad = 4.2535295865117308e37f;   // 2^125
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -156,38 +141,17 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 
 // what a block folds its score tiles into
 enum Fold : int {
-  kPacked = 0,    // group top-2 + 3rd-min, codes in the mantissa (K1, K2)
   kIds = 1,       // group top-2 + 3rd-min with row ids (unpacked)
   kSlot = 2,      // per-slot min, argmin and 2nd-min (track=True)
   kSlotMin = 3,   // per-slot min only (track=False)
   kSeg = 4,       // a segment of a split group: its (e1, e2, i3, r) summary
 };
 
-__device__ __forceinline__ float pack(float c, uint32_t keep, int code) {
-  return __int_as_float((__float_as_int(c) & keep) | code);
-}
-
 // minima and maxima that propagate NaN, as torch.minimum/maximum do
 __device__ __forceinline__ float min_nan(float a, float b) {
   float r;
   asm("min.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
   return r;
-}
-__device__ __forceinline__ float max_nan(float a, float b) {
-  float r;
-  asm("max.NaN.f32 %0, %1, %2;" : "=f"(r) : "f"(a), "f"(b));
-  return r;
-}
-
-// _merge_chunk_top2_packed: with a1 ≤ a2, the round-1 loser either stays
-// ≥ a2 or becomes the new 2nd; the round-2 loser is the 3rd smallest.
-__device__ __forceinline__ void merge(float cp, float& a1, float& a2,
-                                      float& a3) {
-  float b1 = max_nan(a1, cp);
-  a1 = min_nan(a1, cp);
-  float b2 = max_nan(a2, b1);
-  a2 = min_nan(a2, b1);
-  a3 = min_nan(a3, b2);
 }
 
 // _merge_chunk_top2: the unpacked compare/select order (strict <)
@@ -242,16 +206,14 @@ struct Args {
   int m_real;                         // slot forms: rows ≥ m_real are pads
 };
 
-// One kernel for every form: PASSES 1/3; PAIR pre-reduction; XS (x
-// streamed through the ring: the _dchunk forms); FOLD (see Fold); MASK
-// (slot forms: rows ≥ m_real score +inf).
-template <int PASSES, bool PAIR, bool XS, int FOLD, bool MASK>
+// One kernel for every form: PASSES 1/3; XS (x streamed through the
+// ring: the _dchunk forms); FOLD (see Fold); MASK (slot forms: rows ≥
+// m_real score +inf).
+template <int PASSES, bool XS, int FOLD, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_l2_group_topk_kernel(const Args p, int n_stages) {
-  constexpr bool PACKED = FOLD == kPacked;
   constexpr bool SLOT = FOLD == kSlot || FOLD == kSlotMin;
-  static_assert(!(PAIR && !PACKED) && !(MASK && !SLOT),
-                "no such form");
+  static_assert(!(MASK && !SLOT), "no such form");
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = p.d;
   const int xstride = d + 8;
@@ -343,21 +305,19 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     cp_async_commit();
   };
 
-  const uint32_t keep = ~((1u << p.pbits) - 1u);
   float xh[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) {
     const int q = q0 + wq * 16 + gid + 8 * h;
-    xh[h] = ((PACKED || SLOT) && q < Q) ? p.xxh[q] : 0.f;
+    xh[h] = (SLOT && q < Q) ? p.xxh[q] : 0.f;
   }
 
-  const float init = PACKED ? kPackPad : __int_as_float(0x7f800000);
+  const float init = __int_as_float(0x7f800000);
   // slot forms: a1, id1, a2 are the slot state of the current tile and a3
   // the running min over this block's tiles of a2 (min-only: of a1)
   float acc[8][4], a1[8][4], a2[8][4], a3[8][4];
-  int id1[8][4], id2[8][4];   // unpacked and slot only (dead otherwise)
+  int id1[8][4], id2[8][4];
   int id3[8][4];              // kSeg only
-  float c_even[8][4];         // PAIR: the even chunk's values
 #pragma unroll
   for (int t = 0; t < 8; ++t)
 #pragma unroll
@@ -421,8 +381,7 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
 
     if (kk == ksl - 1) {
       // ---- fold chunk c of the group into the bucket registers ----
-      // (one branch a chunk, outside the unrolled loops: with PAIR an even
-      // chunk only waits for its odd partner)
+      // (one branch a chunk, outside the unrolled loops)
       const float* yy = yyh_s + (s % n_stages) * kLanes;
       if constexpr (SLOT) {
         // d2 = (xx + yy) − 2·s, masked, into the slot state of its tile
@@ -478,18 +437,6 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
             }
           }
         }
-      } else if (PAIR && (c & 1) == 0) {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int ln = wn * 64 + t * 8 + tig * 2;
-          const float y0 = yy[ln], y1 = yy[ln + 1];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            c_even[t][i] =
-                __fadd_rn(((i & 1) ? y1 : y0) - acc[t][i], xh[i >> 1]);
-            acc[t][i] = 0.f;
-          }
-        }
       } else {
 #pragma unroll
         for (int t = 0; t < 8; ++t) {
@@ -497,32 +444,16 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
           const float y0 = yy[ln], y1 = yy[ln + 1];
 #pragma unroll
           for (int i = 0; i < 4; ++i) {
-            if constexpr (!PACKED) {
-              // the plain half-score and its global row id
-              const float cv = ((i & 1) ? y1 : y0) - acc[t][i];
-              acc[t][i] = 0.f;
-              const int ci =
-                  static_cast<int>(row0) + c * kLanes + ln + (i & 1);
-              if constexpr (FOLD == kSeg)
-                seg_insert(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
-                           id3[t][i], a3[t][i]);
-              else
-                merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
-                          a3[t][i]);
-            } else {
-              const float cv =
-                  __fadd_rn(((i & 1) ? y1 : y0) - acc[t][i], xh[i >> 1]);
-              acc[t][i] = 0.f;
-              if (PAIR) {
-                const float c0 = c_even[t][i];
-                const float mn = min_nan(c0, cv);
-                a3[t][i] = min_nan(a3[t][i], max_nan(c0, cv));
-                const int code = (mn == cv) ? c : c - 1;
-                merge(pack(mn, keep, code), a1[t][i], a2[t][i], a3[t][i]);
-              } else {
-                merge(pack(cv, keep, c), a1[t][i], a2[t][i], a3[t][i]);
-              }
-            }
+            // the plain half-score and its global row id
+            const float cv = ((i & 1) ? y1 : y0) - acc[t][i];
+            acc[t][i] = 0.f;
+            const int ci = static_cast<int>(row0) + c * kLanes + ln + (i & 1);
+            if constexpr (FOLD == kSeg)
+              seg_insert(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                         id3[t][i], a3[t][i]);
+            else
+              merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                        a3[t][i]);
           }
         }
       }
@@ -567,12 +498,10 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
             make_float2(a2[t][2 * h], a2[t][2 * h + 1]);
         *reinterpret_cast<float2*>(p.a3 + o) =
             make_float2(a3[t][2 * h], a3[t][2 * h + 1]);
-        if constexpr (!PACKED) {
-          *reinterpret_cast<int2*>(p.id1 + o) =
-              make_int2(id1[t][2 * h], id1[t][2 * h + 1]);
-          *reinterpret_cast<int2*>(p.id2 + o) =
-              make_int2(id2[t][2 * h], id2[t][2 * h + 1]);
-        }
+        *reinterpret_cast<int2*>(p.id1 + o) =
+            make_int2(id1[t][2 * h], id1[t][2 * h + 1]);
+        *reinterpret_cast<int2*>(p.id2 + o) =
+            make_int2(id2[t][2 * h], id2[t][2 * h + 1]);
         if constexpr (FOLD == kSeg)
           *reinterpret_cast<int2*>(p.id3 + o) =
               make_int2(id3[t][2 * h], id3[t][2 * h + 1]);
@@ -657,7 +586,7 @@ size_t smem_bytes(int d, int passes, int n_stages, bool xs) {
                                           kLanes * 4);
 }
 
-template <int PASSES, bool PAIR, bool XS, int FOLD, bool MASK = false>
+template <int PASSES, bool XS, int FOLD, bool MASK = false>
 int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
@@ -667,7 +596,7 @@ int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   if (smem_bytes(a.d, PASSES, 2, XS) > static_cast<size_t>(limit))
     n_stages = 1;
   const size_t smem = smem_bytes(a.d, PASSES, n_stages, XS);
-  auto kern = fused_l2_group_topk_kernel<PASSES, PAIR, XS, FOLD, MASK>;
+  auto kern = fused_l2_group_topk_kernel<PASSES, XS, FOLD, MASK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
@@ -687,20 +616,10 @@ int launch(const Args& a, cudaStream_t stream, int segs = 1) {
 template <int PASSES>
 int dispatch_slot(const Args& a, int mask, int track, cudaStream_t st) {
   if (track)
-    return mask ? launch<PASSES, false, false, kSlot, true>(a, st)
-                : launch<PASSES, false, false, kSlot, false>(a, st);
-  return mask ? launch<PASSES, false, false, kSlotMin, true>(a, st)
-              : launch<PASSES, false, false, kSlotMin, false>(a, st);
-}
-
-// the packed form with x streamed (d-chunked)
-int dispatch_packed_dchunk(const Args& a, int passes, int pair,
-                           void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (passes == 3 && pair) return launch<3, true, true, kPacked>(a, st);
-  if (passes == 3) return launch<3, false, true, kPacked>(a, st);
-  if (pair) return launch<1, true, true, kPacked>(a, st);
-  return launch<1, false, true, kPacked>(a, st);
+    return mask ? launch<PASSES, false, kSlot, true>(a, st)
+                : launch<PASSES, false, kSlot, false>(a, st);
+  return mask ? launch<PASSES, false, kSlotMin, true>(a, st)
+              : launch<PASSES, false, kSlotMin, false>(a, st);
 }
 
 Args make_args(const void* x, const void* x_hi, const void* x_lo,
@@ -731,24 +650,10 @@ Args make_args(const void* x, const void* x_hi, const void* x_lo,
 // C entry points (loaded with ctypes). Return cudaGetLastError() after the
 // launch (0 = success).
 //
-// K1, d-chunked (wide features): x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the
-// split of x, zero rows past Q; x_lo unused at passes=1), y_hi/y_lo [M, d]
-// bf16 (y_lo unused at passes=1), yyh [M] f32, xxh [Q] f32, a1/a2/a3 [Q,
-// ceil(M/T/g)·128] f32; d % 128 == 0, T % 128 == 0, M % T == 0.
-extern "C" int fused_l2_group_topk_packed_dchunk_launch(
-    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
-    const void* yyh, const void* xxh, void* a1, void* a2, void* a3, int Q,
-    int M, int d, int T, int g, int passes, int pair, int pbits,
-    void* stream) {
-  const Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, yyh, xxh, a1,
-                           a2, a3, nullptr, nullptr, Q, M, d, T, g, pbits);
-  return dispatch_packed_dchunk(a, passes, pair, stream);
-}
-
 // K1, unpacked: a1/a2/a3 [Q, ceil(M/T/g)·128] f32, id1/id2 the same shape
 // int32; yyh carries +inf on padded rows. xs = 0 reads x [Q, d] f32
-// (resident, the single-shot form); xs = 1 reads x_hi/x_lo as the
-// d-chunked packed form does. segs = 1: one block a (query block, group)
+// (resident, the single-shot form); xs = 1 reads x_hi/x_lo [ceil(Q/64)·64,
+// d] bf16 (the split of x, zero rows past Q). segs = 1: one block a (query block, group)
 // folds the group and writes the outputs. segs > 1: each group's chunks
 // are cut into segs contiguous segments, one block each, which write
 // their summaries into part (6 arrays [segs, Q, ceil(M/T/g)·128]: e1, i1,
@@ -765,10 +670,10 @@ extern "C" int fused_l2_group_topk_launch(
     const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, nullptr, a1,
                              a2, a3, id1, id2, Q, M, d, T, g, 8);
     if (xs)
-      return passes == 3 ? launch<3, false, true, kIds>(a, st)
-                         : launch<1, false, true, kIds>(a, st);
-    return passes == 3 ? launch<3, false, false, kIds>(a, st)
-                       : launch<1, false, false, kIds>(a, st);
+      return passes == 3 ? launch<3, true, kIds>(a, st)
+                         : launch<1, true, kIds>(a, st);
+    return passes == 3 ? launch<3, false, kIds>(a, st)
+                       : launch<1, false, kIds>(a, st);
   }
   const long n = static_cast<long>(Q) * ((M / T + g - 1) / g) * kLanes;
   float* pf = static_cast<float*>(part);
@@ -779,11 +684,11 @@ extern "C" int fused_l2_group_topk_launch(
   a.id3 = pi + 4 * segs * n;
   int err;
   if (xs)
-    err = passes == 3 ? launch<3, false, true, kSeg>(a, st, segs)
-                      : launch<1, false, true, kSeg>(a, st, segs);
+    err = passes == 3 ? launch<3, true, kSeg>(a, st, segs)
+                      : launch<1, true, kSeg>(a, st, segs);
   else
-    err = passes == 3 ? launch<3, false, false, kSeg>(a, st, segs)
-                      : launch<1, false, false, kSeg>(a, st, segs);
+    err = passes == 3 ? launch<3, false, kSeg>(a, st, segs)
+                      : launch<1, false, kSeg>(a, st, segs);
   if (err) return err;
   seg_merge_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0, st>>>(
       pf, pi + segs * n, pf + 2 * segs * n, pi + 3 * segs * n,
@@ -813,8 +718,8 @@ extern "C" int fused_l2_slot_topk_launch(
 }
 
 // K1's slot form, d-chunked (wide features; always masked and tracked):
-// x_hi/x_lo [ceil(Q/64)·64, d] bf16 as fused_l2_group_topk_packed_dchunk_
-// launch takes them; the rest as fused_l2_slot_topk_launch.
+// x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the split of x, zero rows past Q;
+// x_lo unused at passes=1); the rest as fused_l2_slot_topk_launch.
 extern "C" int fused_l2_slot_topk_dchunk_launch(
     const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
     const void* xx, const void* yy, void* m1, void* i1, void* part,
@@ -824,6 +729,6 @@ extern "C" int fused_l2_slot_topk_dchunk_launch(
                      m2min, i1, nullptr, Q, M, d, T, tpb, 8);
   a.m_real = m_real;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return passes == 3 ? launch<3, false, true, kSlot, true>(a, st)
-                     : launch<1, false, true, kSlot, true>(a, st);
+  return passes == 3 ? launch<3, true, kSlot, true>(a, st)
+                     : launch<1, true, kSlot, true>(a, st);
 }

@@ -133,8 +133,12 @@ def _members(sched, probes):
     js = torch.where(dup, Lp, js)
     key = js.reshape(-1)
     order = torch.sort(key, stable=True).indices.to(torch.int32)
+    # counts by scatter, not torch.bincount: on the card that reads the
+    # key's max back to the host, a sync on every launch of K4 and K5
+    counts = torch.zeros(Lp + 1, dtype=torch.int64, device=probes.device)
+    counts.scatter_add_(0, key.long(), torch.ones_like(key, dtype=torch.int64))
     seg = torch.zeros(Lp + 1, dtype=torch.int32, device=probes.device)
-    seg[1:] = torch.cumsum(torch.bincount(key, minlength=Lp + 1)[:Lp], 0)
+    seg[1:] = torch.cumsum(counts[:Lp], 0)
     return torch.where(js == Lp, -1, js).to(torch.int32), order, seg
 
 

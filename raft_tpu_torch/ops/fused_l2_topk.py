@@ -3,12 +3,13 @@ database) — the port's hot step.
 
 Counterpart of ``raft_tpu/ops/fused_l2_topk_pallas.py``. The TPU kernel
 ``fused_l2_group_topk_packed`` (``:1269``; its database-major forms
-``_packed_db``/``_packed_dbuf`` compute the same outputs) and its int8
+``_packed_db``/``_packed_dbuf`` compute the same outputs), its int8
 twins ``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``,
-``:1491``) become the hand-written Hopper kernel in
-``csrc/fused_l2_packed_sm90.cu`` (wgmma fed by TMA through an mbarrier
-ring; see that file for the design). The wide-feature form
-``fused_l2_group_topk_packed_dchunk`` (``:1294``), the unpacked forms
+``:1491``) and its wide-feature form
+``fused_l2_group_topk_packed_dchunk`` (``:1294``) become the hand-written
+Hopper kernels in ``csrc/fused_l2_packed_sm90.cu`` (wgmma fed by TMA
+through an mbarrier ring, the wide form in clusters that share y; see
+that file for the design). The unpacked forms
 ``fused_l2_group_topk`` (``:1230``) and ``fused_l2_group_topk_dchunk``
 (``:1254``), and K1's first, per-slot forms ``fused_l2_slot_topk``
 (``:406``) and ``fused_l2_slot_topk_dchunk`` (``:474``), which no search
@@ -204,9 +205,9 @@ def fused_l2_group_topk_packed_dchunk(x, y_hi, y_lo, yy_half, *, T: int,
                                       ) -> Tuple[torch.Tensor, ...]:
     """Wide-feature form of :func:`fused_l2_group_topk_packed` (the
     reference's ``_packed_dchunk``, ``:1294``): the same contract and
-    outputs for any d (a multiple of 128 on the card), with x's feature
-    slices streamed beside y's instead of a resident query block, so
-    d > 512 fits a block's shared memory."""
+    outputs for any d (a multiple of 128 on the card). On the card the
+    query block is resident or streams beside y, and clusters of query
+    blocks share y, as the launcher picks (:func:`dchunk_geometry`)."""
     global LAUNCHES_DCHUNK
     _check(x, y_hi, y_lo, yy_half, T, g, passes, pair, pbits)
     if x.device.type == "cpu":
@@ -231,6 +232,20 @@ def fused_l2_group_topk_packed_dchunk(x, y_hi, y_lo, yy_half, *, T: int,
     _raise_on(who, rc)
     LAUNCHES_DCHUNK += 1
     return tuple(outs)
+
+
+def dchunk_geometry(Q: int, d: int, passes: int) -> Tuple[bool, int, int]:
+    """The geometry (queries resident, ring stages, query blocks a cluster)
+    that :func:`fused_l2_group_topk_packed_dchunk` takes for Q queries of d
+    features on the current CUDA device (``pick_wide_geo`` in
+    ``csrc/fused_l2_packed_sm90.cu``)."""
+    fn = _build.load(
+        "fused_l2_packed_sm90").fused_l2_group_topk_packed_dchunk_geometry
+    fn.argtypes = [ctypes.c_int] * 3 + [ctypes.POINTER(ctypes.c_int)]
+    fn.restype = ctypes.c_int
+    out = (ctypes.c_int * 3)()
+    _raise_on("dchunk_geometry", fn(Q, d, passes, out))
+    return bool(out[0]), out[1], out[2]
 
 
 def fused_l2_group_topk_packed_dchunk_ref(x, y_hi, y_lo, yy_half, *,
@@ -548,7 +563,7 @@ def _launcher_dchunk():
     global _FN_DCHUNK
     if _FN_DCHUNK is None:
         fn = _build.load(
-            "fused_l2_topk").fused_l2_group_topk_packed_dchunk_launch
+            "fused_l2_packed_sm90").fused_l2_group_topk_packed_dchunk_launch
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 9 + [i] * 8 + [p]
         fn.restype = ctypes.c_int

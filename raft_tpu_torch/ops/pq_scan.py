@@ -16,8 +16,9 @@ folds into the query's 128 slots (slot = column % 128) as the top
 ``pool_depth`` (value, global slab row) pairs plus a running rest-min.
 Slots where nothing was scored read (+inf, −1). The reference evaluates
 the table sum as a bf16 hi/lo one-hot product; the port gathers the f32
-table entries and sums them in subspace order (tighter: see
-``ann/ivf_pq.py`` for the certificate envelope that covers both).
+table entries and sums them in a fixed order of its own (:func:`adc_sum`;
+tighter: see ``ann/ivf_pq.py`` for the certificate envelope that covers
+both, in any order of the S terms).
 
 The wrapper dispatches on the tensors' device: CPU tensors take the twin,
 CUDA tensors launch the kernel or raise. There is no fallback.
@@ -46,17 +47,42 @@ PQ_POOL_DEPTHS = (2, 4, 8)
 MAX_SMEM_BYTES = 232448
 
 # kernel launches since import (or since a caller reset them), one per
-# wrapper call that launched, by code width
+# wrapper call that launched, by code width, and by pool depth (the base
+# pool and the widen rungs)
 LAUNCHES_8BIT = 0
 LAUNCHES_4BIT = 0
+LAUNCHES_DEPTH = {depth: 0 for depth in (2, 4, 8)}
 
 _FN = None
 
 
+def _table_cols(terms: int) -> int:
+    """Columns of the kernel's table: the terms, repeated up to 32 where
+    they are fewer and a power of 2 (so 32 lanes read 32 banks)."""
+    return 32 if terms < 32 and terms & (terms - 1) == 0 else terms
+
+
+def table_layout(pq_dim: int, pq_bits: int):
+    """The kernel's table for one query: (pairs, terms, cols, smem bytes).
+    A row's terms are its code bytes — an 8-bit code, or at 4 bits a pair
+    of subspaces whose entry is the sum of the two subspaces' entries —
+    over a table of 256 codes × cols, where that fits a block's shared
+    memory; else (4-bit rows of more than ~450 subspaces) its nibbles, over
+    16 codes × cols."""
+    pq_dim, pq_bits = int(pq_dim), int(pq_bits)
+    if pq_bits == 8:
+        return False, pq_dim, _table_cols(pq_dim), \
+            4 * 256 * _table_cols(pq_dim)
+    pair_bytes = 4 * 256 * _table_cols(pq_dim // 2)
+    if pair_bytes <= MAX_SMEM_BYTES:
+        return True, pq_dim // 2, _table_cols(pq_dim // 2), pair_bytes
+    return False, pq_dim, _table_cols(pq_dim), 4 * 16 * _table_cols(pq_dim)
+
+
 def pq_scan_smem_bytes(pq_dim: int, pq_bits: int) -> int:
-    """Shared memory of one block of the kernel: the query's f32 table of
-    ``pq_dim · 2^pq_bits`` entries."""
-    return 4 * int(pq_dim) * (1 << int(pq_bits))
+    """Shared memory of one block of the kernel: the query's table
+    (:func:`table_layout`)."""
+    return table_layout(pq_dim, pq_bits)[3]
 
 
 def _check(sched, xx, probes, cdot, lut, codes, yy_pq, eq_rows, Wk: int,
@@ -135,6 +161,7 @@ def pq_scan_list_major(sched, xx, probes, cdot, lut, codes, yy_pq, eq_rows,
         LAUNCHES_8BIT += 1
     else:
         LAUNCHES_4BIT += 1
+    LAUNCHES_DEPTH[pool_depth] += 1
     return out
 
 
@@ -163,13 +190,15 @@ def _launch(sched, xx, probes, cdot, lut, codes, yy_pq, eq_rows, Wk: int,
     vals = torch.empty((depth, nqp, _LANES), dtype=torch.float32, device=dev)
     rows = torch.empty((depth, nqp, _LANES), dtype=torch.int32, device=dev)
     rest = torch.empty((nqp, _LANES), dtype=torch.float32, device=dev)
-    vec = int(cb % 16 == 0 and codes.data_ptr() % 16 == 0)
+    pairs, terms, cols, _ = table_layout(pq_dim, pq_bits)
+    vec = int(cb % 16 == 0 and cb // 16 in (1, 2, 4)
+              and codes.data_ptr() % 16 == 0)
     with torch.cuda.device(dev):
         rc = _launcher()(
             sched.data_ptr(), xx.data_ptr(), js.data_ptr(), cdot.data_ptr(),
             lut.data_ptr(), codes.data_ptr(), yy.data_ptr(), eq.data_ptr(),
             vals.data_ptr(), rows.data_ptr(), rest.data_ptr(), nqp, Pp, Lp,
-            pq_dim, cb, R, Wk, pq_bits, depth, vec,
+            pq_dim, cb, R, Wk, pq_bits, depth, int(pairs), terms, cols, vec,
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise DeviceError(f"pq scan: launch failed with CUDA error {rc}")
@@ -184,7 +213,7 @@ def _launcher():
     if _FN is None:
         fn = _build.load("pq_scan").pq_scan_list_major_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 11 + [i] * 10 + [p]
+        fn.argtypes = [p] * 11 + [i] * 13 + [p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -202,6 +231,55 @@ def decode_codes(codes, pq_dim: int, pq_bits: int):
     out[:, 0::2] = vu % 16
     out[:, 1::2] = vu // 16
     return out
+
+
+def _order_span(terms: int) -> int:
+    """The lanes over which the kernel spreads a row's terms (see
+    :func:`adc_order`)."""
+    if terms % 32 == 0 or terms & (terms - 1) == 0:
+        return 32
+    return terms & -terms
+
+
+def adc_order(cols, terms: int):
+    """The order in which the kernel takes a row's ``terms`` table terms
+    (one a code byte: a subspace at 8 bits, a pair of subspaces at 4),
+    [n, terms] term indices for the window columns ``cols`` [n]: the
+    thread of column c is lane l = c % 32 of its warp, and its step i takes
+    term (i ^ m) mod terms, m = l mod span, span = 32 where 32 divides
+    ``terms`` or ``terms`` is a power of 2 (the table's columns then
+    repeat the terms up to 32), else the largest power of 2 dividing it.
+    At every step the lanes of a warp read different columns of the
+    code-major table, so on the card different banks
+    (``csrc/pq_scan.cu``)."""
+    m = (cols.long() & 31) % _order_span(terms)
+    return (torch.arange(terms, device=cols.device)[None, :]
+            ^ m[:, None]) % terms
+
+
+def adc_sum(lut, codes, cols, pq_dim: int, pq_bits: int):
+    """The kernel's table sums, [nq, n], of the code rows ``codes`` [n,
+    bytes] at window columns ``cols`` [n] for the tables ``lut`` [nq,
+    pq_dim·2^bits]. A row's terms are :func:`table_layout`'s: its code
+    bytes (at 8 bits the entry of one subspace, at 4 bits the f32 sum of
+    its two subspaces' entries, low nibble first) or, for the widest 4-bit
+    rows, its nibbles. Taken in :func:`adc_order`, the even steps and the
+    odd steps are summed apart from 0.0 and then added, even first: two
+    independent chains of adds a row."""
+    K = 1 << pq_bits
+    idx = decode_codes(codes, pq_dim, pq_bits) \
+        + torch.arange(pq_dim, device=lut.device) * K       # [n, pq_dim]
+    per = 2 if table_layout(pq_dim, pq_bits)[0] else 1
+    idx = idx.reshape(idx.shape[0], -1, per)                   # [n, T, per]
+    order = adc_order(cols, idx.shape[1])
+    idx = idx.gather(1, order[:, :, None].expand(-1, -1, per))
+    chains = [lut.new_zeros((lut.shape[0], idx.shape[0])) for _ in range(2)]
+    for i in range(idx.shape[1]):
+        v = lut[:, idx[:, i, 0]]
+        if per == 2:
+            v = v + lut[:, idx[:, i, 1]]
+        chains[i % 2] = chains[i % 2] + v
+    return chains[0] + chains[1]
 
 
 def _fold_pool_deep(acc, c, ci, depth: int):
@@ -230,16 +308,14 @@ def pq_scan_list_major_ref(sched, xx, probes, cdot, lut, codes, yy_pq,
     walked entry by entry and each window 128 columns at a time, as the
     reference's kernel body does (``_pq_kernel_body``, ``:185``). A masked
     score is +inf and folds as a no-op, so each entry scores only its
-    member queries and its live columns. The table sum is an explicit
-    loop over subspaces from 0.0, the kernel's order, so the two agree bit
-    for bit. The CPU path and the kernel's on-card oracle."""
+    member queries and its live columns. The table sum is
+    :func:`adc_sum`, the kernel's terms in the kernel's order, so the two
+    agree bit for bit. The CPU path and the kernel's on-card oracle."""
     pq_dim = _check(sched, xx, probes, cdot, lut, codes, yy_pq, eq_rows, Wk,
                     pq_bits, pool_depth)
     nqp, dev = xx.shape[0], xx.device
-    R, K = codes.shape[0], 1 << pq_bits
+    R = codes.shape[0]
     xx, yy, eq = xx.reshape(nqp), yy_pq.reshape(R), eq_rows.reshape(R)
-    code_idx = decode_codes(codes, pq_dim, pq_bits) \
-        + torch.arange(pq_dim, device=dev) * K
     inf = torch.full((nqp, _LANES), float("inf"), device=dev)
     neg1 = torch.full((nqp, _LANES), -1, dtype=torch.int32, device=dev)
     acc = []
@@ -252,12 +328,9 @@ def pq_scan_list_major_ref(sched, xx, probes, cdot, lut, codes, yy_pq,
         c_lo, c_hi = max(off, 0, -st), min(off + lsize, Wk, R - st)
         if mem.numel() == 0 or c_hi <= c_lo:
             continue
-        rows = torch.arange(st + c_lo, st + c_hi, device=dev)
-        cw = code_idx[rows]                                  # [n, S]
-        lut_m = lut[mem]
-        adc = lut_m.new_zeros((mem.numel(), rows.numel()))
-        for s in range(pq_dim):
-            adc = adc + lut_m[:, cw[:, s]]
+        cols = torch.arange(c_lo, c_hi, device=dev)
+        rows = st + cols
+        adc = adc_sum(lut[mem], codes[rows], cols, pq_dim, pq_bits)
         d2 = (xx[mem, None] + yy[rows][None, :]) \
             - 2.0 * cdot[mem, j][:, None] - 2.0 * adc
         v = (d2.clamp_min(0.0).sqrt() - eq[rows][None, :]).clamp_min(0.0)

@@ -12,8 +12,8 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.kvp import total_order
 from raft_tpu_torch.core.sparse_types import CSRMatrix, to_device
-from raft_tpu_torch.matrix.select_k import select_k as dense_select_k
 from raft_tpu_torch.sparse.linalg import (_as_coo_parts, _segment_sum,
                                           diagonal as _diagonal)
 
@@ -25,34 +25,42 @@ def select_k(res, csr: CSRMatrix, k: int, select_min: bool = True,
     (±inf by default) and index −1, the reference's semantics.
     (ref: sparse/matrix/detail/select_k-inl.cuh)
 
-    Each row's nonzeros are laid into a dense [n_rows, max(row nnz, k)]
-    block, padded with ±inf and index −1, and the dense ``select_k`` of
-    ``raft_tpu_torch/matrix/select_k.py`` picks from it; the pads are then
-    given ``fill_value``. Ties between equal values may come out in
-    another order than the reference's stable sort."""
+    The reference's order: one stable sort of (row, value) pairs — its
+    ``jnp.lexsort`` — ranks every nonzero within its row, value ascending
+    (of the negated values when not ``select_min``), −0 equal to +0, every
+    NaN last whatever its sign, equal values in storage order; the first k
+    of each row are kept. Here the values become an integer key of that
+    order (:func:`_lexsort_key`), sorted stably, then stably by row."""
     expects(k > 0, "select_k: k must be positive")
     csr = to_device(csr)
     rows, cols, vals, shape = _as_coo_parts(csr)
     n_rows = shape[0]
     dev = vals.device
-    counts = (csr.indptr[1:] - csr.indptr[:-1]).long()
-    width = max(int(counts.max()) if n_rows else 0, k)
-    pad = float("inf") if select_min else float("-inf")
     if fill_value is None:
-        fill_value = pad
-    dense_v = torch.full((n_rows, width), pad, dtype=vals.dtype, device=dev)
-    dense_i = torch.full((n_rows, width), -1, dtype=torch.int32, device=dev)
+        fill_value = float("inf") if select_min else float("-inf")
     r = rows.long()
-    rank = torch.arange(r.shape[0], device=dev) - csr.indptr.long()[r]
-    dense_v[r, rank] = vals
-    dense_i[r, rank] = cols.to(torch.int32)
-    if n_rows == 0:
-        return dense_v[:, :k], dense_i[:, :k]
-    out_v, out_i = dense_select_k(res, dense_v, dense_i, k=k,
-                                  select_min=select_min)
-    out_v = torch.where(out_i < 0, torch.as_tensor(
-        fill_value, dtype=out_v.dtype, device=dev), out_v)
-    return out_v, out_i.to(torch.int32)
+    order = torch.sort(_lexsort_key(vals if select_min else -vals),
+                       stable=True).indices
+    order = order[torch.sort(r[order], stable=True).indices]
+    s_rows = r[order]
+    rank = torch.arange(order.shape[0], device=dev) - \
+        csr.indptr.long()[s_rows]
+    keep = rank < k
+    out_v = torch.full((n_rows, k), fill_value, dtype=vals.dtype, device=dev)
+    out_i = torch.full((n_rows, k), -1, dtype=torch.int32, device=dev)
+    out_v[s_rows[keep], rank[keep]] = vals[order[keep]]
+    out_i[s_rows[keep], rank[keep]] = cols[order[keep]].to(torch.int32)
+    return out_v, out_i
+
+
+def _lexsort_key(v):
+    """An integer key whose ascending order is the reference's sort order
+    of ``v``: −0 as +0 and every NaN as one NaN past +inf, then IEEE total
+    order (:func:`total_order`). A stable sort of it ranks equal values in
+    storage order on any device."""
+    if not v.dtype.is_floating_point:
+        return v
+    return total_order(torch.where(torch.isnan(v), float("nan"), v + 0.0))
 
 
 def diagonal(res, A) -> torch.Tensor:

@@ -255,3 +255,57 @@ def test_kernel_needs_a_card(case):
     if not _build.os.path.exists(_build.library_path("pq_scan")):
         with pytest.raises(DeviceError, match="nvcc"):
             k5._launcher()
+
+
+@pytest.mark.parametrize("terms", [2, 16, 24, 32, 48, 64, 96, 128])
+def test_adc_order_permutes_and_spreads_the_banks(terms):
+    """Each column's order is a permutation of the row's terms, a function
+    of the column mod 32; the table columns (``i ^ m``) the 32 columns of
+    a warp read at a step are 32 different banks where 32 divides the
+    terms or they are a power of 2 (the table repeating them up to 32)."""
+    cols = torch.arange(7, 7 + 256)
+    order = k5.adc_order(cols, terms)
+    assert order.shape == (256, terms)
+    assert torch.equal(order.sort(1).values,
+                       torch.arange(terms).expand(256, terms))
+    assert torch.equal(order[0], order[32])
+    span = k5._order_span(terms)
+    warp = torch.arange(64, 96)
+    m = (warp & 31) % span
+    table_cols = torch.arange(terms)[None, :] ^ m[:, None]
+    assert int(table_cols.max()) < k5._table_cols(terms)
+    assert torch.equal(table_cols % terms, k5.adc_order(warp, terms))
+    if span == 32:
+        assert all(len(set((table_cols[:, i] % 32).tolist())) == 32
+                   for i in range(terms))
+
+
+@pytest.mark.parametrize("pq_dim,bits,pairs", [(32, 8, False),
+                                               (32, 4, True),
+                                               (1024, 4, False)])
+def test_table_layout(pq_dim, bits, pairs):
+    """A row's terms are its code bytes over a 256-code table where that
+    fits the block (4-bit pairs too), else its nibbles."""
+    got = k5.table_layout(pq_dim, bits)
+    assert got[0] == pairs
+    assert got[1] == (pq_dim // 2 if pairs else pq_dim)
+    assert got[3] == 4 * (16 if bits == 4 and not pairs else 256) * got[2]
+    assert got[3] <= k5.MAX_SMEM_BYTES
+
+
+def test_adc_sum_within_envelope(case):
+    """The twin's f32 table sum (:func:`adc_sum`: the kernel's terms, in
+    its order, two chains a row) stays within S·2⁻²⁴·Σ|entries| of the same
+    entries summed in f64 — the part of the certificate envelope e_k
+    (``ann/ivf_pq.py``) that covers the order of the sum — for every row of
+    the slab and every query."""
+    index, ops, _, _ = case
+    R = index.codes.shape[0]
+    K = 1 << index.pq_bits
+    got = k5.adc_sum(ops["lut"], index.codes, torch.arange(R), S,
+                     index.pq_bits)
+    code_idx = k5.decode_codes(index.codes, S, index.pq_bits) \
+        + torch.arange(S) * K
+    terms = ops["lut"].double()[:, code_idx]            # [nq, R, S]
+    tol = S * 2.0 ** -24 * terms.abs().sum(2)
+    assert bool(((got.double() - terms.sum(2)).abs() <= tol).all())

@@ -10,7 +10,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    instance of the packed wgmma kernels (K1, K2, and K1's d-chunked form)
    must build without a spill (``ptxas_packed``), and the resident
    form's fold's SASS instructions a score are counted
-   (``sass_fold_ops``).
+   (``sass_fold_ops``); so must every instance of K4 and K7
+   (``ptxas_fatal``: K4's scan at f32 and int8 and its merge, K7's ten).
 2. K1 against its plain PyTorch twin on the card, at d = 128 and d = 512
    (the resident envelope's edge), Q=500 (not a whole number of the
    kernel's 128-query blocks) × M = 65 tiles of 2048 rows (a partial last
@@ -57,12 +58,18 @@ Phases, each fatal on failure (non-zero exit, no result line):
    fold timed by CUDA events beside their bounds and ``torch.matmul`` in
    bf16 of the same product: how K1's time splits between the
    contraction and the fold.
-4. K4 (the list-major IVF fine scan, f32 and int8) against its plain twin
-   on the card, on one real schedule: the first 256 queries of the IVF
-   phase's batch at P=32, on the f32 and then the int8 index; then once
-   more with NaN/±inf planted in three query rows and (f32) in three
-   probed slab rows (``k4_nonfinite``): no NaN in either side's a1, a2
-   or a3, no planted row pooled.
+4. K4 (the list-major IVF fine scan, f32 and int8: its two template
+   instances) against its plain twin on the card, on one real schedule:
+   the first 256 queries of the IVF phase's batch at P=32, on the f32 and
+   then the int8 index; then once more with NaN/±inf planted in three
+   query rows and (f32) in three probed slab rows (``k4_nonfinite``): no
+   NaN in either side's a1, a2 or a3, no planted row pooled; then on a
+   schedule built for the work plan's edges (``k4_edge_case``): ragged
+   member batches (256 members of the largest list, 33 of the second, 5
+   of the smallest, 1 of another) and an empty list. Values within twice
+   ``ops.fine_scan.sum_bound(d)``·(‖x‖ + max‖y‖)² (both sides sum the
+   reference's bf16 hi/lo terms in f32, in other orders), ids equal on ≥
+   99.9% of slots.
 5. IVF-Flat at full width, as ``benchmarks/bench_ann.py:81,177-197``
    configures it: make_blobs 1,000,000 × 128 (64 centers, per-center std
    linspace(0.5, 2.0), proportions uniform(0.5, 2.0) from numpy seed 11),
@@ -76,7 +83,9 @@ Phases, each fatal on failure (non-zero exit, no result line):
    plane; ids identical to the exact oracle up to proven ties). Each run
    prints recall@10, reruns, the host-clock median of 5 calls, launches
    per batch, and K4 timed on the run's own inputs beside its twin and
-   its bound. serve_ivf_flat: an ``ivf_flat`` engine over the f32 index at
+   its bound: its wrapper (CUDA events) and its scan and merge kernels
+   alone under torch.profiler (``kernel_ms``, what the speed guard
+   holds). serve_ivf_flat: an ``ivf_flat`` engine over the f32 index at
    P=32 under the fine-scan chooser, 300 requests with phase 6d's recipe,
    parity probes bit-identical to ``search_ivf_flat`` single-shot, 0
    builds after warm-up, p50/p99 and requests/s.
@@ -124,10 +133,19 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bound (nnz_i + 2)·2⁻²⁴·Σ|a||x| per row, and timed beside the twin, the
    bound, K6a's own layout traffic and cuSPARSE's call
    (``torch.sparse_csr_tensor @``). K7 (``linalg.sddmm``, d = 64) runs on
-   the scale-22 adjacency's CSR structure in entry order, is held to
-   (d + 2)·2⁻²⁴·Σ|a·b| and timed beside ``torch.sparse.sampled_addmm``,
-   and is timed again over the same entries in the (row tile × column
-   tile) order of a TiledPairs layout (16384 × 16384 and 256 × 512). K6b
+   the scale-22 adjacency's CSR structure in entry order (its CSR form:
+   indptr, no expanded rows; B column-major, as a caller holding Bᵀ
+   passes it), is held to (d + 2)·2⁻²⁴·Σ|a·b| in CSR and entry form and
+   timed (CUDA events; alone under torch.profiler) beside
+   ``torch.sparse.sampled_addmm``, its entry form and a row-major B (the
+   transpose of B included), and is timed again over the same entries in
+   the (row tile × column tile) order of a TiledPairs layout (16384 ×
+   16384 and 256 × 512), held there too. ``k7_checks``: a 50,000-row structure with empty rows, a
+   row of 5000 entries and a partial last warp, in CSR and shuffled entry
+   form at d = 64, 3, 200 and 512, and a structure whose row ends stop
+   short of its entries (the CSR form must end and give those NaN). K7's
+   modelled gather floor (one B row an entry from HBM, not a measurement)
+   prints on a line of its own, outside the ``kernels`` line. K6b
    runs a Lanczos solve over the pair layout of a band matrix (n = 2²⁰,
    |i − j| ≤ 16, 34.6 M nonzeros) and is held and timed the same way.
    Then ``k6_checks``, each case against its twin within the same bound
@@ -221,7 +239,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    0..3 with ±0, ±inf and ±NaN planted, k ∈ {16, 64, 256}, select_min
    either way: values and ids equal to ``core.kvp.smallest_by_key``'s bit
    for bit; then AUTO timed there and on N(0, 1) rows (host median of
-   five).
+   five). (e) select_min=False on rows with exact ties, ±0, ±inf, +NaN
+   and −NaN (``signed_select_checks``), the card against the same call on
+   the CPU, ids and value bits: ``select_k_slotted`` through K3 and the
+   slot fold, its certified fallback, AUTO, and the streamed ip sweep's
+   merge and sweep.
 13. Wide and unpacked brute-force KNN (``wide_knn_phase``). wide_knn:
    ann-benchmarks' gist-960-euclidean shape as make_blobs 1,000,000 × 960
    (64 clusters, std 2.0), the first 1,000 rows as queries, k = 100;
@@ -255,7 +277,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against its twin, then timed with its count zeroed before and read
    after, beside twin, bound and ``torch.matmul``.
 14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, K1's
-   d-chunked form, K5, the slot forms, K6b and K6c against their times recorded from earlier full runs
+   d-chunked form, K4 and K5 alone, the slot forms, K6b, K6c and K7
+   against their times recorded from earlier full runs
    (``GUARD_MS``), failing where one is more than 10% slower on the card
    they were recorded on and naming those more than 5% slower. The wall
    seconds of each phase (``phase_s``). A JSON ``kernels`` line (K1's
@@ -378,6 +401,25 @@ def fold_issue_ms(per_score: float, Q: int, M: int) -> float:
     return 1e3 * per_score * Q * M / H100_ISSUE_PER_S
 
 
+def ptxas_spills(log: str) -> dict:
+    """Registers and spill bytes of every kernel in one library's ``nvcc
+    -Xptxas=-v`` report, by (mangled) kernel name."""
+    import re
+
+    out, name = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1] if "'" in line else line.strip()
+            out[name] = {}
+        elif name is not None and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name]["spill_bytes"] = int(st) + int(ld)
+        elif name is not None and "Used" in line and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+    return out
+
+
 def ptxas_packed(log: str) -> dict:
     """Registers and spill bytes of each instance of the packed kernels
     (``p{passes}`` + ``_pair`` + ``_q8``; the d-chunked form ``wide_p
@@ -387,24 +429,41 @@ def ptxas_packed(log: str) -> dict:
     40."""
     import re
 
-    out, name = {}, None
-    for line in log.splitlines():
+    out = {}
+    for kernel, rep in ptxas_spills(log).items():
         m = re.search(r"(packed|wide)_sm90_kernelILi(\d)ELb(\d)ELb(\d)E",
-                      line)
-        if "Compiling entry function" in line and m:
-            kind, passes, pair, flag = m.groups()
-            name = f"p{passes}{'_pair' if pair == '1' else ''}"
-            if kind == "packed":
-                name += "_q8" if flag == "1" else ""
-            else:
-                name = "wide_" + name + ("" if flag == "1" else "_stream")
-            out[name] = {}
-        elif name is not None and "spill stores" in line:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            out[name]["spill_bytes"] = int(st) + int(ld)
-        elif name is not None and "Used" in line and "registers" in line:
-            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                   line).group(1))
+                      kernel)
+        if m is None:
+            continue
+        kind, passes, pair, flag = m.groups()
+        name = f"p{passes}{'_pair' if pair == '1' else ''}"
+        if kind == "packed":
+            name += "_q8" if flag == "1" else ""
+        else:
+            name = "wide_" + name + ("" if flag == "1" else "_stream")
+        out[name] = rep
+    return out
+
+
+#: the instances K4's and K7's sources must build: K4's scan at f32 and
+#: int8 and its merge; K7 at NA = 1, 2, 4, 8, 16 in entry and CSR form
+PTXAS_FATAL = {"fine_scan": 3, "sddmm": 10}
+
+
+def ptxas_fatal(build_log: dict) -> dict:
+    """K4's and K7's instances (``PTXAS_FATAL``), each built without a
+    spill: fails otherwise, as the packed kernel's check does. Returns
+    their registers and spills by library."""
+    out = {}
+    for lib, n in PTXAS_FATAL.items():
+        if lib not in build_log:                  # (not when reloaded)
+            continue
+        rep = ptxas_spills(build_log[lib])
+        check(len(rep) == n and all(r.get("spill_bytes") == 0
+                                    for r in rep.values()),
+              f"{lib}: {len(rep)} of {n} instances reported, or some "
+              f"spill: {rep}")
+        out[lib] = rep
     return out
 
 
@@ -434,17 +493,20 @@ def kernel_ms(fn, name: str, reps: int = 5):
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
-    total, count = 0.0, 0
-    for e in prof.key_averages():
-        if name in e.key:
-            t = getattr(e, "device_time_total", None)
-            total += e.cuda_time_total if t is None else t
-            count += e.count
-    return total / count / 1e3 if count else None
+    for _ in range(2):            # a trace that missed the kernel is redone
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        total, count = 0.0, 0
+        for e in prof.key_averages():
+            if name in e.key:
+                t = getattr(e, "device_time_total", None)
+                total += e.cuda_time_total if t is None else t
+                count += e.count
+        if count:
+            return total / count / 1e3
+    return None
 
 
 def unpack(a, pbits: int):
@@ -585,15 +647,18 @@ def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
 
 
 def compare_k4(kern, twin, x, ymax: float, q8: bool):
-    """Hold K4's pools against its twin's. Both sum in f32 in other
-    orders (the kernel an fma chain over d, the twin torch.matmul with
-    TF32 off), so a value may differ by (4d + 8)·2⁻²⁴·(‖x‖ + max‖y‖)² per
-    query; +inf must match +inf. i1/i2 (global slab rows) must agree on
+    """Hold K4's pools against its twin's. Both compute the reference's
+    bf16 hi/lo terms and sum them in f32 in other orders (the kernel on
+    the tensor cores, the twin by torch.matmul with TF32 off), each within
+    ``sum_bound(d)``·(‖x‖ + ‖y‖)² of their exact sum
+    (``ops/csrc/fine_scan.cu``), so a value may differ by twice that with
+    max‖y‖; +inf must match +inf. i1/i2 (global slab rows) must agree on
     ≥ 99.9% of slots: a near-tie may flip. Returns the max abs error."""
     import torch
+    from raft_tpu_torch.ops.fine_scan import sum_bound
 
     d = x.shape[1]
-    tol = ((4 * d + 8) * 2.0 ** -24 * (x.norm(dim=1) + ymax) ** 2)[:, None]
+    tol = (2 * sum_bound(d) * (x.norm(dim=1) + ymax) ** 2)[:, None]
     err = 0.0
     tag = "K4_q8" if q8 else "K4"
     for n in (0, 2, 4):
@@ -732,6 +797,80 @@ def k4_inputs(res, index, Qx, P: int):
             "pair_rows": int(index.sizes[probes.long()].sum())}
 
 
+def k4_edge_inputs(index, Qx):
+    """K4's operands on a schedule built to reach its work plan's edges:
+    256 queries, 4 probe columns. Every query probes the index's largest
+    list (8 items of 32 members, each over every chunk of the longest
+    window); queries 0–32 the second largest (33 members: an item of 32
+    and one of 1); queries 33–37 the smallest non-empty list; query 40 a
+    list no other query probes; queries 0–9 an empty list (length 0,
+    written over the schedule's first pad entry: its members pool
+    nothing); columns 2–3 of most queries are pads (−2)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.ann import ivf_flat as ivf
+    from raft_tpu_torch.ops import fine_scan as k4
+
+    sizes = index.sizes.cpu().numpy()
+    order = np.argsort(-sizes, kind="stable")
+    small = order[np.nonzero(sizes[order] > 0)[0][-1]]
+    nq = 256
+    probes = np.full((nq, 4), -2, np.int32)
+    probes[:, 0] = order[0]
+    probes[:33, 1] = order[1]
+    probes[33:38, 1] = small
+    probes[40, 1] = order[len(order) // 2]
+    sch = ivf.build_list_schedule(index, probes)
+    sched, scale_l = sch.sched.copy(), sch.scale_l.copy()
+    pad = np.nonzero(sched[3] < 0)[0]
+    if not pad.size:                     # append a cell of pad entries
+        sched = np.concatenate([sched, np.tile(np.array(
+            [[0], [0], [0], [-1]], np.int32), (1, k4.LISTS_PER_CELL))], 1)
+        scale_l = np.concatenate([scale_l, np.ones(k4.LISTS_PER_CELL,
+                                                   np.float32)])
+        pad = np.nonzero(sched[3] < 0)[0]
+    empty = index.n_lists + 7
+    sched[:, pad[0]] = (0, 0, 0, empty)
+    probes[:10, 2] = empty
+    x = Qx[:nq].contiguous()
+    xx = (x * x).sum(1)
+    pp = torch.from_numpy(probes).cuda()
+    Wk = k4.pad_window(index.probe_window)
+    st = torch.from_numpy(sched).cuda()
+    if index.db_dtype == "int8":
+        args = (st, torch.from_numpy(scale_l).cuda(), x, xx, pp,
+                index.slab_q, Wk)
+        kern, twin = k4.fine_scan_list_major_q8, k4.fine_scan_list_major_q8_ref
+        yy = index.yy_q
+    else:
+        args = (st, x, xx, pp, index.slab, Wk)
+        kern, twin = k4.fine_scan_list_major, k4.fine_scan_list_major_ref
+        yy = index.yy_slab
+    return {"args": args, "kern": kern, "twin": twin, "x": x,
+            "q8": index.db_dtype == "int8", "ymax": float(yy.max().sqrt()),
+            "largest": int(sizes[order[0]]), "smallest": int(sizes[small])}
+
+
+def k4_edge_case(index, Qx):
+    """K4 against its twin on :func:`k4_edge_inputs`: ragged member
+    batches, an empty list, the largest list; every query (each probes the
+    largest list) pools a row on both sides. Returns (the max abs error,
+    the largest and the smallest list's rows)."""
+    import torch
+
+    inp = k4_edge_inputs(index, Qx)
+    saved = k4_counts()
+    out = inp["kern"](*inp["args"])
+    torch.cuda.synchronize()
+    set_counts(saved)
+    ref = inp["twin"](*inp["args"])
+    err = compare_k4(out, ref, inp["x"], inp["ymax"], inp["q8"])
+    for side, pools in (("kernel", out), ("twin", ref)):
+        check(bool((pools[1] >= 0).any(1).all()), f"K4 edge case: a query "
+              f"that probes the largest list pooled nothing ({side})")
+    return err, inp["largest"], inp["smallest"]
+
+
 def k4_counts():
     from raft_tpu_torch.ops import fine_scan as k4
     from raft_tpu_torch.ops import fused_l2_topk as k1
@@ -818,9 +957,12 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
         err = compare_k4(out, ref, inp["x"], inp["ymax"], inp["q8"])
         del out, ref
         err_nf = k4_nonfinite(inp)
+        err_edge, big, small = k4_edge_case(ix, Q)
         print(f"K4 vs twin ({ix.db_dtype}, 256 queries, P={probes[0]}, "
               f"{inp['lists']} lists): max_abs_err={err}; with ±inf/NaN "
-              f"planted: max_abs_err={err_nf}, no NaN in the pools",
+              f"planted: max_abs_err={err_nf}, no NaN in the pools; ragged "
+              f"batches, an empty list, the largest ({big} rows) and "
+              f"smallest ({small}) lists: max_abs_err={err_edge}",
               flush=True)
 
     # ---- phase 5: the IVF path at full width ----
@@ -877,12 +1019,21 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
             err = compare_k4(out, hold[0], inp["x"], inp["ymax"], inp["q8"])
             del out, hold
             ms = cuda_ms(lambda: inp["kern"](*inp["args"]), 5)
+            # the kernels alone (torch.profiler): the scan and the merge
+            scan_ms = kernel_ms(lambda: inp["kern"](*inp["args"]),
+                                "fine_scan_kernel")
+            merge_ms = kernel_ms(lambda: inp["kern"](*inp["args"]),
+                                 "merge_kernel")
             set_counts(saved)           # comparison launches do not count
             bound, bound_by = k4_bound_ms(n_queries, DIM, P,
                                           inp["stream_rows"],
                                           inp["pair_rows"], inp["q8"])
             k4_rows[name] = {
-                "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+                "ms": ms, "kernel_ms": (None if scan_ms is None
+                                        or merge_ms is None
+                                        else scan_ms + merge_ms),
+                "scan_ms": scan_ms, "merge_ms": merge_ms,
+                "plain_ms": plain_ms, "bound_ms": bound,
                 "bound_by": bound_by, "library_ms": None,
                 "max_abs_err": err, "lists": inp["lists"],
                 "stream_rows": inp["stream_rows"],
@@ -1654,6 +1805,74 @@ def sddmm_bound_ms(nnz: int, m: int, n: int, d: int):
                                        else "bytes")
 
 
+def k7_gather_floor_ms(nnz: int, d: int) -> float:
+    """K7's modelled gather floor, not a measurement: one B row an entry
+    (nnz·d·4 bytes) at the card's HBM rate, where no B row stays in L2
+    between its uses."""
+    return 1e3 * nnz * d * 4 / H100_BYTES_PER_S
+
+
+def k7_checks(gen, m: int = 50_000, n: int = 70_000):
+    """K7 against its twin on a structure made to reach its work items'
+    edges: empty rows (the first and the last among them), a row of 5000
+    entries (it spans many of the kernel's 64-entry runs and 256-entry
+    warps), rows of 1 to 40, a last warp of partial runs; in CSR form and
+    in entry form with a dst order, at d = 64, 3 (padded to 4), 200 and
+    512 (the envelope's edge); then the CSR form on the structure with
+    indptr[m] short of nnz (the kernel must end, and give NaN past it).
+    Returns the max abs error by case."""
+    import torch
+    from raft_tpu_torch.ops import sddmm as k7
+
+    deg = torch.randint(0, 41, (m,), generator=gen, device="cuda")
+    deg[[0, 5, 6, m - 1]] = 0
+    deg[7] = 5000
+    deg[m - 2] = 3
+    indptr = torch.zeros(m + 1, dtype=torch.int32, device="cuda")
+    indptr[1:] = torch.cumsum(deg, 0)
+    nnz = int(indptr[-1])
+    cols = torch.randint(0, n, (nnz,), generator=gen, device="cuda",
+                         dtype=torch.int32)
+    rows = torch.repeat_interleave(torch.arange(m, device="cuda",
+                                                dtype=torch.int32), deg)
+    perm = torch.randperm(nnz, generator=gen, device="cuda")
+    out = {"nnz": nnz}
+    saved = sparse_counts()
+    for d in (64, 3, 200, 512):
+        A = torch.randn((m, d), generator=gen, device="cuda")
+        B = torch.randn((d, n), generator=gen, device="cuda")
+        twin = k7.sddmm_entries_ref(A, B, rows, cols)
+        bound = (d + 2) * 2.0 ** -24 * k7.sddmm_entries_ref(
+            A.abs(), B.abs(), rows, cols)
+        e1 = check_bound(f"K7 CSR form d={d}",
+                         k7.sddmm_csr(A, B, indptr, cols), twin, bound)
+        e2 = check_bound(f"K7 entry form, shuffled, d={d}",
+                         k7.sddmm_entries(A, B, rows[perm].contiguous(),
+                                          cols[perm].contiguous(),
+                                          dst=perm.to(torch.int32)),
+                         twin, bound)
+        out[f"d{d}"] = max(e1, e2)
+    # a malformed structure, its row ends capped 300 entries short of nnz:
+    # the kernel ends (no endless search for a row) and gives those NaN
+    A = torch.randn((m, 64), generator=gen, device="cuda")
+    B = torch.randn((64, n), generator=gen, device="cuda")
+    short = indptr.clamp(max=nnz - 300)
+    got = k7.sddmm_csr(A, B, short, cols)
+    torch.cuda.synchronize()
+    want = k7.sddmm_csr_ref(A, B, short, cols)
+    check(bool(torch.isnan(got[nnz - 300:]).all()),
+          "K7 CSR form: entries past indptr[m] are not NaN")
+    bound = 66 * 2.0 ** -24 * k7.sddmm_entries_ref(
+        A.abs(), B.abs(), rows[:nnz - 300], cols[:nnz - 300])
+    check_bound("K7 CSR form, indptr[m] < nnz", got[:nnz - 300],
+                want[:nnz - 300], bound)
+    out["short_indptr"] = "ended, NaN past indptr[m]"
+    set_sparse_counts(saved)
+    print(f"K7 checks (empty rows, a row of 5000, partial last warp; CSR "
+          f"and shuffled entry forms): {json.dumps(out)}", flush=True)
+    return out
+
+
 def sparse_counts():
     from raft_tpu_torch.ops import sddmm as k7
     from raft_tpu_torch.ops import spmv as k6
@@ -2180,14 +2399,16 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     del adj
     torch.cuda.empty_cache()
     A = torch.randn((n, d), generator=gen, device="cuda")
-    Bm = torch.randn((d, n), generator=gen, device="cuda")
+    # B [d, n] as a caller holding the factor Bᵀ [n, d] passes it (the
+    # layout K7 reads in place); a row-major copy is timed beside it
+    Bm = torch.randn((n, d), generator=gen, device="cuda").T
     set_sparse_counts(zero)
     out = sl.sddmm(res, A, Bm, S)
     torch.cuda.synchronize()
     launches = sparse_counts()["K7"]
     check(launches > 0, "sddmm: K7 launched no time")
     saved = sparse_counts()
-    rows, cols = S.row_ids(), S.indices
+    rows, cols, indptr = S.row_ids(), S.indices, S.indptr
     hold = []
     plain = cuda_ms(lambda: hold.append(k7.sddmm_entries_ref(A, Bm, rows,
                                                              cols)), 1,
@@ -2197,7 +2418,15 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     twin = hold.pop()
     err = check_bound("K7", out.values, twin, bound)
     del out
-    ms = cuda_ms(lambda: k7.sddmm_entries(A, Bm, rows, cols), 5)
+    check_bound("K7 entry form", k7.sddmm_entries(A, Bm, rows, cols), twin,
+                bound)
+    ms = cuda_ms(lambda: k7.sddmm_csr(A, Bm, indptr, cols), 5)
+    k7_alone = kernel_ms(lambda: k7.sddmm_csr(A, Bm, indptr, cols),
+                         "sddmm_kernel")
+    entries_ms = cuda_ms(lambda: k7.sddmm_entries(A, Bm, rows, cols), 5)
+    Br = Bm.contiguous()
+    b_row_major_ms = cuda_ms(lambda: k7.sddmm_csr(A, Br, indptr, cols), 5)
+    del Br
     # the same entries in the (row tile × column tile) order of a TiledPairs
     # layout (each result still written to its entry): the TPU kernel's
     # blocks, timed against the entry order the path runs
@@ -2218,13 +2447,19 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     lib = library_ms(lambda: torch.sparse.sampled_addmm(St, A, Bm, beta=0.0),
                      5)
     b_ms, b_by = sddmm_bound_ms(S.nnz, n, n, d)
-    rows_k["K7"] = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms,
-                    "bound_by": b_by, "library_ms": lib, "max_abs_err": err,
-                    "launches": launches, "d": d,
+    rows_k["K7"] = {"ms": ms, "kernel_ms": k7_alone, "plain_ms": plain,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "max_abs_err": err, "launches": launches, "d": d,
+                    "b_layout": "column-major (Bᵀ [n, d] contiguous)",
+                    "entry_form_ms": entries_ms,
+                    "b_row_major_ms": b_row_major_ms,
                     "tile_order_ms": tile_ms}
     print(f"K7 at d={d}: {json.dumps(rows_k['K7'])}", flush=True)
-    del A, Bm, St, S, rows, cols
+    print(f"K7 gather floor (modelled, not measured): "
+          f"{k7_gather_floor_ms(S.nnz, d)} ms", flush=True)
+    del A, Bm, St, S, rows, cols, indptr
     torch.cuda.empty_cache()
+    rows_k["K7"]["checks"] = k7_checks(gen)
     report["spectral_g22"] = g22
     print(f"spectral_g22: {json.dumps(g22)}", flush=True)
 
@@ -3060,6 +3295,125 @@ def compare_k3(out, ref, tag: str):
     return n_nan
 
 
+def signed_rows(L: int, seed: int, rows: int = 136):
+    """[rows, L] f32 (numpy): N(0, 1) rows, then 8 rows of small integers
+    (exact ties) with ±0, ±inf, +NaN and −NaN planted; the first of them
+    is zeros of both signs with three 2s, a +NaN and a −NaN, the second a
+    run of tied maxima."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    nan_p = np.uint32(0x7FC00000).view(np.float32)
+    nan_n = np.uint32(0xFFC00000).view(np.float32)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, nan_p, nan_n],
+                        np.float32)
+    v = rng.normal(size=(rows, L)).astype(np.float32)
+    t = rng.integers(-3, 4, (8, L)).astype(np.float32)
+    where = rng.random((8, L)) < 0.1
+    t[where] = rng.choice(specials, int(where.sum()))
+    t[0] = np.where(rng.random(L) < 0.5, 0.0, -0.0)
+    t[0, rng.choice(L, 3, replace=False)] = 2.0
+    t[0, [L // 3, L // 2]] = nan_p, nan_n
+    t[1, ::7] = 3.0
+    v[rows - 8:] = t
+    return v
+
+
+def same_selection(tag: str, got, want):
+    """Ids equal and values equal bit for bit (a card result against the
+    same call on the CPU)."""
+    import torch
+
+    (gv, gi), (wv, wi) = got, want
+    check(torch.equal(gi.cpu().long(), wi.long())
+          and torch.equal(gv.cpu().contiguous().view(torch.int32),
+                          wv.contiguous().view(torch.int32)),
+          f"{tag}: the card's ids or value bits differ from the same call "
+          f"on the CPU")
+
+
+def signed_select_checks(res):
+    """Phase 12e: the selections that rank the largest (select_min=False)
+    by sign-flipped bits, on rows with exact ties, ±0, ±inf, +NaN and −NaN,
+    on the card against the same call on the CPU (which the CPU tests hold
+    bit for bit to the reference): ``select_k_slotted`` through K3 (L =
+    16384) and the slot fold (L = 2048), its certified fallback (rows of
+    ±0 holding ±NaN), ``select_k`` AUTO, and the streamed inner-product
+    sweep's merge (``_merge_topk`` with and without ``unsure``) and its
+    ``_sweep`` over crafted tiles. Returns the rows each path re-solved."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.distance import fused_l2nn as fl
+    from raft_tpu_torch.matrix import select_k
+    from raft_tpu_torch.matrix.select_k_slotted import select_k_slotted
+    from raft_tpu_torch.ops import select_slotted as k3
+
+    out = {}
+    n0 = k3.LAUNCHES
+    for L, k in ((16384, 16), (16384, 100), (2048, 8)):
+        v = torch.from_numpy(signed_rows(L, L + k))
+        gv, gi, n_fail = select_k_slotted(v.cuda(), None, k, False,
+                                          with_stats=True)
+        same_selection(f"select_k_slotted L={L} k={k} select_min=False",
+                       (gv, gi), select_k_slotted(v, None, k, False))
+        check(n_fail >= 1, f"select_k_slotted L={L}: no row re-solved")
+        out[f"slotted_L{L}_k{k}_n_fail"] = n_fail
+        same_selection(f"select_k AUTO L={L} k={k} select_min=False",
+                       select_k(res, v.cuda(), k=k, select_min=False),
+                       select_k(None, v, k=k, select_min=False))
+    rng = np.random.default_rng(5)
+    for L in (16384, 2048):
+        z = np.where(rng.random((136, L)) < 0.5, 0.0, -0.0).astype(
+            np.float32)
+        z[:, 3] = np.uint32(0x7FC00000).view(np.float32)
+        z[:, L - 5] = np.uint32(0xFFC00000).view(np.float32)
+        v = torch.from_numpy(z)
+        gv, gi, n_fail = select_k_slotted(v.cuda(), None, 12, False,
+                                          with_stats=True)
+        same_selection(f"select_k_slotted fallback rows of ±0/±NaN L={L}",
+                       (gv, gi), select_k_slotted(v, None, 12, False))
+        out[f"fallback_L{L}_n_fail"] = n_fail
+    k3.LAUNCHES = n0
+    # the streamed ip sweep: its merge, then a sweep over crafted tiles
+    k, tile, n_tiles = 12, 40, 6
+    t = torch.from_numpy(signed_rows(k + tile * n_tiles, 9, rows=16))
+    ids = torch.arange(t.numel(), dtype=torch.int32).reshape(t.shape)
+    for unsure in (False, True):
+        def merge(dev):
+            u = torch.zeros(16, dtype=torch.bool, device=dev) if unsure \
+                else None
+            v, i = fl._merge_topk(t[:, :k].to(dev), ids[:, :k].to(dev),
+                                  t[:, k:].to(dev), ids[:, k:].to(dev), k,
+                                  False, u)
+            return v, i, u
+        gv, gi, gu = merge("cuda")
+        wv, wi, wu = merge("cpu")
+        sure = torch.ones(16, dtype=torch.bool)
+        if unsure:
+            # the first k of a row not marked unsure are exact; what
+            # follows them, and unsure rows, are swept again
+            check(torch.equal(gu.cpu(), wu), "_merge_topk: the card marks "
+                  "other rows unsure than the CPU")
+            sure = ~wu
+        same_selection(f"_merge_topk select_min=False unsure={unsure}",
+                       (gv[:, :k][sure.cuda()], gi[:, :k][sure.cuda()]),
+                       (wv[:, :k][sure], wi[:, :k][sure]))
+
+    def sweep(dev):
+        tiles = t[:, k:].to(dev)
+
+        def tile_fn(i):
+            return (tiles[:, i * tile:(i + 1) * tile],
+                    torch.arange(i * tile, (i + 1) * tile, device=dev,
+                                 dtype=torch.int32))
+        return fl._sweep(tile_fn, n_tiles, 16, k, False, torch.device(dev))
+    same_selection("the streamed ip sweep (_sweep) select_min=False",
+                   sweep("cuda"), sweep("cpu"))
+    print(f"select_min=False on ±0/±NaN tied rows, card against CPU: "
+          f"{json.dumps(out)}", flush=True)
+    return out
+
+
 def select_k_phase(res, cells=SELECT_CELLS, k3_shape=(256, 1_048_576),
                    blobs=(100_000, 128, 16), ragged=(37, 70_001)):
     """Phase 12 (see the module doc): K3 against its twin bit for bit,
@@ -3210,6 +3564,9 @@ def select_k_phase(res, cells=SELECT_CELLS, k3_shape=(256, 1_048_576),
           f"smallest_by_key's on tied integer rows with ±0, ±inf, ±NaN): "
           f"{json.dumps(report['auto'])}", flush=True)
     del vt, vn
+
+    # ---- 12e: select_min=False on ±0/±NaN tied rows, card against CPU
+    report["signed"] = signed_select_checks(res)
 
     main_key = (k3_shape[0], k3_shape[1], 4)
     main = k3_rows.get(main_key) or next(iter(k3_rows.values()))
@@ -3928,7 +4285,12 @@ GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.644, "K2_p3": 3.215,
             # two runs in port_scripts/ab_dchunk_k5.py's call
             "K1_dchunk_p1": 6.364, "K1_dchunk_p3": 13.323,
             "K5_p32": 0.960, "K5_p128": 3.494, "K5_4bit_p32": 0.579,
-            "K5_4bit_p128": 1.982}
+            "K5_4bit_p128": 1.982,
+            # K4 alone (scan + merge, ``kernel_ms``) and K7's CSR wrapper
+            # (CUDA events, B column-major), the slower of the final
+            # tree's two runs in port_scripts/ab_k4_k7.py's call
+            "K4_p32": 1.196, "K4_p128": 4.208, "K4_q8_p64": 1.791,
+            "K7": 8.830}
 GUARD_SLACK = 1.10
 GUARD_NOTE = 1.05
 
@@ -3954,6 +4316,9 @@ def speed_guard(card: str, entries) -> dict:
                       ("pq_scan_list_major_4bit", "K5_4bit")):
         now[f"{tag}_p32"] = by[name]["kernel_ms"]
         now[f"{tag}_p128"] = by[name]["p128"]["kernel_ms"]
+    k4, k4q = by["fine_scan_list_major"], by["fine_scan_list_major_q8"]
+    now.update(K4_p32=k4["kernel_ms"], K4_p128=k4["p128"]["kernel_ms"],
+               K4_q8_p64=k4q["kernel_ms"], K7=by["sddmm_tiled"]["ms"])
     ratio = {k: now[k] / GUARD_MS[k] for k in GUARD_MS}
     held = card.strip() == GUARD_CARD
     out = {"card": card.strip(), "held": held, "ms": now,
@@ -4038,6 +4403,8 @@ def main() -> int:
     fold_ops = sass_fold_ops()
     print(json.dumps({"packed_ptxas": packed_regs,
                       "packed_sass_fold_ops": fold_ops}), flush=True)
+    print(json.dumps({"k4_k7_ptxas": ptxas_fatal(_build.BUILD_LOG)}),
+          flush=True)
     phase_end("build")
 
     # ---- phase 2: K1 and K2 against their twins ----

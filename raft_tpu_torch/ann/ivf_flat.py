@@ -492,8 +492,9 @@ def _fine_scan_list(x, sched, probes, slab, ids, yy_slab, starts_qm, psizes,
     vals, out = _pool_finish(x, xx, rows, slab, ids, yy_slab, starts_qm,
                              psizes, k, P, W)
     theta = vals[:, k - 1]
-    # the reference kernel's bf16x3 envelope; the port's f32 kernel stays
-    # well inside it (csrc/fine_scan.cu states its own bound)
+    # the reference kernel's bf16x3 envelope; the port's kernel computes
+    # the same bf16 hi/lo terms, within (2⁻¹⁶ + (5d + 8)·2⁻²⁴)·span of
+    # the f32 score (csrc/fine_scan.cu), inside it for every d ≤ 1024
     yymax = yy_lmax[probes.long()].max(1).values
     span = (xx[:, 0].sqrt() + yymax.sqrt()) ** 2
     widen = (2.0 ** -13 + d * 2.0 ** -22) * span

@@ -27,6 +27,16 @@ def total_order(v):
                        bits).long()
 
 
+def flip_sign(v):
+    """``v`` (f32) with every sign bit flipped: the exact reversal of IEEE
+    total order (``total_order(flip_sign(v)) == ~total_order(v)``), and
+    its own inverse. The k smallest of it are the k largest of ``v``, as
+    ``jax.lax.top_k(−v)`` ranks them on the CPU. Arithmetic negation on
+    the card need not flip a zero's or a NaN's sign, so a selection ranks
+    this, never ``−v``."""
+    return (v.view(torch.int32) ^ -2 ** 31).view(torch.float32)
+
+
 def order_key(v, ids=None, descending: bool = False):
     """A unique int64 key for each entry of ``v`` [B, n] (a type of at
     most 32 bits): its :func:`total_order` (reversed when ``descending``)

@@ -21,7 +21,8 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.kvp import KeyValuePair, ranked_head, smallest_by_key
+from raft_tpu_torch.core.kvp import (KeyValuePair, flip_sign, ranked_head,
+                                     smallest_by_key)
 from raft_tpu_torch.core.resources import as_f32, ensure_resources
 
 _INT32_MAX = 2 ** 31 - 1
@@ -103,19 +104,23 @@ def _merge_topk(best_v, best_i, tile_v, tile_i, k: int, select_min: bool,
     ``jax.lax.top_k``'s order (the reference's ``_xla_select_k``): ties go
     to the lower position, and the running best sits before the tile, so
     an exact tie keeps the lower id. The largest are the smallest of the
-    negation (which reverses IEEE total order exactly). With ``unsure``
-    [n] bool, the merge keeps k + _MERGE_PAD by :func:`ranked_head` and
-    ors in the rows whose first k it may have got wrong; without, it
-    keeps k through the int64 key. Neither waits on the device."""
+    sign-flipped bits (:func:`flip_sign`, the exact reversal of IEEE total
+    order; arithmetic negation need not flip a zero's or a NaN's sign on
+    the card), and the values are gathered from the merged ones as bits.
+    With ``unsure`` [n] bool, the merge keeps k + _MERGE_PAD by
+    :func:`ranked_head` and ors in the rows whose first k it may have got
+    wrong; without, it keeps k through the int64 key. Neither waits on the
+    device."""
     allv = torch.cat([best_v, tile_v], dim=1)
     alli = torch.cat([best_i, tile_i], dim=1)
-    v = allv if select_min else -allv
+    v = allv if select_min else flip_sign(allv)
     if unsure is None:
-        v, pos = smallest_by_key(v, k)
+        _, pos = smallest_by_key(v, k)
     else:
-        v, pos, tied = ranked_head(v, k, _MERGE_PAD)
+        _, pos, tied = ranked_head(v, k, _MERGE_PAD)
         unsure |= tied
-    return (v if select_min else -v), torch.gather(alli, 1, pos)
+    bits = torch.gather(allv.view(torch.int32), 1, pos)
+    return bits.view(torch.float32), torch.gather(alli, 1, pos)
 
 
 def _sweep(tile_fn, n_tiles: int, n: int, k: int, select_min: bool, dev):

@@ -27,7 +27,8 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.kvp import select_smallest, smallest_by_key
+from raft_tpu_torch.core.kvp import (flip_sign, select_smallest,
+                                     smallest_by_key)
 from raft_tpu_torch.core.resources import ensure_resources
 from raft_tpu_torch.matrix.select_k_chunked import (chunked_envelope,
                                                     select_k_chunked)
@@ -70,8 +71,8 @@ def _topk_select(in_val, in_idx, k: int, select_min: bool):
     An integer ``−in_val`` is ranked as the reference negates it, its wrap
     included. Values are gathered as bits."""
     if in_val.dtype == torch.float32:
-        flipped = (in_val.view(torch.int32) ^ -2 ** 31).view(torch.float32)
-        _, pos = select_smallest(in_val if select_min else flipped, k)
+        _, pos = select_smallest(in_val if select_min else flip_sign(in_val),
+                                 k)
     elif in_val.dtype.is_floating_point:
         _, pos = smallest_by_key(in_val, k, descending=not select_min)
     else:

@@ -26,7 +26,7 @@ from typing import Tuple
 
 import torch
 
-from raft_tpu_torch.core.kvp import order_key
+from raft_tpu_torch.core.kvp import flip_sign, order_key
 from raft_tpu_torch.ops.folds import fold_group_top2
 from raft_tpu_torch.ops.select_slotted import select_slot_topk_packed
 
@@ -48,6 +48,20 @@ def lax_top_k(v, k: int):
     return torch.gather(v, 1, sel), sel
 
 
+def _smallest(v, k: int):
+    """The k smallest of ``v`` [B, n] f32 in IEEE total order, ties to the
+    lower position: ``jax.lax.top_k(−v, k)``'s ranking, taken as
+    :func:`lax_top_k` of the sign-flipped bits (never of ``−v``). The
+    values are gathered from ``v`` as bits. Returns (values, positions
+    int64)."""
+    _, pos = lax_top_k(flip_sign(v), k)
+    return _gather_bits(v, pos), pos
+
+
+def _gather_bits(v, pos):
+    return torch.gather(v.view(torch.int32), 1, pos).view(torch.float32)
+
+
 def _certified_fallback(vals, out_v, out_i, failed, k: int):
     """Re-solve the rows flagged ``failed`` exactly (the reference's
     ``top_k`` on the row) and write them back. Returns (values, positions
@@ -55,9 +69,9 @@ def _certified_fallback(vals, out_v, out_i, failed, k: int):
     n_fail = int(failed.sum())
     if n_fail:
         rows = failed.nonzero().squeeze(1)
-        nv, pos = lax_top_k(-vals[rows], k)
+        nv, pos = _smallest(vals[rows], k)
         out_v, out_i = out_v.clone(), out_i.clone()
-        out_v[rows] = -nv
+        out_v[rows] = nv
         out_i[rows] = pos.to(out_i.dtype)
     return out_v, out_i, n_fail
 
@@ -83,8 +97,7 @@ def _slotted_select_min(vals, k: int, slot: int, g: int):
     pool_v = torch.cat([p1, p2], dim=1)
     pool_i = torch.cat([pid1, pid2], dim=1)
     C = min(k + _POOL_PAD, pool_v.shape[1])
-    neg, pos = lax_top_k(-pool_v, C)
-    cand_v = -neg
+    cand_v, pos = _smallest(pool_v, C)
     cand_i = torch.gather(pool_i, 1, pos)
 
     theta = cand_v[:, k - 1]
@@ -116,15 +129,13 @@ def _slotted_select_min_streamed(work, k: int):
     S_ = a1p.shape[1]
     pool_p = torch.cat([a1p, a2p], dim=1)                  # [B, 2S'] packed
     C = min(k + _POOL_PAD, pool_p.shape[1])
-    neg, pos = lax_top_k(-pool_p, C)
-    cand_p = -neg
+    cand_p, pos = _smallest(pool_p, C)
     pid = decode_packed_pool(cand_p, pos, S_, _T_SEL, tpg)
     # the candidates' true values: packing perturbs only the low mantissa
     # bits used for ordering; the answer's values are the inputs'
     cand_true = torch.gather(work, 1, pid.long().clamp(0, L - 1))
     cand_true = torch.where(pid >= 0, cand_true, float("inf"))
-    neg_k, ord_k = lax_top_k(-cand_true, k)
-    out_v = -neg_k
+    out_v, ord_k = _smallest(cand_true, k)
     out_i = torch.gather(pid, 1, ord_k)
 
     # certificate: every non-candidate's packed value ≥ min(group
@@ -175,7 +186,7 @@ def select_k_slotted(in_val, in_idx, k: int, select_min: bool,
         raise NotImplementedError(
             f"slotted select_k: k={k} exceeds pool {pool} for len={L}")
     keys = in_val.float()
-    work = keys if select_min else -keys
+    work = keys if select_min else flip_sign(keys)
     if L >= _STREAM_MIN_L:
         _, out_pos, n_fail = _slotted_select_min_streamed(work, k)
     else:

@@ -39,6 +39,8 @@ from raft_tpu_torch.ops.select_slotted import (
     select_slot_topk_packed_ref,
 )
 from raft_tpu_torch.ops.sddmm import (
+    sddmm_csr,
+    sddmm_csr_ref,
     sddmm_entries,
     sddmm_entries_ref,
     sddmm_tiled,
@@ -72,7 +74,8 @@ __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fused_l2_group_topk_packed_ref", "histogram_blocked",
            "histogram_blocked_ref", "pq_scan_list_major",
            "pq_scan_list_major_ref",
-           "sddmm_entries", "sddmm_entries_ref", "sddmm_tiled",
+           "sddmm_csr", "sddmm_csr_ref", "sddmm_entries",
+           "sddmm_entries_ref", "sddmm_tiled",
            "sddmm_tiled_ref", "spmm_tiled", "spmm_tiled_ref",
            "spmv_pair_tiled", "spmv_pair_tiled_ref", "spmv_tiled",
            "spmv_tiled_ref", "split_hi_lo", "unexpanded_pairwise_tiled",

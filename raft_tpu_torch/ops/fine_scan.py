@@ -13,7 +13,9 @@ the window rows ``start .. start+Wk``; queries whose probe table holds no
 being ``(row − start) % 128``, as the top-2 (value, global slab row) and a
 running 3rd-min. Slots where nothing was scored read (+inf, −1). Scores
 approximate ``xx + ‖y‖² − 2·x·y`` (f32), or ``xx + s²·‖yq‖² − 2·s·x·yq``
-for an int8 slab with per-list scale ``s``.
+for an int8 slab with per-list scale ``s``, from the reference's bf16 hi/lo
+terms; the kernel and the twin (:func:`_scan_ref`) sum the same terms in
+other orders, each within :func:`sum_bound` of their exact sum.
 
 The wrappers dispatch on the tensors' device: CPU tensors take the twin,
 CUDA tensors launch the kernel or raise. There is no fallback.
@@ -27,6 +29,7 @@ import torch
 
 from raft_tpu_torch.core.error import DeviceError
 from raft_tpu_torch.ops import _build
+from raft_tpu_torch.ops.fused_l2_topk import split_hi_lo
 
 _LANES = 128
 #: lists per schedule cell: build_list_schedule pads its list table to a
@@ -46,6 +49,14 @@ LAUNCHES = 0
 LAUNCHES_Q8 = 0
 
 _FN = None
+
+
+def sum_bound(d: int) -> float:
+    """The f32 summation error of one score, kernel or twin, over the
+    exact sum of the same bf16 terms, as a factor of (‖x‖ + ‖y‖)²:
+    (5d + 8)·2⁻²⁴ (derived in csrc/fine_scan.cu). The two agree within
+    twice it."""
+    return (5 * d + 8) * 2.0 ** -24
 
 
 def pad_window(W: int) -> int:
@@ -142,6 +153,54 @@ def _members(sched, probes):
     return torch.where(js == Lp, -1, js).to(torch.int32), order, seg
 
 
+#: member queries a work item of the kernel takes (csrc/fine_scan.cu kBQ)
+ITEM_MEMBERS = 32
+
+
+def live_chunks(sched, Wk: int, R: int):
+    """Each schedule entry's live 128-row chunks of its window: those
+    holding the list's rows inside the window and the slab (the kernel's
+    c_lo .. c_hi, csrc/fine_scan.cu). Returns (first chunk, count), [Lp]
+    int64 each."""
+    start, lsize, off = (sched[i].long() for i in range(3))
+    c_lo = torch.maximum(off.clamp_min(0), -start)
+    c_hi = torch.minimum((off + lsize).clamp_max(Wk), R - start)
+    ch_lo = torch.div(c_lo, _LANES, rounding_mode="floor")
+    n_ch = torch.where(c_hi > c_lo,
+                       torch.div(c_hi + _LANES - 1, _LANES,
+                                 rounding_mode="floor") - ch_lo, 0)
+    return ch_lo, n_ch
+
+
+def plan_items(sched, seg, n_members: int, Wk: int, R: int):
+    """The kernel's work items, on the device and without a host read:
+    ``[n, 2]`` int32 rows (entry, first position in the member table), one
+    for every batch of :data:`ITEM_MEMBERS` consecutive members of an entry
+    (an entry with no member has none), the entries longest first (most
+    live chunks; ties by entry), then rows (−1, −1). ``n`` = min(M, Lp +
+    ⌈M / ITEM_MEMBERS⌉) for a member table of M positions bounds the count,
+    so the launch's grid needs no host read. Each item takes every live
+    chunk of its entry: every (entry, member, live chunk) is covered
+    once."""
+    Lp = sched.shape[1]
+    dev = seg.device
+    _, n_ch = live_chunks(sched, Wk, R)
+    seg = seg.long()
+    batches = torch.div(seg[1:] - seg[:-1] + ITEM_MEMBERS - 1, ITEM_MEMBERS,
+                        rounding_mode="floor")
+    order = torch.sort(-n_ch, stable=True).indices          # [Lp]
+    ends = torch.cumsum(batches[order], 0)
+    n = min(n_members, Lp + -(-n_members // ITEM_MEMBERS))
+    t = torch.arange(n, device=dev)
+    k = torch.searchsorted(ends, t, right=True).clamp_max(Lp - 1)
+    entry = order[k]
+    p0 = seg[entry] + (t - (ends[k] - batches[entry])) * ITEM_MEMBERS
+    ok = t < ends[Lp - 1]
+    items = torch.stack([torch.where(ok, entry, -1),
+                         torch.where(ok, p0, -1)], dim=1)
+    return items.to(torch.int32).contiguous()
+
+
 def _launch(sched, scale_l, x, xx, probes, slab, Wk: int, slab_dtype):
     if x.device.type != "cuda":
         raise DeviceError(f"fine scan: no kernel for device {x.device}")
@@ -161,6 +220,7 @@ def _launch(sched, scale_l, x, xx, probes, slab, Wk: int, slab_dtype):
                              f"tensor on {x.device}")
     Pp, R, Lp = probes.shape[1], slab.shape[0], sched.shape[1]
     js, order, seg = _members(sched, probes)
+    items = plan_items(sched, seg, order.numel(), Wk, R)
     dev = x.device
 
     def pools(rows):
@@ -174,9 +234,9 @@ def _launch(sched, scale_l, x, xx, probes, slab, Wk: int, slab_dtype):
             sched.data_ptr(),
             scale_l.data_ptr() if scale_l is not None else None,
             x.data_ptr(), xx.data_ptr(), slab.data_ptr(), seg.data_ptr(),
-            order.data_ptr(), js.data_ptr(),
+            order.data_ptr(), js.data_ptr(), items.data_ptr(),
             *(t.data_ptr() for t in parts), *(t.data_ptr() for t in outs),
-            nqp, Pp, d, R, Lp, Wk, int(scale_l is not None),
+            items.shape[0], nqp, Pp, d, R, Lp, Wk, int(scale_l is not None),
             torch.cuda.current_stream().cuda_stream)
     if rc:
         raise DeviceError(f"fine scan: launch failed with CUDA error {rc}")
@@ -188,7 +248,7 @@ def _launcher():
     if _FN is None:
         fn = _build.load("fine_scan").fine_scan_list_major_launch
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 18 + [i] * 7 + [p]
+        fn.argtypes = [p] * 19 + [i] * 8 + [p]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN
@@ -226,24 +286,34 @@ def _window(slab, start: int, Wk: int):
 
 
 def _scan_ref(sched, scale_l, x, xx, probes, slab, Wk: int):
+    """The schedule walked entry by entry as the reference's kernel body
+    does (``_list_kernel_body``, ``:159``), each window scored with the
+    reference's terms (``_scores_f32``, ``_scores_q8`` with x hi and x lo):
+    products of bf16 values, exact in f32, summed by ``torch.matmul`` (TF32
+    off), and the norm as Σ hi(y²) + Σ lo(y²). The kernel computes the same
+    terms; the two differ by the order of the f32 sums alone (see
+    csrc/fine_scan.cu)."""
     nqp = x.shape[0]
     dev = x.device
     R = slab.shape[0]
     xx = xx.reshape(nqp, 1)
+    xh, xl = (t.float() for t in split_hi_lo(x))
     inf = torch.full((nqp, _LANES), float("inf"), device=dev)
     neg1 = torch.full((nqp, _LANES), -1, dtype=torch.int32, device=dev)
     acc = (inf, neg1, inf.clone(), neg1.clone(), inf.clone())
     colv = torch.arange(Wk, device=dev)
-    scales = None if scale_l is None else scale_l.tolist()
     for j, (st, lsize, off, lid) in enumerate(sched.T.tolist()):
         y = _window(slab, st, Wk)
-        s = x @ y.T
-        yy = (y * y).sum(1)
-        if scales is None:
-            r = yy - 2.0 * s
+        if scale_l is None:
+            yh, yl = (t.float() for t in split_hi_lo(y))
+            s = xh @ yh.T + xh @ yl.T + xl @ yh.T
+            y2h, y2l = (t.float() for t in split_hi_lo(y * y))
+            r = (y2h.sum(1) + y2l.sum(1)) - 2.0 * s
         else:
-            sc = scales[j]
-            r = (sc * sc) * yy - 2.0 * sc * s
+            # codes are exact in bf16 and their squares' sum in f32
+            s = xh @ y.T + xl @ y.T
+            sc = scale_l[j]
+            r = (sc * sc) * (y * y).sum(1) - (2.0 * sc) * s
         d2 = xx + r
         member = (probes == lid).any(1)
         row = st + colv
@@ -254,18 +324,16 @@ def _scan_ref(sched, scale_l, x, xx, probes, slab, Wk: int):
 
 
 def fine_scan_list_major_ref(sched, x, xx, probes, slab, Wk: int):
-    """Plain PyTorch twin of :func:`fine_scan_list_major`: the schedule
-    walked entry by entry as the reference's kernel body does
-    (``_list_kernel_body``, ``:159``), scores in f32 by ``torch.matmul``
-    (TF32 off). The CPU path and the kernel's on-card oracle."""
+    """Plain PyTorch twin of :func:`fine_scan_list_major` (see
+    :func:`_scan_ref`). The CPU path and the kernel's on-card oracle."""
     _check(sched, x, xx, probes, slab, Wk)
     return _scan_ref(sched, None, x, xx, probes, slab, Wk)
 
 
 def fine_scan_list_major_q8_ref(sched, scale_l, x, xx, probes, slab_q,
                                 Wk: int):
-    """Plain twin of :func:`fine_scan_list_major_q8`: the int8 codes are
-    exact in f32, ``x·yq`` is summed in f32, and the list scale is applied
-    after the sums (``_scores_q8``, ``:116``)."""
+    """Plain twin of :func:`fine_scan_list_major_q8`: x hi and x lo
+    against the codes (exact in bf16), summed in f32, the list scale
+    applied after the sums (``_scores_q8``, ``:116``)."""
     _check(sched, x, xx, probes, slab_q, Wk, scale_l)
     return _scan_ref(sched, scale_l, x, xx, probes, slab_q, Wk)

@@ -45,6 +45,10 @@ def _as_coo_parts(A: Sparse):
     return A.rows, A.cols, A.values, A.shape
 
 
+def _int32(t):
+    return t.to(torch.int32).contiguous()
+
+
 def _segment_sum(vals: torch.Tensor, seg: torch.Tensor, n: int):
     out = torch.zeros((n,) + tuple(vals.shape[1:]), dtype=vals.dtype,
                       device=vals.device)
@@ -139,18 +143,32 @@ def sddmm(res, A, B, structure, alpha=1.0, beta=0.0) -> Sparse:
         return COOMatrix(structure.rows, structure.cols, vals,
                          structure.shape)
     structure = to_device(structure)
-    rows, cols, vals, shape = _as_coo_parts(structure)
+    vals, shape = structure.values, structure.shape
     A = torch.as_tensor(A).to(device=vals.device)
     B = torch.as_tensor(B).to(device=vals.device)
     expects(A.shape[0] == shape[0] and B.shape[1] == shape[1],
             "sddmm: shape mismatch")
     if vals.device.type == "cuda" and vals.dtype == A.dtype == B.dtype \
             == torch.float32 and A.shape[1] <= k7.MAX_D:
-        prod = k7.sddmm_entries(A, B, rows.to(torch.int32).contiguous(),
-                                cols.to(torch.int32).contiguous())
+        if isinstance(structure, CSRMatrix):
+            prod = k7.sddmm_csr(A, B, _int32(structure.indptr),
+                                _int32(structure.indices))
+        else:
+            prod = k7.sddmm_entries(A, B, _int32(structure.rows),
+                                    _int32(structure.cols))
     else:
+        rows, cols, _, _ = _as_coo_parts(structure)
         prod = (A[rows.long(), :] * B[:, cols.long()].T).sum(1)
-    new_vals = alpha * prod + (beta * vals if beta != 0.0 else 0.0)
+    # the reference's alpha·prod + (beta·vals or 0.0); a multiply by
+    # alpha = 1 is exact and skipped, and the addition runs in place on the
+    # fresh product only where that keeps the reference's promoted dtype
+    new_vals = (prod if alpha == 1.0 and prod.is_floating_point()
+                else alpha * prod)
+    add = beta * vals if beta != 0.0 else 0.0
+    if torch.result_type(new_vals, add) == new_vals.dtype:
+        new_vals += add
+    else:
+        new_vals = new_vals + add
     return structure.with_values(new_vals.to(vals.dtype))
 
 

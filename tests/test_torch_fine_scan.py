@@ -217,3 +217,116 @@ def test_nonfinite_rows_never_reach_the_pools(case, plant):
                                    slab[rows]), np.inf)
     _assert_pools_match(mine, ref, np.where(live[:, None], Q, 0.0), slab,
                         tol)
+
+
+def _sum_tol(x, y_rows):
+    """Twice the stated f32 summation bound of one score
+    (``ops.fine_scan.sum_bound``): the twin and the reference sum the same
+    bf16 terms in other orders, and nothing else differs."""
+    ymax = np.sqrt((y_rows.astype(np.float64) ** 2).sum(1).max())
+    xn = np.sqrt((x.astype(np.float64) ** 2).sum(1))
+    return 2 * tfs.sum_bound(x.shape[1]) * (xn + ymax) ** 2
+
+
+@pytest.mark.parametrize("q8", [False, True])
+def test_twin_terms_match_reference_to_summation_order(case, q8):
+    """The twin scores with the reference's bf16 hi/lo terms and norm, so
+    its pools match the Pallas kernel's (interpret mode) within the f32
+    summation bound alone, far inside the kernel envelope above; a slot's
+    ids may differ only at a near-tie of that width."""
+    Q, xx, pp, idx, idx8 = case
+    ix = idx8 if q8 else idx
+    sch = j_schedule(ix, pp[:, :P])
+    Wk = jfs.pad_window(ix.probe_window)
+    if q8:
+        slab = np.array(idx8.slab_q)
+        ref = jfs.fine_scan_list_major_q8(
+            jnp.asarray(sch.sched), jnp.asarray(sch.scale_l),
+            jnp.asarray(Q), jnp.asarray(xx), jnp.asarray(pp),
+            jnp.asarray(slab), Wk=Wk)
+        mine = tfs.fine_scan_list_major_q8(
+            torch.from_numpy(sch.sched), torch.from_numpy(sch.scale_l),
+            torch.from_numpy(Q), torch.from_numpy(xx), torch.from_numpy(pp),
+            torch.from_numpy(slab), Wk)
+        y = slab.astype(np.float32) * np.asarray(idx8.row_scale)[:, None]
+    else:
+        y = np.array(idx.slab)
+        ref = jfs.fine_scan_list_major(
+            jnp.asarray(sch.sched), jnp.asarray(Q), jnp.asarray(xx),
+            jnp.asarray(pp), idx.slab, Wk=Wk)
+        mine = tfs.fine_scan_list_major(
+            torch.from_numpy(sch.sched), torch.from_numpy(Q),
+            torch.from_numpy(xx), torch.from_numpy(pp),
+            torch.from_numpy(y), Wk)
+    tol = _sum_tol(Q, y)
+    assert np.all(tol < _envelope(Q, y) / 4)
+    _assert_pools_match(mine, ref, Q, y, tol)
+
+
+def test_sum_bound_inside_certificate_envelope():
+    """The kernel's stated error against the exact score, the bf16 split's
+    2⁻¹⁶ plus the summation bound, stays inside the certificate's
+    (2⁻¹³ + d·2⁻²²) for every d the kernel takes."""
+    for d in range(1, tfs.MAX_D + 1):
+        assert 2.0 ** -16 + tfs.sum_bound(d) < 2.0 ** -13 + d * 2.0 ** -22
+
+
+def _plan_case():
+    """A synthetic schedule of 16 entries (window 1024 rows, slab 5000):
+    an empty list, a list whose window runs past the slab, one starting
+    before it, lists of 1 to 900 rows; a probe table in which entry 2's list
+    is probed by 70 queries (three items), entry 0's (empty) by 5 and
+    entries 13–15 by none."""
+    rng = np.random.default_rng(3)
+    Wk, R, Lp = 1024, 5000, 16
+    sched = np.zeros((4, Lp), np.int32)
+    sizes = [0, 1, 900, 130, 128, 257, 3, 640, 500, 77, 1000, 64, 12, 5,
+             300, 2]
+    for j, n in enumerate(sizes):
+        sched[:, j] = (j * 300 - 40, n, 40 + (j % 3), 100 + j)
+    sched[0, 7] = R - 200                  # window past the slab's end
+    nq, P = 96, 4
+    probes = np.full((nq, P), -2, np.int32)
+    others = np.array([101] + list(range(103, 113)), np.int32)
+    for q in range(nq):
+        probes[q] = rng.choice(others, P, replace=False)
+    probes[:70, 0] = 102
+    probes[70:75, 1] = 100
+    return sched, probes, Wk, R
+
+
+def test_work_plan_covers_every_member_once():
+    """Every member (query, probe column) of every entry is in exactly one
+    item, an item takes at most ITEM_MEMBERS of its entry's members and
+    every live chunk, items run longest first, empty lists and entries of
+    more than one item included, and no item names an entry without
+    members."""
+    sched, probes, Wk, R = _plan_case()
+    st, pr = torch.from_numpy(sched), torch.from_numpy(probes)
+    js, order, seg = tfs._members(st, pr)
+    items = tfs.plan_items(st, seg, order.numel(), Wk, R).numpy()
+    seg = seg.numpy()
+    Lp = sched.shape[1]
+    assert items.shape == (min(order.numel(), Lp + -(-order.numel() // 32)),
+                           2)
+    real = items[items[:, 0] >= 0]
+    assert (items[len(real):] == -1).all()
+    _, n_ch = tfs.live_chunks(st, Wk, R)
+    n_ch = n_ch.numpy()
+    cover = np.zeros(seg[Lp], np.int64)
+    for j, p0 in real:
+        assert seg[j] <= p0 < seg[j + 1] and (p0 - seg[j]) % 32 == 0
+        cover[p0:min(p0 + tfs.ITEM_MEMBERS, seg[j + 1])] += 1
+    assert (cover == 1).all()
+    assert np.all(np.diff(n_ch[real[:, 0]]) <= 0)
+    counts = np.diff(seg)
+    assert counts[2] == 70 and (real[:, 0] == 2).sum() == 3
+    assert counts[0] == 5 and n_ch[0] == 0 and (real[:, 0] == 0).sum() == 1
+    assert not np.isin(real[:, 0], np.nonzero(counts == 0)[0]).any()
+    # live chunks: the list's columns inside the window and the slab
+    for j in range(Lp):
+        start, lsize, off = sched[:3, j]
+        cols = [c for c in range(max(off, 0), min(off + lsize, Wk))
+                if 0 <= start + c < R]
+        want = len({c // 128 for c in cols})
+        assert n_ch[j] == want, j

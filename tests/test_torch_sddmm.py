@@ -178,3 +178,91 @@ def test_entry_twin_and_the_kernel_off_the_card():
 
     with pytest.raises(DeviceError):
         k7.sddmm_entries(A, B, t.rows, t.cols)
+
+
+def _skewed_csr(m, n, seed):
+    """CSR rows of skewed degree: empty rows (the first and last among
+    them), one row of 600 entries (more than one of the kernel's 64-entry
+    runs and its 256-entry warps), rows of 1 to 40."""
+    g = np.random.default_rng(seed)
+    deg = g.integers(0, 41, m)
+    deg[[0, 5, 6, m - 1]] = 0
+    deg[7] = 600
+    deg = np.minimum(deg, n)
+    ix = np.concatenate([np.sort(g.choice(n, k, replace=False))
+                         for k in deg]).astype(np.int32)
+    ip = np.concatenate([[0], np.cumsum(deg)]).astype(np.int32)
+    return ip, ix
+
+
+@pytest.mark.parametrize("d", [64, 3])
+def test_csr_twin_matches_reference_on_skewed_rows(d):
+    """K7's CSR form (indptr, no expanded rows): its twin in entry order
+    against the reference's ``sddmm`` on the same CSR structure, empty
+    rows and a row of high degree included, within the reference's
+    bf16×3 tolerance; and against the exact value within the kernel's
+    stated f32 bound."""
+    m, n = 200, 700
+    ip, ix = _skewed_csr(m, n, 4)
+    v = np.ones(ix.shape[0], np.float32)
+    A = rng.normal(size=(m, d)).astype(np.float32)
+    B = rng.normal(size=(d, n)).astype(np.float32)
+    ref = np.asarray(jl.sddmm(None, A, B, JCSR(ip, ix, v, (m, n))).values)
+    got = k7.sddmm_csr_ref(torch.from_numpy(A), torch.from_numpy(B),
+                           torch.from_numpy(ip), torch.from_numpy(ix))
+    rows = np.repeat(np.arange(m), np.diff(ip))
+    scale, exact = _scales(A, B, rows, ix)
+    got = got.numpy().astype(np.float64)
+    assert np.all(np.abs(got - ref) <= 2.0 ** -15 * scale + 1e-30)
+    assert np.all(np.abs(got - exact) <= (d + 2) * 2.0 ** -24 * scale)
+    T = CSRMatrix.from_numpy(ip, ix, v, (m, n), device="cpu")
+    out = tl.sddmm(None, torch.from_numpy(A), torch.from_numpy(B), T)
+    assert torch.equal(out.indptr, T.indptr)
+    assert np.all(np.abs(out.values.numpy() - ref) <= 2.0 ** -15 * scale)
+
+
+def test_csr_entry_point_off_the_card():
+    """The CSR kernel's entry point raises for CPU tensors (no
+    fallback)."""
+    from raft_tpu_torch.core.error import DeviceError
+
+    ip, ix = _skewed_csr(50, 80, 5)
+    A = torch.zeros((50, 8))
+    B = torch.zeros((8, 80))
+    with pytest.raises(DeviceError):
+        k7.sddmm_csr(A, B, torch.from_numpy(ip), torch.from_numpy(ix))
+
+
+def test_sddmm_beta_adds_in_the_promoted_dtype():
+    """f32 operands over an f64 structure: alpha·prod + beta·vals promotes
+    to f64 as the reference's expression does, so beta·vals is added in
+    f64, not rounded into the f32 product first."""
+    m, n, d = 30, 50, 8
+    ip, ix = _skewed_csr(m, n, 6)
+    v = np.full(ix.shape[0], 1.0 / 3.0)
+    A = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32))
+    T = CSRMatrix.from_numpy(ip, ix, v, (m, n), device="cpu")
+    rows = torch.from_numpy(np.repeat(np.arange(m), np.diff(ip)))
+    prod = (A[rows] * B[:, torch.from_numpy(ix).long()].T).sum(1)
+    for alpha in (1.0, 2.0):
+        out = tl.sddmm(None, A, B, T, alpha=alpha, beta=1.0)
+        assert out.values.dtype == torch.float64
+        assert torch.equal(out.values, alpha * prod + T.values)
+
+
+def test_csr_twin_gives_nan_past_the_last_row_end():
+    """A structure whose row ends stop short of its entries (indptr[m] <
+    nnz): the CSR twin gives the entries past indptr[m] NaN, as the
+    kernel does, and the others their rows' values."""
+    m, n, d = 40, 90, 8
+    ip, ix = _skewed_csr(m, n, 7)
+    nnz = ix.shape[0]
+    short = np.minimum(ip, nnz - 25)
+    A = torch.from_numpy(rng.normal(size=(m, d)).astype(np.float32))
+    B = torch.from_numpy(rng.normal(size=(d, n)).astype(np.float32))
+    got = k7.sddmm_csr_ref(A, B, torch.from_numpy(short),
+                           torch.from_numpy(ix))
+    full = k7.sddmm_csr_ref(A, B, torch.from_numpy(ip), torch.from_numpy(ix))
+    assert torch.isnan(got[nnz - 25:]).all()
+    assert torch.equal(got[:nnz - 25], full[:nnz - 25])

@@ -22,7 +22,8 @@ from raft_tpu.matrix import SelectAlgo as JAlgo
 from raft_tpu.matrix import select_k as j_select_k
 from raft_tpu.sparse import matrix as jm
 from raft_tpu_torch.core import DeviceResources
-from raft_tpu_torch.core.kvp import order_key, smallest_by_key, total_order
+from raft_tpu_torch.core.kvp import (flip_sign, order_key, smallest_by_key,
+                                     total_order)
 from raft_tpu_torch.core.sparse_types import CSRMatrix
 from raft_tpu_torch.matrix import SelectAlgo, select_k
 from raft_tpu_torch.matrix.select_k_slotted import slotted_envelope
@@ -207,3 +208,46 @@ def test_sparse_select_k_ties_match_reference(res, seed, select_min):
         jv, ji = jm.select_k(None, jcsr, k, select_min, fill)
         tv, ti = tm.select_k(res, tcsr, k, select_min, fill)
         _same(tv.numpy(), ti.numpy(), jv, ji)
+
+
+def test_flip_sign_reverses_total_order():
+    """flip_sign is the exact reversal of IEEE total order and its own
+    inverse, bit for bit, on the specials and on random bit patterns (every
+    NaN payload included)."""
+    rng = np.random.default_rng(3)
+    bits = np.concatenate([SPECIALS.view(np.int32),
+                           rng.integers(-2 ** 31, 2 ** 31, 4096,
+                                        dtype=np.int64).astype(np.int32)])
+    v = torch.from_numpy(bits.view(np.float32).copy())
+    f = flip_sign(v)
+    assert torch.equal(total_order(f), ~total_order(v))
+    assert torch.equal(flip_sign(f).view(torch.int32), v.view(torch.int32))
+    o = torch.argsort(total_order(v))
+    assert bool((total_order(f)[o][1:] < total_order(f)[o][:-1]).all())
+
+
+@pytest.mark.parametrize("algo,L,k", [("SLOTTED", 16384, 16),
+                                      ("BITONIC", 8192, 64),
+                                      ("SLOTTED", 2048, 8)])
+def test_select_k_slotted_largest_of_signed_rows(res, algo, L, k):
+    """select_k through the slotted algorithm at select_min=False on rows
+    of N(0, 1) beside tied integer rows with ±0, ±inf and ±NaN: ids and
+    value bits are the reference's select_k's with the same algorithm
+    (rows with a NaN re-solve exactly; on short rows the reference's slot
+    fold keeps a poisoned candidate there, so those rows are held to its
+    XLA_TOPK)."""
+    rng = np.random.default_rng(L + k)
+    v = rng.normal(size=(136, L)).astype(np.float32)
+    v[128:] = _tied_rows(8, L, 7, specials=True)
+    jv, ji = j_select_k(None, jnp.asarray(v), None, k, False,
+                        algo=JAlgo[algo])
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    if L < 4096:
+        xv, xi = j_select_k(None, jnp.asarray(v), None, k, False,
+                            algo=JAlgo.XLA_TOPK)
+        nan = np.isnan(v).any(1)[:, None]
+        jv = np.where(nan, np.asarray(xv), jv)
+        ji = np.where(nan, np.asarray(xi), ji)
+    tv, ti = select_k(res, torch.from_numpy(v), None, k, False,
+                      algo=SelectAlgo[algo])
+    _same(tv, ti, jv, ji)

@@ -323,3 +323,90 @@ def test_lax_top_k_order():
     tv, tp = lax_top_k(torch.from_numpy(v), 9)
     np.testing.assert_array_equal(tp.numpy(), np.asarray(jp))
     np.testing.assert_array_equal(tv.numpy(), np.asarray(jv))
+
+
+# ---- select_min=False on tied rows holding ±0, ±inf and ±NaN ----
+NEG_NAN = np.uint32(0xFFC00000).view(np.float32)
+POS_NAN = np.uint32(0x7FC00000).view(np.float32)
+SIGNED = np.array([0.0, -0.0, np.inf, -np.inf, POS_NAN, NEG_NAN],
+                  np.float32)
+
+
+def _signed_rows(L: int, k: int, seed: int, nan: bool):
+    """[136, L] rows: 128 of N(0, 1) (few fail the certificate), then 8
+    rows of small integers (exact ties everywhere) with ±0 and ±inf
+    planted, and +NaN and −NaN too where ``nan``. Row 129 is zeros of both
+    signs with a few positives: with ``nan`` it also holds +NaN and −NaN,
+    fails the certificate and is re-solved with its ±0 inside the top k;
+    without, k + 2 positives keep the ±0 (equal to the slot fold's
+    compares) out of it. Row 130 holds a run of tied maxima. More than 128
+    rows and few failures: the reference re-solves only its failed rows
+    (its fallback tiers), as the port does, so each row is compared
+    alone."""
+    rng = np.random.default_rng(seed)
+    v = rng.normal(size=(136, L)).astype(np.float32)
+    t = rng.integers(-3, 4, (8, L)).astype(np.float32)
+    specials = SIGNED if nan else SIGNED[:4]
+    where = rng.random((8, L)) < 0.1
+    t[where] = rng.choice(specials, int(where.sum()))
+    t[1] = np.where(rng.random(L) < 0.5, 0.0, -0.0)
+    t[1, rng.choice(L, 3 if nan else k + 2, replace=False)] = 2.0
+    if nan:
+        t[1, [L // 3, L // 2]] = POS_NAN, NEG_NAN
+    t[2, ::7] = 3.0
+    v[128:] = t
+    return v
+
+
+def _bits(a):
+    return np.asarray(a).view(np.int32)
+
+
+@pytest.mark.parametrize("L,k", [(16384, 16), (8192, 100), (2048, 8),
+                                 (700, 6)])
+@pytest.mark.parametrize("nan", [False, True])
+def test_slotted_signed_ties_match_reference(L, k, nan):
+    """The largest (select_min=False: the port ranks the sign-flipped
+    bits, the reference −v) of tied rows with ±0, ±inf and ±NaN, through
+    the streamed K3 route (L ≥ 4096, its CPU twin) and the plain slot
+    fold: ids and value bits are the reference's. Rows with a NaN at
+    L < 4096 re-solve in the port; the reference's slot fold keeps a
+    poisoned candidate there for select_min=False (pinned in
+    test_slotted_nonfinite_rows), so those rows are held to its own exact
+    top-k."""
+    v = _signed_rows(L, k, 90 + L + k, nan)
+    tv, ti, n_fail = select_k_slotted(torch.from_numpy(v), None, k, False,
+                                      with_stats=True)
+    jv, ji = j_slotted(jnp.asarray(v), None, k, False)
+    jv, ji = np.asarray(jv), np.asarray(ji)
+    if L < 4096 and nan:
+        xv, xi = j_select_k(None, jnp.asarray(v), None, k, False,
+                            algo=JAlgo.XLA_TOPK)
+        pinned = np.isnan(v).any(1)
+        jv = np.where(pinned[:, None], np.asarray(xv), jv)
+        ji = np.where(pinned[:, None], np.asarray(xi), ji)
+    np.testing.assert_array_equal(_bits(tv.numpy()), _bits(jv))
+    np.testing.assert_array_equal(ti.numpy(), ji)
+    if nan:
+        assert n_fail >= 1             # NaN rows take the fallback
+
+
+@pytest.mark.parametrize("L", [16384, 2048])
+def test_slotted_fallback_rows_of_signed_zeros(L):
+    """Rows that fail the certificate and are re-solved (the fallback
+    alone): ±0 rows holding a +NaN and a −NaN (each a row's largest and
+    smallest in total order), so the order of the ±0 inside the top k is
+    the sign bit's and the position's."""
+    rng = np.random.default_rng(5)
+    v = rng.normal(size=(136, L)).astype(np.float32)
+    z = np.where(rng.random((8, L)) < 0.5, 0.0, -0.0).astype(np.float32)
+    z[:, 3], z[:, L - 5] = POS_NAN, NEG_NAN
+    z[:4, 7] = np.inf
+    v[128:] = z
+    tv, ti, n_fail = select_k_slotted(torch.from_numpy(v), None, 12,
+                                      False, with_stats=True)
+    jv, ji = j_select_k(None, jnp.asarray(v), None, 12, False,
+                        algo=JAlgo.XLA_TOPK)
+    assert n_fail >= 8
+    np.testing.assert_array_equal(_bits(tv.numpy()), _bits(jv))
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))

@@ -6,6 +6,7 @@ orders, so values agree to 1e-5 relative (1e-4 absolute near zero) and ids
 exactly on this tie-free random data.
 """
 
+import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
@@ -189,4 +190,76 @@ def test_streamed_knn_some_rows_tied_match_reference(res, jres,
                          tile=tile)
     v, i = knn(res, y, x, k, metric=metric, algo="streamed", tile=tile)
     np.testing.assert_array_equal(v.numpy(), np.asarray(v_ref))
+    np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))
+
+
+NEG_NAN = np.uint32(0xFFC00000).view(np.float32)
+POS_NAN = np.uint32(0x7FC00000).view(np.float32)
+
+
+def _signed_tiles(seed: int, n: int = 6, k: int = 12, tile: int = 40):
+    """A running best [n, k] and a tile [n, tile] of small integers with
+    exact ties, ±0, ±inf, +NaN and −NaN, with their column ids."""
+    rng = np.random.default_rng(seed)
+    specials = np.array([0.0, -0.0, np.inf, -np.inf, POS_NAN, NEG_NAN],
+                        np.float32)
+    vals = rng.integers(-2, 3, (n, k + tile)).astype(np.float32)
+    where = rng.random((n, k + tile)) < 0.3
+    vals[where] = rng.choice(specials, int(where.sum()))
+    vals[0] = np.where(rng.random(k + tile) < 0.5, 0.0, -0.0)
+    ids = rng.permutation(n * (k + tile)).reshape(n, k + tile)
+    return vals, ids.astype(np.int32)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+@pytest.mark.parametrize("ranked", [False, True])
+def test_merge_topk_largest_of_signed_ties(seed, ranked):
+    """The streamed inner-product sweep's merge (select_min=False) on
+    tiles with exact ties, ±0, ±inf and ±NaN: it ranks the sign-flipped
+    bits, never −v, and gathers the values as bits, so ids and value bits
+    are the reference's ``_merge_topk`` (``jax.lax.top_k``'s order). With
+    ``unsure`` (the sweep's first pass) every row whose first k it may
+    have got wrong is marked; the others equal the reference's."""
+    from raft_tpu.distance.fused_l2nn import _merge_topk as j_merge
+    from raft_tpu_torch.distance.fused_l2nn import _merge_topk as t_merge
+
+    k = 12
+    vals, ids = _signed_tiles(seed, k=k)
+    jv, ji = j_merge(jnp.asarray(vals[:, :k]), jnp.asarray(ids[:, :k]),
+                     jnp.asarray(vals[:, k:]), jnp.asarray(ids[:, k:]), k,
+                     False)
+    unsure = torch.zeros(vals.shape[0], dtype=torch.bool) if ranked \
+        else None
+    tv, ti = t_merge(torch.from_numpy(vals[:, :k]),
+                     torch.from_numpy(ids[:, :k]),
+                     torch.from_numpy(vals[:, k:]),
+                     torch.from_numpy(ids[:, k:]), k, False, unsure)
+    tv, ti = tv[:, :k].numpy(), ti[:, :k].numpy()
+    sure = np.ones(vals.shape[0], bool) if unsure is None \
+        else ~unsure.numpy()
+    if ranked:
+        assert unsure.numpy()[np.isnan(vals).any(1)].all()
+    np.testing.assert_array_equal(tv.view(np.int32)[sure],
+                                  np.asarray(jv).view(np.int32)[sure])
+    np.testing.assert_array_equal(ti[sure], np.asarray(ji)[sure])
+
+
+def test_streamed_ip_sweep_signed_ties_match_reference(res, jres,
+                                                       tied_data):
+    """The streamed ip sweep end to end on integer rows with exact ties
+    where two queries make every score NaN (an inf against a zero feature)
+    or ±inf, and zero rows score ±0: ids and value bits are the
+    reference's."""
+    x, y = tied_data
+    x, y = x.copy(), y.copy()
+    y[100:140] = 0.0
+    x[3, 2] = np.inf
+    x[4] = -np.abs(x[4]) - 1.0
+    x[4, 0] = -np.inf
+    v_ref, i_ref = j_knn(jres, y, x, 50, metric="inner_product",
+                         algo="streamed", tile=512)
+    v, i = knn(res, y, x, 50, metric="inner_product", algo="streamed",
+               tile=512)
+    np.testing.assert_array_equal(v.numpy().view(np.int32),
+                                  np.asarray(v_ref).view(np.int32))
     np.testing.assert_array_equal(i.numpy(), np.asarray(i_ref))

@@ -7,10 +7,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
 
 1. Device and build: the card's name and power limit, then every CUDA
    kernel of the port built from the sources in this checkout; every
-   instance of the packed wgmma kernels (K1, K2, and K1's d-chunked form)
-   must build without a spill (``ptxas_packed``), and the resident
-   form's fold's SASS instructions a score are counted
-   (``sass_fold_ops``); so must every instance of K4 and K7
+   instance of the wgmma kernels (K1, K2, K1's d-chunked form and K1's
+   two slot forms) must build without a spill (``ptxas_packed``), the
+   fold's SASS instructions a score are counted (``sass_fold_ops``), and
+   ``fused_l2_topk.cu`` (the unpacked forms) must export no slot entry
+   point; so must every instance of K4 and K7 build without a spill
    (``ptxas_fatal``: K4's scan at f32 and int8 and its merge, K7's ten).
 2. K1 against its plain PyTorch twin on the card, at d = 128 and d = 512
    (the resident envelope's edge), Q=500 (not a whole number of the
@@ -202,8 +203,11 @@ Phases, each fatal on failure (non-zero exit, no result line):
    for bit against its twin and ``torch.bincount`` at
    ``bench_prims.py:125-130``'s 100,000 × 8 bins (64), on the batch-1
    bins of ``value_histogram`` over make_blobs 100,000 × 128 (12.8 M
-   values) and on per-column bins of the 1,000,000 × 128 matrix (64
-   bins), each timed beside the twin, the bound and ``torch.bincount``;
+   values), on per-column bins of the 1,000,000 × 128 matrix (64
+   bins) and on the stats path's labels (100,000 × 1, 16 bins), each
+   timed (its wrapper by CUDA events, the kernel alone by torch.profiler,
+   ``kernel_ms``) beside the twin, the bound and ``torch.bincount``, its
+   form (``ops.histogram.k9_form``) equal to the one the source picks;
    and, untimed, at 3 × 786,437 bins (1024 bins), whose 65,537 column
    slabs are more than a grid's 65,535 rows.
    (e) The stats path on make_blobs 100,000 × 128 (16 clusters,
@@ -277,10 +281,13 @@ Phases, each fatal on failure (non-zero exit, no result line):
    against its twin, then timed with its count zeroed before and read
    after, beside twin, bound and ``torch.matmul``.
 14. A ``speed_guard`` line (``speed_guard``): packed K1 and K2, K1's
-   d-chunked form, K4 and K5 alone, the slot forms, K6b, K6c and K7
+   d-chunked form, K4, K5 and K9 alone, the slot forms (resident and
+   d-chunked), K6b, K6c and K7
    against their times recorded from earlier full runs
    (``GUARD_MS``), failing where one is more than 10% slower on the card
-   they were recorded on and naming those more than 5% slower. The wall
+   they were recorded on and naming those more than 5% slower. Every
+   timed window of this run starts on a settled card (``settle``: idle
+   ``SETTLE_S`` seconds, so that a power-capped clock has recovered). The wall
    seconds of each phase (``phase_s``). A JSON ``kernels`` line (K1's
    and K2's rows also carry each instance's ptxas registers and spill
    bytes and ``fold_issue_ms``, the fold's SASS issue time, which
@@ -360,8 +367,8 @@ H100_ISSUE_PER_S = 33.45e12
 
 
 def sass_fold_ops(lib: str = "fused_l2_packed_sm90") -> dict:
-    """Per instance of the packed kernel (``p{passes}`` + ``_pair`` +
-    ``_q8``): the SASS instructions of the fold's opcodes
+    """Per instance of the wgmma kernels (``sm90_instance``'s names): the
+    SASS instructions of the fold's opcodes
     (``FOLD_OPCODES``, from ``cuobjdump -sass`` of the built library) over
     the scores its unrolled chunk pair folds a thread (2 × 32), and the
     FMNMX count. The count takes every such instruction of the kernel,
@@ -383,9 +390,8 @@ def sass_fold_ops(lib: str = "fused_l2_packed_sm90") -> dict:
                 res[name] = {"per_score": sum(
                     counts[o] for o in FOLD_OPCODES) / 64.0,
                     "fmnmx": counts["FMNMX"]}
-            m = re.search(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E", line)
-            name = (f"p{m.group(1)}{'_pair' if m.group(2) == '1' else ''}"
-                    f"{'_q8' if m.group(3) == '1' else ''}") if m else None
+            m = re.search(SM90_KERNEL, line)
+            name = sm90_instance(m) if m else None
             counts = {o: 0 for o in FOLD_OPCODES}
         elif name is not None:
             m = re.search(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z0-9]+)",
@@ -420,28 +426,48 @@ def ptxas_spills(log: str) -> dict:
     return out
 
 
+#: instances of the wgmma source: packed K1 and K2 (passes × pair × int8),
+#: K1's d-chunked form (passes × pair × queries resident), the resident
+#: slot form (passes × track × mask) and the d-chunked one (passes ×
+#: queries resident)
+PACKED_INSTANCES = 8 + 8 + 8 + 4
+#: the wgmma kernels' template arguments in their mangled names: passes,
+#: pair, q8 (d-chunked: queries resident), fold, mask
+SM90_KERNEL = (r"(packed|wide)_sm90_kernelILi(\d)ELb(\d)ELb(\d)ELi(\d)"
+               r"ELb(\d)E")
+
+
+def sm90_instance(m) -> str:
+    """The name of a wgmma kernel instance from a ``SM90_KERNEL`` match:
+    packed ``p{passes}`` + ``_pair`` + ``_q8``; d-chunked ``wide_p
+    {passes}`` + ``_pair`` + ``_stream`` where x streams; the slot forms
+    ``slot_p{passes}`` + ``_min`` (track=False) + ``_mask``, and
+    ``slot_wide_p{passes}`` + ``_stream``."""
+    kind, passes, pair, flag, fold, mask = m.groups()
+    if fold != "0":
+        name = f"slot_{'wide_' if kind == 'wide' else ''}p{passes}"
+        if kind == "wide":
+            return name + ("" if flag == "1" else "_stream")
+        return (name + ("_min" if fold == "2" else "")
+                + ("_mask" if mask == "1" else ""))
+    name = f"p{passes}{'_pair' if pair == '1' else ''}"
+    if kind == "packed":
+        return name + ("_q8" if flag == "1" else "")
+    return "wide_" + name + ("" if flag == "1" else "_stream")
+
+
 def ptxas_packed(log: str) -> dict:
-    """Registers and spill bytes of each instance of the packed kernels
-    (``p{passes}`` + ``_pair`` + ``_q8``; the d-chunked form ``wide_p
-    {passes}`` + ``_pair`` + ``_stream`` where x streams) from ``nvcc
-    -Xptxas=-v``'s report. The registers are the launch's (384 threads);
-    setmaxnreg then gives the consumer warpgroups 232 and the producer
-    40."""
+    """Registers and spill bytes of each instance of the wgmma kernels
+    (``sm90_instance``'s names) from ``nvcc -Xptxas=-v``'s report. The
+    registers are the launch's (384 threads); setmaxnreg then gives the
+    consumer warpgroups 232 and the producer 40."""
     import re
 
     out = {}
     for kernel, rep in ptxas_spills(log).items():
-        m = re.search(r"(packed|wide)_sm90_kernelILi(\d)ELb(\d)ELb(\d)E",
-                      kernel)
-        if m is None:
-            continue
-        kind, passes, pair, flag = m.groups()
-        name = f"p{passes}{'_pair' if pair == '1' else ''}"
-        if kind == "packed":
-            name += "_q8" if flag == "1" else ""
-        else:
-            name = "wide_" + name + ("" if flag == "1" else "_stream")
-        out[name] = rep
+        m = re.search(SM90_KERNEL, kernel)
+        if m is not None:
+            out[sm90_instance(m)] = rep
     return out
 
 
@@ -467,10 +493,29 @@ def ptxas_fatal(build_log: dict) -> dict:
     return out
 
 
-def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
-    """Mean device milliseconds of ``fn()`` over ``reps`` launches."""
+#: seconds the card idles before a timed window. After a stretch at its
+#: power limit the card holds its SM clock down for a while, and a kernel
+#: timed inside that recovery reads slow: K5 alone up to 27% slow right
+#: after one, bf16 torch.matmul 17%; after 0.1 s both read within 2% of
+#: their times after a second's idle (PERF.md §6,
+#: ``port_scripts/settle_probe.py``).
+SETTLE_S = 0.2
+
+
+def settle() -> None:
+    """Let the card leave a power-capped stretch before a timed window."""
     import torch
 
+    torch.cuda.synchronize()
+    time.sleep(SETTLE_S)
+
+
+def cuda_ms(fn, reps: int, warmup: int = 1) -> float:
+    """Mean device milliseconds of ``fn()`` over ``reps`` launches, timed
+    on a settled card (:func:`settle`)."""
+    import torch
+
+    settle()
     for _ in range(warmup):
         fn()
     start = torch.cuda.Event(enable_timing=True)
@@ -487,10 +532,12 @@ def kernel_ms(fn, name: str, reps: int = 5):
     """Mean device milliseconds of the kernels whose name holds ``name``
     over ``reps`` calls of ``fn()`` after one more, from torch.profiler's
     kernel records: the kernel alone, without its wrapper's host work or
-    other device work (None where the profiler saw no such kernel)."""
+    other device work (None where the profiler saw no such kernel), on a
+    settled card (:func:`settle`)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
+    settle()
     fn()
     torch.cuda.synchronize()
     for _ in range(2):            # a trace that missed the kernel is redone
@@ -2603,6 +2650,83 @@ def k9_bound_ms(n: int, batch: int, n_bins: int):
         "bytes"
 
 
+def k9_inputs(gen, Y, Xs, truth, k_s: int) -> dict:
+    """K9's timed shapes, {tag: (bins, n_bins)}: ``bench_prims.py:125-130``'s
+    100,000 × 8 random bins (64); the batch-1 bins ``value_histogram``
+    takes of make_blobs ``Xs``'s values (64); per-column bins of ``Y``
+    (64); the stats path's labels, ``truth`` (k_s bins)."""
+    import torch
+
+    vals = Xs.reshape(-1)
+    lo, hi = vals.min(), vals.max()
+    vbins = ((vals - lo) / ((hi - lo) / 64)).to(torch.int32).clamp(0, 63)
+    return {"bench_prims": (torch.randint(0, 64, (100_000, 8), device="cuda",
+                                          generator=gen, dtype=torch.int32),
+                            64),
+            "value_histogram": (vbins[:, None].contiguous(), 64),
+            "columns": (((Y + 4.0) * 8.0).to(torch.int32).clamp(0, 63), 64),
+            "labels": (truth.to(torch.int32)[:, None].contiguous(), k_s)}
+
+
+def k9_case(tag: str, bins, n_bins: int, reps: int = 20) -> dict:
+    """K9 on ``bins`` bit for bit against its twin and ``torch.bincount``,
+    its form (``k9_form``) the one ``histogram.cu`` picks, then timed: the
+    wrapper by CUDA events (``ms``), the kernel alone by torch.profiler
+    (``kernel_ms``), beside the twin, the bound and ``torch.bincount``."""
+    import torch
+    from raft_tpu_torch.ops import histogram as k9
+
+    n, batch = bins.shape
+    flat = (torch.arange(batch, device="cuda")[None, :] * n_bins
+            + bins).reshape(-1)
+    out = k9.histogram_blocked(bins, n_bins)
+    ref = k9.histogram_blocked_ref(bins, n_bins)
+    lib = torch.bincount(flat, minlength=batch * n_bins).reshape(
+        batch, n_bins).T.to(torch.int32)
+    check(torch.equal(out, ref) and torch.equal(out, lib),
+          f"K9 {tag}: counts differ from the twin or bincount")
+    form = k9.k9_form(batch, n_bins)
+    fn = k9._build.load("histogram").histogram_form
+    check(form == ("lanes" if fn(batch, n_bins) else "blocked"),
+          f"K9 {tag}: k9_form says {form}, histogram.cu does not")
+    bound, by = k9_bound_ms(n, batch, n_bins)
+    row = {"shape": [n, batch, n_bins], "form": form,
+           "ms": cuda_ms(lambda: k9.histogram_blocked(bins, n_bins), reps),
+           "kernel_ms": kernel_ms(lambda: k9.histogram_blocked(bins, n_bins),
+                                  "histogram", reps),
+           "plain_ms": cuda_ms(
+               lambda: k9.histogram_blocked_ref(bins, n_bins), 3),
+           "bound_ms": bound, "bound_by": by,
+           "library_ms": library_ms(lambda: torch.bincount(
+               flat, minlength=batch * n_bins), reps),
+           "max_abs_err": 0}
+    print(f"K9 {tag}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def k9_edge_checks(gen):
+    """K9's small-counter form at its edges, bit for bit against its twin:
+    views starting 1–3 entries past a 16-byte boundary (the scalar head),
+    1–3 entries past the last whole 16 bytes (the tail), fewer entries
+    than one 16-byte load, several columns (4 × 16 = 64 counters) with
+    ids outside [0, n_bins), and one bin."""
+    import torch
+    from raft_tpu_torch.ops import histogram as k9
+
+    base = torch.randint(-2, 18, (100_003, 4), device="cuda", generator=gen,
+                         dtype=torch.int32)
+    flat = base.reshape(-1)
+    cases = {f"head {h} tail {t}": (flat[h:h + 4 * 25_000 + t][:, None], 16)
+             for h in range(4) for t in range(4)}
+    cases.update({"two entries": (flat[1:3][:, None], 16),
+                  "4 columns": (base, 16), "3 columns odd": (base[1:, 1:], 21),
+                  "one bin": (flat[:99_999][:, None], 1)})
+    for tag, (bins, n_bins) in cases.items():
+        check(torch.equal(k9.histogram_blocked(bins, n_bins),
+                          k9.histogram_blocked_ref(bins, n_bins)),
+              f"K9 {tag}: counts differ from the twin")
+
+
 def k8_hold(tag: str, x, y, t, p: float, out, ref, rows: int = 256):
     """K8's ``out`` against its twin's ``ref``: Linf and Hamming bit for
     bit; the others within ``ops.unexpanded.error_bound`` per entry
@@ -2809,44 +2933,19 @@ def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
     del Xc, Xq, x64, q64
 
     # ---- 11d: K9 against its twin and torch.bincount ----
-    def k9_case(tag, bins, n_bins):
-        n, batch = bins.shape
-        flat = (torch.arange(batch, device="cuda")[None, :] * n_bins
-                + bins).reshape(-1)
-        out = k9.histogram_blocked(bins, n_bins)
-        ref = k9.histogram_blocked_ref(bins, n_bins)
-        lib = torch.bincount(flat, minlength=batch * n_bins).reshape(
-            batch, n_bins).T.to(torch.int32)
-        check(torch.equal(out, ref) and torch.equal(out, lib),
-              f"K9 {tag}: counts differ from the twin or bincount")
-        bound, by = k9_bound_ms(n, batch, n_bins)
-        row = {"shape": [n, batch, n_bins],
-               "ms": cuda_ms(lambda: k9.histogram_blocked(bins, n_bins), 20),
-               "plain_ms": cuda_ms(
-                   lambda: k9.histogram_blocked_ref(bins, n_bins), 3),
-               "bound_ms": bound, "bound_by": by,
-               "library_ms": library_ms(lambda: torch.bincount(
-                   flat, minlength=batch * n_bins), 20),
-               "max_abs_err": 0}
-        print(f"K9 {tag}: {json.dumps(row)}", flush=True)
-        return row
-
     n0 = k9.LAUNCHES
-    k9_rows = {"bench_prims": k9_case("bench_prims", torch.randint(
-        0, 64, (100_000, 8), device="cuda", generator=gen,
-        dtype=torch.int32), 64)}
     n_s, d_s, k_s = stats_shape
     Xs, truth = make_blobs(res, 0, n_s, d_s, n_clusters=k_s)
     vals = Xs.reshape(-1)
     vh = stats.value_histogram(res, vals, 64)
-    lo, hi = vals.min(), vals.max()
-    vbins = ((vals - lo) / ((hi - lo) / 64)).to(torch.int32).clamp(0, 63)
-    check(torch.equal(vh, torch.bincount(vbins, minlength=64).to(
-        torch.int32)), "value_histogram differs from torch.bincount")
-    k9_rows["value_histogram"] = k9_case("value_histogram",
-                                         vbins[:, None].contiguous(), 64)
-    colb = ((Y[:hist_rows] + 4.0) * 8.0).to(torch.int32).clamp(0, 63)
-    k9_rows["main"] = k9_case("columns", colb, 64)
+    inputs = k9_inputs(gen, Y[:hist_rows], Xs, truth, k_s)
+    check(torch.equal(vh, torch.bincount(
+        inputs["value_histogram"][0][:, 0], minlength=64).to(torch.int32)),
+        "value_histogram differs from torch.bincount")
+    k9_rows = {tag: k9_case(tag, *inp) for tag, inp in inputs.items()}
+    k9_rows["main"] = k9_rows.pop("columns")
+    colb = inputs["columns"][0]
+    k9_edge_checks(gen)
     # more column slabs (12 columns each at 1024 bins) than grid rows
     wide = torch.randint(-3, 1030, (3, 65537 * 12 - 7), device="cuda",
                          generator=gen, dtype=torch.int32)
@@ -2860,7 +2959,7 @@ def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
     check(torch.equal(via, k9.histogram_blocked_ref(colb, 64)),
           "stats.histogram with a binner differs from K9's twin")
     k9.LAUNCHES = n0
-    del colb, via, vbins, vals, Y
+    del colb, via, vals, Y, inputs
     torch.cuda.empty_cache()
 
     # ---- 11e: the stats path end to end, counts zeroed just before ----
@@ -2972,8 +3071,10 @@ def pairwise_stats_phase(res, full=K8_FULL, check_rows: int = 256,
                 **{k: main9[k] for k in ("ms", "plain_ms", "bound_ms",
                                          "bound_by", "library_ms",
                                          "max_abs_err", "shape")},
+                "kernel_ms": main9["kernel_ms"], "form": main9["form"],
                 "bench_prims": k9_rows["bench_prims"],
-                "value_histogram": k9_rows["value_histogram"]}
+                "value_histogram": k9_rows["value_histogram"],
+                "labels": k9_rows["labels"]}
     report["k8"], report["k9"] = k8_rows, k9_rows
     return report, [k8_entry, k9_entry]
 
@@ -3924,11 +4025,14 @@ def nonfinite_slot(gen, Q: int = 512, M: int = 131072, d: int = 128,
 def k1_ladder(idx1, idx3, Qx, reps: int = 10):
     """The reference's K1 stage ladder (``benchmarks/profile_fused.py:
     146-165``) on the main path's operands: packed K1 at p1 (pair, the
-    path's own launch) and p3 (the wgmma kernel since its redesign, beside
-    the mma.sync forms below), the unpacked group form at T = 2048 (p1,
+    path's own launch) and p3, the unpacked group form at T = 2048 (p1,
     p3), the slot form at T = 2048 (p1, p3) and its min-only fold
     (track=False, p1), each timed by CUDA events beside its bound and
-    ``torch.matmul`` in bf16 of the same [Q, d] × [d, M]. First, outside
+    ``torch.matmul`` in bf16 of the same [Q, d] × [d, M]. Every row but
+    the unpacked one (mma.sync) runs the wgmma + TMA mainloop, so the
+    min-only, slot and packed rows split K1's time between the
+    contraction with a min, the argmin and 2nd min, and the group fold.
+    First, outside
     the counts, the slot forms are held against their twins on these
     inputs; the slot counts are zeroed just before the timed ladder and
     read just after it. Returns (the ladder report, the slot form's
@@ -4012,9 +4116,10 @@ def k1_ladder(idx1, idx3, Qx, reps: int = 10):
     torch.cuda.empty_cache()
     report = {"shape": [nq, M, d], "T": T, "g": idx1.g, "rows": ladder,
               "held": held, "slot_launches": launches,
-              "note": "kernel_pck_* is the wgmma + TMA packed kernel "
-                      "(fused_l2_packed_sm90.cu); kernel_grp_* and "
-                      "kernel_slot_* are the mma.sync kernel "
+              "note": "every row but kernel_grp_* runs the wgmma + TMA "
+                      "mainloop (fused_l2_packed_sm90.cu: kernel_pck_* "
+                      "its packed fold, kernel_slot_* its slot fold); "
+                      "kernel_grp_* is the mma.sync kernel "
                       "(fused_l2_topk.cu)",
               "split_p1_ms": {
                   "contraction_and_min_fold":
@@ -4031,7 +4136,7 @@ def k1_ladder(idx1, idx3, Qx, reps: int = 10):
                 **{k: held[name][k]
                    for k in ("plain_ms", "max_abs_err", "tie_slots")}}
     entry = {"name": "fused_l2_slot_topk", "route": "cuda",
-             "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+             "source": "raft_tpu_torch/ops/csrc/fused_l2_packed_sm90.cu",
              "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:406",
              "launches": launches, **kernel_row("slot_p1"),
              "max_abs_err": max(h["max_abs_err"] for h in held.values()),
@@ -4096,7 +4201,7 @@ def slot_dchunk_rows(indexes, Qx, reps: int = 5):
             "max_abs_err")
     first = rows[timed[0][0]]
     entry = {"name": "fused_l2_slot_topk_dchunk", "route": "cuda",
-             "source": "raft_tpu_torch/ops/csrc/fused_l2_topk.cu",
+             "source": "raft_tpu_torch/ops/csrc/fused_l2_packed_sm90.cu",
              "replaces": "raft_tpu/ops/fused_l2_topk_pallas.py:474",
              "launches": launches, **{k: first[k] for k in keys},
              "shape": first["shape"], "library_note": MATMUL_NOTE,
@@ -4272,12 +4377,19 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
 #: fails the run where it is more than GUARD_SLACK times slower on that
 #: card: the widest run-to-run spread of one kernel on one input recorded
 #: in PERF.md §7 (K4's times), while these kernels themselves have moved
-#: by at most 2% between full runs. Those past GUARD_NOTE are named in the
+#: by at most 2% between full runs. Each time is taken on a settled card
+#: (:func:`settle`): a kernel timed while the card recovers from its
+#: power limit reads up to 27% slow. Those past GUARD_NOTE are named in the
 #: line; a parent build timed in the same call (``port_scripts/ab_*.py``)
 #: is the finer comparison.
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.644, "K2_p3": 3.215,
-            "slot_p1": 4.173, "slot_p3": 6.390, "slot_minonly": 3.750,
+            # the slot forms and K9 alone at value_histogram's 12.8 M
+            # values: the slower of the final tree's two runs in
+            # port_scripts/ab_slot_k9.py's call
+            "slot_p1": 2.255, "slot_p3": 3.267, "slot_minonly": 1.846,
+            "slot_dchunk_p1": 6.663, "slot_dchunk_p3": 12.709,
+            "K9_value_histogram": 0.02249,
             "K6b": 0.1755, "K6c_V16": 6.551, "K6c_V128": 30.538,
             # K1 dchunk: the passing run of this script on its code's git
             # archive; K5 alone (``kernel_ms``: its wrapper's time follows
@@ -4312,6 +4424,10 @@ def speed_guard(card: str, entries) -> dict:
            "K6c_V128": k6c["V128"]["ms"]}
     wide = by["fused_l2_group_topk_packed_dchunk"]
     now.update(K1_dchunk_p1=wide["ms"], K1_dchunk_p3=wide["p3"]["ms"])
+    sw = by["fused_l2_slot_topk_dchunk"]
+    now.update(slot_dchunk_p1=sw["ms"], slot_dchunk_p3=sw["p3"]["ms"],
+               K9_value_histogram=by["histogram_blocked"][
+                   "value_histogram"]["kernel_ms"])
     for name, tag in (("pq_scan_list_major", "K5"),
                       ("pq_scan_list_major_4bit", "K5_4bit")):
         now[f"{tag}_p32"] = by[name]["kernel_ms"]
@@ -4391,15 +4507,19 @@ def main() -> int:
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
         ptxas_report(name, log)
-    # the packed kernel (K1, K2): every instance built without a spill; its
-    # fold's SASS instructions a score (fold_issue_ms beside bound_ms)
+    # the wgmma kernels (K1, K2, K1's d-chunked and slot forms): every
+    # instance built without a spill; the fold's SASS instructions a score
+    # (fold_issue_ms beside bound_ms)
     packed_regs = ptxas_packed(_build.BUILD_LOG.get("fused_l2_packed_sm90",
                                                     ""))
     if "fused_l2_packed_sm90" in _build.BUILD_LOG:   # (not when reloaded)
-        check(len(packed_regs) == 16 and all(
+        check(len(packed_regs) == PACKED_INSTANCES and all(
             r.get("spill_bytes") == 0 for r in packed_regs.values()),
             f"the packed kernel's instances spill or are missing: "
             f"{packed_regs}")
+    check(not hasattr(_build.load("fused_l2_topk"),
+                      "fused_l2_slot_topk_launch"),
+          "fused_l2_topk.cu still exports a slot form")
     fold_ops = sass_fold_ops()
     print(json.dumps({"packed_ptxas": packed_regs,
                       "packed_sass_fold_ops": fold_ops}), flush=True)

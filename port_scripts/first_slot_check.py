@@ -1,9 +1,12 @@
 #!/usr/bin/env python3
 """A short first check of K1's slot forms on one CUDA card, before a full
-``chip_smoke.py`` run: builds ``fused_l2_topk.cu`` (K1, K2 and every other
-K1 form) and ``fine_scan.cu`` (K4), prints their ``ptxas`` register and
-spill reports, holds K1/K2 and both slot forms against their twins with
-±inf and NaN planted (phase 2), runs ``chip_smoke.k1_ladder`` and
+``chip_smoke.py`` run: builds ``fused_l2_packed_sm90.cu`` (K1's packed,
+d-chunked and slot forms, K2), ``fused_l2_topk.cu`` (K1's unpacked
+forms: it must export no slot form) and ``fine_scan.cu`` (K4), prints
+every slot instance's ``ptxas`` registers and spills (fails where one
+spills or is missing) and any note of ptxas serialising a ``wgmma``,
+holds K1/K2 and both slot forms against their twins with ±inf and NaN
+planted (phase 2), runs ``chip_smoke.k1_ladder`` and
 ``chip_smoke.slot_dchunk_rows`` at a reduced size, and K4's planted-row
 check on a small IVF-Flat index.
 
@@ -40,13 +43,22 @@ def main() -> int:
     print(cs.gpu_name_power(), torch.__version__, torch.version.cuda,
           flush=True)
     t0 = time.time()
-    _build.build_all(["fused_l2_topk", "fine_scan"])
+    _build.build_all(["fused_l2_packed_sm90", "fused_l2_topk", "fine_scan"])
     print(f"build: {time.time() - t0:.1f} s {_build.BUILD_SECONDS}",
           flush=True)
     for name, log in _build.BUILD_LOG.items():
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"ptxas {name}: {line.strip()}", flush=True)
+            if "wgmma" in line or "C75" in line:
+                print(f"ptxas {name} note: {line.strip()}", flush=True)
+    regs = cs.ptxas_packed(_build.BUILD_LOG.get("fused_l2_packed_sm90", ""))
+    slot = {k: v for k, v in regs.items() if k.startswith("slot_")}
+    print(json.dumps({"slot_ptxas": slot}), flush=True)
+    cs.check(len(regs) == cs.PACKED_INSTANCES and all(
+        r.get("spill_bytes") == 0 for r in regs.values()),
+        f"wgmma instances spill or are missing: {regs}")
+    cs.check(not hasattr(_build.load("fused_l2_topk"),
+                         "fused_l2_slot_topk_launch"),
+             "fused_l2_topk.cu still exports a slot form")
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     t0 = time.time()

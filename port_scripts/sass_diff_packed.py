@@ -14,7 +14,11 @@ Both sources are compiled at once with the port's own ``nvcc`` flags into
 (addresses and encodings dropped), and each resident instance is compared
 instruction by instruction. Prints one JSON line: per instance, the
 instruction counts of A and B, whether they are equal and the first
-differing instructions. Exits 1 if a build fails.
+differing instructions; then one more: ptxas's wgmma notes (C75xx: a
+wait injected, wgmma serialised) by kernel instance of every kernel of
+each source (``chip_smoke.sm90_instance``'s names; the older template
+arguments as ``packed``/``wide`` + passes, pair, q8 digits). Exits 1 if
+a build fails.
 """
 
 import json
@@ -27,8 +31,30 @@ import sys
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
 
-KERNEL = re.compile(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E")
+# (the packed instances only: the slot forms' carry fold 1 or 2 after q8)
+KERNEL = re.compile(r"packed_sm90_kernelILi(\d)ELb(\d)ELb(\d)E(?!Li[12])")
 INSN = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(.*?)\s*;")
+NOTE = re.compile(r"\((C75\d\d)\).*?'([^']+)'")
+OLD_KERNEL = re.compile(r"(packed|wide)_sm90_kernelILi(\d)ELb(\d)ELb(\d)E")
+
+
+def notes(log: str) -> dict:
+    """{instance: [ptxas wgmma note codes]} from an nvcc -Xptxas=-v log."""
+    import chip_smoke as cs
+
+    out = {}
+    for line in log.splitlines():
+        m = NOTE.search(line)
+        if m is None:
+            continue
+        k = re.search(cs.SM90_KERNEL, m.group(2))
+        if k is not None:
+            name = cs.sm90_instance(k)
+        else:
+            k = OLD_KERNEL.search(m.group(2))
+            name = "".join(k.groups()) if k else m.group(2)
+        out.setdefault(name, []).append(m.group(1))
+    return out
 
 
 def sass(so: str) -> dict:
@@ -69,11 +95,13 @@ def main() -> int:
         procs.append(subprocess.Popen(
             [_build._nvcc(), *_build.NVCC_FLAGS, "-o", so, cu],
             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    logs = []
     for p in procs:
         _, err = p.communicate(timeout=900)
         if p.returncode:
             print(err[-3000:], file=sys.stderr)
             return 1
+        logs.append(err)
     a, b = (sass(so) for so in libs)
     report = {}
     for name in sorted(set(a) | set(b)):
@@ -87,6 +115,9 @@ def main() -> int:
                 "at": first, "a": ia[first:first + 4],
                 "b": ib[first:first + 4]}}
     print(json.dumps({"trees": trees, "resident_sass": report}), flush=True)
+    print(json.dumps({"ptxas_notes": {t: notes(log)
+                                      for t, log in zip(trees, logs)}}),
+          flush=True)
     return 0
 
 

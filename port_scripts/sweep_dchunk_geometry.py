@@ -33,13 +33,16 @@ import torch  # noqa: E402
 import chip_smoke as cs  # noqa: E402
 
 #: the copy's pick_wide_geo returns the geometry dchunk_geo_launch sets
-PICK = "bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g) {"
-FORCED = """WideGeo g_sweep_geo{0, 0, 0};
-bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g) {
+PICK = """bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g,
+                   bool slot = false) {"""
+FORCED = """WideGeo g_sweep_geo{0, 0, 0, 0};
+bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g,
+                   bool slot = false) {
   if (g_sweep_geo.NS) {
     *g = g_sweep_geo;
-    return WideLayout(g->NS, d, passes, g->xres).total + 1024 <=
-           static_cast<uint32_t>(limit);
+    const uint32_t total = WideLayout(g->NS, d, passes, g->xres, slot).total;
+    g->smem = smem_bytes(total, limit);
+    return total + kSlack <= static_cast<uint32_t>(limit);
   }"""
 EXTRA = r'''
 extern "C" int dchunk_geo_launch(
@@ -49,10 +52,10 @@ extern "C" int dchunk_geo_launch(
     int NS, int ncta, void* stream) {
   const Args a = make_args(nullptr, nullptr, yyh, xxh, a1, a2, a3, Q, M, d,
                            T, g, pbits);
-  g_sweep_geo = WideGeo{NS, ncta, xres};
+  g_sweep_geo = WideGeo{NS, ncta, xres, 0};
   const int rc = dispatch_wide(a, x_hi, x_lo, y_hi, y_lo, passes, pair,
                                stream);
-  g_sweep_geo = WideGeo{0, 0, 0};
+  g_sweep_geo = WideGeo{0, 0, 0, 0};
   return rc;
 }
 '''

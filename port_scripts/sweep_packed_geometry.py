@@ -32,11 +32,16 @@ import chip_smoke as cs  # noqa: E402
 
 #: the copy's pick_geo returns the geometry packed_geo_launch sets (the
 #: shipped envelope check is skipped: the sweep runs at d = 128)
-PICK = "bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {"
-FORCED = """Geo g_sweep_geo{0, 0};
-bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {
+PICK = """bool pick_geo(int d, int passes, bool q8, int limit, Geo* g,
+              bool slot = false) {"""
+FORCED = """Geo g_sweep_geo{0, 0, 0};
+bool pick_geo(int d, int passes, bool q8, int limit, Geo* g,
+              bool slot = false) {
   if (g_sweep_geo.QB) {
     *g = g_sweep_geo;
+    g->smem = smem_bytes(Layout(g->QB, g->NS, d, passes == 3 ? 2 : 1,
+                                (passes == 3 && !q8) ? 2 : 1, q8,
+                                slot).total, limit);
     return true;
   }"""
 EXTRA = r'''
@@ -47,10 +52,10 @@ extern "C" int packed_geo_launch(
     int QB, int NS, void* stream) {
   const Args a = make_args(x, scale, yyh, xxh, a1, a2, a3, Q, M, d, T, g,
                            pbits);
-  g_sweep_geo = Geo{QB, NS};
+  g_sweep_geo = Geo{QB, NS, 0};
   const int rc = q8 ? dispatch<true>(a, y_hi, y_lo, passes, pair, stream)
                     : dispatch<false>(a, y_hi, y_lo, passes, pair, stream);
-  g_sweep_geo = Geo{0, 0};
+  g_sweep_geo = Geo{0, 0, 0};
   return rc;
 }
 '''

@@ -1,13 +1,17 @@
-// K1's packed forms and its int8-database form K2 for Hopper (sm_90a): the
-// fused expanded-L2 contraction and the packed group top-2 / 3rd-min fold,
-// on wgmma fed by TMA through an mbarrier ring. Bound to Python through
-// plain C entry points.
+// K1's packed forms, its int8-database form K2 and K1's slot forms for
+// Hopper (sm_90a): the fused expanded-L2 contraction and the packed group
+// top-2 / 3rd-min fold or the per-slot fold, on wgmma fed by TMA through
+// an mbarrier ring. Bound to Python through plain C entry points.
 //
 // Replaces raft_tpu/ops/fused_l2_topk_pallas.py:fused_l2_group_topk_packed
 // (:1269; its database-major forms _packed_db :1425 and _packed_dbuf :1444
 // compute the same outputs in another TPU grid order) — K1 — its
-// wide-feature form fused_l2_group_topk_packed_dchunk (:1294), and
-// fused_l2_group_topk_packed_db_q8 / _dbuf_q8 (:1465, :1491) — K2.
+// wide-feature form fused_l2_group_topk_packed_dchunk (:1294),
+// fused_l2_group_topk_packed_db_q8 / _dbuf_q8 (:1465, :1491) — K2 — and
+// K1's first, per-slot forms fused_l2_slot_topk (:406) and
+// fused_l2_slot_topk_dchunk (:474), which no search path calls: the
+// reference's stage ladder (benchmarks/profile_fused.py:146-165) times
+// them beside the group forms, so they run the same mainloops.
 //
 // What it computes (the reference's packed forms' function, bit for bit in
 // what it promises). For every query q and database row n
@@ -109,6 +113,30 @@
 //   8 = 32.8 GB plus x 32.8 GB (16 KB a block a step: x_hi and x_lo are
 //   re-read once a chunk), against ~96 GB before.
 //   The consumer loop (issue, fold, release) is the resident form's.
+//
+// The slot forms (_fused_kernel + _fold_and_write, :238-299) are fold
+// modes of those two kernels (Consumer's FOLD; MASK a template flag, never
+// a branch in the fold). They fold the distance itself, d2 = (xx[q] +
+// yy[n]) − 2·x·y with exact f32 norms (yy rides the ring where yyh does,
+// xx is held a query), per slot = (tile of T rows, lane = n % 128): chunk
+// by chunk in ascending order, lt = d2 < a1; a2 = lt ? a1 : min(a2, d2);
+// a1, i1 = d2, n where lt (strict <: on a tie the earlier row stays; every
+// min is min.NaN, so a NaN sticks in a2 until a new minimum displaces it).
+// With MASK, rows n ≥ m_real score +inf. The min-only form (track=False)
+// folds a1 = min(a1, d2), writes i1 = 0 and takes m2min over a1. A thread
+// keeps a1, a2 and i1 (the chunk within the tile: the row follows from
+// its slot) of its 32 slots in registers; the running min over its tiles
+// of a2, the block's partial of m2min, lives in shared memory (32 KB,
+// thread-major so no bank conflicts), read and written once a tile: in
+// registers it made every tracked instance spill. At
+// a tile's last chunk the slots are written once with 8-byte stores
+// (each warp store fills eight whole 32-byte sectors; they drain while
+// the next chunk folds, beside the wgmma already in flight). A block
+// takes a range of tiles (blockIdx.y; its size the wrapper picks,
+// ops.fused_l2_topk.slot_range_tiles, so the blocks fill the card) and
+// writes one [Q, 128] partial of m2min, which a second small kernel
+// reduces. At the ladder's shape (2048 × 1M × 128, T = 2048) m1 and i1
+// are 1.07 GB, 0.32 ms at 3.35 TB/s, beside the products' 0.531 ms.
 
 #include <cuda.h>
 #include <cuda_bf16.h>
@@ -130,6 +158,9 @@ constexpr int kPre = 2;             // k-slices of the next chunk in flight
 constexpr int kConverters = 128;    // K2: the producer warpgroup
 constexpr float kPackPad = 4.2535295865117308e37f;   // 2^125
 
+// the slot forms use a1 for m1, i1 for its ids and a3 for the m2min
+// partials [gridDim.y, Q, 128]; yyh and xxh carry the exact norms yy and
+// xx, and g the tiles of a block's range
 struct Args {
   const float* x;         // [Q, d] f32
   const float* yyh;       // [M] f32
@@ -138,28 +169,44 @@ struct Args {
   float* a1;
   float* a2;
   float* a3;
+  int* i1;                // slot forms: [Q, (M/T)·128] int32
   int Q, M, d, T, g, pbits;
+  int m_real;             // slot forms: rows ≥ m_real are pads
 };
 
-// the launch geometry the host picks: queries a block and ring stages
+// the launch geometry the host picks: queries a block, ring stages and
+// the dynamic shared memory allocated
 struct Geo {
-  int QB, NS;
+  int QB, NS, smem;
 };
+
+// Shared memory is declared 1024-byte aligned (the swizzled tiles need
+// it) and a kernel aligns its base once more. The packed forms keep a
+// 1024-byte slack for that; the slot forms may use it (their m2min
+// partial leaves no room for it at the d-chunked form's widest ring), and
+// a kernel whose base needed more padding than the allocation holds traps.
+constexpr int kSlack = 1024;
+
+// the slot forms' m2min partial in shared memory: 32 f32 slots for each
+// consumer thread, 16 KB a consumer warpgroup
+constexpr int kPartWG = 128 * 32 * 4;
 
 // shared memory, from a 1024-byte aligned base: the query block (x_arrays
 // × d/64 tiles of QB rows × 128 B), the bf16 ring (NS × y_arrays slices),
-// its yyh slots, (K2) the int8 ring and its yyh slots, the barriers
+// its yyh slots, (K2) the int8 ring and its yyh slots, the barriers, (slot
+// forms) the m2min partial
 struct Layout {
-  uint32_t a, ring, yy, q, qyy, bar, total;
+  uint32_t a, ring, yy, q, qyy, bar, part, total;
   __host__ __device__ Layout(int QB, int NS, int d, int x_arrays,
-                             int y_arrays, bool q8) {
+                             int y_arrays, bool q8, bool slot) {
     a = 0;
     ring = static_cast<uint32_t>(x_arrays * QB * d * 2);
     yy = ring + NS * y_arrays * kSlice;
     q = yy + NS * kYY;
     qyy = q + (q8 ? kQRing * kQSlice : 0);
     bar = qyy + (q8 ? kQRing * kYY : 0);
-    total = bar + 8 * (2 * NS + kQRing);
+    part = (bar + 8 * (2 * NS + kQRing) + 15) & ~15u;
+    total = part + (slot ? QB / 64 * kPartWG : 0);
   }
 };
 
@@ -235,6 +282,14 @@ __device__ __forceinline__ uint2 lds64(uint32_t a) {
                : "r"(a));
   return v;
 }
+__device__ __forceinline__ float lds32f(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a));
+  return v;
+}
+__device__ __forceinline__ void sts32f(uint32_t a, float v) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(v) : "memory");
+}
 __device__ __forceinline__ uint4 lds128(uint32_t a) {
   uint4 v;
   asm volatile("ld.shared.v4.u32 {%0, %1, %2, %3}, [%4];\n"
@@ -246,6 +301,17 @@ __device__ __forceinline__ void sts128(uint32_t a, uint4 v) {
   asm volatile("st.shared.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
                "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
                : "memory");
+}
+// an 8-byte global store where `pred` holds, predicated: no branch, so a
+// store beside a wgmma in flight leaves the warpgroup's control flow
+// uniform for ptxas
+__device__ __forceinline__ void stg64_if(void* p, uint32_t a, uint32_t b,
+                                         bool pred) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %3, 0;\n"
+      "@p st.global.v2.b32 [%0], {%1, %2};\n}\n" ::"l"(p),
+      "r"(a), "r"(b), "r"(static_cast<int>(pred))
+      : "memory");
 }
 __device__ __forceinline__ void fence_async_shared() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
@@ -388,17 +454,24 @@ __device__ __forceinline__ void widen4(uint32_t w, uint32_t& lo,
 // the d-chunked one with its query block resident or streamed
 enum Mode : int { kResident = 0, kWideRes = 1, kWideStream = 2 };
 
+// what a consumer folds its scores into: the packed group top-2 / 3rd-min
+// (K1, K2), or K1's slot form: per (tile, lane) slot the min of d2, its
+// row and the 2nd min (kSlot), or the min alone (kSlotMin, the
+// reference's track=False)
+enum Fold : int { kPacked = 0, kSlot = 1, kSlotMin = 2 };
+
 // bytes of a d-chunked stage: a 128-row y slice a y array (the block's
 // whole chunk), then where x streams the 64-row x slices
 constexpr int kWSlice = 2 * kSlice;        // 128 rows × 64 features bf16
 constexpr int kWYY = 2 * kYY;              // a chunk's 128 yyh values
 
-// A consumer warpgroup. Resident packed form: its 64 queries of the
-// block against the chunk halves of the ring. d-chunked form: the block's
-// 64 queries against its lane half (wg) of each chunk. Either way the fold
-// state of its 64 × 64 buckets (32 a thread) lives in registers.
+// A consumer warpgroup. Resident forms: its 64 queries of the block
+// against the chunk halves of the ring. d-chunked forms: the block's 64
+// queries against its lane half (wg) of each chunk. Either way the fold
+// state of its 64 × 64 buckets or slots (32 a thread) lives in registers.
 // acc[c & 1] takes chunk c.
-template <int PASSES, bool PAIR, bool Q8, int MODE = kResident>
+template <int PASSES, bool PAIR, bool Q8, int MODE = kResident,
+          int FOLD = kPacked, bool MASK = false>
 struct Consumer {
   static constexpr int x_arrays = PASSES == 3 ? 2 : 1;
   static constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
@@ -406,6 +479,7 @@ struct Consumer {
   static constexpr int stage_bytes =
       y_arrays * y_slice + (MODE == kWideStream ? x_arrays * kSlice : 0);
   static constexpr int yy_bytes = MODE == kResident ? kYY : kWYY;
+  static constexpr bool SLOT = FOLD != kPacked;
   uint32_t a_hi, a_lo, ring, yy, full0, empty0, empty_r;
   int NS, ksl, tile_bytes, lane, lq, n_chunks, ncta;
   // d-chunked form: this warpgroup's lane half of a stage's y slice and
@@ -419,7 +493,20 @@ struct Consumer {
   // chunk's yyh until the fold) and the last step issued of a chunk
   int iss, iss_st, iss_ph, iss_kk, rel, rel_st, held, held_st;
   int last, last_st;
+  // slot forms: the chunk's index in its tile, the tile's first row and
+  // output column, this thread's first lane of a chunk (its warpgroup's
+  // half + 2·lq), its rows of A, and the output's row length
+  int ct, n_ch, tile_row, tile_col, lane0, q_row[2], m_real;
+  long s_out;
+  // slot forms: this thread's 32 slots of the block's m2min partial in
+  // shared memory, the running min over its tiles of a2 (min-only: of
+  // a1), slot i at part + i·part_stride (thread-major: no bank conflict)
+  uint32_t part, part_stride;
+  // packed: a1 <= a2 and a3 of each bucket (ce: an even chunk's scores
+  // under pair). Slot: a1, a2 and i1 (the chunk in its tile, −1 for none)
+  // of the current tile's slots
   float acc[2][32], a1[32], a2[32], a3[32], ce[32];
+  int i1[32];
 
   // issue the next step's wgmma into acc[B]; the caller commits
   template <int B>
@@ -494,6 +581,9 @@ struct Consumer {
   __device__ __forceinline__ void fold(int c) {
     const uint32_t yy_s = yy + held_st * yy_bytes +
                           (MODE == kResident ? 0u : yy_off) + 8 * lq;
+    // slot forms: slot (j, e) reads row tile_row + ct·128 + lane0 + 8j +
+    // (e & 1), a pad where 8j + (e & 1) >= lim
+    const int lim = SLOT ? m_real - (tile_row + ct * 128 + lane0) : 0;
 #pragma unroll
     for (int j = 0; j < 8; ++j) {
       const uint2 yb = lds64(yy_s + 32 * j);
@@ -503,26 +593,83 @@ struct Consumer {
       for (int e = 0; e < 4; ++e) {
         const int i = 4 * j + e;
         const float y = (e & 1) ? yv.y : yv.x;
-        // K2: the group scale multiplies the finished d-sum, rounded on
-        // its own (no fused multiply-add), as the twin computes it
-        const float dot = Q8 ? __fmul_rn(acc[B][i], gscale) : acc[B][i];
-        const float cv = __fadd_rn(y - dot, xh[e >> 1]);
-        if (PAIR && B == 0) {
-          // pinned here: left to the scheduler, these reads of acc[0]
-          // drift among the next wgmma and ptxas serialises the pipeline
-          ce[i] = cv;
-          asm volatile("" : "+f"(ce[i]));
-        } else if (PAIR) {
-          const float c0 = ce[i];
-          const float mn = min_nan(c0, cv);
-          a3[i] = min_nan(a3[i], max_nan(c0, cv));
-          const int code = (mn == cv) ? c : c - 1;
-          merge(pack(mn, keep, code), a1[i], a2[i], a3[i]);
+        if constexpr (SLOT) {
+          // d2 = (xx + yy) − 2·s, as the reference and the twin compute it
+          float v = __fsub_rn(__fadd_rn(xh[e >> 1], y), 2.f * acc[B][i]);
+          if (MASK)
+            v = 8 * j + (e & 1) < lim ? v : __int_as_float(0x7f800000);
+          if (FOLD == kSlot) {
+            // strict <: on a tie the earlier row stays; a NaN sticks in
+            // a2 until a new minimum displaces it
+            const bool lt = v < a1[i];
+            a2[i] = lt ? a1[i] : min_nan(a2[i], v);
+            a1[i] = lt ? v : a1[i];
+            i1[i] = lt ? ct : i1[i];
+          } else {
+            a1[i] = min_nan(a1[i], v);
+          }
         } else {
-          merge(pack(cv, keep, c), a1[i], a2[i], a3[i]);
+          // K2: the group scale multiplies the finished d-sum, rounded on
+          // its own (no fused multiply-add), as the twin computes it
+          const float dot = Q8 ? __fmul_rn(acc[B][i], gscale) : acc[B][i];
+          const float cv = __fadd_rn(y - dot, xh[e >> 1]);
+          if (PAIR && B == 0) {
+            // pinned here: left to the scheduler, these reads of acc[0]
+            // drift among the next wgmma and ptxas serialises the pipeline
+            ce[i] = cv;
+            asm volatile("" : "+f"(ce[i]));
+          } else if (PAIR) {
+            const float c0 = ce[i];
+            const float mn = min_nan(c0, cv);
+            a3[i] = min_nan(a3[i], max_nan(c0, cv));
+            const int code = (mn == cv) ? c : c - 1;
+            merge(pack(mn, keep, code), a1[i], a2[i], a3[i]);
+          } else {
+            merge(pack(cv, keep, c), a1[i], a2[i], a3[i]);
+          }
         }
       }
     }
+  }
+
+  // slot forms, after each chunk's fold: at a tile's last chunk write its
+  // m1 and i1 slots (8-byte stores: each warp store fills eight whole
+  // 32-byte sectors, and drains while the next chunk folds), fold a2
+  // (min-only: a1) into a3 and start the next tile afresh
+  __device__ __forceinline__ void tile_step(const Args& p) {
+    if (ct + 1 < n_ch) {
+      ++ct;
+      return;
+    }
+    const float inf = __int_as_float(0x7f800000);
+    const int r0 = tile_row + lane0;
+#pragma unroll
+    for (int hq = 0; hq < 2; ++hq) {
+      const bool live = q_row[hq] < p.Q;
+      const long o = live ? q_row[hq] * s_out + tile_col + lane0 : 0;
+#pragma unroll
+      for (int j = 0; j < 8; ++j) {
+        const int i = 4 * j + 2 * hq;
+        stg64_if(p.a1 + o + 8 * j, __float_as_uint(a1[i]),
+                 __float_as_uint(a1[i + 1]), live);
+        uint32_t i0 = 0, i1v = 0;
+        if (FOLD == kSlot) {
+          i0 = i1[i] < 0 ? ~0u : r0 + 8 * j + (i1[i] << 7);
+          i1v = i1[i + 1] < 0 ? ~0u : r0 + 8 * j + 1 + (i1[i + 1] << 7);
+        }
+        stg64_if(p.i1 + o + 8 * j, i0, i1v, live);
+      }
+    }
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const uint32_t at = part + i * part_stride;
+      sts32f(at, min_nan(lds32f(at), FOLD == kSlot ? a2[i] : a1[i]));
+      a1[i] = a2[i] = inf;
+      i1[i] = -1;
+    }
+    ct = 0;
+    tile_row += p.T;
+    tile_col += 128;
   }
 
   // chunk c is issued (its last step held): issue the first kPre k-slices
@@ -533,7 +680,7 @@ struct Consumer {
   // one), and every wait count is a constant, so ptxas sees which
   // accumulators are done and keeps the wgmma asynchronous
   template <int B>
-  __device__ __forceinline__ void chunk(int c) {
+  __device__ __forceinline__ void chunk(int c, const Args& p) {
     const bool more = c + 1 < n_chunks;
     if (more) {
       issue<1 - B>();
@@ -550,6 +697,7 @@ struct Consumer {
     fold<B>(c);
     __syncwarp();
     release(held_st, true);
+    if constexpr (SLOT) tile_step(p);
     if (more) {
       for (int t = kPre; t < ksl; ++t) {
         issue<1 - B>();
@@ -563,8 +711,10 @@ struct Consumer {
   }
 
   // the mainloop and the store of this warpgroup's bucket slots: queries
-  // q_base + its 64 rows of A, output columns col_base + its 64 lanes;
-  // setup(*this) sets the form's ring and operands once lane is known
+  // q_base + its 64 rows of A, output columns col_base + its 64 lanes
+  // (slot forms: lanes col_base % 128 of the tiles of range grp, the
+  // m2min partial at [grp, q, col_base % 128]); setup(*this) sets the
+  // form's ring and operands once lane is known
   template <class Setup>
   __device__ __forceinline__ void run(const Args& p, int cw, int q_base,
                                       int col_base, int grp, Setup setup) {
@@ -577,15 +727,29 @@ struct Consumer {
 #pragma unroll
     for (int hq = 0; hq < 2; ++hq) {
       const int q = q_base + warp * 16 + (lane >> 2) + 8 * hq;
+      q_row[hq] = q;
       xh[hq] = q < p.Q ? p.xxh[q] : 0.f;
     }
     // (acc is not initialised: each chunk's first wgmma overwrites it, and
     // a zero the register allocator rematerialises beside a wgmma in
     // flight would serialise the pipeline)
+    const float init = SLOT ? __int_as_float(0x7f800000) : kPackPad;
 #pragma unroll
     for (int i = 0; i < 32; ++i) {
-      a1[i] = a2[i] = a3[i] = kPackPad;
+      a1[i] = a2[i] = a3[i] = init;
       ce[i] = 0.f;
+      i1[i] = -1;
+    }
+    if constexpr (SLOT) {
+      n_ch = p.T / 128;
+      ct = 0;
+      tile_row = grp * p.g * p.T;
+      tile_col = grp * p.g * 128;
+      lane0 = (col_base & 127) + 2 * lq;
+      m_real = p.m_real;
+      s_out = static_cast<long>(p.M / p.T) * 128;
+#pragma unroll
+      for (int i = 0; i < 32; ++i) sts32f(part + i * part_stride, init);
     }
     iss = iss_st = iss_ph = iss_kk = rel = rel_st = 0;
     held = -1;
@@ -600,10 +764,26 @@ struct Consumer {
     held = last;
     held_st = last_st;
     for (int c = 0; c < n_chunks; c += 2) {
-      chunk<0>(c);
-      if (c + 1 < n_chunks) chunk<1>(c + 1);
+      chunk<0>(c, p);
+      if (c + 1 < n_chunks) chunk<1>(c + 1, p);
     }
 
+    if constexpr (SLOT) {
+      // ---- this block's partial of m2min, [grp, q, lane] ----
+#pragma unroll
+      for (int hq = 0; hq < 2; ++hq) {
+        const bool live = q_row[hq] < p.Q;
+        float* o = p.a3 + (static_cast<long>(grp) * p.Q +
+                           (live ? q_row[hq] : 0)) * 128 + lane0;
+#pragma unroll
+        for (int j = 0; j < 8; ++j) {
+          const uint32_t at = part + (4 * j + 2 * hq) * part_stride;
+          stg64_if(o + 8 * j, __float_as_uint(lds32f(at)),
+                   __float_as_uint(lds32f(at + part_stride)), live);
+        }
+      }
+      return;
+    }
     // ---- every bucket slot of this warpgroup is written once ----
     const int S = gridDim.y * 128;
 #pragma unroll
@@ -611,7 +791,7 @@ struct Consumer {
       const int col = col_base + 8 * j + 2 * lq;
 #pragma unroll
       for (int hq = 0; hq < 2; ++hq) {
-        const int q = q_base + warp * 16 + (lane >> 2) + 8 * hq;
+        const int q = q_row[hq];
         if (q < p.Q) {
           const long o = static_cast<long>(q) * S + col;
           const int i = 4 * j + 2 * hq;
@@ -627,7 +807,11 @@ struct Consumer {
   }
 };
 
-template <int PASSES, bool PAIR, bool Q8>
+// The resident forms: K1, K2 (FOLD kPacked: blockIdx = (query block,
+// group, lane half)) and K1's slot form (kSlot / kSlotMin, MASK: blockIdx
+// = (query block, tile range, lane half), with Args.g the tiles of a
+// range).
+template <int PASSES, bool PAIR, bool Q8, int FOLD, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
 packed_sm90_kernel(const __grid_constant__ CUtensorMap tm_hi,
                    const __grid_constant__ CUtensorMap tm_lo, const Args p,
@@ -635,14 +819,15 @@ packed_sm90_kernel(const __grid_constant__ CUtensorMap tm_hi,
   constexpr int x_arrays = PASSES == 3 ? 2 : 1;
   constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
   constexpr int stage_bytes = y_arrays * kSlice;
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
   unsigned char* sbase = smem_raw + (base - raw);
 
   const int QB = geo.QB, NS = geo.NS;
   const int d = p.d, ksl = d / kKS;
-  const Layout L(QB, NS, d, x_arrays, y_arrays, Q8);
+  const Layout L(QB, NS, d, x_arrays, y_arrays, Q8, FOLD != kPacked);
+  if (base - raw + L.total > static_cast<uint32_t>(geo.smem)) __trap();
   const uint32_t full0 = base + L.bar, empty0 = full0 + 8 * NS;
   const uint32_t qfull0 = empty0 + 8 * NS;
   const int n_wg = QB / 64;
@@ -799,7 +984,7 @@ packed_sm90_kernel(const __grid_constant__ CUtensorMap tm_hi,
   // ================= consumer warpgroups =================
   asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
   if (wg >= n_wg) return;          // a 64-query block uses one
-  using Cons = Consumer<PASSES, PAIR, Q8>;
+  using Cons = Consumer<PASSES, PAIR, Q8, kResident, FOLD, MASK>;
   Cons cons;
   cons.run(p, tid & 127, q0 + wg * 64, grp * 128 + h * kHalf, grp,
            [&](Cons& c) {
@@ -814,23 +999,28 @@ packed_sm90_kernel(const __grid_constant__ CUtensorMap tm_hi,
              // this warpgroup's 64 rows of each A tile
              c.a_hi = base + L.a + wg * 64 * 128;
              c.a_lo = c.a_hi + ksl * tile_bytes;
+             c.part = base + L.part + 4 * tid;
+             c.part_stride = n_wg * 128 * 4;
            });
 }
 
 // ---- the d-chunked form ----
 // shared memory from a 1024-byte aligned base: the resident query block
 // (XRES: x_arrays × d/64 tiles of 64 rows × 128 B), the ring (NS stages),
-// its yyh slots (a chunk's 128 values), the barriers (full, empty, x)
+// its yyh slots (a chunk's 128 values), the barriers (full, empty, x),
+// (slot form) the m2min partial
 struct WideLayout {
-  uint32_t a, ring, yy, bar, total;
-  __host__ __device__ WideLayout(int NS, int d, int passes, bool xres) {
+  uint32_t a, ring, yy, bar, part, total;
+  __host__ __device__ WideLayout(int NS, int d, int passes, bool xres,
+                                 bool slot) {
     const int x_arrays = passes == 3 ? 2 : 1;
     const int stage = x_arrays * kWSlice + (xres ? 0 : x_arrays * kSlice);
     a = 0;
     ring = xres ? static_cast<uint32_t>(x_arrays * d * 128) : 0u;
     yy = ring + NS * stage;
     bar = yy + NS * kWYY;
-    total = bar + 8 * (2 * NS + 1);
+    part = (bar + 8 * (2 * NS + 1) + 15) & ~15u;
+    total = part + (slot ? 2 * kPartWG : 0);
   }
 };
 
@@ -838,7 +1028,7 @@ struct WideLayout {
 // the cluster (consecutive query blocks of one group that share y), and
 // whether the query block is resident
 struct WideGeo {
-  int NS, ncta, xres;
+  int NS, ncta, xres, smem;
 };
 
 // The d-chunked form (reference _packed_dchunk): K1's contract for any d.
@@ -851,8 +1041,10 @@ struct WideGeo {
 // producer loads 1/ncta of every y slice and multicasts it to all of
 // them, so the cluster reads the group's rows from L2 once, not ncta
 // times; a stage is refilled only after every block's consumers released
-// it (each consumer warp arrives on every block's empty barrier).
-template <int PASSES, bool PAIR, bool XRES>
+// it (each consumer warp arrives on every block's empty barrier). K1's
+// d-chunked slot form (FOLD kSlot, MASK) runs the same blocks over tile
+// ranges (blockIdx.y; Args.g the tiles of a range).
+template <int PASSES, bool PAIR, bool XRES, int FOLD, bool MASK>
 __global__ void __launch_bounds__(kThreads, 1)
 wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_yhi,
                  const __grid_constant__ CUtensorMap tm_ylo,
@@ -860,16 +1052,17 @@ wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_yhi,
                  const __grid_constant__ CUtensorMap tm_xlo, const Args p,
                  const WideGeo geo) {
   constexpr int MODE = XRES ? kWideRes : kWideStream;
-  using Cons = Consumer<PASSES, PAIR, false, MODE>;
+  using Cons = Consumer<PASSES, PAIR, false, MODE, FOLD, MASK>;
   constexpr int x_arrays = Cons::x_arrays;
   constexpr int y_arrays = Cons::y_arrays;
-  extern __shared__ unsigned char smem_raw[];
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
   const uint32_t raw = smem_u32(smem_raw);
   const uint32_t base = (raw + 1023u) & ~1023u;
 
   const int NS = geo.NS, ncta = geo.ncta;
   const int d = p.d, ksl = d / kKS;
-  const WideLayout L(NS, d, PASSES, XRES);
+  const WideLayout L(NS, d, PASSES, XRES, FOLD != kPacked);
+  if (base - raw + L.total > static_cast<uint32_t>(geo.smem)) __trap();
   const uint32_t full0 = base + L.bar, empty0 = full0 + 8 * NS;
   const uint32_t xfull = empty0 + 8 * NS;
 
@@ -962,6 +1155,8 @@ wide_sm90_kernel(const __grid_constant__ CUtensorMap tm_yhi,
       c.a_lo = c.a_hi + ksl * kSlice;
       c.b_off = wg * kSlice;                  // rows 64·wg of the slice
       c.yy_off = wg * kYY;
+      c.part = base + L.part + 4 * tid;
+      c.part_stride = 256 * 4;
     });
   }
   // no block leaves while another may still arrive on its barriers
@@ -1019,38 +1214,77 @@ bool make_map(CUtensorMap* m, const void* ptr, int rows, int d, bool q8,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
+// the dynamic shared memory of a layout of `total` bytes: the slack where
+// it fits (the packed forms' pickers require it), else as much as fits
+int smem_bytes(uint32_t total, int limit) {
+  return static_cast<int>(total + kSlack) < limit
+             ? static_cast<int>(total + kSlack)
+             : limit;
+}
+
 // the geometry: 128 queries a block where four ring stages still fit
 // beside the resident query block, else 64; as many stages as fit, at
 // most kMaxStages (a consumer holds at most kPre + 1, the rest let the
 // producer run ahead)
-bool pick_geo(int d, int passes, bool q8, int limit, Geo* g) {
+bool pick_geo(int d, int passes, bool q8, int limit, Geo* g,
+              bool slot = false) {
   const int x_arrays = passes == 3 ? 2 : 1;
   const int y_arrays = (passes == 3 && !q8) ? 2 : 1;
+  const uint32_t room = static_cast<uint32_t>(limit - (slot ? 0 : kSlack));
   if (d % 128 || d > 512) return false;
   for (int QB = 128; QB >= 64; QB -= 64) {
     int NS = kMaxStages;
     while (NS > kPre + 1 &&
-           Layout(QB, NS, d, x_arrays, y_arrays, q8).total + 1024 >
-               static_cast<uint32_t>(limit))
+           Layout(QB, NS, d, x_arrays, y_arrays, q8, slot).total > room)
       --NS;
     if (NS > kPre + 1) {
       g->QB = QB;
       g->NS = NS;
+      g->smem = smem_bytes(
+          Layout(QB, NS, d, x_arrays, y_arrays, q8, slot).total, limit);
       return true;
     }
   }
   return false;
 }
 
-template <int PASSES, bool PAIR, bool Q8>
-int launch(const Args& a, const void* y_hi, const void* y_lo,
-           cudaStream_t stream) {
+int smem_limit() {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
   cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
                          dev);
+  return limit;
+}
+
+// m2min[q, lane] = min over the slot blocks' partials [n_ranges, Q, 128],
+// NaN-propagating
+__global__ void slot_m2min_kernel(const float* __restrict__ part,
+                                  float* __restrict__ m2min, int n_ranges,
+                                  long n) {
+  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
+  if (i >= n) return;
+  float m = part[i];
+  for (int r = 1; r < n_ranges; ++r) m = min_nan(m, part[r * n + i]);
+  m2min[i] = m;
+}
+
+// the slot forms' second kernel, on the launch's stream after the first
+int launch_m2min(const Args& a, float* m2min, cudaStream_t stream) {
+  const int err = static_cast<int>(cudaGetLastError());
+  if (err) return err;
+  const int n_ranges = (a.M / a.T + a.g - 1) / a.g;
+  const long n = static_cast<long>(a.Q) * 128;
+  slot_m2min_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
+                      stream>>>(a.a3, m2min, n_ranges, n);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int PASSES, bool PAIR, bool Q8, int FOLD = kPacked,
+          bool MASK = false>
+int launch(const Args& a, const void* y_hi, const void* y_lo,
+           cudaStream_t stream) {
   Geo geo;
-  if (!pick_geo(a.d, PASSES, Q8, limit, &geo))
+  if (!pick_geo(a.d, PASSES, Q8, smem_limit(), &geo, FOLD != kPacked))
     return static_cast<int>(cudaErrorInvalidValue);
   if (reinterpret_cast<uintptr_t>(a.yyh) % 16 ||
       reinterpret_cast<uintptr_t>(a.x) % 16)
@@ -1059,11 +1293,8 @@ int launch(const Args& a, const void* y_hi, const void* y_lo,
   if (!make_map(&tm_hi, y_hi, a.M, a.d, Q8) ||
       !make_map(&tm_lo, y_lo, a.M, a.d, Q8))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr int x_arrays = PASSES == 3 ? 2 : 1;
-  constexpr int y_arrays = (PASSES == 3 && !Q8) ? 2 : 1;
-  const size_t smem =
-      Layout(geo.QB, geo.NS, a.d, x_arrays, y_arrays, Q8).total + 1024;
-  auto kern = packed_sm90_kernel<PASSES, PAIR, Q8>;
+  const size_t smem = geo.smem;
+  auto kern = packed_sm90_kernel<PASSES, PAIR, Q8, FOLD, MASK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
@@ -1091,17 +1322,19 @@ int dispatch(const Args& a, const void* y_hi, const void* y_lo, int passes,
 // the query blocks; else one block a cluster. (Clusters of 4 read less
 // but were slower at wide_knn's shape, every stage waiting on the slowest
 // of four blocks: port_scripts/sweep_dchunk_geometry.py.)
-bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g) {
+bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g,
+                   bool slot = false) {
   if (d % 128) return false;
   const int blocks = (Q + 63) / 64;
+  const uint32_t room = static_cast<uint32_t>(limit - (slot ? 0 : kSlack));
   for (int xres = 1; xres >= 0; --xres) {
     int NS = kMaxStages;
-    while (NS > kPre + 1 && WideLayout(NS, d, passes, xres).total + 1024 >
-                                static_cast<uint32_t>(limit))
+    while (NS > kPre + 1 && WideLayout(NS, d, passes, xres, slot).total > room)
       --NS;
     if (NS > kPre + 1) {
       g->NS = NS;
       g->xres = xres;
+      g->smem = smem_bytes(WideLayout(NS, d, passes, xres, slot).total, limit);
       g->ncta = blocks >= 2 && (blocks + 1) / 2 * 16 <= blocks * 9 ? 2 : 1;
       return true;
     }
@@ -1109,22 +1342,15 @@ bool pick_wide_geo(int Q, int d, int passes, int limit, WideGeo* g) {
   return false;
 }
 
-int smem_limit() {
-  int dev = 0, limit = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&limit, cudaDevAttrMaxSharedMemoryPerBlockOptin,
-                         dev);
-  return limit;
-}
-
 // The d-chunked form at geometry geo. x_hi/x_lo are [Qp, d] bf16, Qp = Q
 // rounded up to 64.
-template <int PASSES, bool PAIR, bool XRES>
+template <int PASSES, bool PAIR, bool XRES, int FOLD = kPacked,
+          bool MASK = false>
 int launch_wide(const Args& a, const void* x_hi, const void* x_lo,
                 const void* y_hi, const void* y_lo, const WideGeo& geo,
                 cudaStream_t stream) {
   const int ncta = geo.ncta;
-  const size_t smem = WideLayout(geo.NS, a.d, PASSES, XRES).total + 1024;
+  const size_t smem = geo.smem;
   if (reinterpret_cast<uintptr_t>(a.yyh) % 16)
     return static_cast<int>(cudaErrorMisalignedAddress);
   const int Qp = (a.Q + 63) / 64 * 64;
@@ -1134,7 +1360,7 @@ int launch_wide(const Args& a, const void* x_hi, const void* x_lo,
       !make_map(&tm_xhi, x_hi, Qp, a.d, false) ||
       !make_map(&tm_xlo, x_lo, Qp, a.d, false))
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kern = wide_sm90_kernel<PASSES, PAIR, XRES>;
+  auto kern = wide_sm90_kernel<PASSES, PAIR, XRES, FOLD, MASK>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
@@ -1176,10 +1402,51 @@ int dispatch_wide(const Args& a, const void* x_hi, const void* x_lo,
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
+// K1's slot forms: the resident form (passes × fold × mask) and the
+// d-chunked one (always masked and tracked), each followed by the m2min
+// kernel
+template <int PASSES>
+int dispatch_slot(const Args& a, const void* y_hi, const void* y_lo,
+                  float* m2min, int mask, int track, cudaStream_t st) {
+  int err;
+  if (track)
+    err = mask ? launch<PASSES, false, false, kSlot, true>(a, y_hi, y_lo, st)
+               : launch<PASSES, false, false, kSlot, false>(a, y_hi, y_lo,
+                                                             st);
+  else
+    err = mask
+              ? launch<PASSES, false, false, kSlotMin, true>(a, y_hi, y_lo, st)
+              : launch<PASSES, false, false, kSlotMin, false>(a, y_hi, y_lo,
+                                                              st);
+  return err ? err : launch_m2min(a, m2min, st);
+}
+
+int dispatch_slot_wide(const Args& a, const void* x_hi, const void* x_lo,
+                       const void* y_hi, const void* y_lo, float* m2min,
+                       int passes, cudaStream_t st) {
+  WideGeo geo;
+  if (!pick_wide_geo(a.Q, a.d, passes, smem_limit(), &geo, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  int err;
+  if (passes == 3)
+    err = geo.xres ? launch_wide<3, false, true, kSlot, true>(
+                         a, x_hi, x_lo, y_hi, y_lo, geo, st)
+                   : launch_wide<3, false, false, kSlot, true>(
+                         a, x_hi, x_lo, y_hi, y_lo, geo, st);
+  else
+    err = geo.xres ? launch_wide<1, false, true, kSlot, true>(
+                         a, x_hi, x_lo, y_hi, y_lo, geo, st)
+                   : launch_wide<1, false, false, kSlot, true>(
+                         a, x_hi, x_lo, y_hi, y_lo, geo, st);
+  return err ? err : launch_m2min(a, m2min, st);
+}
+
 Args make_args(const void* x, const void* scale, const void* yyh,
                const void* xxh, void* a1, void* a2, void* a3, int Q, int M,
                int d, int T, int g, int pbits) {
   Args a;
+  a.i1 = nullptr;
+  a.m_real = M;
   a.x = static_cast<const float*>(x);
   a.yyh = static_cast<const float*>(yyh);
   a.xxh = static_cast<const float*>(xxh);
@@ -1247,5 +1514,74 @@ extern "C" int fused_l2_group_topk_packed_dchunk_geometry(int Q, int d,
   out[0] = geo.xres;
   out[1] = geo.NS;
   out[2] = geo.ncta;
+  return 0;
+}
+
+// K1's slot form. Shapes: x [Q, d] f32, y_hi/y_lo [M, d] bf16 (y_lo
+// unused at passes=1), xx [Q] f32, yy [M] f32 (exact squared norms), m1
+// [Q, (M/T)·128] f32, i1 the same shape int32, part [ceil(M/T/tpb), Q,
+// 128] f32 (scratch: one partial of m2min a range of tpb tiles), m2min
+// [Q, 128] f32; d % 128 == 0 and d <= 512, T % 128 == 0, M % T == 0.
+// mask / track select the form (rows ≥ m_real score +inf; track = 0 is
+// the min-only fold).
+extern "C" int fused_l2_slot_topk_launch(
+    const void* x, const void* y_hi, const void* y_lo, const void* xx,
+    const void* yy, void* m1, void* i1, void* part, void* m2min, int Q,
+    int M, int d, int T, int tpb, int m_real, int passes, int mask,
+    int track, void* stream) {
+  Args a = make_args(x, nullptr, yy, xx, m1, nullptr, part, Q, M, d, T, tpb,
+                     1);
+  a.i1 = static_cast<int*>(i1);
+  a.m_real = m_real;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  float* m2 = static_cast<float*>(m2min);
+  return passes == 3 ? dispatch_slot<3>(a, y_hi, y_lo, m2, mask, track, st)
+                     : dispatch_slot<1>(a, y_hi, y_lo, m2, mask, track, st);
+}
+
+// K1's slot form, d-chunked (wide features; always masked and tracked):
+// x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the split of x, zero rows past Q;
+// x_lo unused at passes=1); the rest as fused_l2_slot_topk_launch, any d
+// % 128 == 0.
+extern "C" int fused_l2_slot_topk_dchunk_launch(
+    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
+    const void* xx, const void* yy, void* m1, void* i1, void* part,
+    void* m2min, int Q, int M, int d, int T, int tpb, int m_real, int passes,
+    void* stream) {
+  Args a = make_args(nullptr, nullptr, yy, xx, m1, nullptr, part, Q, M, d,
+                     T, tpb, 1);
+  a.i1 = static_cast<int*>(i1);
+  a.m_real = m_real;
+  return dispatch_slot_wide(a, x_hi, x_lo, y_hi, y_lo,
+                            static_cast<float*>(m2min), passes,
+                            static_cast<cudaStream_t>(stream));
+}
+
+// the geometry the slot forms take for Q queries of d features on the
+// current device (xs: the d-chunked form): out = (blocks a tile range
+// takes, queries a block, ring stages, queries resident, query blocks a
+// cluster)
+extern "C" int fused_l2_slot_topk_geometry(int Q, int d, int passes, int xs,
+                                           int* out) {
+  if (xs) {
+    WideGeo geo;
+    if (!pick_wide_geo(Q, d, passes, smem_limit(), &geo, true))
+      return static_cast<int>(cudaErrorInvalidValue);
+    const int n_qb = ((Q + 63) / 64 + geo.ncta - 1) / geo.ncta * geo.ncta;
+    out[0] = n_qb;
+    out[1] = 64;
+    out[2] = geo.NS;
+    out[3] = geo.xres;
+    out[4] = geo.ncta;
+    return 0;
+  }
+  Geo geo;
+  if (!pick_geo(d, passes, false, smem_limit(), &geo, true))
+    return static_cast<int>(cudaErrorInvalidValue);
+  out[0] = (Q + geo.QB - 1) / geo.QB * 2;
+  out[1] = geo.QB;
+  out[2] = geo.NS;
+  out[3] = 1;
+  out[4] = 1;
   return 0;
 }

@@ -1,13 +1,11 @@
-// K1's unpacked and slot forms for Hopper (sm_90a): the fused expanded-L2
-// contraction and a group or slot fold, one mma.sync kernel templated on
-// the form, bound to Python through plain C entry points. (K1's packed
-// forms, resident and d-chunked, and its int8 form K2 are the wgmma
-// kernels of fused_l2_packed_sm90.cu.)
+// K1's unpacked forms for Hopper (sm_90a): the fused expanded-L2
+// contraction and the unpacked group fold, one mma.sync kernel templated
+// on the form, bound to Python through plain C entry points. (K1's packed
+// forms, resident and d-chunked, its int8 form K2 and its slot forms are
+// the wgmma kernels of fused_l2_packed_sm90.cu.)
 //
 // Replaces raft_tpu/ops/fused_l2_topk_pallas.py's unpacked forms
-// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254), and
-// K1's first, per-slot forms fused_l2_slot_topk (:406) and
-// fused_l2_slot_topk_dchunk (:474).
+// fused_l2_group_topk (:1230) and fused_l2_group_topk_dchunk (:1254).
 //
 // What it computes. For every query q and database row n (rows padded to
 // whole tiles of T) the half-score yyh[n] − x[q]·y[n], with x·y a bf16
@@ -33,23 +31,6 @@
 // (seg_insert) that a second kernel (seg_merge_kernel) merges into the
 // outputs, bit for bit the one-block fold at every S.
 //
-// The slot forms (_fused_kernel + _fold_and_write, :238-299) fold the
-// distance itself, d2 = (xx[q] + yy[n]) − 2·x·y with exact f32 norms, per
-// slot = (tile of T rows, lane = n % 128): chunk by chunk in ascending
-// order, lt1 = d2 < a1; a2 = lt1 ? a1 : min(a2, d2); a1, i1 = d2, n where
-// lt1 (strict <: on a tie the earlier row stays). With MASK, rows n ≥
-// m_real score +inf before the fold (a slot of pads keeps +inf, −1). m1/i1
-// are written once a tile, at column tile·128 + lane, and m2min [Q, 128]
-// is the min over all tiles of a2. The min-only form (the reference's
-// track=False, a measurement knob) folds a1 = min(a1, d2), writes i1 = 0
-// and takes m2min over a1. Every min here is PTX min.NaN, as jnp.minimum
-// and torch.minimum: a NaN d2 sticks in a2 (or in the min-only a1) until a
-// new minimum displaces it, and always reaches m2min. One block walks a
-// group of consecutive tiles (sized in the wrapper so the blocks fill the
-// card about eight times over) and writes one [Q, 128] partial of m2min;
-// a second small kernel takes the min of the partials. mask and track are
-// template flags, never branches in the fold.
-//
 // Precision contract. Both factors of every product are bf16 rounded to
 // nearest (__float2bfloat16_rn), so each product is exact in f32, and the
 // tensor cores accumulate in f32 — the arithmetic the certificate's error
@@ -60,13 +41,11 @@
 // Bound on this card. At the main path's shape (2048 queries × ~1M rows ×
 // 128) K1 does 2·Q·M·d = 5.3e11 bf16 FLOP at passes=1 (×3 at passes=3)
 // against 0.26 GB (×2) of y and 0.1 GB of outputs: bound by the tensor
-// cores, not by HBM. The slot forms write
-// 8 bytes a slot: 1.03 GB at that shape, 0.31 ms at 3.35 TB/s against the
-// products' 0.531 ms (passes=1), so they are bound by the tensor cores too.
+// cores, not by HBM.
 //
 // Design (simple first): one thread block owns (64 queries, one whole
-// group, or one segment of a split unpacked group), so every output slot
-// (or partial) is written exactly once — no atomics, deterministic. The
+// group, or one segment of a split group), so every output slot (or
+// partial) is written exactly once — no atomics, deterministic. The
 // query block is converted to bf16 hi(/lo) once and stays in shared
 // memory. The group's rows stream through a
 // 2-stage cp.async ring in [128 rows × 128 features] slices; 8 warps
@@ -79,7 +58,7 @@
 // TMA and a persistent schedule (fused_l2_packed_sm90.cu's mainloop) are
 // later work for these forms.
 //
-// Wide features (the _dchunk forms, d > 512). The resident query block
+// Wide features (the _dchunk form, d > 512). The resident query block
 // is 64·(d + 8)·2 bytes per bf16 array: at d = 960 and passes=3 that is
 // 247,808 B, more than a block's 232,448. The accumulator of a (64
 // queries × 128 rows) chunk already lives in registers across the
@@ -142,8 +121,6 @@ __device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
 // what a block folds its score tiles into
 enum Fold : int {
   kIds = 1,       // group top-2 + 3rd-min with row ids (unpacked)
-  kSlot = 2,      // per-slot min, argmin and 2nd-min (track=True)
-  kSlotMin = 3,   // per-slot min only (track=False)
   kSeg = 4,       // a segment of a split group: its (e1, e2, i3, r) summary
 };
 
@@ -195,25 +172,20 @@ struct Args {
   const __nv_bfloat16* y_hi;
   const __nv_bfloat16* y_lo;
   const float* yyh;
-  const float* xxh;
   float* a1;
   float* a2;
   float* a3;
-  int* id1;                           // unpacked and slot forms
+  int* id1;
   int* id2;
   int* id3;                           // a split group's segments
-  int Q, M, d, T, g, pbits;
-  int m_real;                         // slot forms: rows ≥ m_real are pads
+  int Q, M, d, T, g;
 };
 
 // One kernel for every form: PASSES 1/3; XS (x streamed through the
-// ring: the _dchunk forms); FOLD (see Fold); MASK (slot forms: rows ≥
-// m_real score +inf).
-template <int PASSES, bool XS, int FOLD, bool MASK>
+// ring: the _dchunk form); FOLD (see Fold).
+template <int PASSES, bool XS, int FOLD>
 __global__ void __launch_bounds__(kThreads, 1)
 fused_l2_group_topk_kernel(const Args p, int n_stages) {
-  constexpr bool SLOT = FOLD == kSlot || FOLD == kSlotMin;
-  static_assert(!(MASK && !SLOT), "no such form");
   extern __shared__ __align__(16) unsigned char smem[];
   const int d = p.d;
   const int xstride = d + 8;
@@ -305,16 +277,7 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
     cp_async_commit();
   };
 
-  float xh[2];
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int q = q0 + wq * 16 + gid + 8 * h;
-    xh[h] = (SLOT && q < Q) ? p.xxh[q] : 0.f;
-  }
-
   const float init = __int_as_float(0x7f800000);
-  // slot forms: a1, id1, a2 are the slot state of the current tile and a3
-  // the running min over this block's tiles of a2 (min-only: of a1)
   float acc[8][4], a1[8][4], a2[8][4], a3[8][4];
   int id1[8][4], id2[8][4];
   int id3[8][4];              // kSeg only
@@ -383,100 +346,27 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
       // ---- fold chunk c of the group into the bucket registers ----
       // (one branch a chunk, outside the unrolled loops)
       const float* yy = yyh_s + (s % n_stages) * kLanes;
-      if constexpr (SLOT) {
-        // d2 = (xx + yy) − 2·s, masked, into the slot state of its tile
-        const int ci0 = static_cast<int>(row0) + c * kLanes;
 #pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int ln = wn * 64 + t * 8 + tig * 2;
-          const float y0 = yy[ln], y1 = yy[ln + 1];
+      for (int t = 0; t < 8; ++t) {
+        const int ln = wn * 64 + t * 8 + tig * 2;
+        const float y0 = yy[ln], y1 = yy[ln + 1];
 #pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            const int ci = ci0 + ln + (i & 1);
-            float v = __fsub_rn(__fadd_rn(xh[i >> 1], (i & 1) ? y1 : y0),
-                                2.f * acc[t][i]);
-            acc[t][i] = 0.f;
-            if (MASK) v = ci < p.m_real ? v : __int_as_float(0x7f800000);
-            if (FOLD == kSlot) {
-              const bool lt1 = v < a1[t][i];
-              a2[t][i] = lt1 ? a1[t][i] : min_nan(a2[t][i], v);
-              a1[t][i] = lt1 ? v : a1[t][i];
-              id1[t][i] = lt1 ? ci : id1[t][i];
-            } else {
-              a1[t][i] = min_nan(a1[t][i], v);
-            }
-          }
-        }
-        if (c % n_ch == n_ch - 1) {
-          // the tile's last chunk: write its slots, fold a2 into the
-          // block's running min, start the next tile afresh
-          const long S = static_cast<long>(n_tiles) * kLanes;
-          const int tile = grp * g + c / n_ch;
-#pragma unroll
-          for (int t = 0; t < 8; ++t) {
-            const int col = tile * kLanes + wn * 64 + t * 8 + tig * 2;
-#pragma unroll
-            for (int h = 0; h < 2; ++h) {
-              const int q = q0 + wq * 16 + gid + 8 * h;
-              if (q < Q) {
-                const long o = static_cast<long>(q) * S + col;
-                *reinterpret_cast<float2*>(p.a1 + o) =
-                    make_float2(a1[t][2 * h], a1[t][2 * h + 1]);
-                *reinterpret_cast<int2*>(p.id1 + o) =
-                    FOLD == kSlot
-                        ? make_int2(id1[t][2 * h], id1[t][2 * h + 1])
-                        : make_int2(0, 0);
-              }
-            }
-#pragma unroll
-            for (int i = 0; i < 4; ++i) {
-              a3[t][i] = min_nan(a3[t][i],
-                                 FOLD == kSlot ? a2[t][i] : a1[t][i]);
-              a1[t][i] = a2[t][i] = __int_as_float(0x7f800000);
-              id1[t][i] = -1;
-            }
-          }
-        }
-      } else {
-#pragma unroll
-        for (int t = 0; t < 8; ++t) {
-          const int ln = wn * 64 + t * 8 + tig * 2;
-          const float y0 = yy[ln], y1 = yy[ln + 1];
-#pragma unroll
-          for (int i = 0; i < 4; ++i) {
-            // the plain half-score and its global row id
-            const float cv = ((i & 1) ? y1 : y0) - acc[t][i];
-            acc[t][i] = 0.f;
-            const int ci = static_cast<int>(row0) + c * kLanes + ln + (i & 1);
-            if constexpr (FOLD == kSeg)
-              seg_insert(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
-                         id3[t][i], a3[t][i]);
-            else
-              merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
-                        a3[t][i]);
-          }
+        for (int i = 0; i < 4; ++i) {
+          // the plain half-score and its global row id
+          const float cv = ((i & 1) ? y1 : y0) - acc[t][i];
+          acc[t][i] = 0.f;
+          const int ci = static_cast<int>(row0) + c * kLanes + ln + (i & 1);
+          if constexpr (FOLD == kSeg)
+            seg_insert(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                       id3[t][i], a3[t][i]);
+          else
+            merge_ids(cv, ci, a1[t][i], id1[t][i], a2[t][i], id2[t][i],
+                      a3[t][i]);
         }
       }
     }
     __syncthreads();
     if (n_stages == 1 && more) load_step(s + 1);
-  }
-
-  if constexpr (SLOT) {
-    // ---- this block's partial of m2min: [group, Q, 128] ----
-#pragma unroll
-    for (int t = 0; t < 8; ++t) {
-      const int ln = wn * 64 + t * 8 + tig * 2;
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int q = q0 + wq * 16 + gid + 8 * h;
-        if (q < Q)
-          *reinterpret_cast<float2*>(
-              p.a2 + (static_cast<long>(grp) * Q + q) * kLanes + ln) =
-              make_float2(a3[t][2 * h], a3[t][2 * h + 1]);
-      }
-    }
-    return;
   }
 
   // ---- every bucket slot of this (query block, group) is written once
@@ -508,18 +398,6 @@ fused_l2_group_topk_kernel(const Args p, int n_stages) {
       }
     }
   }
-}
-
-// m2min[q, lane] = min over the blocks' partials [n_groups, Q, 128],
-// NaN-propagating
-__global__ void slot_m2min_kernel(const float* __restrict__ part,
-                                  float* __restrict__ m2min, int n_groups,
-                                  long n) {
-  const long i = static_cast<long>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (i >= n) return;
-  float m = part[i];
-  for (int gi = 1; gi < n_groups; ++gi) m = min_nan(m, part[gi * n + i]);
-  m2min[i] = m;
 }
 
 // the unpacked form's split groups: merge the segments' summaries [segs,
@@ -586,7 +464,7 @@ size_t smem_bytes(int d, int passes, int n_stages, bool xs) {
                                           kLanes * 4);
 }
 
-template <int PASSES, bool XS, int FOLD, bool MASK = false>
+template <int PASSES, bool XS, int FOLD>
 int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   int dev = 0, limit = 0;
   cudaGetDevice(&dev);
@@ -596,36 +474,19 @@ int launch(const Args& a, cudaStream_t stream, int segs = 1) {
   if (smem_bytes(a.d, PASSES, 2, XS) > static_cast<size_t>(limit))
     n_stages = 1;
   const size_t smem = smem_bytes(a.d, PASSES, n_stages, XS);
-  auto kern = fused_l2_group_topk_kernel<PASSES, XS, FOLD, MASK>;
+  auto kern = fused_l2_group_topk_kernel<PASSES, XS, FOLD>;
   cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize,
                        static_cast<int>(smem));
   const int n_groups = (a.M / a.T + a.g - 1) / a.g;
   dim3 grid((a.Q + kBQ - 1) / kBQ, n_groups, segs);
   kern<<<grid, kThreads, smem, stream>>>(a, n_stages);
-  if (FOLD == kSlot || FOLD == kSlotMin) {
-    const int err = static_cast<int>(cudaGetLastError());
-    if (err) return err;
-    const long n = static_cast<long>(a.Q) * kLanes;
-    slot_m2min_kernel<<<static_cast<unsigned>((n + 255) / 256), 256, 0,
-                        stream>>>(a.a2, a.a3, n_groups, n);
-  }
   return static_cast<int>(cudaGetLastError());
 }
 
-// the resident slot forms: passes × fold × mask
-template <int PASSES>
-int dispatch_slot(const Args& a, int mask, int track, cudaStream_t st) {
-  if (track)
-    return mask ? launch<PASSES, false, kSlot, true>(a, st)
-                : launch<PASSES, false, kSlot, false>(a, st);
-  return mask ? launch<PASSES, false, kSlotMin, true>(a, st)
-              : launch<PASSES, false, kSlotMin, false>(a, st);
-}
-
 Args make_args(const void* x, const void* x_hi, const void* x_lo,
-               const void* y_hi, const void* y_lo, const void* yyh,
-               const void* xxh, void* a1, void* a2, void* a3, void* id1,
-               void* id2, int Q, int M, int d, int T, int g, int pbits) {
+               const void* y_hi, const void* y_lo, const void* yyh, void* a1,
+               void* a2, void* a3, void* id1, void* id2, int Q, int M, int d,
+               int T, int g) {
   Args a;
   a.x = static_cast<const float*>(x);
   a.x_hi = static_cast<const __nv_bfloat16*>(x_hi);
@@ -633,15 +494,13 @@ Args make_args(const void* x, const void* x_hi, const void* x_lo,
   a.y_hi = static_cast<const __nv_bfloat16*>(y_hi);
   a.y_lo = static_cast<const __nv_bfloat16*>(y_lo);
   a.yyh = static_cast<const float*>(yyh);
-  a.xxh = static_cast<const float*>(xxh);
   a.a1 = static_cast<float*>(a1);
   a.a2 = static_cast<float*>(a2);
   a.a3 = static_cast<float*>(a3);
   a.id1 = static_cast<int*>(id1);
   a.id2 = static_cast<int*>(id2);
   a.id3 = nullptr;
-  a.Q = Q; a.M = M; a.d = d; a.T = T; a.g = g; a.pbits = pbits;
-  a.m_real = M;
+  a.Q = Q; a.M = M; a.d = d; a.T = T; a.g = g;
   return a;
 }
 
@@ -667,8 +526,8 @@ extern "C" int fused_l2_group_topk_launch(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (segs < 1) return static_cast<int>(cudaErrorInvalidValue);
   if (segs == 1) {
-    const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, nullptr, a1,
-                             a2, a3, id1, id2, Q, M, d, T, g, 8);
+    const Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, a1, a2, a3,
+                             id1, id2, Q, M, d, T, g);
     if (xs)
       return passes == 3 ? launch<3, true, kIds>(a, st)
                          : launch<1, true, kIds>(a, st);
@@ -678,9 +537,9 @@ extern "C" int fused_l2_group_topk_launch(
   const long n = static_cast<long>(Q) * ((M / T + g - 1) / g) * kLanes;
   float* pf = static_cast<float*>(part);
   int* pi = static_cast<int*>(part);
-  Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, nullptr, pf,
-                     pf + 2 * segs * n, pf + 5 * segs * n,
-                     pi + segs * n, pi + 3 * segs * n, Q, M, d, T, g, 8);
+  Args a = make_args(x, x_hi, x_lo, y_hi, y_lo, yyh, pf, pf + 2 * segs * n,
+                     pf + 5 * segs * n, pi + segs * n, pi + 3 * segs * n, Q,
+                     M, d, T, g);
   a.id3 = pi + 4 * segs * n;
   int err;
   if (xs)
@@ -696,39 +555,4 @@ extern "C" int fused_l2_group_topk_launch(
       static_cast<int*>(id1), static_cast<float*>(a2),
       static_cast<int*>(id2), static_cast<float*>(a3), segs, n);
   return static_cast<int>(cudaGetLastError());
-}
-
-// K1's slot forms. Shapes: x [Q, d] f32, y_hi/y_lo [M, d] bf16 (y_lo
-// unused at passes=1), xx [Q] f32, yy [M] f32, m1 [Q, (M/T)·128] f32, i1
-// the same shape int32, part [ceil(M/T/tpb), Q, 128] f32 (scratch: one
-// partial of m2min per group of tpb tiles), m2min [Q, 128] f32; d % 128 ==
-// 0, T % 128 == 0, M % T == 0. mask / track select the form (rows ≥ m_real
-// score +inf; track = 0 is the min-only fold).
-extern "C" int fused_l2_slot_topk_launch(
-    const void* x, const void* y_hi, const void* y_lo, const void* xx,
-    const void* yy, void* m1, void* i1, void* part, void* m2min, int Q,
-    int M, int d, int T, int tpb, int m_real, int passes, int mask,
-    int track, void* stream) {
-  Args a = make_args(x, nullptr, nullptr, y_hi, y_lo, yy, xx, m1, part,
-                     m2min, i1, nullptr, Q, M, d, T, tpb, 8);
-  a.m_real = m_real;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return passes == 3 ? dispatch_slot<3>(a, mask, track, st)
-                     : dispatch_slot<1>(a, mask, track, st);
-}
-
-// K1's slot form, d-chunked (wide features; always masked and tracked):
-// x_hi/x_lo [ceil(Q/64)·64, d] bf16 (the split of x, zero rows past Q;
-// x_lo unused at passes=1); the rest as fused_l2_slot_topk_launch.
-extern "C" int fused_l2_slot_topk_dchunk_launch(
-    const void* x_hi, const void* x_lo, const void* y_hi, const void* y_lo,
-    const void* xx, const void* yy, void* m1, void* i1, void* part,
-    void* m2min, int Q, int M, int d, int T, int tpb, int m_real, int passes,
-    void* stream) {
-  Args a = make_args(nullptr, x_hi, x_lo, y_hi, y_lo, yy, xx, m1, part,
-                     m2min, i1, nullptr, Q, M, d, T, tpb, 8);
-  a.m_real = m_real;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return passes == 3 ? launch<3, true, kSlot, true>(a, st)
-                     : launch<1, true, kSlot, true>(a, st);
 }

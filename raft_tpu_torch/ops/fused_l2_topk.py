@@ -9,15 +9,16 @@ twins ``fused_l2_group_topk_packed_db_q8`` / ``_dbuf_q8`` (``:1465``,
 ``fused_l2_group_topk_packed_dchunk`` (``:1294``) become the hand-written
 Hopper kernels in ``csrc/fused_l2_packed_sm90.cu`` (wgmma fed by TMA
 through an mbarrier ring, the wide form in clusters that share y; see
-that file for the design). The unpacked forms
-``fused_l2_group_topk`` (``:1230``) and ``fused_l2_group_topk_dchunk``
-(``:1254``), and K1's first, per-slot forms ``fused_l2_slot_topk``
-(``:406``) and ``fused_l2_slot_topk_dchunk`` (``:474``), which no search
-path calls (the reference's stage ladder,
-``benchmarks/profile_fused.py:146-165``, times them beside the group
-forms), are one ``mma.sync`` kernel templated on the form in
-``csrc/fused_l2_topk.cu``. This module holds the wrappers, their plain
-PyTorch twins and the packing constants the certified KNN decodes with.
+that file for the design), and so do K1's first, per-slot forms
+``fused_l2_slot_topk`` (``:406``) and ``fused_l2_slot_topk_dchunk``
+(``:474``), as fold modes of those two mainloops: no search path calls
+them, but the reference's stage ladder
+(``benchmarks/profile_fused.py:146-165``) times them beside the group
+forms. The unpacked forms ``fused_l2_group_topk`` (``:1230``) and
+``fused_l2_group_topk_dchunk`` (``:1254``) are one ``mma.sync`` kernel
+templated on the form in ``csrc/fused_l2_topk.cu``. This module holds
+the wrappers, their plain PyTorch twins and the packing constants the
+certified KNN decodes with.
 
 The wrapper dispatches on the device of the tensors it is given: CPU
 tensors take the twin, CUDA tensors launch the kernel (or raise). There is
@@ -58,6 +59,8 @@ _FN_Q8 = None
 _FN_DCHUNK = None
 _FN_GROUP = None
 _FN_SLOT = {}
+# the slot forms' geometry by (device, Q, d, passes, d-chunked)
+_GEO = {}
 # widest d the resident slot form holds in shared memory (K1's resident
 # envelope; past it the d-chunked form streams x)
 _D_RESIDENT = 512
@@ -792,7 +795,8 @@ def fused_l2_slot_topk(x, y_hi, y_lo, xx, yy, m_real, *, T: int, Qb: int,
     """K1's slot form (reference ``fused_l2_slot_topk``, ``:406``): per
     slot, a (tile of T rows, lane = row % 128) bucket, the smallest
     ``d2 = (xx + yy) − 2·x·y`` and its global row id, and per (query,
-    lane) the min over tiles of each slot's second smallest.
+    lane) the min over tiles of each slot's second smallest. On the card
+    it runs packed K1's wgmma + TMA mainloop with the slot fold (d ≤ 512).
 
     x [Q, d] f32; y_hi (and y_lo at passes=3) [M, d] bf16, M a whole
     number of T-row tiles; xx [Q] (or [Q, 1]) and yy [M] (or [1, M])
@@ -822,8 +826,8 @@ def fused_l2_slot_topk_dchunk(x, y_hi, y_lo, xx, yy, m_real, *, T: int,
     """Wide-feature form of :func:`fused_l2_slot_topk` (reference
     ``:474``): the same outputs, always masked and tracked; d must be a
     multiple of ``dc`` (the reference's padding contract). On the card
-    x's feature slices stream beside y's, as in
-    :func:`fused_l2_group_topk_packed_dchunk`."""
+    it runs :func:`fused_l2_group_topk_packed_dchunk`'s mainloop (queries
+    resident or streamed, clusters sharing y) with the slot fold."""
     _check_slot("fused_l2_slot_topk_dchunk", x, y_hi, y_lo, xx, yy, T, Qb,
                 passes, dc)
     if x.device.type == "cpu":
@@ -834,12 +838,48 @@ def fused_l2_slot_topk_dchunk(x, y_hi, y_lo, xx, yy, m_real, *, T: int,
                  m_real, T, passes, True, True, True)
 
 
-def slot_tiles_per_block(Q: int, n_tiles: int, n_sm: int) -> int:
-    """Tiles of one block of the slot kernels: the tiles are cut into
-    enough groups that the 64-query blocks fill the card about eight
-    times over (each group writes one [Q, 128] partial of m2min)."""
-    n_groups = min(n_tiles, max(1, -(-8 * n_sm // -(-Q // 64))))
-    return -(-n_tiles // n_groups)
+#: a block's fixed cost in chunk times, beside the chunks it folds: the
+#: query block's bf16 split, the ring's first k-slices and its m2min
+#: partial (an estimate that picks among the ranges, not a measurement)
+_SLOT_BLOCK_CHUNKS = 4
+
+
+def slot_range_tiles(blocks: int, n_tiles: int, chunks: int,
+                     n_sm: int) -> int:
+    """Tiles a block of the slot kernels walks (Args.g). Every range of
+    tpb consecutive tiles (the last may be shorter, never empty) is taken
+    by ``blocks`` blocks (query blocks × lane halves, or the d-chunked
+    form's query blocks in whole clusters); one block runs an SM, so
+    blocks·⌈n_tiles/tpb⌉ blocks take ⌈…/n_sm⌉ waves of at most tpb·chunks
+    chunk times plus ``_SLOT_BLOCK_CHUNKS`` each. The tpb with the
+    shortest such estimate wins (the larger on a tie: fewer partials of
+    m2min)."""
+    def cost(tpb):
+        waves = -(-blocks * -(-n_tiles // tpb) // n_sm)
+        return waves * (tpb * chunks + _SLOT_BLOCK_CHUNKS)
+    return min(range(n_tiles, 0, -1), key=cost)
+
+
+def slot_geometry(Q: int, d: int, passes: int, xs: bool
+                  ) -> Tuple[int, int, int, bool, int]:
+    """The geometry the slot forms take for Q queries of d features on the
+    current CUDA device (``fused_l2_slot_topk_geometry`` in
+    ``csrc/fused_l2_packed_sm90.cu``; ``xs`` the d-chunked form): (blocks
+    a tile range takes, queries a block, ring stages, queries resident,
+    query blocks a cluster). The resident form's blocks are its query
+    blocks × 2 lane halves; the d-chunked form's its 64-query blocks in
+    whole clusters."""
+    key = (torch.cuda.current_device(), Q, d, passes, xs)
+    geo = _GEO.get(key)
+    if geo is None:
+        fn = _build.load(
+            "fused_l2_packed_sm90").fused_l2_slot_topk_geometry
+        fn.argtypes = [ctypes.c_int] * 4 + [ctypes.POINTER(ctypes.c_int)]
+        fn.restype = ctypes.c_int
+        out = (ctypes.c_int * 5)()
+        _raise_on("slot_geometry", fn(Q, d, passes, int(xs), out))
+        geo = _GEO[key] = (out[0], out[1], out[2], bool(out[3]), out[4])
+    return geo
 
 
 def _slot(who: str, x, y_hi, y_lo, xx, yy, m_real, T: int, passes: int,
@@ -865,14 +905,16 @@ def _slot(who: str, x, y_hi, y_lo, xx, yy, m_real, T: int, passes: int,
             raise ValueError(f"{who}: {name} must be a contiguous {dt} "
                              f"tensor on {x.device}")
     n_tiles = M // T
-    n_sm = torch.cuda.get_device_properties(x.device).multi_processor_count
-    tpb = slot_tiles_per_block(Q, n_tiles, n_sm)
     dev = x.device
     m1 = torch.empty((Q, n_tiles * _LANES), dtype=torch.float32, device=dev)
     i1 = torch.empty((Q, n_tiles * _LANES), dtype=torch.int32, device=dev)
     m2min = torch.empty((Q, _LANES), dtype=torch.float32, device=dev)
     if Q == 0:
         return m1, i1, m2min
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    with torch.cuda.device(dev):
+        blocks = slot_geometry(Q, d, passes, xs)[0]
+    tpb = slot_range_tiles(blocks, n_tiles, T // _LANES, n_sm)
     part = torch.empty((-(-n_tiles // tpb), Q, _LANES), dtype=torch.float32,
                        device=dev)
     m_real = min(int(m_real), M)
@@ -902,7 +944,7 @@ def _slot(who: str, x, y_hi, y_lo, xx, yy, m_real, T: int, passes: int,
 def _launcher_slot(xs: bool):
     fn = _FN_SLOT.get(xs)
     if fn is None:
-        lib = _build.load("fused_l2_topk")
+        lib = _build.load("fused_l2_packed_sm90")
         p, i = ctypes.c_void_p, ctypes.c_int
         if xs:
             fn = lib.fused_l2_slot_topk_dchunk_launch

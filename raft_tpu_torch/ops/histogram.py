@@ -2,8 +2,8 @@
 
 Counterpart of ``raft_tpu/ops/histogram_pallas.py``. The TPU kernel
 ``histogram_blocked`` (``:47``, ``pallas_call`` at ``:61``) becomes the
-hand-written Hopper kernel in ``csrc/histogram.cu``; see that file for
-the design.
+hand-written Hopper kernel in ``csrc/histogram.cu`` in two forms, chosen
+by :func:`k9_form`; see that file for the design.
 
 The contract (the reference's): counts [n_bins, batch] int32 from bins
 [n, batch] int32, entries outside ``[0, n_bins)`` ignored (the reference
@@ -26,6 +26,10 @@ from raft_tpu_torch.ops import _build
 #: the most bins the kernel counts: one column of counters must fit in a
 #: block's 48 KB of shared memory
 MAX_BINS = 12288
+#: the most counters (n_bins × batch) for which every lane of a block
+#: keeps its own (the small-counter form: 8 warps × 32 lanes × 64 × 4 B =
+#: 64 KB of shared memory a block)
+LANE_COUNTERS = 64
 #: one-hot elements one step of the twin may hold
 _TWIN_ELEMS = 1 << 24
 
@@ -33,6 +37,17 @@ _TWIN_ELEMS = 1 << 24
 LAUNCHES = 0
 
 _FN = None
+# the SM count of each device, read once
+_SMS = {}
+
+
+def k9_form(batch: int, n_bins: int) -> str:
+    """The form K9 takes for ``n_bins`` bins of ``batch`` columns (the
+    rule ``histogram_form`` in ``csrc/histogram.cu`` applies): ``"lanes"``
+    where the block's n_bins·batch counters are few enough for every lane
+    to keep its own (no atomic a count), else ``"blocked"`` (shared
+    atomics on column slabs, a copy a warp where they fit)."""
+    return "lanes" if n_bins * batch <= LANE_COUNTERS else "blocked"
 
 
 def _operands(bins, n_bins: int):
@@ -59,12 +74,19 @@ def histogram_blocked(bins, n_bins: int) -> torch.Tensor:
         raise NotImplementedError(f"histogram_blocked counts at most "
                                   f"{MAX_BINS} bins; got {n_bins}")
     n, batch = bins.shape
-    out = torch.zeros((n_bins, batch), dtype=torch.int32, device=bins.device)
     if n == 0 or batch == 0:
-        return out
+        return torch.zeros((n_bins, batch), dtype=torch.int32,
+                           device=bins.device)
+    # the launch zeroes the output on the stream before the kernel
+    out = torch.empty((n_bins, batch), dtype=torch.int32, device=bins.device)
+    dev = bins.device.index
+    n_sm = _SMS.get(dev)
+    if n_sm is None:
+        n_sm = _SMS[dev] = torch.cuda.get_device_properties(
+            bins.device).multi_processor_count
     with torch.cuda.device(bins.device):
         rc = _launcher()(bins.data_ptr(), out.data_ptr(), n, batch, n_bins,
-                         torch.cuda.current_stream().cuda_stream)
+                         n_sm, torch.cuda.current_stream().cuda_stream)
     if rc:
         raise DeviceError(f"histogram_blocked: launch failed with CUDA "
                           f"error {rc}")
@@ -78,7 +100,7 @@ def _launcher():
         fn = _build.load("histogram").histogram_launch
         vp = ctypes.c_void_p
         fn.argtypes = [vp, vp, ctypes.c_longlong, ctypes.c_int,
-                       ctypes.c_int, vp]
+                       ctypes.c_int, ctypes.c_int, vp]
         fn.restype = ctypes.c_int
         _FN = fn
     return _FN

@@ -112,3 +112,52 @@ def test_auto_rule():
         assert _choose_hist_type(cuda, 8, 64, ht) is ht
     assert HistType.GlobalAtomics is HistType.SegmentSum
     assert HistType.SmemBits is HistType.Blocked
+
+
+@pytest.mark.parametrize("batch,n_bins,want", [
+    (1, 64, "lanes"),         # value_histogram: 64 bins of one column
+    (1, 16, "lanes"),         # the stats path's labels, 16 clusters
+    (4, 16, "lanes"),         # 64 counters, several columns
+    (1, 65, "blocked"),
+    (8, 64, "blocked"),       # bench_prims' 100,000 × 8
+    (128, 64, "blocked"),     # the 1M × 128 column histogram
+    (1, 12288, "blocked")])
+def test_k9_form(batch, n_bins, want):
+    """K9's form: lane-private counters where the block's n_bins·batch
+    counters are at most ``LANE_COUNTERS``, shared atomics past it (the
+    rule ``csrc/histogram.cu``'s ``histogram_form`` applies on the card)."""
+    assert k9.k9_form(batch, n_bins) == want
+    assert (k9.k9_form(batch, n_bins) == "lanes") == (
+        n_bins * batch <= k9.LANE_COUNTERS)
+
+
+@pytest.mark.parametrize("case", ["meta_device", "float_bins", "one_dim",
+                                  "no_bins", "cpu_past_max_bins"])
+def test_wrapper_refuses_or_dispatches(case):
+    """The wrapper refuses what no form takes and dispatches by device:
+    CPU tensors take the twin (no kernel, any n_bins), a device without a
+    kernel raises DeviceError, and nothing falls back."""
+    from raft_tpu_torch.core.error import DeviceError
+
+    before = k9.LAUNCHES
+    if case == "meta_device":
+        with pytest.raises(DeviceError):
+            k9.histogram_blocked(torch.zeros((5, 2), dtype=torch.int32,
+                                             device="meta"), 4)
+    elif case == "float_bins":
+        with pytest.raises(ValueError):
+            k9.histogram_blocked(torch.zeros((5, 2)), 4)
+    elif case == "one_dim":
+        with pytest.raises(ValueError):
+            k9.histogram_blocked(torch.zeros((5,), dtype=torch.int32), 4)
+    elif case == "no_bins":
+        with pytest.raises(ValueError):
+            k9.histogram_blocked(torch.zeros((5, 2), dtype=torch.int32), 0)
+    else:
+        bins = rng.integers(0, k9.MAX_BINS + 40, size=(300, 2)).astype(
+            np.int32)
+        got = k9.histogram_blocked(torch.from_numpy(bins), k9.MAX_BINS + 40)
+        want = np.stack([np.bincount(bins[:, c], minlength=k9.MAX_BINS + 40)
+                         for c in range(2)], axis=1)
+        np.testing.assert_array_equal(got.numpy(), want)
+    assert k9.LAUNCHES == before

@@ -250,15 +250,23 @@ def test_slot_rows_must_be_whole_tiles():
                               Qb=QB, passes=1)
 
 
-@pytest.mark.parametrize("Qn,n_tiles,n_sm,want", [
-    (2048, 489, 132, 15), (64, 489, 132, 1), (2048, 1, 132, 1),
-    (1000, 489, 132, 8)])
-def test_slot_tiles_per_block_fills_the_card(Qn, n_tiles, n_sm, want):
-    """The slot kernels' grid: groups of consecutive tiles that cover
-    every tile and give each SM at least four blocks (about eight before
-    the tiles are cut into whole groups)."""
-    tpb = tk.slot_tiles_per_block(Qn, n_tiles, n_sm)
+@pytest.mark.parametrize("blocks,n_tiles,chunks,n_sm,want", [
+    (32, 489, 16, 132, 15),     # the ladder: 16 query blocks × 2 halves
+    (8, 64, 16, 132, 4),        # phase 2's resident shape, 512 queries
+    (16, 489, 16, 132, 15),     # d-chunked: 16 query blocks, clusters of 2
+    (2, 489, 16, 132, 8),       # one query block
+    (32, 1, 16, 132, 1),        # one tile
+    (4, 4, 2, 132, 1)])         # this file's shapes: every tile a range
+def test_slot_tiles_per_block_fills_the_card(blocks, n_tiles, chunks, n_sm,
+                                             want):
+    """The slot kernels' grid: ranges of consecutive tiles that cover
+    every tile, none empty, whose blocks fill the card (at least 90% of
+    the SMs where there is that much work) and finish within 10% and one
+    tile of an even spread of the tiles over the SMs."""
+    tpb = tk.slot_range_tiles(blocks, n_tiles, chunks, n_sm)
     assert tpb == want
-    n_groups = -(-n_tiles // tpb)
-    assert (n_groups - 1) * tpb < n_tiles <= n_groups * tpb
-    assert n_groups * -(-Qn // 64) >= min(4 * n_sm, n_tiles * -(-Qn // 64))
+    ranges = -(-n_tiles // tpb)
+    assert (ranges - 1) * tpb < n_tiles <= ranges * tpb
+    assert blocks * ranges >= min(0.9 * n_sm, blocks * n_tiles)
+    waves = -(-blocks * ranges // n_sm)
+    assert waves * tpb <= 1.1 * blocks * n_tiles / n_sm + 1

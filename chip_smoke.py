@@ -82,7 +82,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    may fail the certificate), ivf_q8_p64 (list-major, int8; id sets
    identical to the f32 index at P=64) and ivf_exact (P=1024, the K1
    plane; ids identical to the exact oracle up to proven ties). Each run
-   prints recall@10, reruns, the host-clock median of 5 calls, launches
+   prints recall@10, reruns, the host-clock median of 3 calls, launches
    per batch, and K4 timed on the run's own inputs beside its twin and
    its bound: its wrapper (CUDA events) and its scan and merge kernels
    alone under torch.profiler (``kernel_ms``, what the speed guard
@@ -100,7 +100,7 @@ Phases, each fatal on failure (non-zero exit, no result line):
    counts zeroed just before and read just after; recall@10, the
    certificate rungs (certified, widened, exact rerun), id sets identical
    to ``pq_scan="flat"`` over the same probes up to proven ties (a hard
-   check), the host-clock median of 5, K5 on the run's own inputs (CUDA
+   check), the host-clock median of 3, K5 on the run's own inputs (CUDA
    events, beside its bound and, at P=32, its twin; depth 2 also alone
    under torch.profiler, ``kernel_ms``, what the speed guard holds) at
    every rung (depth 2, 4, 8) with each rung's launches in the run
@@ -293,9 +293,38 @@ Phases, each fatal on failure (non-zero exit, no result line):
    bytes and ``fold_issue_ms``, the fold's SASS issue time, which
    ``bound_ms`` leaves out), ``nonfinite_k1_k2``
    (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
-   ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
+   ``mutable``, ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
    line ``{"ok": true, "device": {...}}``.
+15. The mutable index and its durability plane (``mutable_phase``), run
+   right after phase 6 on phases 5's and 6's indexes. (a) brute bf16
+   served at ``benchmarks/bench_mutation.py:55,112-210``'s shape:
+   ``ServingEngine(Y, k=64, mutable=True, compact_threshold=5120,
+   delta_cap=10240)`` over 1M × 128 N(0, 1) rows, 6 closed-loop readers
+   (1500 batches at least, more while the writer or a fold runs; sizes
+   Poisson around the ladder's first rung) beside one writer of 40
+   batches (an upsert of 64 overwrites and 192 fresh ids, then a delete of
+   32 other live ids), across at least one compaction; no read submitted
+   after a delete's ack names its id; then 256 queries against the
+   from-scratch oracle over the host model of the live rows (ids up to
+   proven ties, values within the expanded form's rounding); read and
+   write p50/p99, reads/s, folds (materialize, rebuild, rebase seconds),
+   reads completed inside a fold window, delta refresh ms, base and delta
+   n_fail, K1 launches per search (counts zeroed before the load, read
+   after), device busy and idle share. (e) K1 against its twin on that
+   base's operands after 2000 scattered deletes: 65 tiles with the view's
+   tombstoned carrier, p1 (pair) and p3 (``compare_k1``). (b) the same at
+   int8 (K2), 300 reads and 8 write batches. (c) the IVF-Flat and 8-bit
+   IVF-PQ indexes wrapped in ``MutableIndex`` (no rebuild): 1000 deletes
+   and 512 upserts, ``search_view(exact=True)`` against the oracle, the
+   probed path (K5 with the masked ids on IVF-PQ, its count zeroed before
+   and read after) never naming a deleted id, recall@10 printed. (d)
+   ``benchmarks/bench_recovery.py:51,118-200``: 64 write batches of 256
+   rows on a 1M × 128 ``MutableIndex`` in memory and then durable
+   (``wal_sync="batch"``, a temporary directory removed afterwards):
+   ``durable_overhead_x``, the genesis checkpoint's disk seconds; recovery
+   after WAL tails of 64 and 256 records split into checkpoint load,
+   build and replay, answering 256 queries with the pre-crash index's ids.
 
 Exits 2 without a CUDA device.
 """
@@ -324,6 +353,9 @@ SERVE_SHAPE = (1_000_000, 128, 64, 2000, 8)
 SERVE_THINK_S = 1e-3
 # the IVF phase: bench_ann.py's TPU shape and build
 IVF_CENTERS, IVF_K, IVF_LISTS = 64, 10, 1024
+#: host-clock repetitions of each IVF-Flat and IVF-PQ cell (their median;
+#: 5 until the mutable phase joined the run, cut to hold the wall time)
+IVF_TIMED_REPS = 3
 
 
 def fail(msg: str):
@@ -958,11 +990,12 @@ def ann_data(res, n_rows: int, n_queries: int):
 
 
 def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
-              probes=(32, 128, 64), data=None):
+              probes=(32, 128, 64), data=None, keep=None):
     """Phases 4 and 5 (see the module doc) at ``n_rows`` × 128 with
     ``n_lists`` lists; ``probes`` are the P of ivf_p32, ivf_p128 and
     ivf_q8_p64; ``data`` is :func:`ann_data`'s (made here when None).
-    Returns (the ``ivf`` report, K4's two ``kernels`` entries)."""
+    ``keep`` (a dict) receives the f32 index as ``"ivf_flat"``. Returns
+    (the ``ivf`` report, K4's two ``kernels`` entries)."""
     import torch
     from raft_tpu_torch.ann import build_ivf_flat, search_ivf_flat
 
@@ -1047,7 +1080,7 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
                                                fine_scan="query")
             n_tie = check_exact(ids, ref_i, ref_v, X, Q, name, floor)
         times = []
-        for _ in range(5):
+        for _ in range(IVF_TIMED_REPS):
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             search_ivf_flat(res, ix, Q, IVF_K, n_probes=P, fine_scan="list")
@@ -1137,6 +1170,8 @@ def ivf_phase(res, n_rows: int, n_queries: int, n_lists: int,
                 "replaces": "raft_tpu/ops/fine_scan_pallas.py:329",
                 "launches": report["ivf_q8_p64"]["launches"]["K4_q8"],
                 **k4_rows["ivf_q8_p64"]}
+    if keep is not None:
+        keep["ivf_flat"] = f32
     return report, [k4_entry, q8_entry]
 
 
@@ -1262,7 +1297,7 @@ def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
     """One IVF-PQ cell: ``search_ivf_pq(pq_scan="pq")`` with the counts
     zeroed just before and read just after; recall@10 against the exact
     oracle; the rungs; id sets held to ``pq_scan="flat"`` over the same
-    probes (ties proven); the host-clock median of 5; the chooser's pick
+    probes (ties proven); the host-clock median of ``IVF_TIMED_REPS``; the chooser's pick
     under ``auto``; K5 on the run's own inputs (CUDA events, beside its
     bound and, with ``plain``, its twin); the certificate margin's
     quantiles over θ; one profiled call."""
@@ -1290,7 +1325,7 @@ def pq_cell(res, name: str, index, Q, P: int, X, o_ids, floor,
     n_tie = check_exact(ids, fi, fv, X, Q, f"{name} against the flat scan",
                         floor)
     times = []
-    for _ in range(5):
+    for _ in range(IVF_TIMED_REPS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         search_ivf_pq(res, index, Q, IVF_K, n_probes=P, pq_scan="pq")
@@ -1477,12 +1512,12 @@ def ivf_serving(res, index, data, P: int, algorithm: str,
     return row, launches[kname]
 
 
-def pq_phase(res, data, n_lists: int, probes=(32, 128)):
+def pq_phase(res, data, n_lists: int, probes=(32, 128), keep=None):
     """Phase 6 (see the module doc) on :func:`ann_data`'s ``data`` with
     ``n_lists`` lists; ``probes`` are the P of the pq cells (the first is
     also the diffuse cell's, the served burst's and the K5-against-twin
-    check's). Returns (the ``ivf_pq`` report, K5's two ``kernels``
-    entries)."""
+    check's). ``keep`` (a dict) receives the 8-bit index as ``"ivf_pq"``.
+    Returns (the ``ivf_pq`` report, K5's two ``kernels`` entries)."""
     import torch
     from raft_tpu_torch.ann import build_ivf_pq
     from raft_tpu_torch.ops import pq_scan as k5
@@ -1543,6 +1578,8 @@ def pq_phase(res, data, n_lists: int, probes=(32, 128)):
     # ---- phase 6d: a short served burst on the 8-bit index ----
     report["serve_ivf_pq"], serve_launches = ivf_serving(
         res, index[8], data, probes[0], "ivf_pq")
+    if keep is not None:
+        keep["ivf_pq"] = index[8]
     del index[8]
     torch.cuda.empty_cache()
 
@@ -4382,6 +4419,537 @@ def wide_knn_phase(res, shape=WIDE_SHAPE, main=(N_INDEX, DIM, N_QUERIES, K)):
 #: power limit reads up to 27% slow. Those past GUARD_NOTE are named in the
 #: line; a parent build timed in the same call (``port_scripts/ab_*.py``)
 #: is the finer comparison.
+# ---------------------------------------------------------------- mutable
+# bench_mutation.py:55's chip shape: (index rows, d, k, reads, readers,
+# write batches, upserts a batch); its watermark is half the write volume
+MUT_SHAPE = (1_000_000, 128, 64, 1500, 6, 40, 256)
+MUT_INT8_BATCHES = 8
+# bench_recovery.py:51's chip shape: write batches, rows a batch, tails
+RECOVERY_SHAPE = (64, 256, (64, 256))
+
+
+class LiveModel:
+    """The host's model of what a mutable brute index holds: the base rows
+    ``Y`` [m, d] (on the card) under ids 0..m−1, and every upserted row by
+    its external id. ``alive`` / ``deleted_at`` span the id space."""
+
+    def __init__(self, Y, id_space: int):
+        import numpy as np
+
+        self.Y, self.m = Y, Y.shape[0]
+        self.alive = np.zeros(id_space, bool)
+        self.alive[:self.m] = True
+        self.base_alive = self.alive[:self.m].copy()
+        self.extra = {}
+        self.deleted_at = np.full(id_space, np.inf)
+        self.lock = threading.Lock()
+
+    def upsert(self, ids, rows):
+        for e, r in zip(ids.tolist(), rows):
+            if e < self.m:
+                self.base_alive[e] = False
+            self.extra[e] = r
+        self.alive[ids] = True
+
+    def delete(self, ids, at: float):
+        for e in ids.tolist():
+            if e < self.m:
+                self.base_alive[e] = False
+            self.extra.pop(e, None)
+        self.alive[ids] = False
+        self.deleted_at[ids] = at
+
+    def live(self):
+        """(rows [n, d] on the card, their external ids int64 on the
+        card)."""
+        import numpy as np
+        import torch
+
+        base = torch.from_numpy(np.flatnonzero(self.base_alive)).cuda()
+        ext = np.fromiter(self.extra, np.int64, len(self.extra))
+        rows = [self.Y[base]]
+        if len(ext):
+            rows.append(torch.from_numpy(np.stack(
+                [self.extra[e] for e in ext.tolist()])).cuda())
+        return (torch.cat(rows), torch.cat([base,
+                                            torch.from_numpy(ext).cuda()]))
+
+
+def mutable_check(vals, ids, rows, exts, Qx, k: int, label: str,
+                  floor=None):
+    """Hold a mutable search's answer against the from-scratch oracle over
+    the live ``rows`` (external ids ``exts``): every returned id live, the
+    ids the oracle's up to proven ties (``check_exact``), values within
+    the expanded f32 form's rounding. Returns (tie queries, max abs value
+    error)."""
+    import torch
+
+    o_vals, o_pos = exact_oracle(rows, Qx, k)
+    pos_of = torch.full((int(exts.max()) + 2,), -1, dtype=torch.long,
+                        device=rows.device)
+    pos_of[exts] = torch.arange(exts.numel(), device=rows.device)
+    ids = ids.long().to(rows.device)
+    check(bool((ids >= 0).all()) and int(ids.max()) < pos_of.numel() - 1,
+          f"{label}: an id outside the live set came back")
+    pos = pos_of[ids]
+    check(bool((pos >= 0).all()), f"{label}: a deleted or unknown id came "
+          f"back ({int((pos < 0).sum())} slots)")
+    n_tie = check_exact(pos, o_pos, o_vals, rows, Qx, label, floor)
+    tol = 16 * 2.0 ** -24 * ((Qx * Qx).sum(1) + (rows * rows).sum(1).max())
+    err = (vals.to(o_vals.device) - o_vals).abs()
+    check(bool((err <= tol[:, None] + 1e-5 * o_vals.abs()).all()),
+          f"{label}: values differ from the oracle's by up to "
+          f"{err.max().item()}")
+    return n_tie, err.max().item()
+
+
+def _timed(report: dict, name: str, fn, sync: bool = False):
+    """``fn`` wrapped to add its wall seconds to ``report[name]``."""
+    import torch
+
+    def run(*a, **kw):
+        t0 = time.perf_counter()
+        try:
+            return fn(*a, **kw)
+        finally:
+            if sync:
+                torch.cuda.synchronize()
+            report.setdefault(name, []).append(time.perf_counter() - t0)
+    return run
+
+
+def mutable_brute_cell(res, Y, db_dtype: str, n_reads: int,
+                       write_batches: int, seed: int):
+    """3a / 3b: ``ServingEngine(Y, mutable=True)`` under closed-loop
+    readers and one writer (bench_mutation.py:112-210), then the quiet
+    oracle check. Returns (the cell's report, its K1/K2 launches, the
+    engine's view for 3e — the engine is stopped)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.mutable import search_view
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.serving import ServingEngine
+
+    m, d, k, _, readers, _, wbatch = MUT_SHAPE
+    threshold = (MUT_SHAPE[5] * wbatch) // 2
+    rng = np.random.default_rng(seed)
+    t0 = time.perf_counter()
+    engine = ServingEngine(Y, k=k, mutable=True, compact_threshold=threshold,
+                           delta_cap=2 * threshold,
+                           db_dtype=None if db_dtype == "bf16" else db_dtype)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    mi = engine.mutable
+    folds = {}
+    mi._materialize_locked = _timed(folds, "materialize_s",
+                                    mi._materialize_locked)
+    mi._store.update = _timed(folds, "rebuild_s", mi._store.update)
+    mi._rebase_locked = _timed(folds, "rebase_s", mi._rebase_locked)
+    refresh = {}
+    mi._refresh_delta = _timed(refresh, "s", mi._refresh_delta, sync=True)
+    ladder = engine.buckets
+    model = LiveModel(Y, m + write_batches * wbatch + 16)
+    t0 = time.perf_counter()
+    engine.start()
+    warm_s = time.perf_counter() - t0
+    report = {"index": f"{db_dtype} p3", "rows": m, "build_s": build_s,
+              "warmup_s": warm_s, "compact_threshold": threshold,
+              "delta_cap": mi.delta_cap, "buckets": list(ladder)}
+    try:
+        # prime the delta path before the measured window
+        nxt = [m]
+        prime = rng.normal(size=(1, d)).astype(np.float32)
+        engine.upsert([nxt[0]], prime).result(timeout=120)
+        model.upsert(np.array([nxt[0]]), prime)
+        nxt[0] += 1
+        engine.query(rng.normal(size=(4, d)).astype(np.float32),
+                     timeout=120)
+        sizes = np.clip(rng.poisson(max(2, ladder[0]), n_reads + 4096), 1,
+                        ladder[-1])
+        blocks = rng.normal(size=(64, ladder[-1], d)).astype(np.float32)
+        lock = threading.Lock()
+        state = {"next": 0, "writer": True}
+        reads, w_lat, errors, windows = [], [], [], []
+
+        def reader():
+            while True:
+                with lock:
+                    i = state["next"]
+                    if i >= n_reads and not (state["writer"]
+                                             or mi.folding):
+                        return
+                    state["next"] = i + 1
+                q = blocks[i % 64, :int(sizes[i % len(sizes)])]
+                t_sub = time.perf_counter()
+                try:
+                    _, ids = engine.query(q, timeout=120)
+                except Exception as e:
+                    with lock:
+                        errors.append(f"read: {type(e).__name__}: {e}"[:200])
+                    continue
+                with lock:
+                    reads.append((t_sub, time.perf_counter(), ids))
+
+        def writer():
+            w_rng = np.random.default_rng(seed + 1)
+            try:
+                for _ in range(write_batches):
+                    with model.lock:
+                        live = np.flatnonzero(model.alive)
+                    n_over = wbatch // 4
+                    pick = w_rng.choice(live, n_over + wbatch // 8,
+                                        replace=False)
+                    over, dels = pick[:n_over], pick[n_over:]
+                    fresh = np.arange(nxt[0], nxt[0] + wbatch - n_over)
+                    nxt[0] += wbatch - n_over
+                    ids = np.concatenate([over, fresh])
+                    rows = w_rng.normal(size=(wbatch, d)).astype(np.float32)
+                    t0 = time.perf_counter()
+                    engine.upsert(ids, rows).result(timeout=120)
+                    with model.lock:
+                        model.upsert(ids, rows)
+                    engine.delete(dels).result(timeout=120)
+                    t1 = time.perf_counter()
+                    with model.lock:
+                        model.delete(dels, t1)
+                    w_lat.append(t1 - t0)
+            except Exception as e:
+                errors.append(f"write: {type(e).__name__}: {e}"[:200])
+            finally:
+                with lock:
+                    state["writer"] = False
+
+        def fold_monitor():
+            start = None
+            while state["writer"] or start is not None or mi.folding:
+                f = mi.folding
+                now = time.perf_counter()
+                if f and start is None:
+                    start = now
+                elif not f and start is not None:
+                    windows.append((start, now))
+                    start = None
+                time.sleep(0.001)
+
+        k1.LAUNCHES = k1.LAUNCHES_Q8 = 0
+        s0 = engine.stats()
+        c0 = mi.compactions
+        threads = [threading.Thread(target=reader) for _ in range(readers)]
+        threads += [threading.Thread(target=writer),
+                    threading.Thread(target=fold_monitor)]
+        t_start = time.perf_counter()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(600)
+        engine.flush(60)
+        wall = time.perf_counter() - t_start
+        mi.wait_for_compaction(timeout=300)
+        launches = k1.LAUNCHES_Q8 if db_dtype == "int8" else k1.LAUNCHES
+        s1 = engine.stats()
+        check(not errors, f"mutable {db_dtype}: {errors[:3]}")
+        check(len(w_lat) == write_batches, f"mutable {db_dtype}: "
+              f"{len(w_lat)} of {write_batches} write batches applied")
+        # no read submitted after a delete's ack returned its id
+        stale = sum(int((model.deleted_at[ids[ids >= 0]] < t_sub).sum())
+                    for t_sub, _, ids in reads)
+        check(stale == 0, f"mutable {db_dtype}: {stale} slots named an id "
+              f"deleted before the read was submitted")
+        batches = s1["batches"] - s0["batches"]
+        lat_ms = np.asarray([b - a for a, b, _ in reads]) * 1e3
+        in_fold = sum(any(a <= done <= b for a, b in windows)
+                      for _, done, _ in reads)
+        report.update({
+            "reads": len(reads), "readers": readers,
+            "write_batches": write_batches, "rows_per_write_batch": wbatch,
+            "read_p50_ms": float(np.percentile(lat_ms, 50)),
+            "read_p99_ms": float(np.percentile(lat_ms, 99)),
+            "write_p50_ms": 1e3 * float(np.percentile(w_lat, 50)),
+            "write_p99_ms": 1e3 * float(np.percentile(w_lat, 99)),
+            "reads_per_s": len(reads) / wall, "wall_s": wall,
+            "compactions": mi.compactions - c0,
+            "fold_windows_s": [b - a for a, b in windows],
+            "reads_completed_in_fold": int(in_fold),
+            "fold_s": {n: v for n, v in folds.items()},
+            "delta_refresh_ms": {
+                "p50": 1e3 * float(np.median(refresh["s"])),
+                "max": 1e3 * float(np.max(refresh["s"])),
+                "count": len(refresh["s"])},
+            "batches": batches, "fixups": s1["fixups"] - s0["fixups"],
+            "launches": {"K2" if db_dtype == "int8" else "K1": launches},
+            "launches_per_search": launches / max(1, batches),
+            "stale_deleted_slots": stale, "mutable": s1["mutable"]})
+        check(launches > 0, f"mutable {db_dtype}: the load launched no "
+              f"{'K2' if db_dtype == 'int8' else 'K1'}")
+        if write_batches * wbatch >= threshold:
+            check(report["compactions"] >= 1, f"mutable {db_dtype}: the "
+                  f"load crossed no compaction")
+        # the quiet check: 256 queries through the engine against the
+        # from-scratch oracle over the model's live rows
+        Qx = torch.from_numpy(rng.normal(size=(256, d)).astype(
+            np.float32)).cuda()
+        vals, ids = engine.query(Qx.cpu().numpy(), timeout=120)
+        rows, exts = model.live()
+        n_tie, err = mutable_check(torch.from_numpy(vals),
+                                   torch.from_numpy(ids), rows, exts, Qx, k,
+                                   f"mutable {db_dtype}")
+        _, _, st = search_view(mi, Qx, k, with_stats=True)
+        report.update({"oracle_queries": 256, "oracle_tie_queries": n_tie,
+                       "max_abs_val_err": err, "n_fail": st,
+                       "live_rows": int(exts.numel())})
+        del rows, exts
+        # device busy and idle share over a short read burst
+        report["profile"] = profile_run(lambda: closed_loop(
+            engine, lambda i: blocks[i % 64, :int(sizes[i])], 200, readers,
+            0.0, seed + 2))
+    finally:
+        engine.stop()
+    return report, launches, engine, model
+
+
+def tombstoned_k1_twin(engine, model, gen, Q: int = 500, tiles: int = 65):
+    """3e: K1 against its twin on the mutable base's own operands after
+    2000 scattered deletes: the first ``tiles`` tiles of the base with the
+    view's tombstoned carrier (never-wins sentinels at the holes), at p1
+    (pair) and p3. Returns {tag: max abs error, "holes": n}."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.mutable import apply_delete
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    mi = engine.mutable
+    live = np.flatnonzero(model.base_alive)
+    dels = np.random.default_rng(7).choice(live, 2000, replace=False)
+    apply_delete(mi, dels)
+    view = mi.view()
+    idx = view.plane.index
+    M = tiles * idx.T
+    y_hi, y_lo = idx.y_hi[:M], idx.y_lo[:M]
+    yyh = view.base_yyh[:M].contiguous()
+    holes = int((yyh >= k1._PACK_PAD).sum()) - int(
+        (idx.yyh_k[:M] >= k1._PACK_PAD).sum())
+    check(holes > 0, "3e: no tombstone landed in the checked tiles")
+    x = torch.randn(Q, idx.stream_width, device="cuda", generator=gen)
+    xxh = 0.5 * (x * x).sum(1)
+    out_errs = {"holes": holes}
+    saved = k1.LAUNCHES
+    for passes, pair in ((1, True), (3, False)):
+        kw = dict(T=idx.T, g=idx.g, passes=passes, pair=pair,
+                  pbits=idx.pbits, xxh=xxh)
+        out = k1.fused_l2_group_topk_packed(x, y_hi, y_lo, yyh, **kw)
+        ref = k1.fused_l2_group_topk_packed_ref(x, y_hi, y_lo, yyh, **kw)
+        out_errs[f"p{passes}"] = compare_k1(out, ref, x, y_hi, idx.pbits,
+                                            pair)
+        del out, ref
+    k1.LAUNCHES = saved              # comparison launches do not count
+    print(f"K1 vs twin on the tombstoned base (Q={Q}, {tiles} tiles, "
+          f"{holes} holes): {json.dumps(out_errs)}", flush=True)
+    return out_errs
+
+
+def mutable_ann_cell(res, index, algorithm: str, data, P: int = 32,
+                     n_q: int = 256):
+    """3c: the ivf / ivf_pq phase's 1M-row index wrapped in a
+    ``MutableIndex`` (no rebuild): 1000 deletes and 512 upserts, then
+    ``search_view(exact=True)`` against the oracle over the live rows, the
+    probed path (K5 with the masked ids on IVF-PQ) never naming a deleted
+    id, and its recall@10. Returns (report, K5 launches)."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch.mutable import (MutableIndex, apply_delete,
+                                        apply_upsert, search_view)
+    from raft_tpu_torch.ops import pq_scan as k5
+
+    X, Q, floor = data["X"], data["Q"][:n_q], data["floor"][:n_q]
+    m, d = X.shape
+    rng = np.random.default_rng(23)
+    t0 = time.perf_counter()
+    mi = MutableIndex(index, algorithm=algorithm, res=res,
+                      auto_compact=False, compact_threshold=4096)
+    torch.cuda.synchronize()
+    wrap_s = time.perf_counter() - t0
+    dels = rng.choice(m, 1000, replace=False)
+    # half the upserts land near the queries, so the delta competes
+    near = X[torch.from_numpy(rng.choice(m, 256, replace=False)).cuda()]
+    new_rows = torch.cat([near + 0.05 * torch.randn_like(near),
+                          torch.randn(256, d, device="cuda") * 3.0])
+    new_ids = np.arange(m, m + 512)
+    t0 = time.perf_counter()
+    apply_delete(mi, dels)
+    apply_upsert(mi, new_ids, new_rows.cpu().numpy())
+    torch.cuda.synchronize()
+    mut_s = time.perf_counter() - t0
+    keep = np.ones(m, bool)
+    keep[dels] = False
+    keep_ids = torch.from_numpy(np.flatnonzero(keep)).cuda()
+    rows = torch.cat([X[keep_ids], new_rows])
+    exts = torch.cat([keep_ids, torch.from_numpy(new_ids).cuda()])
+    t0 = time.perf_counter()
+    vals, ids = search_view(mi, Q, IVF_K, exact=True)
+    torch.cuda.synchronize()
+    exact_ms = 1e3 * (time.perf_counter() - t0)
+    n_tie, err = mutable_check(vals, ids, rows, exts, Q, IVF_K,
+                               f"mutable {algorithm} exact", floor=floor)
+    set_pq_counts({"K1": 0, "K5": 0, "K5_4bit": 0})
+    t0 = time.perf_counter()
+    pv, pi, st = search_view(mi, Q, IVF_K, n_probes=P, with_stats=True)
+    torch.cuda.synchronize()
+    probed_ms = 1e3 * (time.perf_counter() - t0)
+    k5_launches = pq_counts()["K5"]
+    if algorithm == "ivf_pq":
+        check(k5_launches > 0, "3c: the masked IVF-PQ probe launched no K5")
+    dead = torch.from_numpy(dels).cuda()
+    check(not bool(torch.isin(pi.long(), dead).any()),
+          f"mutable {algorithm}: the probed path returned a deleted id")
+    o_ids = ids.cpu().numpy()
+    got = pi.cpu().numpy()
+    recall = float(np.mean([len(set(a) & set(b)) / IVF_K
+                            for a, b in zip(got, o_ids)]))
+    report = {"rows": m, "wrap_s": wrap_s, "deletes": 1000, "upserts": 512,
+              "mutate_s": mut_s, "exact_ms": exact_ms,
+              "exact_tie_queries": n_tie, "max_abs_val_err": err,
+              "probes": P, "probed_ms": probed_ms,
+              "recall_at_10": recall, "probed_reruns": st["base_fail"],
+              "queries": n_q, "K5_launches": k5_launches}
+    print(f"mutable {algorithm}: {json.dumps(report)}", flush=True)
+    del mi
+    torch.cuda.empty_cache()
+    return report, k5_launches
+
+
+def durability_cell(Y, seed: int = 0):
+    """3d (bench_recovery.py:118-200): 64 write batches of 256 rows (and a
+    delete of 32) on a 1M × 128 ``MutableIndex``, in memory and then with
+    a durable directory (``wal_sync="batch"``), then recovery after WAL
+    tails of 64 and 256 records, each held against the pre-crash index.
+    One durable index serves all three: its directory is copied after 32
+    batches (the 64-record tail, outside the timed writes), and it goes on
+    to 128 batches (256 records; the delta fills its cap on the way and
+    folds inline, as the reference's run does). Returns the report."""
+    import glob
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import raft_tpu_torch.mutable.checkpoint as ckpt
+    from raft_tpu_torch.mutable import (MutableIndex, apply_delete,
+                                        apply_upsert, recover, search_view)
+
+    batches, wbatch, tails = RECOVERY_SHAPE
+    m, d = Y.shape
+    k = MUT_SHAPE[2]
+    cap = max(1024, batches * wbatch + 64)
+    common = dict(auto_compact=False, compact_threshold=cap, delta_cap=cap)
+    rng = np.random.default_rng(seed)
+    writes = {}
+    real_write = ckpt.CheckpointStore.write
+    ckpt.CheckpointStore.write = _timed(writes, "s", real_write)
+
+    def drive(idx, n_batches, state):
+        t0 = time.perf_counter()
+        for _ in range(n_batches):
+            b, nxt = state["b"], state["next"]
+            apply_upsert(idx, np.arange(nxt, nxt + wbatch, dtype=np.int32),
+                         rng.normal(size=(wbatch, d)).astype(np.float32))
+            dels = np.unique((7 * b + np.arange(wbatch // 8)) * 997 % m)
+            apply_delete(idx, dels.astype(np.int32))
+            state["b"], state["next"] = b + 1, nxt + wbatch
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def held(tag, directory, want):
+        t0 = time.perf_counter()
+        ridx, st = recover(directory, attach=False, **common)
+        torch.cuda.synchronize()
+        rec_s = time.perf_counter() - t0
+        vr, ir = search_view(ridx, q, k)
+        check(torch.equal(want[1], ir), f"3d: recovery after a {tag}-record "
+              f"tail answers with other ids than the pre-crash index")
+        check(bool(torch.allclose(want[0], vr, atol=1e-5)),
+              f"3d: recovered values differ (tail {tag})")
+        return {"tail_records": tag,
+                "wal_records": st["wal_last_lsn"] - st["checkpoint_lsn"],
+                "replayed_records": st["replayed_records"],
+                "recovery_s": rec_s, "load_s": st["load_seconds"],
+                "build_s": st["build_seconds"],
+                "replay_s": st["replay_seconds"],
+                "checkpoint_rows": st["checkpoint_rows"]}
+
+    root = tempfile.mkdtemp(prefix="chip_smoke_durable_")
+    report = {"rows": m, "write_batches": batches, "rows_per_batch": wbatch}
+    q = torch.from_numpy(rng.normal(size=(256, d)).astype(np.float32)).cuda()
+    try:
+        plain = MutableIndex(Y, **common)
+        t_plain = drive(plain, batches, {"b": 0, "next": m})
+        del plain
+        ddir = os.path.join(root, "durable")
+        t0 = time.perf_counter()
+        dur = MutableIndex(Y, durable_dir=ddir, wal_sync="batch", **common)
+        report["genesis_s"] = time.perf_counter() - t0
+        report["genesis_checkpoint_disk_s"] = writes["s"][-1]
+        report["genesis_checkpoint_bytes"] = sum(
+            os.path.getsize(p) for p in glob.glob(
+                os.path.join(ddir, "ckpt-*", "*")))
+        state = {"b": 0, "next": m}
+        t_dur = drive(dur, tails[0] // 2, state)   # 2 records a batch
+        want64 = search_view(dur, q, k)
+        shutil.copytree(ddir, os.path.join(root, "tail64"))
+        t_dur += drive(dur, batches - tails[0] // 2, state)
+        report.update({"memory_s": t_plain, "durable_s": t_dur,
+                       "durable_overhead_x": t_dur / t_plain,
+                       "writes_per_s": 2 * batches / t_dur})
+        drive(dur, tails[1] // 2 - batches, state)
+        want256 = search_view(dur, q, k)
+        report["checkpoint_disk_s"] = writes["s"]
+        dur.close()                      # the fsync horizon: a crash
+        del dur
+        report["recovery"] = [
+            held(tails[0], os.path.join(root, "tail64"), want64),
+            held(tails[1], ddir, want256)]
+        torch.cuda.empty_cache()
+    finally:
+        ckpt.CheckpointStore.write = real_write
+        shutil.rmtree(root, ignore_errors=True)
+    print(f"mutable durability: {json.dumps(report)}", flush=True)
+    return report
+
+
+def mutable_phase(res, ivf_index, pq_index, data, seed: int = 0):
+    """Phase ``mutable`` (see the module doc): 3a brute bf16 served, 3e K1
+    on its tombstoned base, 3b brute int8 served, 3c the IVF-Flat and
+    IVF-PQ indexes wrapped, 3d durability. Returns (the ``mutable``
+    report, the path's launches {K1, K2, K5})."""
+    import torch
+
+    m, d = MUT_SHAPE[:2]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    Y = torch.randn(m, d, device="cuda", generator=gen)
+    report, launches = {}, {}
+    report["brute_bf16"], launches["K1"], engine, model = \
+        mutable_brute_cell(res, Y, "bf16", MUT_SHAPE[3], MUT_SHAPE[5], seed)
+    print(f"mutable brute_bf16: {json.dumps(report['brute_bf16'])}",
+          flush=True)
+    report["k1_tombstoned_twin"] = tombstoned_k1_twin(engine, model, gen)
+    del engine, model
+    torch.cuda.empty_cache()
+    report["brute_int8"], launches["K2"], engine, model = \
+        mutable_brute_cell(res, Y, "int8", 300, MUT_INT8_BATCHES, seed + 5)
+    print(f"mutable brute_int8: {json.dumps(report['brute_int8'])}",
+          flush=True)
+    del engine, model
+    torch.cuda.empty_cache()
+    report["ivf_flat"], _ = mutable_ann_cell(res, ivf_index, "ivf_flat",
+                                             data)
+    report["ivf_pq"], launches["K5"] = mutable_ann_cell(res, pq_index,
+                                                        "ivf_pq", data)
+    report["durability"] = durability_cell(Y, seed)
+    del Y
+    torch.cuda.empty_cache()
+    return report, launches
+
+
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.644, "K2_p3": 3.215,
             # the slot forms and K9 alone at value_histogram's 12.8 M
@@ -4714,14 +5282,24 @@ def main() -> int:
 
     # ---- phases 4–6: K4 against its twin, IVF-Flat, then IVF-PQ ----
     data = ann_data(res, N_INDEX, N_QUERIES)
+    kept = {}
     ivf, k4_entries = ivf_phase(res, N_INDEX, N_QUERIES, IVF_LISTS,
-                                data=data)
+                                data=data, keep=kept)
     torch.cuda.empty_cache()
     phase_end("ivf")
-    ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS)
-    del data
+    ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS, keep=kept)
     torch.cuda.empty_cache()
     phase_end("ivf_pq")
+
+    # ---- phase 15 (run here, on phase 5's and 6's indexes): mutable ----
+    mutable, mut_launches = mutable_phase(res, kept["ivf_flat"],
+                                          kept["ivf_pq"], data)
+    entry["mutable_launches"] = mut_launches["K1"]
+    k2_entry["mutable_launches"] = mut_launches["K2"]
+    k5_entries[0]["mutable_launches"] = mut_launches["K5"]
+    del data, kept
+    torch.cuda.empty_cache()
+    phase_end("mutable")
 
     # ---- phases 7–9: the spectral path ----
     spectral, sparse_entries = spectral_phase(res)
@@ -4750,6 +5328,7 @@ def main() -> int:
     print(json.dumps({"serving": serving}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
+    print(json.dumps({"mutable": mutable}), flush=True)
     print(json.dumps({"spectral": spectral}), flush=True)
     print(json.dumps({"pairwise_stats": pairwise_stats}), flush=True)
     print(json.dumps({"select_k": select}), flush=True)

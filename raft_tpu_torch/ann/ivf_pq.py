@@ -513,13 +513,15 @@ def adc_operands(index: IvfPqIndex, xs, probes_np, pr):
 
 
 def pq_scan_chunk(index: IvfPqIndex, xs, probes_np, pr, st, ps, k: int,
-                  P: int, W: int, pool_depth: int = 2):
+                  P: int, W: int, ids=None, pool_depth: int = 2):
     """One ADC call over the queries ``xs`` → (vals, ids, certified,
-    margin) (reference ``:558``; its ``ids`` override serves the mutable
-    plane, not ported). ``probes_np`` / ``pr`` are the probe lists on the
-    host and on the device, ``st`` / ``ps`` their slab offsets and padded
-    sizes; ``pool_depth`` ∈ (2, 4, 8) sizes the per-slot pool. ``margin``
-    is bound − θ − e_k.
+    margin) (reference ``:558``). ``probes_np`` / ``pr`` are the probe
+    lists on the host and on the device, ``st`` / ``ps`` their slab
+    offsets and padded sizes; ``ids`` overrides the slab id map (the
+    mutable plane passes its tombstone-masked ``ids_live``: a masked row
+    rescores to +inf, and the certificate compares against the same
+    masked oracle); ``pool_depth`` ∈ (2, 4, 8) sizes the per-slot pool.
+    ``margin`` is bound − θ − e_k.
 
     The certificate is per query: the kernel pools each row's certified
     lower bound, so the pooled rest-min is compared with θ plus only the
@@ -538,7 +540,8 @@ def pq_scan_chunk(index: IvfPqIndex, xs, probes_np, pr, st, ps, k: int,
                               pool_depth=pool_depth)
     xx = args[1][:nq]
     rows = torch.cat([pool[2 * t + 1][:nq] for t in range(pool_depth)], 1)
-    vals, out_ids = _pool_finish(xs, xx, rows, index.slab, index.ids,
+    vals, out_ids = _pool_finish(xs, xx, rows, index.slab,
+                                 index.ids if ids is None else ids,
                                  index.yy_slab, st, ps, k, P, W)
     theta = vals[:, k - 1]
     bound = pool[2 * pool_depth][:nq].min(1).values

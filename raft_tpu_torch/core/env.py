@@ -20,7 +20,7 @@ _UNSET = object()
 @dataclasses.dataclass(frozen=True)
 class Knob:
     name: str
-    type: str                  # str | int | float | enum
+    type: str                  # str | int | float | path | enum
     default: object
     doc: str
     choices: Tuple[str, ...] = ()
@@ -57,6 +57,16 @@ _knob("RAFT_TPU_ANN_PQ_MODE", "enum", "plain",
       "default build_ivf_pq quantizer mode: plain PQ, an OPQ learned "
       "rotation, or OPQ plus score-aware anisotropic codeword assignment",
       choices=("plain", "opq", "opq_aniso"))
+_knob("RAFT_TPU_COMPACT_THRESHOLD", "int", 1024,
+      "delta slots that trigger the background compaction fold")
+_knob("RAFT_TPU_DELTA_CAP", "int", None,
+      "delta slab capacity (default 2x threshold, 8-row quantum)")
+_knob("RAFT_TPU_DURABLE_DIR", "path", None,
+      "durability-plane directory for ServingEngine(durable=True)")
+_knob("RAFT_TPU_WAL_SYNC", "enum", "batch",
+      "WAL fsync policy", choices=("always", "batch", "none"))
+_knob("RAFT_TPU_WAL_SEGMENT_MB", "float", 64.0,
+      "WAL segment rotation size (MB)")
 _knob("RAFT_TPU_ANN_PQ_WIDEN", "int", 4,
       "max widen factor for the PQ certificate middle rung (1 disables "
       "widening; >=2 allows the 512-slot re-ADC pool, >=4 the 1024-slot "
@@ -85,7 +95,7 @@ def get(name: str, default=_UNSET):
     value = raw(name)
     if value is None:
         return fallback
-    if k.type == "str":
+    if k.type in ("str", "path"):
         return value
     if k.type == "enum":
         low = value.lower()

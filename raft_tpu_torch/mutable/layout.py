@@ -1,19 +1,25 @@
 """IndexLayout — the slab description the IVF-Flat planes share.
 
-Counterpart of ``raft_tpu/mutable/layout.py``, holding only what IVF-Flat
-and IVF-PQ call: the :class:`IndexLayout` struct (``:50``, with the PQ
-sidecar slots), the padded ragged slab
-(``ragged_layout_from_lists``, ``:138``), its per-list int8 sidecar
-(``quantize_layout``, ``:174``) and the certified-fused operands over a
-layout (``fused_geometry`` / ``fused_ops_for_layout``, ``:244`` / ``:274``),
-which the degenerate-exact plane runs K1 over. The reference builds the
-layout with numpy on the host; the port builds it with torch on the
-layout's device, so a 1M-row slab never leaves the card. The mutable
-index, its WAL and checkpoints are not ported yet.
+Counterpart of ``raft_tpu/mutable/layout.py``: the :class:`IndexLayout`
+struct (``:50``, with the PQ sidecar slots), a flat matrix as a layout
+(``dense_layout``, ``:114``, the mutable delta slab), the padded ragged
+slab (``ragged_layout_from_lists``, ``:138``), its per-list int8 sidecar
+(``quantize_layout``, ``:174``), the certified-fused operands over a
+layout (``fused_geometry`` / ``fused_ops_for_layout``, ``:244`` / ``:274``;
+bf16 or int8 streamed) and the search over them (``run_fused_ops``,
+``:331``), which the IVF degenerate-exact plane and the mutable base and
+delta planes run K1 (and K2) through. The reference builds the layout
+with numpy on the host; the port builds it with torch on the layout's
+device, so a 1M-row slab never leaves the card.
+
+A layout never mutates: a tombstone is a new ``rows_valid`` and a new
+sentinel carrier (``yyh_k``), passed to :func:`run_fused_ops` as
+overrides; the prepared operands stay as built.
 """
 
 from __future__ import annotations
 
+import copy
 import math
 from typing import NamedTuple, Optional, Tuple
 
@@ -81,6 +87,33 @@ class IndexLayout:
         return (f"IndexLayout(rows={self.n_rows}, slab={self.slab_rows}, "
                 f"d={self.d_orig}, ragged={self.ragged}, "
                 f"db_dtype={self.db_dtype})")
+
+
+def dense_layout(y, ids=None, rows_valid=None,
+                 row_quantum: int = ROW_QUANTUM, device=None) -> IndexLayout:
+    """A flat [m, d] matrix (numpy or tensor) as an :class:`IndexLayout`:
+    rows pad up to the row quantum (pad rows zero, ids −1, not valid).
+    ``ids`` defaults to ``arange(m)``; ``rows_valid`` ([m], over the input
+    rows) marks tombstoned or unused rows out (the delta slab passes its
+    occupancy). Built on ``device`` (default: ``y``'s, or the CPU for
+    numpy)."""
+    dev = (torch.device(device) if device is not None else
+           y.device if isinstance(y, torch.Tensor) else torch.device("cpu"))
+    y = as_f32(y, dev)
+    m, d = y.shape
+    R = max(row_quantum, -(-m // row_quantum) * row_quantum)
+    slab = y.new_zeros((R, d))
+    slab[:m] = y
+    out_ids = torch.full((R,), -1, dtype=torch.int32, device=dev)
+    out_ids[:m] = (torch.arange(m, dtype=torch.int32, device=dev)
+                   if ids is None else
+                   torch.as_tensor(ids, device=dev).to(torch.int32))
+    valid = torch.zeros(R, dtype=torch.bool, device=dev)
+    valid[:m] = (True if rows_valid is None else torch.as_tensor(
+        rows_valid, device=dev).reshape(-1).to(torch.bool))
+    valid &= out_ids >= 0
+    return IndexLayout(slab, out_ids, valid, n_rows=m, d_orig=d,
+                       row_quantum=row_quantum)
 
 
 def ragged_layout_from_lists(y, labels, n_lists: int,
@@ -152,16 +185,27 @@ def quantize_layout(layout: IndexLayout) -> IndexLayout:
 class FusedOps(NamedTuple):
     """Prepared certified-fused operands over one layout: the ragged
     :class:`~raft_tpu_torch.distance.knn_fused.KnnIndex` (its
-    ``rows_valid`` mask hides every pad) and ``ids`` [M] int32 mapping
-    prepared slab positions back to global ids (−1 on pads)."""
+    ``rows_valid`` mask hides every pad; bf16 or int8 streamed) and
+    ``ids`` [M] int32 mapping prepared slab positions back to global ids
+    (−1 on pads)."""
 
     index: object
     ids: torch.Tensor
 
     @property
+    def rv(self) -> torch.Tensor:
+        """[M] bool: the prepared live mask."""
+        return self.index.live_columns()
+
+    @property
+    def yyh_k(self) -> torch.Tensor:
+        """[M] f32: the sentinel carrier a tombstone scatter replaces."""
+        return self.index.yyh_k
+
+    @property
     def pool_width(self) -> int:
         idx = self.index
-        n_tiles = idx.y_hi.shape[0] // idx.T
+        n_tiles = idx.prepared_rows // idx.T
         return 2 * (-(-n_tiles // idx.g)) * 128
 
 
@@ -192,20 +236,61 @@ def fused_geometry(slab_rows: int, d: int, passes: int = 3,
 
 def fused_ops_for_layout(layout: IndexLayout, passes: int = 3,
                          metric: str = "l2", T: Optional[int] = None,
-                         g: Optional[int] = None) -> FusedOps:
+                         g: Optional[int] = None,
+                         db_dtype: Optional[str] = None) -> FusedOps:
     """Prepare the certified-fused operands for ``layout``: resolve the
     packed geometry (:func:`fused_geometry`) and run ``prepare_knn_index``
     over the f32 slab with the layout's ``rows_valid`` as the ragged
-    never-wins mask; ``ids`` is padded to the prepared row count."""
+    never-wins mask; ``ids`` is padded to the prepared row count.
+    ``db_dtype="int8"`` streams the slab quantized per certificate group
+    through K2, always rescored from the f32 rows (reference ``:274-329``);
+    the default streams bf16 through K1."""
     from raft_tpu_torch.distance.knn_fused import prepare_knn_index
 
     R, d = layout.slab.shape
     T, g, _ = fused_geometry(R, d, passes, T=T, g=g)
     index = prepare_knn_index(layout.slab, passes=passes, metric=metric,
                               T=T, g=g, device=layout.slab.device,
-                              rows_valid=layout.rows_valid)
-    M = index.y_hi.shape[0]
+                              rows_valid=layout.rows_valid,
+                              db_dtype="int8" if db_dtype == "int8"
+                              else "bf16")
+    M = index.prepared_rows
     ids = layout.ids.to(torch.int32)
     if M > R:
         ids = torch.cat([ids, ids.new_full((M - R,), -1)])
     return FusedOps(index, ids)
+
+
+def run_fused_ops(fops: FusedOps, x, k: int, rows_valid=None,
+                  yyh_k=None) -> Tuple:
+    """The certified search over prepared layout operands (reference
+    ``:331-398``): ``x`` [nq, d] f32 on the operands' device, through
+    ``query_prepared`` (K1, or K2 on an int8 layout, exact f32 rescore),
+    padded and chunked there.
+
+    ``rows_valid`` / ``yyh_k`` ([M]) override the prepared mask and
+    sentinel carrier: the mutable planes pass their tombstoned pair. The
+    prepared operands are never written. Returns ``(vals [nq, k], pos
+    [nq, k] slab positions, n_fail)``; every slot whose value is not
+    finite gets position −1, so a row short of k never maps to a
+    tombstoned row."""
+    from raft_tpu_torch.distance.knn_fused import query_prepared
+
+    idx = fops.index
+    nq = x.shape[0]
+    if nq == 0:
+        return (x.new_zeros((0, k)),
+                torch.zeros((0, k), dtype=torch.int32, device=x.device), 0)
+    if k > fops.pool_width:
+        raise NotImplementedError(
+            f"run_fused_ops: k={k} too large for the layout's candidate "
+            f"pool {fops.pool_width} (shrink k or grow the slab)")
+    if rows_valid is not None or yyh_k is not None:
+        idx = copy.copy(idx)
+        if rows_valid is not None:
+            idx.rows_valid = rows_valid
+        if yyh_k is not None:
+            idx.yyh_k = yyh_k
+    vals, pos, n_fail = query_prepared(x, idx, k, True, "kernel")
+    pos = torch.where(torch.isfinite(vals), pos, -1)
+    return vals, pos, n_fail

@@ -40,14 +40,27 @@ over a bf16 or int8 :class:`~raft_tpu_torch.distance.knn_fused.KnnIndex`;
 ``pq_dim`` / ``pq_bits``, served by ``ann.search_ivf_pq``, warmed by
 ``ann.warm_pq_scan``).
 
+**Mutable and durable planes** (``mutable=True``, reference ``:331-404``):
+the engine fronts a :class:`~raft_tpu_torch.mutable.MutableIndex` (over
+any of the three planes; ``index_ids`` are its external ids,
+``compact_threshold`` / ``delta_cap`` its fold watermark and delta
+capacity). Each batch searches one ``MutableView``; :meth:`ServingEngine.
+upsert` and :meth:`ServingEngine.delete` ride the query queue under the
+same admission control, each a strict ordering barrier applied alone on
+the batcher thread, so the queries behind it see it and the ones before
+do not. ``durable=True`` implies ``mutable=True``: mutations are
+write-ahead logged under ``durable_dir`` (or ``RAFT_TPU_DURABLE_DIR``)
+with ``wal_sync``, and an engine built over a directory that holds
+durable state recovers from it.
+
 Not in the port yet, each raising ``NotImplementedError`` when asked for:
-``mesh`` (ROADMAP item 7), the mutable and durable planes with
-``upsert``/``delete`` (item 10), and the shadow sampler, explain plane,
-SLO engine, debugz server, blackbox and watchdog (item 14).
+``mesh`` (ROADMAP item 7), and the shadow sampler, explain plane, SLO
+engine, debugz server, blackbox and watchdog (item 14).
 
 Env knobs: ``RAFT_TPU_SERVING_BUCKETS``, ``RAFT_TPU_SERVING_FLUSH_MS``
 (default 2 ms), ``RAFT_TPU_SERVING_QUEUE_CAP`` (4096 rows),
-``RAFT_TPU_SERVING_DEADLINE_S`` (none), ``RAFT_TPU_DB_DTYPE``.
+``RAFT_TPU_SERVING_DEADLINE_S`` (none), ``RAFT_TPU_DB_DTYPE``,
+``RAFT_TPU_DURABLE_DIR``.
 """
 
 from __future__ import annotations
@@ -90,13 +103,6 @@ _PLANE_LIBS = {"brute": ("fused_l2_packed_sm90", "fused_l2_topk"),
 #: what they are)
 _NOT_PORTED = {
     "mesh": (7, "the query-sharded mesh plane"),
-    "mutable": (10, "the mutable plane"),
-    "index_ids": (10, "the mutable plane"),
-    "compact_threshold": (10, "the mutable plane"),
-    "delta_cap": (10, "the mutable plane"),
-    "durable": (10, "the durability plane"),
-    "durable_dir": (10, "the durability plane"),
-    "wal_sync": (10, "the durability plane"),
     "shadow_frac": (14, "the recall shadow sampler"),
     "shadow_floor": (14, "the recall shadow sampler"),
     "explain_frac": (14, "the explain plane"),
@@ -167,15 +173,18 @@ class ServingFuture:
 
 class _Request:
     __slots__ = ("x", "n", "enqueued_at", "deadline_at", "future",
-                 "requeues")
+                 "requeues", "kind", "ids")
 
-    def __init__(self, x, n, enqueued_at, deadline_at, future):
+    def __init__(self, x, n, enqueued_at, deadline_at, future,
+                 kind: str = "query", ids=None):
         self.x = x
         self.n = n
         self.enqueued_at = enqueued_at
         self.deadline_at = deadline_at
         self.future = future
         self.requeues = 0
+        self.kind = kind        # "query" | "upsert" | "delete"
+        self.ids = ids          # external row ids of a mutation
 
 
 def execute_batch(plane, snap: IndexSnapshot, x: np.ndarray, bucket: int,
@@ -192,7 +201,7 @@ def execute_batch(plane, snap: IndexSnapshot, x: np.ndarray, bucket: int,
     [n_valid, k]) as numpy, and n_fail."""
     from raft_tpu_torch.distance.knn_fused import pad_query_rows
 
-    dev = snap.index.device
+    dev = snap.device
 
     def _dispatch():
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
@@ -265,20 +274,13 @@ class ServingEngine:
         from raft_tpu_torch.ann import IvfFlatIndex, IvfPqIndex
         from raft_tpu_torch.distance.knn_fused import KnnIndex, fused_config
 
-        asked = dict(mesh=mesh, index_ids=index_ids,
-                     compact_threshold=compact_threshold,
-                     delta_cap=delta_cap, durable_dir=durable_dir,
-                     wal_sync=wal_sync, shadow_frac=shadow_frac,
+        asked = dict(mesh=mesh, shadow_frac=shadow_frac,
                      shadow_floor=shadow_floor, explain_frac=explain_frac,
                      debug_port=debug_port, blackbox_path=blackbox_path,
                      watchdog_s=watchdog_s, slo=slo)
         for option, value in asked.items():
             if value is not None:
                 _not_ported(option)
-        if mutable:
-            _not_ported("mutable")
-        if durable:
-            _not_ported("durable")
         if algorithm not in ("brute", "ivf_flat", "ivf_pq"):
             raise ValueError(f"ServingEngine: algorithm must be 'brute', "
                              f"'ivf_flat' or 'ivf_pq', got {algorithm!r}")
@@ -296,7 +298,8 @@ class ServingEngine:
         if db_dtype is None:
             db_dtype = env.raw("RAFT_TPU_DB_DTYPE")
         self._db_dtype = db_dtype
-        if isinstance(index, (KnnIndex, IvfFlatIndex)):
+        prepared = isinstance(index, (KnnIndex, IvfFlatIndex))
+        if prepared:
             want = ("ivf_pq" if isinstance(index, IvfPqIndex) else
                     "ivf_flat" if isinstance(index, IvfFlatIndex) else
                     "brute")
@@ -317,14 +320,46 @@ class ServingEngine:
         # build stream has finished
         self._build_stream = (torch.cuda.Stream(device=self.device)
                               if self.device.type == "cuda" else None)
-        initial = (index if isinstance(index, (KnnIndex, IvfFlatIndex))
-                   else self._build_index(index))
-        expects(self.k <= initial.n_rows,
-                "ServingEngine: k=%d > index size %d", self.k,
-                initial.n_rows)
-        self.d = initial.d_orig
-        self._store = SnapshotStore(self._build_index, initial_index=initial)
-        qb_hint = getattr(initial, "Qb", None) or fused_config(3).Qb
+        # durable=True writes every mutation ahead to durable_dir and
+        # recovers from it when it already holds durable state; it
+        # implies mutable=True
+        self._durable = bool(durable)
+        self._recovery = None
+        if durable:
+            mutable = True
+            if durable_dir is None:
+                durable_dir = env.raw("RAFT_TPU_DURABLE_DIR")
+            expects(durable_dir is not None,
+                    "serving: durable=True needs durable_dir= (or "
+                    "RAFT_TPU_DURABLE_DIR)")
+        # mutable=True: the engine fronts a MutableIndex, whose snapshot
+        # store is the engine's
+        self._mutable = None
+        if mutable:
+            self._mutable = self._mutable_index(
+                index, prepared, index_ids, durable_dir if durable else None,
+                wal_sync, dict(algorithm=algorithm, passes=passes,
+                               metric=metric, T=T, Qb=Qb, g=g,
+                               db_dtype=db_dtype, n_lists=n_lists,
+                               n_probes=n_probes, pq_dim=pq_dim,
+                               pq_bits=pq_bits,
+                               compact_threshold=compact_threshold,
+                               delta_cap=delta_cap))
+            expects(self.k <= self._mutable.n_rows,
+                    "ServingEngine: k=%d > index size %d", self.k,
+                    self._mutable.n_rows)
+            self.d = self._mutable.d_orig
+            self._store = self._mutable.store
+            qb_hint = self._mutable.Qb
+        else:
+            initial = index if prepared else self._build_index(index)
+            expects(self.k <= initial.n_rows,
+                    "ServingEngine: k=%d > index size %d", self.k,
+                    initial.n_rows)
+            self.d = initial.d_orig
+            self._store = SnapshotStore(self._build_index,
+                                        initial_index=initial)
+            qb_hint = getattr(initial, "Qb", None) or fused_config(3).Qb
         if buckets is None or isinstance(buckets, str):
             self._ladder = bucket_ladder(qb_hint, buckets)
         else:
@@ -355,6 +390,30 @@ class ServingEngine:
         self._builds_at_warmup: Optional[int] = None
 
     # -- construction helpers --------------------------------------------
+    def _mutable_index(self, index, prepared: bool, index_ids, durable_dir,
+                       wal_sync, mut_kw: dict):
+        """The engine's MutableIndex: recovered from ``durable_dir`` when
+        it holds durable state, else built over ``index`` (durable when a
+        directory is given)."""
+        from raft_tpu_torch.mutable import MutableIndex
+        from raft_tpu_torch.mutable.checkpoint import (has_durable_state,
+                                                       recover)
+
+        if durable_dir is not None and has_durable_state(durable_dir):
+            expects(not prepared,
+                    "serving: durable recovery rebuilds the index from "
+                    "disk — pass the raw matrix (the bootstrap fallback), "
+                    "not a prepared index")
+            recovered = recover(durable_dir, res=self.res,
+                                device=self.device, wal_sync=wal_sync,
+                                **mut_kw)
+            if recovered is not None:
+                mi, self._recovery = recovered
+                return mi
+        return MutableIndex(index, ids=index_ids, res=self.res,
+                            device=self.device, durable_dir=durable_dir,
+                            wal_sync=wal_sync, **mut_kw)
+
     def _build_index(self, y):
         """The plane's index over ``y``, on the engine's device."""
         if not isinstance(y, torch.Tensor):
@@ -381,10 +440,21 @@ class ServingEngine:
 
         return prepare_knn_index(y, device=self.device, **self._build_kw)
 
-    def _plane(self, snap: IndexSnapshot, xb):
+    def _plane(self, snap, xb):
         """The data plane of one padded bucket batch: (vals, ids, n_fail),
         n_fail the queries that paid the exact fixup (brute) or the
-        certificate rerun (IVF)."""
+        certificate rerun (IVF). On a mutable engine ``snap`` is a
+        ``MutableView`` (or the store's snapshot at warm-up, and then the
+        current view is searched)."""
+        if self._mutable is not None:
+            from raft_tpu_torch.mutable import MutableView, search_view
+
+            view = (snap if isinstance(snap, MutableView)
+                    else self._mutable.view())
+            vals, ids, st = search_view(self._mutable, xb, self.k, view=view,
+                                        n_probes=self._n_probes,
+                                        res=self.res, with_stats=True)
+            return vals, ids, st["base_fail"] + st["delta_fail"]
         if self._algorithm == "ivf_pq":
             from raft_tpu_torch.ann import search_ivf_pq
 
@@ -422,7 +492,9 @@ class ServingEngine:
 
     def stop(self, timeout: float = 30.0) -> None:
         """Drain the queue, then stop the batcher (and wait for a
-        background rebuild)."""
+        background rebuild). A mutable engine waits for its compactor, and
+        a durable one then flushes and closes its WAL: a clean stop is, to
+        recovery, a crash after the last fsync."""
         with self._cond:
             self._stop = True
             self._cond.notify_all()
@@ -431,6 +503,10 @@ class ServingEngine:
             t.join(timeout)
         self._thread = None
         self._store.wait_for_builds(timeout)
+        if self._mutable is not None:
+            self._mutable.wait_for_compaction(timeout=min(30.0, timeout))
+            if self._durable:
+                self._mutable.close()
         with self._cond:
             self._started = False
 
@@ -447,7 +523,7 @@ class ServingEngine:
             execute_batch(self._plane, snap,
                           np.zeros((b, self.d), np.float32), b, b,
                           stream=self.res.stream)
-            if self._algorithm == "ivf_pq":
+            if self._algorithm == "ivf_pq" and self._mutable is None:
                 # the ADC scan at every pool depth the widen rung can
                 # reach, whichever way the chooser lands on live traffic
                 from raft_tpu_torch.ann import warm_pq_scan
@@ -507,13 +583,79 @@ class ServingEngine:
         """Blocking convenience: submit + wait."""
         return self.submit(x, deadline_s=deadline_s).result(timeout)
 
-    def upsert(self, ids, rows, deadline_s: Optional[float] = None):
-        """The mutable plane's write path: not ported."""
-        _not_ported("mutable")
+    # -- mutations (mutable=True) ----------------------------------------
+    def _submit_mutation(self, kind: str, ids, rows,
+                         deadline_s: Optional[float]) -> ServingFuture:
+        """Enqueue one mutation on the query queue (reference ``:823``):
+        the same admission control (the queue's row cap sheds; an upsert
+        past the delta capacity is rejected), FIFO order with the queries
+        around it and a deadline scope on the batcher thread."""
+        expects(self._mutable is not None,
+                "serving: %s() needs a mutable engine "
+                "(ServingEngine(..., mutable=True))", kind)
+        ids = np.atleast_1d(np.asarray(ids, np.int32))
+        if rows is not None:
+            rows = np.asarray(rows, np.float32)
+            if rows.ndim == 1:
+                rows = rows[None]
+            expects(rows.ndim == 2 and rows.shape[1] == self.d,
+                    "serving: %s rows must be [n, %d] (got %s)", kind,
+                    self.d, rows.shape)
+            expects(ids.shape[0] == rows.shape[0],
+                    "serving: %s ids/rows length mismatch", kind)
+        n = int(ids.shape[0])
+        if n == 0:
+            fut = ServingFuture()
+            fut._complete({"applied": 0, "kind": kind}, None)
+            return fut
+        if rows is not None and n > self._mutable.delta_cap:
+            self._count_request("rejected")
+            raise RequestTooLargeError(
+                f"serving: upsert of {n} rows exceeds the delta capacity "
+                f"{self._mutable.delta_cap} — split it or raise "
+                f"RAFT_TPU_DELTA_CAP")
+        now = self._clock()
+        budget = (deadline_s if deadline_s is not None
+                  else self._default_deadline_s)
+        req = _Request(rows, n, now, now + budget if budget else None,
+                       ServingFuture(), kind=kind, ids=ids)
+        with self._cond:
+            if self._depth_rows + n > self._max_queue_rows:
+                self._stats["requests_shed"] += 1
+                self._stats["shed"] += 1
+                raise OverloadShedError(
+                    f"serving: queue at capacity ({self._depth_rows}/"
+                    f"{self._max_queue_rows} rows) — {kind} shed; back off "
+                    f"and retry")
+            self._queue.append(req)
+            self._depth_rows += n
+            self._cond.notify_all()
+        return req.future
 
-    def delete(self, ids, deadline_s: Optional[float] = None):
-        """The mutable plane's write path: not ported."""
-        _not_ported("mutable")
+    def upsert(self, ids, rows, deadline_s: Optional[float] = None
+               ) -> ServingFuture:
+        """Enqueue an upsert of ``rows`` [n, d] under external ``ids`` [n]
+        (mutable engines). The future resolves to a dict with the applied
+        count and the index's seq and generation once the batcher applies
+        it, in strict order with the queries around it."""
+        return self._submit_mutation("upsert", ids, rows, deadline_s)
+
+    def delete(self, ids, deadline_s: Optional[float] = None
+               ) -> ServingFuture:
+        """Enqueue a delete of external ``ids`` (mutable engines), visible
+        to every batch dispatched after it."""
+        return self._submit_mutation("delete", ids, None, deadline_s)
+
+    @property
+    def mutable(self):
+        """The engine's MutableIndex (None on an immutable engine)."""
+        return self._mutable
+
+    @property
+    def recovery(self):
+        """Stats of the recovery this engine ran at construction (None
+        when it cold-started)."""
+        return dict(self._recovery) if self._recovery else None
 
     # -- index updates ----------------------------------------------------
     def update_index(self, y, block: bool = False):
@@ -522,7 +664,12 @@ class ServingEngine:
         the new one is built, complete on the card and warmed (every rung
         dispatched against it), so readers never block and never pay a
         kernel build. ``y`` is numpy or a tensor (moved to the engine's
-        device by the build)."""
+        device by the build). A mutable engine changes through
+        :meth:`upsert` and :meth:`delete` instead."""
+        expects(self._mutable is None,
+                "serving: a mutable engine updates through upsert()/"
+                "delete() (compaction folds the delta in the background) — "
+                "update_index is the immutable path")
         if not isinstance(y, torch.Tensor):
             y = np.asarray(y, np.float32)
         expects(y.ndim == 2 and y.shape[1] == self.d,
@@ -579,6 +726,12 @@ class ServingEngine:
         out["generation"] = self._store.generation
         out["snapshot"] = self._store.stats()
         out["buckets"] = self._ladder
+        if self._mutable is not None:
+            out["mutable"] = self._mutable.stats()
+            if self._mutable.durability is not None:
+                out["durability"] = self._mutable.durability.stats()
+        if self._recovery is not None:
+            out["recovery"] = dict(self._recovery)
         out["builds_after_warmup"] = (None if at is None else
                                       _build.BUILDS + _build.LOADS - at)
         return out
@@ -599,9 +752,11 @@ class ServingEngine:
 
     def _pop_batch_locked(self):
         """Greedy pops up to the top bucket, failing queue-expired
-        requests on the way (they never cost a dispatch)."""
+        requests on the way (they never cost a dispatch). A mutation is a
+        strict ordering barrier: the queries ahead of it form this batch,
+        it runs alone next, the queries behind it see it."""
         now = self._clock()
-        batch, expired, total = [], [], 0
+        batch, expired, total, mutation = [], [], 0, None
         while self._queue:
             req = self._queue[0]
             if req.deadline_at is not None and req.deadline_at <= now:
@@ -609,13 +764,20 @@ class ServingEngine:
                 self._depth_rows -= req.n
                 expired.append(req)
                 continue
+            if req.kind != "query":
+                if batch:
+                    break
+                self._queue.popleft()
+                self._depth_rows -= req.n
+                mutation = req
+                break
             if total + req.n > self._ladder[-1]:
                 break
             self._queue.popleft()
             self._depth_rows -= req.n
             batch.append(req)
             total += req.n
-        return batch, total, expired
+        return batch, total, expired, mutation
 
     def _fail_expired(self, expired) -> None:
         for req in expired:
@@ -645,20 +807,25 @@ class ServingEngine:
                     self._busy = False
                     self._cond.notify_all()
                     return
-                batch, total, expired = self._pop_batch_locked()
-                self._busy = bool(batch)
+                batch, total, expired, mutation = self._pop_batch_locked()
+                self._busy = bool(batch) or mutation is not None
             self._fail_expired(expired)
-            if batch:
+            if batch or mutation is not None:
                 try:
-                    self._run_batch(batch, total)
+                    if batch:
+                        self._run_batch(batch, total)
+                    if mutation is not None:
+                        self._run_mutation(mutation)
                 finally:
                     with self._cond:
                         self._busy = False
                         self._cond.notify_all()
 
     def _run_batch(self, batch, total: int) -> None:
-        # one snapshot per batch: every rider sees one index
-        snap = self._store.current()
+        # one snapshot (or mutable view) per batch: every rider sees one
+        # index
+        snap = (self._mutable.view() if self._mutable is not None
+                else self._store.current())
         bucket = bucket_for(total, self._ladder)
         x = (batch[0].x if len(batch) == 1
              else np.concatenate([r.x for r in batch], axis=0))
@@ -700,6 +867,48 @@ class ServingEngine:
             self._count_request("ok")
             with self._cond:
                 self._latencies.append(max(0.0, done - req.enqueued_at))
+
+    def _run_mutation(self, req) -> None:
+        """Apply one mutation on the batcher thread inside its own deadline
+        scope (reference ``:1277``): in strict order with the query
+        batches, never concurrent with a dispatch."""
+        from raft_tpu_torch.mutable import apply_delete, apply_upsert
+
+        now = self._clock()
+        budget = (req.deadline_at - now if req.deadline_at is not None
+                  else None)
+        if budget is not None and budget <= 0:
+            self._fail_expired([req])
+            return
+        with self._cond:
+            self._stats[f"{req.kind}s"] += 1
+
+        def _apply():
+            if req.kind == "upsert":
+                return apply_upsert(self._mutable, req.ids, req.x)
+            return apply_delete(self._mutable, req.ids)
+
+        try:
+            if budget is not None:
+                with deadline(budget, label="serving_mutation"):
+                    applied = _apply()
+            else:
+                applied = _apply()
+        except DeadlineExceededError as e:
+            self._count_request("deadline")
+            req.future._fail(e)
+            return
+        except Exception as e:
+            self._count_request("error")
+            req.future._fail(e)
+            return
+        done = self._clock()
+        self._count_request("ok")
+        with self._cond:
+            self._latencies.append(max(0.0, done - req.enqueued_at))
+        req.future._complete({"kind": req.kind, "applied": int(applied),
+                              "seq": self._mutable.seq,
+                              "generation": self._mutable.generation}, None)
 
     def _on_batch_deadline(self, batch, err: DeadlineExceededError) -> None:
         """A batch deadline fired: requests whose own budget expired fail

@@ -42,6 +42,10 @@ class IndexSnapshot:
         self.generation = generation
         self.n_rows = int(getattr(index, "n_rows", 0))
 
+    @property
+    def device(self) -> torch.device:
+        return self.index.device
+
     def __repr__(self):
         return (f"IndexSnapshot(gen={self.generation}, "
                 f"n_rows={self.n_rows})")

@@ -6,6 +6,7 @@ import ast
 import os
 import subprocess
 import sys
+import tempfile
 
 import numpy as np
 import pytest
@@ -20,6 +21,7 @@ from raft_tpu_torch.core import DeviceError, DeviceResources
 from raft_tpu_torch.distance.knn_fused import knn_fused
 from raft_tpu_torch.core.sparse_types import COOMatrix
 from raft_tpu_torch.models import SpectralEmbedding
+from raft_tpu_torch.mutable import MutableIndex, recover
 from raft_tpu_torch.ops import fine_scan, fused_l2_topk, pq_scan, sddmm, spmv
 from raft_tpu_torch.random import make_blobs, rmat_rectangular_gen
 from raft_tpu_torch.runtime import knn_query
@@ -41,7 +43,11 @@ def test_import_pulls_in_no_jax_and_no_reference():
     code = ("import sys, raft_tpu_torch, raft_tpu_torch.distance.knn_fused, "
             "raft_tpu_torch.ann.ivf_flat, raft_tpu_torch.ann.ivf_pq, "
             "raft_tpu_torch.cluster.kmeans, "
-            "raft_tpu_torch.mutable.layout, "
+            "raft_tpu_torch.mutable, raft_tpu_torch.mutable.layout, "
+            "raft_tpu_torch.mutable.index, raft_tpu_torch.mutable.wal, "
+            "raft_tpu_torch.mutable.checkpoint, raft_tpu_torch.core.diskio, "
+            "raft_tpu_torch.core.serialize, raft_tpu_torch.core.logger, "
+            "raft_tpu_torch.resilience.faults, "
             "raft_tpu_torch.observability.costmodel, "
             "raft_tpu_torch.observability.quality, "
             "raft_tpu_torch.ops.fine_scan, raft_tpu_torch.ops.pq_scan, "
@@ -140,6 +146,16 @@ def test_entry_points_default_to_cuda():
         build_ivf_pq(None, y, 4, pq_bits=4, max_iter=2)
     with pytest.raises(DeviceError):
         ServingEngine(y, k=4, algorithm="ivf_pq", pq_bits=4)
+    with pytest.raises(DeviceError):
+        MutableIndex(y)
+    with pytest.raises(DeviceError):
+        ServingEngine(y, k=4, mutable=True)
+    with tempfile.TemporaryDirectory() as d:
+        MutableIndex(y[:256], device="cpu", durable_dir=d, T=256, g=2,
+                     auto_compact=False).close()
+        with pytest.raises(DeviceError):
+            recover(d, T=256, g=2)
+        assert recover(d, device="cpu", T=256, g=2)[0].device.type == "cpu"
     # the same calls on the CPU, by argument
     assert distance.prepare_knn_index(y, device="cpu").device.type == "cpu"
     v, i = knn_fused(y[:8], y, 4, device="cpu")
@@ -166,6 +182,26 @@ def test_entry_points_default_to_cuda():
         assert eng.query(y[:3], timeout=30)[1].shape == (3, 4)
     finally:
         eng.stop()
+
+
+def test_mutable_entry_points_default_to_cuda(tmp_path):
+    """MutableIndex and recover build on the card unless asked for the
+    CPU (recover over a directory with durable state)."""
+    y = np.random.default_rng(1).normal(size=(256, 8)).astype(np.float32)
+    d = str(tmp_path / "dur")
+    kw = dict(T=256, g=2, auto_compact=False)
+    if torch.cuda.is_available():
+        assert MutableIndex(y, **kw).device.type == "cuda"
+        return
+    mi = MutableIndex(y, device="cpu", durable_dir=d, **kw)
+    assert mi.device.type == "cpu" and mi.view().base_rv.device.type == "cpu"
+    mi.close()
+    with pytest.raises(DeviceError):
+        MutableIndex(y, **kw)
+    with pytest.raises(DeviceError):
+        recover(d, **kw)
+    r, _ = recover(d, device="cpu", **kw)
+    assert r.device.type == "cpu"
 
 
 def _ring(n=64):
@@ -240,6 +276,17 @@ def test_cpu_path_launches_no_kernel():
                         sparse_linalg.prepare_sddmm(A))
     assert spmv.LAUNCHES_SPMV == spmv.LAUNCHES_PAIR == spmv.LAUNCHES_SPMM \
         == sddmm.LAUNCHES == 0
+    from raft_tpu_torch.mutable import apply_delete, apply_upsert, \
+        search_view
+    for kw in (dict(T=512, g=8), dict(T=512, g=8, db_dtype="int8"),
+               dict(algorithm="ivf_pq", n_lists=8, pq_bits=8)):
+        mi = MutableIndex(y, device="cpu", **kw)
+        apply_upsert(mi, [9000], y[:1])
+        apply_delete(mi, [0])
+        search_view(mi, y[:16], 5)
+        search_view(mi, y[:16], 5, n_probes=3)
+    assert fused_l2_topk.LAUNCHES == fused_l2_topk.LAUNCHES_Q8 == 0
+    assert pq_scan.LAUNCHES_8BIT == 0
 
 
 def test_make_blobs_shapes_and_labels():

@@ -11,6 +11,7 @@ tolerance, ids may differ only at a proven tie). Every wait has a timeout
 and every engine is stopped in a ``finally``: a hang fails one test.
 """
 
+import os
 import threading
 import time
 
@@ -588,10 +589,7 @@ def test_ivf_pq_plane_matches_reference_engine(monkeypatch):
 
 
 @pytest.mark.parametrize("option,value,item", [
-    ("mesh", object(), 7), ("mutable", True, 10), ("durable", True, 10),
-    ("index_ids", np.arange(4), 10), ("compact_threshold", 8, 10),
-    ("delta_cap", 8, 10), ("durable_dir", "/nonexistent", 10),
-    ("wal_sync", "always", 10), ("shadow_frac", 0.5, 14),
+    ("mesh", object(), 7), ("shadow_frac", 0.5, 14),
     ("shadow_floor", 0.9, 14), ("explain_frac", 0.1, 14),
     ("debug_port", 0, 14), ("blackbox_path", "bb.bin", 14),
     ("watchdog_s", 1.0, 14), ("slo", object(), 14)])
@@ -601,18 +599,202 @@ def test_left_out_options_raise(data, option, value, item):
         ServingEngine(idx, k=K, **{option: value})
 
 
-def test_ivf_pq_and_mutations_raise(data):
-    """The IVF-PQ plane is served (see below); its mutable plane, like
-    every upsert and delete, is not ported yet (ROADMAP item 10)."""
-    y, idx = data
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ServingEngine(y, k=K, algorithm="ivf_pq", mutable=True,
-                      device="cpu")
+# ------------------------------------------------------------------
+# the mutable and durable planes (reference tests/test_mutable.py and
+# tests/test_durability.py engine cases)
+# ------------------------------------------------------------------
+MD = 16
+MCFG = dict(CFG, buckets=(8, 32), flush_interval_s=0.002)
+
+
+def _mut_rows(seed, n=300):
+    return np.random.default_rng(seed).normal(size=(n, MD)).astype(
+        np.float32)
+
+
+def _mut_engine(y, **kw):
+    return ServingEngine(y, k=5, device="cpu", mutable=True,
+                         **dict(MCFG, **kw))
+
+
+@pytest.mark.parametrize("option", ["mutable", "index_ids",
+                                    "compact_threshold", "delta_cap",
+                                    "durable", "durable_dir", "wal_sync"])
+def test_mutable_options_honoured(tmp_path, option):
+    """Each of the seven mutable and durable options is honoured."""
+    y = _mut_rows(1)
+    kw = {}
+    if option == "index_ids":
+        kw["index_ids"] = np.arange(1000, 1300)
+    elif option == "compact_threshold":
+        kw["compact_threshold"] = 16
+    elif option == "delta_cap":
+        kw.update(delta_cap=60, compact_threshold=16)
+    elif option in ("durable", "durable_dir", "wal_sync"):
+        kw.update(durable=True, durable_dir=str(tmp_path / "dur"))
+        if option == "wal_sync":
+            kw["wal_sync"] = "always"
+    eng = _mut_engine(y, **kw).start()
+    try:
+        mi = eng.mutable
+        assert mi is not None
+        _, ids = eng.query(y[:3] + 1e-3, timeout=WAIT)
+        if option == "index_ids":
+            assert ids[:, 0].tolist() == [1000, 1001, 1002]
+        else:
+            assert ids[:, 0].tolist() == [0, 1, 2]
+        if option == "compact_threshold":
+            assert mi.compact_threshold == 16
+            assert mi.delta_cap == 32                 # 2 × the threshold
+        if option == "delta_cap":
+            assert mi.delta_cap == 64                 # the 8-row quantum
+        info, _ = eng.upsert([5000], y[:1] * 2).result(timeout=WAIT)
+        assert info["applied"] == 1
+        if option in ("durable", "durable_dir", "wal_sync"):
+            dur = eng.stats()["durability"]
+            assert dur["sync"] == ("always" if option == "wal_sync"
+                                   else "batch")
+            # lsn 1 marks the genesis checkpoint, lsn 2 is the upsert
+            assert dur["checkpoints"] == 1 and dur["durable_lsn"] == 2
+            assert os.path.exists(tmp_path / "dur" / "CURRENT")
+    finally:
+        eng.stop()
+
+
+def test_mutable_engine_ordered_with_queries_against_jax_engine():
+    """Queries, upserts and deletes through the port's engine and the JAX
+    engine in the same order: the same answers at every step, a delete
+    queued before a query visible to it, one queued after not."""
+    from raft_tpu.serving import ServingEngine as JEngine
+
+    y = _mut_rows(2)
+    x = _mut_rows(3, 4)
+    ups = _mut_rows(4, 3)
+    jeng = JEngine(y, k=5, mutable=True, compact_threshold=1000,
+                   shadow_frac=0.0, **dict(MCFG, Qb=32))
+    eng = _mut_engine(y, compact_threshold=1000)
+    jeng.start()
+    eng.start()
+    try:
+        script = [("q", None), ("d", [0, 1]), ("q", None),
+                  ("u", ([700, 2, 3], ups)), ("q", None), ("d", [700]),
+                  ("q", None)]
+        for e in (eng, jeng):
+            futs = []
+            for kind, arg in script:
+                if kind == "q":
+                    futs.append(e.submit(x))
+                elif kind == "d":
+                    futs.append(e.delete(arg))
+                else:
+                    futs.append(e.upsert(*arg))
+            e._res = [f.result(timeout=WAIT) for f in futs]
+        for (kind, _), a, b in zip(script, eng._res, jeng._res):
+            if kind == "q":
+                np.testing.assert_array_equal(a[1], np.asarray(b[1]))
+                np.testing.assert_allclose(a[0], np.asarray(b[0]),
+                                           rtol=1e-5, atol=1e-5)
+            else:
+                assert a[0]["applied"] == b[0]["applied"]
+        assert not {0, 1, 700} & set(eng._res[-1][1].ravel().tolist())
+        st, jst = eng.stats(), jeng.stats()
+        assert st["mutable"] == jst["mutable"]
+        assert st["upserts"] == 1 and st["deletes"] == 2
+    finally:
+        eng.stop()
+        jeng.stop()
+
+
+def test_mutable_engine_upsert_past_delta_cap_rejected():
+    eng = _mut_engine(_mut_rows(5), compact_threshold=16).start()
+    try:
+        cap = eng.mutable.delta_cap
+        with pytest.raises(RequestTooLargeError):
+            eng.upsert(np.arange(10_000, 10_001 + cap),
+                       _mut_rows(6, cap + 1))
+        assert eng.stats()["requests_rejected"] == 1
+    finally:
+        eng.stop()
+
+
+def test_immutable_engine_rejects_mutations(data):
+    """An immutable engine refuses upsert/delete, and a mutable one the
+    whole-index replace, as the reference's do."""
+    from raft_tpu_torch.core import LogicError
+
+    _, idx = data
     eng = _engine(idx)
     for call in (lambda: eng.upsert([1], np.ones((1, D), np.float32)),
                  lambda: eng.delete([1])):
-        with pytest.raises(NotImplementedError, match="item 10"):
+        with pytest.raises(LogicError):
             call()
+    y = _mut_rows(7, 64)
+    eng2 = _mut_engine(y)
+    with pytest.raises(LogicError):
+        eng2.update_index(y)
+
+
+def test_mutable_ivf_pq_engine_masks_deletes():
+    """The IVF-PQ plane serves mutably: a deleted id never comes back on
+    the probed path, an upserted row is found."""
+    y = _mut_rows(8, 400)
+    eng = ServingEngine(y, k=5, device="cpu", algorithm="ivf_pq",
+                        mutable=True, n_lists=8, n_probes=3, pq_bits=8,
+                        buckets=(8, 32), flush_interval_s=0.002).start()
+    try:
+        eng.delete(np.arange(40)).result(timeout=WAIT)
+        eng.upsert([900], y[:1] + 0.5).result(timeout=WAIT)
+        _, ids = eng.query(np.concatenate([y[:8], y[:1] + 0.5]),
+                           timeout=WAIT)
+        assert not set(ids.ravel().tolist()) & set(range(40))
+        assert ids[-1, 0] == 900
+    finally:
+        eng.stop()
+
+
+def test_durable_engine_restart_recovers(tmp_path):
+    y = _mut_rows(9, 64)
+    d = str(tmp_path / "dur")
+    q = _mut_rows(10, 3)
+    e1 = _mut_engine(y, durable=True, durable_dir=d,
+                     compact_threshold=10_000).start()
+    try:
+        e1.upsert([100, 101], _mut_rows(11, 2)).result(timeout=WAIT)
+        e1.delete([0]).result(timeout=WAIT)
+        v1, i1 = e1.query(q, timeout=WAIT)
+    finally:
+        e1.stop()
+    e2 = _mut_engine(y, durable=True, durable_dir=d,
+                     compact_threshold=10_000)
+    assert e2.recovery is not None
+    assert e2.recovery["replayed_records"] == 2
+    e2.start()
+    try:
+        v2, i2 = e2.query(q, timeout=WAIT)
+        np.testing.assert_array_equal(i1, i2)
+        np.testing.assert_allclose(v1, v2, atol=1e-5)
+        st = e2.stats()
+        assert "recovery" in st and "durability" in st
+    finally:
+        e2.stop()
+
+
+def test_durable_engine_requires_dir(monkeypatch):
+    from raft_tpu_torch.core import LogicError
+
+    monkeypatch.delenv("RAFT_TPU_DURABLE_DIR", raising=False)
+    with pytest.raises(LogicError, match="durable_dir"):
+        _mut_engine(_mut_rows(12, 64), durable=True)
+
+
+def test_durable_dir_from_env(tmp_path, monkeypatch):
+    d = str(tmp_path / "envdur")
+    monkeypatch.setenv("RAFT_TPU_DURABLE_DIR", d)
+    eng = _mut_engine(_mut_rows(13, 64), durable=True)
+    try:
+        assert eng.mutable.durability.directory == d
+    finally:
+        eng.stop()
 
 
 def test_engine_needs_a_card_unless_asked_for_the_cpu(data):

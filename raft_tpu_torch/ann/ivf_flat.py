@@ -45,7 +45,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import LogicError, expects
 from raft_tpu_torch.core.kvp import order_key
 from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
                                            ensure_resources, resolve_device)
@@ -177,6 +177,19 @@ class IvfFlatIndex:
             yy_q=f32("yy_q"), eq_rows=f32("eq_rows"))
 
 
+def require_finite_rows(y, who: str) -> None:
+    """Raise :class:`LogicError` naming the first row of ``y`` that holds
+    a NaN or ±inf. Such a row has no nearest centroid, so k-means
+    labels it (and, once it has made a centroid non-finite, every row)
+    2³¹ − 1; the reference's build then sizes its inverted lists by that
+    label (``np.bincount``: 2³¹ counters, 17 GB) instead of refusing."""
+    bad = (~torch.isfinite(y).all(1)).nonzero()
+    if bad.numel():
+        raise LogicError(f"{who}: row {int(bad[0, 0])} holds a NaN or ±inf "
+                         f"({bad.shape[0]} such rows); it has no nearest "
+                         f"list")
+
+
 def build_ivf_flat(res, y, n_lists: int, n_probes: Optional[int] = None,
                    max_iter: int = 10, seed: int = 0, balanced: bool = True,
                    row_quantum: int = DEFAULT_ROW_QUANTUM,
@@ -205,6 +218,7 @@ def build_ivf_flat(res, y, n_lists: int, n_probes: Optional[int] = None,
     expects(L >= 1, "build_ivf_flat: n_lists must be >= 1, got %d", L)
     expects(L <= m, "build_ivf_flat: n_lists=%d > %d rows", L, m)
     expects(row_quantum >= 1, "build_ivf_flat: row_quantum must be >= 1")
+    require_finite_rows(y, "build_ivf_flat")
     cap = max_train_rows or max(32 * L, 4096)
     train = y
     if m > cap:

@@ -63,7 +63,8 @@ import torch
 from raft_tpu_torch.ann.ivf_flat import (
     _FINE_TILE, _LIST_K_MAX, DEFAULT_ROW_QUANTUM, IvfFlatIndex,
     _coarse_probe, _exact_search, _list_host, _pad_kernel_operands,
-    _pool_finish, _query_major, build_ivf_flat, build_list_schedule)
+    _pool_finish, _query_major, build_ivf_flat, build_list_schedule,
+    require_finite_rows)
 from raft_tpu_torch.core import env
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
@@ -435,6 +436,7 @@ def build_ivf_pq(res, y, n_lists: int, pq_dim: Optional[int] = None,
     dev = y.device if isinstance(y, torch.Tensor) else res.device
     y = as_f32(y, dev)
     m, d = y.shape
+    require_finite_rows(y, "build_ivf_pq")
     if pq_mode is None:
         pq_mode = env.get("RAFT_TPU_ANN_PQ_MODE")
     expects(pq_mode in PQ_MODES,

@@ -55,10 +55,20 @@ def _kmeanspp_init(gen: torch.Generator, Xs, k: int):
     newest center only (reference ``:68``)."""
     n, d = Xs.shape
     xs2 = (Xs * Xs).sum(1)
+    # a row that holds NaN or ±inf makes a weight that multinomial refuses;
+    # then every draw is the reference's categorical one, a Gumbel-max over
+    # log(max(mind2, 1e-30)), which ranks a NaN or +inf weight first
+    finite = bool(torch.isfinite(xs2).all())
     centers = Xs.new_zeros((k, d))
     mind2 = Xs.new_ones((n,))            # all ones: a uniform first pick
     for i in range(k):
-        idx = torch.multinomial(mind2.clamp_min(1e-30), 1, generator=gen)
+        if finite:
+            idx = torch.multinomial(mind2.clamp_min(1e-30), 1,
+                                    generator=gen)
+        else:
+            u = torch.rand(n, generator=gen, device=Xs.device)
+            gumbel = -torch.log(-torch.log(u.clamp_min(1e-38)))
+            idx = torch.argmax(mind2.clamp_min(1e-30).log() + gumbel)[None]
         c = Xs[idx[0]]
         centers[i] = c
         d2 = (xs2 + (c * c).sum() - 2.0 * (Xs @ c)).clamp_min(0.0)

@@ -262,17 +262,22 @@ class CSRMatrix:
                 f"dtype={self.dtype})")
 
 
+def sparse_arrays(A) -> tuple:
+    """(rows, cols, values) of a COO, (indptr, indices, values) of a
+    CSR."""
+    if isinstance(A, COOMatrix):
+        return A.rows, A.cols, A.values
+    return A.indptr, A.indices, A.values
+
+
 def to_device(A, device=None):
     """``A`` (COO or CSR) with tensors on the entry point's device: the
     one named, else the device of its tensors, else cuda. Returns ``A``
     itself when it is already there."""
     if not isinstance(A, (COOMatrix, CSRMatrix)):
         raise TypeError(f"expected a COOMatrix or CSRMatrix, got {type(A)}")
-    dev = resolve_device(device, A.values, *(
-        (A.rows, A.cols) if isinstance(A, COOMatrix)
-        else (A.indptr, A.indices)))
-    arrays = ((A.rows, A.cols, A.values) if isinstance(A, COOMatrix)
-              else (A.indptr, A.indices, A.values))
+    arrays = sparse_arrays(A)
+    dev = resolve_device(device, arrays[2], *arrays[:2])
     if all(isinstance(a, torch.Tensor) and a.device == dev for a in arrays):
         return A
     return A.to(dev)

@@ -58,7 +58,7 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.kvp import order_key, select_smallest
+from raft_tpu_torch.core.kvp import flip_sign, order_key, select_smallest
 from raft_tpu_torch.core.resources import as_f32, resolve_device
 from raft_tpu_torch.ops.fused_l2_topk import (
     _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk,
@@ -501,11 +501,31 @@ def _rescore(x, xx, idx: KnnIndex, pid):
     safe = pid.long().clamp(0, max(idx.n_rows, 1) - 1)
     yc = idx.yp[safe]                                           # [Q, C, d]
     dot = (yc * x[:, None, :]).sum(2)
+    norms = xx[:, None] + (yc * yc).sum(2)
     if idx.metric == "ip":
         d2 = -dot
     else:
-        d2 = ((xx[:, None] + (yc * yc).sum(2)) - 2.0 * dot).clamp_min(0.0)
-    return d2.masked_fill(pid < 0, float("inf"))
+        d2 = (norms - 2.0 * dot).clamp_min(0.0)
+    return _nan_signed(d2, norms, idx.metric).masked_fill(pid < 0,
+                                                          float("inf"))
+
+
+def _nan_signed(d2, norms, metric: str):
+    """``d2`` with each NaN given the sign the reference's arithmetic gives
+    it on the CPU, where ``jax.lax.top_k(−d2, k)`` ranks a negative NaN
+    first and a positive one last. The card's default NaN is positive and
+    torch's bf16 split of a NaN is negative, so without this a NaN row or
+    a row that holds ±inf would rank otherwise here. For l2, whose
+    reference is (xx + yy) − 2s, a NaN takes the sign of the ``norms``
+    (xx + yy) where they are NaN (a NaN operand), and is negative where
+    they are not (∞ − ∞ or 0·∞ on a ±inf row: the CPU's default NaN).
+    ip's −s flips both signs."""
+    carried, made = norms, -2 ** 22
+    if metric == "ip":
+        carried, made = flip_sign(norms), 0x7FC00000
+    made = d2.new_full((), made, dtype=torch.int32).view(torch.float32)
+    return torch.where(torch.isnan(norms), carried, torch.where(
+        torch.isnan(d2), made, d2))
 
 
 def _smallest_k(vals, ids, k: int):
@@ -536,16 +556,22 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
             xlo = (xq - xhi.float()).to(torch.bfloat16)
             s = s + xhi.float() @ y_lo.float().T
             s = s + xlo.float() @ y_hi.float().T
+    # the f32 rows' norms (an int8 index's yy_raw is the dequantized
+    # rows')
+    yy = idx.yy_raw if idx.yp is None else idx.row_norms()
     if idx.metric == "ip":
         # lite operands are the split of y/2: −x·y = −2·s there
         d2 = -s if idx.yp is not None else -2.0 * s
     else:
-        # the f32 rows' norms (an int8 index's yy_raw is the dequantized
-        # rows')
-        yy = idx.yy_raw if idx.yp is None else idx.row_norms()
         d2 = (xs[:, None] + yy[None, :] - 2.0 * s).clamp_min(0.0)
     del s
-    d2 = d2.masked_fill(~idx.live_columns()[None, :], float("inf"))
+    # d2 holds a NaN only where a norm is not finite (a NaN or ±inf
+    # operand, or xx + yy past f32's range); one host read a chunk
+    # decides whether its NaNs need the reference's signs
+    if not bool(torch.isfinite(xs.max() + yy.max())):
+        d2 = _nan_signed(d2, xs[:, None] + yy[None, :], idx.metric)
+    live = idx.live_columns()
+    d2 = d2.masked_fill(~live[None, :], float("inf"))
     # the nomination breaks exact ties at the lower column, as the
     # reference's jax.lax.top_k(−d2, k) does. With stored rows it only
     # nominates k + _POOL_PAD candidates: the GEMM's rounding depends on
@@ -554,7 +580,9 @@ def _exact_rows(xq, idx: KnnIndex, k: int):
     # rides in
     kk = k if idx.yp is None else min(k + _POOL_PAD, d2.shape[1])
     vals, pos = select_smallest(d2, kk)
-    ids = torch.where(torch.isfinite(vals), pos.to(torch.int32), -1)
+    # a live row keeps its id whatever it scores: a row that holds ±inf
+    # scores NaN or ±inf, and the reference's top_k returns it so
+    ids = torch.where(live[pos], pos.to(torch.int32), -1)
     if idx.yp is not None:
         vals, ids = _smallest_k(_rescore(xq, xs, idx, ids), ids, k)
     return vals, ids

@@ -112,3 +112,52 @@ def test_predict_and_inertia_match_reference(data):
         j_inertia(jres, init, X), rel=1e-5)
     assert kmeans_inertia(res, init, X, labels=rl) == pytest.approx(
         j_inertia(jres, init, X, labels=rl), rel=1e-5)
+
+
+def _nonfinite_rows():
+    X = np.random.default_rng(5).normal(size=(400, 16)).astype(np.float32)
+    X[11, 2] = np.nan
+    X[200, 5] = np.inf
+    return X
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_kmeanspp_takes_nonfinite_rows_as_reference(seed):
+    """A NaN and a +inf row: the reference's k-means++ draws through
+    ``jax.random.categorical`` and fits; the port draws by Gumbel-max over
+    the same logits (``torch.multinomial`` raised here) and fits too. The
+    fits agree by distribution: some centroids are not finite in both, and
+    neither package's predict finds a nearest centroid for any row (both
+    label every row 2³¹ − 1)."""
+    from raft_tpu_torch.cluster.kmeans import _kmeanspp_init
+
+    X = _nonfinite_rows()
+    ref = j_fit(JaxResources(seed=0), X, 8, seed=seed)
+    out = kmeans_fit(DeviceResources(device="cpu"), X, 8, seed=seed)
+    ref_bad = ~np.isfinite(np.asarray(ref.centroids)).all(1)
+    out_bad = ~torch.isfinite(out.centroids).all(1).numpy()
+    assert ref_bad.any() and out_bad.any()
+    jl = np.asarray(j_predict(JaxResources(seed=0), ref.centroids, X))
+    tl = kmeans_predict(DeviceResources(device="cpu"), out.centroids,
+                        X).numpy()
+    np.testing.assert_array_equal(tl, jl)
+    assert (tl == np.iinfo(np.int32).max).all()
+    # the draw ranks a NaN or +inf weight first, as categorical does: the
+    # second center is the NaN row whichever the first was
+    gen = torch.Generator().manual_seed(seed)
+    centers = _kmeanspp_init(gen, torch.from_numpy(X), 2)
+    assert torch.isnan(centers[1]).any()
+
+
+@pytest.mark.parametrize("kind", ["ivf_flat", "ivf_pq"])
+def test_ivf_build_refuses_nonfinite_rows(kind):
+    """The reference builds its lists from the labels above, every one
+    2³¹ − 1: its layout's ``np.bincount`` then makes 2³¹ list counters
+    (17 GB) and is not run here. The port refuses the rows instead, with a
+    LogicError naming the first of them."""
+    from raft_tpu_torch.ann import build_ivf_flat, build_ivf_pq
+    from raft_tpu_torch.core import LogicError
+
+    build = build_ivf_flat if kind == "ivf_flat" else build_ivf_pq
+    with pytest.raises(LogicError, match="row 11 holds a NaN or ±inf"):
+        build(DeviceResources(device="cpu"), _nonfinite_rows(), n_lists=8)

@@ -296,3 +296,31 @@ def test_select_smallest_of_negation_is_lax_top_k(kk):
         assert torch.equal((-got_v).view(torch.int32),
                            want_v.view(torch.int32))
         assert torch.equal(got_p, want_p)
+
+
+@pytest.mark.parametrize("m,passes,db_dtype,inf,rows_valid", [
+    (64, 1, "bf16", np.inf, False), (64, 3, "bf16", -np.inf, True),
+    (64, 1, "int8", np.inf, True), (300, 1, "bf16", -np.inf, True),
+    (300, 3, "bf16", np.inf, False), (5000, 1, "int8", -np.inf, False),
+    (5000, 1, "bf16", np.inf, True), (5000, 3, "bf16", -np.inf, False)])
+def test_inf_row_answers_as_reference(m, passes, db_dtype, inf, rows_valid):
+    """An index row that holds ±inf scores NaN (∞ − ∞) or +inf, so a
+    query fails the certificate and takes the exact fixup. The
+    reference's top_k(−d2, k) ranks the NaN first and returns the row's
+    id with it; the port's fixup carries the row through its rescore and
+    gives the same ids and values, NaN in place."""
+    rng = np.random.default_rng(0)
+    y = rng.normal(size=(m, 16)).astype(np.float32)
+    y[7, 3] = inf
+    x = rng.normal(size=(3, 16)).astype(np.float32)
+    rv = np.ones(m, bool) if rows_valid else None
+    jidx = jkf.prepare_knn_index(y, passes=passes, db_dtype=db_dtype,
+                                 rows_valid=rv)
+    v_ref, i_ref = (np.asarray(a) for a in jkf.knn_fused(x, jidx, k=6))
+    idx = tkf.prepare_knn_index(y, passes=passes, db_dtype=db_dtype,
+                                rows_valid=rv, device="cpu")
+    v, i = tkf.knn_fused(torch.from_numpy(x), idx, k=6)
+    np.testing.assert_array_equal(i.numpy(), i_ref)
+    np.testing.assert_allclose(v.numpy(), v_ref, rtol=1e-5)
+    nan_rows = np.isnan(v_ref[:, 0])
+    assert nan_rows.any() and (i_ref[nan_rows, 0] == 7).all()

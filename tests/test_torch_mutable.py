@@ -240,6 +240,34 @@ def test_short_rows_pad_never_tombstoned(plane):
     assert not set(ti.ravel().tolist()) & set(range(12))
 
 
+@pytest.mark.parametrize("inf", (np.inf, -np.inf), ids=("pinf", "ninf"))
+@pytest.mark.parametrize("where", ("base_f32", "base_int8", "delta_f32",
+                                   "delta_ivf_flat"))
+def test_inf_row_answers_as_reference(where, inf):
+    """A row that holds ±inf, in the base or upserted into the delta: it
+    scores NaN or +inf for every query, fails the certificate, and the
+    reference's fixup answers (−1, NaN) where it ranks the NaN first. The
+    port gives the same entries, and drops none (the IVF base searched on
+    its exact scan)."""
+    rng = np.random.default_rng(29)
+    y = rng.normal(size=(96, D)).astype(np.float32)
+    x = rng.normal(size=(5, D)).astype(np.float32)
+    plane = {"base_f32": "brute_f32", "base_int8": "brute_int8",
+             "delta_f32": "brute_f32", "delta_ivf_flat": "ivf_flat"}[where]
+    bad = rng.normal(size=(1, D)).astype(np.float32)
+    bad[0, 3] = inf
+    if where.startswith("base"):
+        y[7] = bad[0]
+    pair = _pair(plane, y)
+    t, j = pair
+    if where.startswith("delta"):
+        _upsert(pair, np.array([500]), bad)
+    tv, ti = _same(t, j, x, k=6, exact=plane == "ivf_flat")
+    nan = np.isnan(tv)
+    assert nan.any()                  # the row is in the answer ...
+    assert (ti[nan] == -1).all()      # ... as the reference's (−1, NaN)
+
+
 def test_run_fused_ops_masks_short_rows_to_minus_one():
     """The layout search keeps the reference's pos = −1 wherever the value
     is not finite: a masked slab short of k never names a masked row."""

@@ -71,7 +71,16 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.ops.select_slotted, raft_tpu_torch.ops.folds, "
             "raft_tpu_torch.matrix.select_k_slotted, "
             "raft_tpu_torch.matrix.select_k_chunked, "
-            "raft_tpu_torch.matrix.select_k_types; "
+            "raft_tpu_torch.matrix.select_k_types, "
+            "raft_tpu_torch.matrix.math_ops, raft_tpu_torch.linalg, "
+            "raft_tpu_torch.linalg.qr, raft_tpu_torch.linalg.cholesky, "
+            "raft_tpu_torch.linalg.eig, raft_tpu_torch.linalg.svd, "
+            "raft_tpu_torch.linalg.rsvd, raft_tpu_torch.linalg.lstsq, "
+            "raft_tpu_torch.linalg.pca, raft_tpu_torch.linalg.tsvd, "
+            "raft_tpu_torch.models.pca, raft_tpu_torch.models.tsvd, "
+            "raft_tpu_torch.sparse.solver.cholesky_qr, "
+            "raft_tpu_torch.sparse.solver.randomized_svds, "
+            "raft_tpu_torch.sparse.solver.mst; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -311,3 +320,60 @@ def test_make_blobs_shapes_and_labels():
 
 def test_version():
     assert raft_tpu_torch.__version__
+
+
+def _mesh_calls():
+    from raft_tpu_torch import linalg, models
+
+    return [lambda: models.PCA(2, mesh=object()),
+            lambda: models.TruncatedSVD(2, mesh=object()),
+            lambda: linalg.pca_fit_distributed(None, None, None, object()),
+            lambda: linalg.tsvd_fit_distributed(None, None, None, object()),
+            lambda: linalg.pca.pad_mask_shard(None, object())]
+
+
+@pytest.mark.parametrize("case", range(5))
+def test_mesh_options_raise_naming_item_7(case):
+    """The multi-device fits are not in the port yet: PCA's and
+    TruncatedSVD's ``mesh``, the two distributed fits and the row
+    sharding each raise NotImplementedError naming ROADMAP item 7, before
+    touching a device."""
+    with pytest.raises(NotImplementedError, match="item 7"):
+        _mesh_calls()[case]()
+
+
+def test_dense_linalg_defaults_to_cuda():
+    """The new dense entry points run where their tensors lie, or on the
+    handle's device for numpy input (cuda by default)."""
+    from raft_tpu_torch import linalg, models
+    from raft_tpu_torch.sparse import solver
+
+    A = np.random.default_rng(2).normal(size=(40, 6)).astype(np.float32)
+
+    def graph():        # numpy arrays: no device of their own
+        return COOMatrix(np.array([0, 1]), np.array([1, 0]),
+                         np.array([1.0, 1.0], np.float32), (3, 3))
+
+    if torch.cuda.is_available():
+        assert linalg.svd_qr(None, A)[1].device.type == "cuda"
+        assert solver.cholesky_qr(A)[0].device.type == "cuda"
+        return
+    for call in (lambda: linalg.svd_qr(None, A),
+                 lambda: linalg.randomized_svd(None, A, 2),
+                 lambda: models.PCA(2).fit(A),
+                 lambda: solver.randomized_svds(None, graph(),
+                                                solver.SvdsConfig(1)),
+                 lambda: solver.mst(None, graph()),
+                 lambda: solver.cholesky_qr(A),
+                 lambda: solver.cholesky_qr2(A)):
+        with pytest.raises(DeviceError):
+            call()
+    assert linalg.svd_qr(None, torch.from_numpy(A))[1].device.type == "cpu"
+    assert solver.cholesky_qr(torch.from_numpy(A))[0].device.type == "cpu"
+    assert solver.cholesky_qr2(torch.from_numpy(A))[1].device.type == "cpu"
+    cpu = DeviceResources(device="cpu")
+    assert linalg.randomized_svd(cpu, A, 2)[1].device.type == "cpu"
+    assert models.PCA(2, res=cpu).fit(A).components_.device.type == "cpu"
+    assert solver.randomized_svds(cpu, graph(), solver.SvdsConfig(1)
+                                  )[1].device.type == "cpu"
+    assert solver.mst(cpu, graph()).mst.weights.device.type == "cpu"

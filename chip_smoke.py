@@ -355,6 +355,47 @@ Phases, each fatal on failure (non-zero exit, no result line):
    edges. Each step's time is a host-clock median of 3 after a warm-up,
    each window after ``settle()``. Prints one ``svd`` line. No kernel of
    K1–K9 runs here.
+17. The rest of ROADMAP item 13 (``prims_phase``), after phase 16. (a)
+   ``bench_prims.py:44,61-80``'s primitives on make_blobs 100,000 × 128
+   (16 clusters): ``linalg.add`` of two such matrices, ``reduce`` over
+   rows, ``map_then_reduce`` of x², ``row_norm``, ``normalize``,
+   ``binary_add``, ``reduce_rows_by_key`` (16 keys), ``transpose``,
+   ``matrix.gather`` of n/2 rows and ``gemm`` by a 128 × 128 matrix, each
+   equal to the same call on the CPU within the tolerance its row states
+   (bit for bit for single IEEE operations, the f32 summation bound for
+   sums; the card's ``index_add_`` adds in no fixed order), timed by CUDA
+   events beside its byte bound (gemm: its operation bound). (b) Every
+   distribution at 100,000 × 128 draws, mean and variance each within six
+   standard errors of its law (Cauchy: its quartiles), the invariants
+   (ranges, a permutation, samples without repeats or zero weights), the
+   PCG32 ``uniform`` on the card bit for bit the port's on the CPU,
+   ``make_regression``'s noise and ``multi_variable_gaussian``'s sample
+   covariance at d = 128. (c) The LAP at ``bench_solvers_scale.py:108-
+   133``'s n = 1024, 2048, 4096 on uniform × 100 f32 costs: objectives
+   within their certified gap (plus the certificate's f32 rounding) of
+   ``scipy.optimize.linear_sum_assignment``'s, each gap within n·ε of the
+   final ε stage, bids and seconds printed; the JV kernel
+   (``ops.lap_jv``) bit for bit its twin (assignments, duals, steps;
+   timed beside it) at n = 128 and 512, and at ``:139``'s n = 512 and
+   1024 within n·max|cost|·2⁻²² of scipy's optimum, its f64 certificate
+   within the same limit; then, with its count
+   zeroed before and read after (> 0), ``solve_lap`` with a tol between
+   the tail's certificate and the auction's. (d) ``NearestNeighbors
+   (n_neighbors=64)`` on phase 3's data and queries (2048 × 1M × 128; the
+   K1 count zeroed before and read after): ids and distances equal to
+   ``distance.knn``'s, both host medians, ``kneighbors_graph``'s shape
+   and nnz; then the ``ivf_flat`` and ``ivf_pq`` estimators on phase 5's
+   recipe at 100,000 rows: at ``n_probes = n_lists`` ids equal to brute
+   force's up to proven ties, at 32 probes K4 (IVF-Flat) and K5 (IVF-PQ
+   under ``RAFT_TPU_IVF_PQ_SCAN=pq``; the chooser's ``auto`` takes the
+   flat scan on this data) launched, recall printed. (e) The compat
+   surface: a device_ndarray round trip of 100,000 × 128 bit for bit,
+   ``cai_wrapper`` over a CUDA tensor on its pointer, ``rmat`` at scale
+   20 into a device_ndarray, ``svds(k=16)`` within 1e-4 of
+   ``randomized_svds`` on the same matrix and seed (their SpMMs add with
+   atomics), ``eigsh(k=6, which="LM")``'s top eigenvalue within 1e-4 of
+   the port's Lanczos. Prints ``prims``, ``rng``, ``lap``, ``nn`` and
+   ``compat`` lines; the ``kernels`` line gains ``lap_jv``.
 
 Exits 2 without a CUDA device.
 """
@@ -5306,6 +5347,567 @@ def svd_phase(res, shape=SVD_SHAPE) -> dict:
     return report
 
 
+#: phase 17's shapes: bench_prims.py:44's primitives, bench_solvers_scale.py
+#: :108-133's LAP sizes and :139's exact-tail sizes, the twin's n
+PRIMS_SHAPE = (100_000, 128, 16)
+LAP_SIZES = (1024, 2048, 4096)
+JV_SIZES = (512, 1024)
+JV_TWIN_N = 128
+#: the exact-tail sizes at which the kernel is also held against its twin
+#: bit for bit (the twin reads the host once a step: ~0.35 ms on the card)
+JV_TWIN_SIZES = (512,)
+#: the IVF estimators' rows, and the probes of their approximate runs
+NN_IVF_ROWS, NN_IVF_PROBES = 100_000, 32
+
+
+def bytes_ms(nbytes: float) -> float:
+    """The least ms to move ``nbytes`` at the card's memory rate."""
+    return nbytes / H100_BYTES_PER_S * 1e3
+
+
+def prims_cells(res, shape=PRIMS_SHAPE) -> dict:
+    """Phase 17 (a): the primitives of ``bench_prims.py:61-80`` that the
+    port has (``add`` of two matrices, not of one with itself, so that
+    its 153.6 MB are all moved), and ``gemm`` by a 128 × 128 matrix, each
+    held against the
+    same call on the CPU at the tolerance its row states, timed by CUDA
+    events beside its byte (or, for gemm, operation) bound."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import linalg, matrix
+    from raft_tpu_torch.core import DeviceResources
+    from raft_tpu_torch.random import RngState, make_blobs
+
+    n, d, n_keys = shape
+    cpu = DeviceResources(device="cpu")
+    X, _ = make_blobs(res, RngState(0), n, d, n_clusters=n_keys)
+    Y, _ = make_blobs(res, RngState(1), n, d, n_clusters=n_keys)
+    Xc, Yc = X.cpu(), Y.cpu()
+    rng = np.random.default_rng(1)
+    keys = torch.from_numpy(rng.integers(0, n_keys, n))
+    rows = torch.from_numpy(rng.integers(0, n, n // 2))
+    W = torch.from_numpy(rng.normal(size=(d, d)).astype(np.float32))
+    ones = torch.ones(d)
+    u = 2.0 ** -24
+    f = 4.0 * n * d
+    absX = Xc.abs()
+    counts = torch.bincount(keys, minlength=n_keys).double()
+    cells = {
+        # name: (call, bytes, exact-or-tolerance from the CPU result)
+        "add": (lambda r, a: linalg.add(
+            r, a, (Y if a.is_cuda else Yc)), 3 * f, 0.0),
+        "reduce_rows": (lambda r, a: linalg.reduce(r, a), f + 4 * n,
+                        d * u * absX.sum(1)),
+        "map_then_reduce_sq": (
+            lambda r, a: linalg.map_then_reduce(r, a, map_op=lambda x: x * x),
+            f + 4, 1e-5 * (Xc.double() ** 2).sum().item()),
+        "row_norm_l2": (lambda r, a: linalg.row_norm(r, a), f + 4 * n,
+                        d * u * (Xc * Xc).sum(1)),
+        "normalize_l2": (lambda r, a: linalg.normalize(r, a), 2 * f,
+                         (d + 2) * u),
+        "binary_add": (lambda r, a: linalg.binary_add(
+            r, a, ones.to(a.device)), 2 * f + 4 * d, 0.0),
+        "reduce_rows_by_key": (lambda r, a: linalg.reduce_rows_by_key(
+            r, a, keys.to(a.device), n_keys), f + 8 * n + 4 * n_keys * d,
+            (counts[:, None] * u * linalg.reduce_rows_by_key(
+                cpu, absX, keys, n_keys).double()).float()),
+        "transpose": (lambda r, a: linalg.transpose(r, a), 2 * f, 0.0),
+        "gather_half": (lambda r, a: matrix.gather(r, a, rows.to(a.device)),
+                        f + 8 * (n // 2), 0.0),
+        "gemm_128": (lambda r, a: linalg.gemm(r, a, W.to(a.device)),
+                     2 * f + 4 * d * d,
+                     (d + 2) * u * (absX @ W.abs())),
+    }
+    out = {}
+    for name, (call, nbytes, tol) in cells.items():
+        got = call(res, X)
+        want = call(cpu, Xc)
+        err = (got.cpu().double() - want.double()).abs()
+        tol_t = torch.as_tensor(tol, dtype=torch.float64)
+        check(tuple(got.shape) == tuple(want.shape)
+              and bool((err <= tol_t).all()),
+              f"prims {name}: card against CPU off by "
+              f"{err.max().item()} (tolerance {tol_t.max().item()})")
+        ms = cuda_ms(lambda: call(res, X), 20)
+        bound, by = bytes_ms(nbytes), "bytes"
+        if name == "gemm_128":
+            ops_ms = 2.0 * n * d * d / H100_F32_FLOPS * 1e3
+            if ops_ms > bound:
+                bound, by = ops_ms, "operations"
+        out[name] = {"ms": ms, "bound_ms": bound, "bound_by": by,
+                     "mbytes": nbytes / 1e6,
+                     "max_abs_err": err.max().item(),
+                     "tolerance": tol_t.max().item()}
+        print(f"prims {name}: {json.dumps(out[name])}", flush=True)
+    return out
+
+
+def _moments_ok(name, x, mean, var, report):
+    """x's mean and variance each within six standard errors of the
+    law's: √(var / N) for the mean, √((m₄ − v²) / N) for the variance, m₄
+    the sample's fourth central moment."""
+    x = x.double().reshape(-1)
+    m, v = x.mean().item(), x.var().item()
+    m4 = ((x - m) ** 4).mean().item()
+    se_m, se_v = (var / x.numel()) ** 0.5, ((m4 - v * v) / x.numel()) ** 0.5
+    report[name] = {"mean": m, "law_mean": mean, "var": v, "law_var": var,
+                    "mean_z": abs(m - mean) / se_m,
+                    "var_z": abs(v - var) / se_v}
+    check(report[name]["mean_z"] <= 6 and report[name]["var_z"] <= 6,
+          f"rng {name}: {json.dumps(report[name])}")
+
+
+def rng_checks(res, shape=PRIMS_SHAPE) -> dict:
+    """Phase 17 (b): each distribution at 100,000 × 128 draws against its
+    law, the PCG stream on the card bit for bit the port's on the CPU,
+    make_regression and multi_variable_gaussian."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch.core import DeviceResources
+
+    n, d, _ = shape
+    sh = (n, d)
+    rep = {}
+    S = rnd.RngState
+    _moments_ok("uniform", rnd.uniform(res, S(1), sh, -2.0, 3.0), 0.5,
+                25 / 12, rep)
+    x = rnd.uniform(res, S(1), sh, -2.0, 3.0)
+    check(bool((x >= -2.0).all() and (x < 3.0).all()), "rng uniform range")
+    k = rnd.uniform_int(res, S(2), sh, 0, 10)
+    check(int(k.min()) >= 0 and int(k.max()) < 10, "rng uniform_int range")
+    _moments_ok("uniform_int", k, 4.5, 99 / 12, rep)
+    _moments_ok("normal", rnd.normal(res, S(3), sh, 1.0, 2.0), 1.0, 4.0, rep)
+    _moments_ok("normal_int", rnd.normal_int(res, S(4), sh, 10.0, 3.0), 10.0,
+                9.0 + 1 / 12, rep)
+    s2 = 0.25
+    _moments_ok("lognormal", rnd.lognormal(res, S(5), sh, 0.0, 0.5),
+                math.exp(s2 / 2), (math.exp(s2) - 1) * math.exp(s2), rep)
+    _moments_ok("gumbel", rnd.gumbel(res, S(6), sh, 0.5, 2.0),
+                0.5 + 2.0 * 0.5772156649, math.pi ** 2 * 4 / 6, rep)
+    _moments_ok("logistic", rnd.logistic(res, S(7), sh), 0.0,
+                math.pi ** 2 / 3, rep)
+    _moments_ok("exponential", rnd.exponential(res, S(8), sh, 2.0), 0.5,
+                0.25, rep)
+    _moments_ok("rayleigh", rnd.rayleigh(res, S(9), sh, 1.5),
+                1.5 * math.sqrt(math.pi / 2), (4 - math.pi) / 2 * 2.25, rep)
+    _moments_ok("laplace", rnd.laplace(res, S(10), sh), 0.0, 2.0, rep)
+    _moments_ok("bernoulli", rnd.bernoulli(res, S(11), sh, 0.3), 0.3, 0.21,
+                rep)
+    _moments_ok("scaled_bernoulli",
+                rnd.scaled_bernoulli(res, S(12), sh, 0.3, 2.0), 0.8, 3.36,
+                rep)
+    w = [1.0, 0.0, 2.0, 3.0, 0.0, 4.0]
+    dk = rnd.discrete(res, S(13), sh, w)
+    check(not bool(((dk == 1) | (dk == 4)).any()),
+          "rng discrete drew a zero weight")
+    _moments_ok("discrete", dk, 3.3, 13.5 - 3.3 ** 2, rep)
+    # Cauchy has no moments: its median and quartiles, each within six
+    # standard errors (π·scale / (2√N) for the median)
+    c = rnd.cauchy(res, S(14), (n * d,), 1.0, 2.0)
+    q = torch.quantile(c[: 1 << 24].float(), torch.tensor(
+        [0.25, 0.5, 0.75], device=c.device)).tolist()
+    se = math.pi * 2.0 / (2 * math.sqrt(c.numel()))
+    rep["cauchy"] = {"quartiles": q, "law": [-1.0, 1.0, 3.0]}
+    check(all(abs(a - b) <= 6 * 2 * se for a, b in zip(q, [-1.0, 1.0, 3.0])),
+          f"rng cauchy: {rep['cauchy']}")
+    mu = torch.linspace(-1, 1, d, device=res.device)
+    sg = torch.linspace(0.5, 2.0, d, device=res.device)
+    t = rnd.normal_table(res, S(15), n, mu, sg).double()
+    mean_z = ((t.mean(0) - mu) / (sg / n ** 0.5)).abs().max().item()
+    var_r = ((t.var(0) / sg.double() ** 2) - 1).abs().max().item()
+    rep["normal_table"] = {"max_mean_z": mean_z, "max_var_rel": var_r}
+    check(mean_z <= 6 and var_r <= 6 * (2 / n) ** 0.5,
+          f"rng normal_table: {rep['normal_table']}")
+    X = torch.randn(sh, device=res.device)
+    perm, Xp = rnd.permute(res, S(16), X)
+    check(torch.equal(torch.sort(perm.long()).values,
+                      torch.arange(n, device=res.device))
+          and torch.equal(Xp, X[perm.long()]), "rng permute")
+    wts = torch.rand(n, device=res.device)
+    wts[::10] = 0
+    sw = rnd.sample_without_replacement(res, S(17), n, 1000, weights=wts)
+    check(sw.unique().numel() == 1000 and bool((wts[sw.long()] > 0).all()),
+          "rng sample_without_replacement")
+    # PCG: the card's stream bit for bit the CPU's
+    pcg = S(7, 3, type=rnd.GeneratorType.PCG)
+    a = rnd.uniform(res, pcg, sh, -2.0, 3.0)
+    b = rnd.uniform(DeviceResources(device="cpu"), pcg, sh, -2.0, 3.0)
+    check(torch.equal(a.cpu().view(torch.int32), b.view(torch.int32)),
+          "rng PCG uniform: the card's bits differ from the CPU's")
+    rep["pcg_bits_equal"] = True
+    # make_regression: y − X·w − bias is the N(0, noise²) noise
+    Xr, y, coef = rnd.make_regression(res, S(18), n, d, n_informative=64,
+                                      bias=3.0, noise=1.0)
+    resid = y.double() - Xr.double() @ coef.double() - 3.0
+    _moments_ok("make_regression_noise", resid, 0.0, 1.0, rep)
+    check(bool((coef[64:] == 0).all() and (coef[:64] > 0).all()
+               and (coef < 100).all()), "make_regression coefficients")
+    # multi_variable_gaussian: the sample covariance within six standard
+    # errors of Σ entry by entry, sqrt((Σii·Σjj + Σij²) / N)
+    g = np.random.default_rng(19)
+    A = g.normal(size=(d, d)) / d ** 0.5
+    cov = torch.from_numpy(A @ A.T + np.eye(d)).float()
+    mu0 = torch.from_numpy(g.normal(size=d)).float()
+    Z = rnd.multi_variable_gaussian(res, S(20), n, mu0, cov).double()
+    Sig = cov.double().to(Z.device)
+    Sh = torch.cov(Z.T)
+    sd = ((torch.outer(Sig.diagonal(), Sig.diagonal()) + Sig ** 2) / n).sqrt()
+    mz = ((Z.mean(0) - mu0.double().to(Z.device))
+          / (Sig.diagonal() / n).sqrt()).abs().max().item()
+    cz = ((Sh - Sig) / sd).abs().max().item()
+    rep["multi_variable_gaussian"] = {"max_mean_z": mz, "max_cov_z": cz}
+    check(mz <= 6 and cz <= 6,
+          f"rng multi_variable_gaussian: {rep['multi_variable_gaussian']}")
+    print(json.dumps({"rng": rep}), flush=True)
+    return rep
+
+
+def lap_phase(res, sizes=LAP_SIZES, jv_sizes=JV_SIZES, twin_n=JV_TWIN_N,
+              twin_sizes=JV_TWIN_SIZES) -> tuple:
+    """Phase 17 (c): the auction at ``bench_solvers_scale.py``'s sizes on
+    uniform × 100 f32 costs, objectives within their certified gaps of
+    scipy's and each gap within n·ε of the final ε stage; the JV kernel
+    against its twin bit for bit at ``twin_n`` (batch 2) and at
+    ``twin_sizes``, and at the exact-tail sizes within a fixed limit of
+    scipy's optimum, its f64 certificate within the same limit; then once
+    through ``LinearAssignmentProblem.solve`` with a tol below the
+    auction's gap. Returns (the ``lap`` report, the kernel entry)."""
+    import numpy as np
+    import torch
+    from scipy.optimize import linear_sum_assignment
+
+    from raft_tpu_torch.ops import lap_jv as kjv
+    from raft_tpu_torch.solver import LinearAssignmentProblem, solve_lap
+    from raft_tpu_torch.solver import linear_assignment as la
+
+    rng = np.random.default_rng(0)
+    rep = {}
+
+    def scipy_obj(c):
+        t0 = time.perf_counter()
+        r, cidx = linear_sum_assignment(c)
+        return float(c.astype(np.float64)[r, cidx].sum()), \
+            time.perf_counter() - t0
+
+    for n in sizes:
+        cost = rng.random((n, n)).astype(np.float32) * 100.0
+        ct = torch.from_numpy(cost).to(res.device)
+        la.BIDS = 0
+        settle()
+        t0 = time.perf_counter()
+        lap = LinearAssignmentProblem(res, n)
+        assign, _ = lap.solve(ct)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        gap = float(lap.get_optimality_gap_bound())
+        a = assign.long().cpu().numpy()
+        obj64 = float(cost.astype(np.float64)[np.arange(n), a].sum())
+        sp, sp_s = scipy_obj(cost)
+        # the certificate sums n f32 slacks of values ≤ 2·max|cost|
+        slack = n * 2.0 ** -23 * 100.0
+        # ε-complementary slackness leaves each row's slack ≤ the final
+        # stage's ε (the sweeps only lower it), so the certificate is at
+        # most n·ε: a limit that does not grow with a wrong assignment
+        mx = float(np.abs(cost).max())
+        eps_fin = max(min(1.0 / (n + 1), mx / 4.0 ** la.N_STAGES),
+                      mx * 2.0 ** -20)
+        row = {"n": n, "seconds": secs, "bids": la.BIDS,
+               "objective": obj64, "scipy_objective": sp,
+               "excess": obj64 - sp, "gap_bound": gap,
+               "gap_limit": n * eps_fin, "f32_slack": slack,
+               "scipy_seconds": sp_s}
+        check(len(set(a.tolist())) == n and sp - 1e-6 * sp <= obj64
+              <= sp + gap + slack and gap <= n * eps_fin + slack,
+              f"lap n={n}: {json.dumps(row)}")
+        rep[f"auction_{n}"] = row
+        print(f"lap auction: {json.dumps(row)}", flush=True)
+
+    # the JV kernel against its twin, bit for bit
+    c128 = torch.from_numpy(rng.random((2, twin_n, twin_n)).astype(
+        np.float32) * 100.0).to(res.device)
+    ka, ku, ks = kjv.lap_jv_solve(c128, with_steps=True)
+    ra, ru, rs = kjv.lap_jv_solve_ref(c128, with_steps=True)
+    check(torch.equal(ka, ra) and torch.equal(ku, ru)
+          and torch.equal(ks, rs),
+          f"lap_jv at n={twin_n}: the kernel differs from its twin")
+    err = (ku - ru).abs().max().item()
+    ms = cuda_ms(lambda: kjv.lap_jv_solve(c128), 5)
+    settle()
+    t0 = time.perf_counter()
+    kjv.lap_jv_solve_ref(c128)
+    torch.cuda.synchronize()
+    plain_ms = 1e3 * (time.perf_counter() - t0)
+    steps = int(ks.sum())
+    twin = {"n": twin_n, "batch": 2, "ms": ms, "plain_ms": plain_ms,
+            "steps": steps}
+    entry = {"name": "lap_jv", "route": "cuda",
+             "source": "raft_tpu_torch/ops/csrc/lap_jv.cu",
+             "replaces": "raft_tpu/solver/linear_assignment.py:153 "
+                         "(_jv_solve, a jitted while_loop; no Pallas kernel)",
+             "n": twin_n, "batch": 2, "ms": ms, "plain_ms": plain_ms,
+             "max_abs_err": err,
+             "library_ms": None,
+             "library_note": "no PyTorch call solves an assignment"}
+    entry.update(zip(("bound_ms", "bound_by"),
+                     jv_bound_ms(2, twin_n, steps)))
+    tail = None
+    for n in jv_sizes:
+        cost = rng.random((n, n)).astype(np.float32) * 100.0
+        ct = torch.from_numpy(cost)[None].to(res.device)
+        a, uu, st = kjv.lap_jv_solve(ct, with_steps=True)
+        gap64 = float(la._certify_f64(cost[None], a.cpu().numpy(),
+                                      uu.cpu().numpy())[0])
+        ms_n = cuda_ms(lambda: kjv.lap_jv_solve(ct), 2)
+        row = {"n": n}
+        if n in twin_sizes:
+            settle()
+            t0 = time.perf_counter()
+            ra, ru, rs = kjv.lap_jv_solve_ref(ct, with_steps=True)
+            torch.cuda.synchronize()
+            row["plain_ms"] = 1e3 * (time.perf_counter() - t0)
+            check(torch.equal(a, ra) and torch.equal(uu, ru)
+                  and torch.equal(st, rs),
+                  f"lap_jv at n={n}: the kernel differs from its twin")
+            row["twin_bits_equal"] = True
+        a = a[0].long().cpu().numpy()
+        obj64 = float(cost.astype(np.float64)[np.arange(n), a].sum())
+        sp, _ = scipy_obj(cost)
+        bound, by = jv_bound_ms(1, n, int(st.sum()))
+        # the certificate bounds objective − optimum from above whatever
+        # the assignment, so it is no test by itself: both are held to a
+        # fixed limit, ~3 ulps of max|cost| a row, that an f32 solve
+        # reaches and a suboptimal assignment does not
+        limit = n * float(np.abs(cost).max()) * 2.0 ** -22
+        row.update({"ms": ms_n, "steps": int(st.sum()),
+                    "objective": obj64, "scipy_objective": sp,
+                    "gap_bound_f64": gap64, "limit": limit,
+                    "bound_ms": bound, "bound_by": by})
+        check(len(set(a.tolist())) == n
+              and sp - 1e-9 * sp <= obj64 <= sp + limit
+              and gap64 <= limit,
+              f"lap_jv n={n}: {json.dumps(row)}")
+        entry[f"n{n}"] = row
+        print(f"lap_jv: {json.dumps(row)}", flush=True)
+        if tail is None:
+            tail = (ct[0], gap64, sp)
+    # the path: a tol between the exact tail's certificate and the
+    # auction's sends the instance through the tail
+    cost, gap64, sp = tail
+    n = cost.shape[0]
+    lap = LinearAssignmentProblem(res, n)
+    lap.solve(cost)
+    gap = float(lap.get_optimality_gap_bound())
+    check(gap64 < gap, f"lap: the auction's gap {gap} is not above the "
+          f"exact tail's {gap64} at n={n}")
+    tol = 0.5 * (gap + gap64)
+    kjv.LAUNCHES = 0
+    _, obj = solve_lap(res, cost, tol=tol)
+    torch.cuda.synchronize()
+    entry["launches"] = kjv.LAUNCHES
+    check(kjv.LAUNCHES > 0 and abs(float(obj) - sp) <= tol + 1e-3,
+          "lap: the tol path launched lap_jv no time or missed scipy")
+    rep["tol_path"] = {"n": n, "tol": tol, "auction_gap": gap,
+                       "objective": float(obj), "scipy_objective": sp,
+                       "launches": kjv.LAUNCHES}
+    rep["lap_jv"] = twin
+    print(json.dumps({"lap": rep}), flush=True)
+    return rep, entry
+
+
+def jv_bound_ms(batch: int, n: int, steps: int):
+    """The JV tail's least time on this card: its cost matrices read once
+    and the outputs written once, or its f32 work (four operations a
+    column a step: two subtracts, a compare, an update), whichever is
+    larger."""
+    nbytes = batch * (4.0 * n * n + 8.0 * n)
+    ops = 4.0 * n * steps
+    b, o = bytes_ms(nbytes), ops / H100_F32_FLOPS * 1e3
+    return (b, "bytes") if b >= o else (o, "operations")
+
+
+def nn_phase(res) -> dict:
+    """Phase 17 (d): ``NearestNeighbors(n_neighbors=64)`` on phase 3's
+    data and queries against ``distance.knn`` (ids and distances equal),
+    ``kneighbors_graph``; the IVF estimators at 100,000 rows of phase 5's
+    recipe, exact at n_probes = n_lists and probed at 32 lists."""
+    import torch
+
+    from raft_tpu_torch import distance
+    from raft_tpu_torch.models import NearestNeighbors
+    from raft_tpu_torch.ops import fine_scan as k4
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import pq_scan as k5
+    from raft_tpu_torch.random import make_blobs
+
+    rep = {}
+    X, _ = make_blobs(res, 0, N_INDEX, DIM, n_clusters=64, cluster_std=2.0)
+    Qx = X[:N_QUERIES].clone()
+    nn = NearestNeighbors(n_neighbors=K, res=res).fit(X)
+    k1.LAUNCHES = 0
+    d_nn, i_nn = nn.kneighbors(Qx)
+    torch.cuda.synchronize()
+    launches = k1.LAUNCHES
+    check(launches > 0, "nn brute: kneighbors launched K1 no time")
+    d_k, i_k = distance.knn(res, X, Qx, k=K)
+    check(torch.equal(i_nn, i_k) and torch.equal(d_nn, d_k),
+          "nn brute: kneighbors differs from distance.knn")
+    nn_ms, _ = host_median_ms(lambda: nn.kneighbors(Qx))
+    knn_ms, _ = host_median_ms(lambda: distance.knn(res, X, Qx, k=K))
+    g = nn.kneighbors_graph(Qx)
+    check(tuple(g.shape) == (N_QUERIES, N_INDEX) and g.nnz == N_QUERIES * K,
+          f"nn kneighbors_graph: shape {g.shape}, nnz {g.nnz}")
+    rep["brute"] = {"ms": nn_ms, "distance_knn_ms": knn_ms,
+                    "k1_launches": launches, "ids_equal": True,
+                    "graph_nnz": g.nnz}
+    print(f"nn brute: {json.dumps(rep['brute'])}", flush=True)
+    del X, Qx, nn, d_nn, i_nn, d_k, i_k, g
+    torch.cuda.empty_cache()
+
+    data = ann_data(res, NN_IVF_ROWS, N_QUERIES)
+    Xa, Q = data["X"], data["Q"]
+    _, i_b = NearestNeighbors(n_neighbors=IVF_K, res=res).fit(
+        Xa).kneighbors(Q)
+    check_exact(i_b, data["o_ids"], data["o_vals"], Xa, Q, "nn brute 100k",
+                data["floor"])
+    for algo in ("ivf_flat", "ivf_pq"):
+        t0 = time.perf_counter()
+        est = NearestNeighbors(n_neighbors=IVF_K, algorithm=algo,
+                               res=res).fit(Xa)
+        torch.cuda.synchronize()
+        build_s = time.perf_counter() - t0
+        L = est._index.n_lists
+        est.n_probes = L
+        _, i_x = est.kneighbors(Q)
+        n_tie = check_exact(i_x, i_b, data["o_vals"], Xa, Q,
+                            f"nn {algo} exact", data["floor"])
+        est.n_probes = NN_IVF_PROBES
+        row = {"rows": NN_IVF_ROWS, "n_lists": L, "build_s": build_s,
+               "exact_ids_equal_brute": True, "exact_tie_queries": n_tie,
+               "probes": NN_IVF_PROBES}
+        # ivf_pq: the scan the chooser picks (auto), then the ADC scan
+        # asked for by the reference's knob
+        scans = ("auto", "pq") if algo == "ivf_pq" else ("list",)
+        for scan in scans:
+            if algo == "ivf_pq":
+                os.environ["RAFT_TPU_IVF_PQ_SCAN"] = scan
+            k4.LAUNCHES = k5.LAUNCHES_8BIT = k5.LAUNCHES_4BIT = 0
+            _, i_p = est.kneighbors(Q)
+            torch.cuda.synchronize()
+            kl = {"K4": k4.LAUNCHES,
+                  "K5": k5.LAUNCHES_8BIT + k5.LAUNCHES_4BIT}
+            want = "K4" if algo == "ivf_flat" else "K5"
+            # (auto on blob data takes the query-major flat scan, which
+            # is torch operations: only recorded)
+            check(scan == "auto" or kl[want] > 0,
+                  f"nn {algo} ({scan}): the probed search launched {want} "
+                  f"no time")
+            hit = sum(len(set(a) & set(b)) for a, b in zip(
+                i_p.tolist(), data["o_ids"].tolist()))
+            ms, _ = host_median_ms(lambda: est.kneighbors(Q))
+            row[scan] = {"recall": hit / (N_QUERIES * IVF_K), "ms": ms,
+                         "launches": kl}
+        os.environ.pop("RAFT_TPU_IVF_PQ_SCAN", None)
+        rep[algo] = row
+        print(f"nn {algo}: {json.dumps(rep[algo])}", flush=True)
+    print(json.dumps({"nn": rep}), flush=True)
+    return rep
+
+
+def compat_checks(res, scale: int = 20) -> dict:
+    """Phase 17 (e): the pylibraft surface: a device_ndarray round trip,
+    cai_wrapper's zero copy, ``rmat`` at ``scale``, ``svds`` against
+    ``randomized_svds`` and ``eigsh`` against the port's Lanczos on that
+    adjacency."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import compat
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.sparse.convert import coo_to_csr
+    from raft_tpu_torch.sparse.solver import (LANCZOS_WHICH,
+                                              LanczosSolverConfig, SvdsConfig,
+                                              lanczos_compute_eigenpairs,
+                                              randomized_svds)
+
+    host = np.random.default_rng(21).normal(size=PRIMS_SHAPE[:2]).astype(
+        np.float32)
+    dn = compat.device_ndarray(host)
+    back = dn.copy_to_host()
+    check(dn.to_torch().is_cuda and back.view(np.uint32).tobytes()
+          == host.view(np.uint32).tobytes(), "compat device_ndarray bits")
+    t = torch.randn(1000, 64, device=res.device)
+    cw = compat.cai_wrapper(t)
+    check(cw.to_torch().data_ptr() == t.data_ptr()
+          == t.__cuda_array_interface__["data"][0],
+          "compat cai_wrapper copied its tensor")
+    n_edges = 16 << scale
+    out = compat.device_ndarray.zeros((n_edges, 2), dtype=np.int32)
+    rep = {"device_ndarray_bits_equal": True, "cai_zero_copy": True}
+    t0 = time.perf_counter()
+    compat.rmat(out, None, scale, scale, seed=5, handle=res)
+    rmat_s = time.perf_counter() - t0
+    e = out.to_torch()
+    check(int(e.max()) < (1 << scale) and int(e.min()) >= 0,
+          "compat rmat out of range")
+    n = 1 << scale
+    A = coo_to_csr(COOMatrix(torch.cat([e[:, 0], e[:, 1]]),
+                             torch.cat([e[:, 1], e[:, 0]]),
+                             torch.ones(2 * n_edges, device=res.device),
+                             (n, n)))
+    svds_ms, (_, S, _) = host_median_ms(
+        lambda: compat.svds(A, k=16, seed=42, handle=res))
+    # the sparse SVD's SpMMs add with atomics (index_add_) in no fixed
+    # order, so two calls on the card differ by their roundings: held to
+    # 1e-4 relative, beside the spread of randomized_svds against itself
+    _, S2, _ = randomized_svds(res, A, SvdsConfig(n_components=16, seed=42))
+    _, S3, _ = randomized_svds(res, A, SvdsConfig(n_components=16, seed=42))
+    s_err = ((S - S2).abs() / S2.abs()).max().item()
+    self_err = ((S3 - S2).abs() / S2.abs()).max().item()
+    check(s_err <= 1e-4, f"compat svds against randomized_svds: {s_err} "
+          f"(randomized_svds against itself: {self_err})")
+    t0 = time.perf_counter()
+    vals, _ = compat.eigsh(A, k=6, which="LM", ncv=32, maxiter=3000,
+                           tol=1e-7, handle=res)
+    eigsh_s = time.perf_counter() - t0
+    lam, _ = lanczos_compute_eigenpairs(res, A, LanczosSolverConfig(
+        n_components=1, which=LANCZOS_WHICH.LA, ncv=32, max_iterations=3000,
+        tolerance=1e-7, seed=0))
+    top = vals.abs().max().item()
+    top_err = abs(top - lam[-1].item()) / lam[-1].item()
+    rep.update({"rmat_scale": scale, "rmat_s": rmat_s, "nnz": A.nnz,
+                "svds_ms": svds_ms, "svds_vs_randomized_svds": s_err,
+                "randomized_svds_vs_itself": self_err,
+                "eigsh_s": eigsh_s, "eigsh_top": top,
+                "lanczos_top": lam[-1].item(), "eigsh_top_rel_err": top_err})
+    check(top_err <= 1e-4, f"compat eigsh: {json.dumps(rep)}")
+    print(json.dumps({"compat": rep}), flush=True)
+    return rep
+
+
+def prims_phase(res) -> tuple:
+    """Phase 17: the rest of ROADMAP item 13 on the card (see the module
+    docstring). Returns ({prims, rng, lap, nn, compat}, the lap_jv
+    kernel entry)."""
+    import torch
+
+    report = {"prims": prims_cells(res)}
+    print(json.dumps({"prims": report["prims"]}), flush=True)
+    torch.cuda.empty_cache()
+    report["rng"] = rng_checks(res)
+    torch.cuda.empty_cache()
+    report["lap"], entry = lap_phase(res)
+    torch.cuda.empty_cache()
+    report["nn"] = nn_phase(res)
+    torch.cuda.empty_cache()
+    report["compat"] = compat_checks(res)
+    return report, entry
+
+
 GUARD_CARD = "NVIDIA H100 80GB HBM3, 700.00 W"
 GUARD_MS = {"K1_p1": 1.892, "K1_p3": 3.172, "K2_p1": 2.644, "K2_p3": 3.215,
             # the slot forms and K9 alone at value_histogram's 12.8 M
@@ -5398,6 +6000,7 @@ def main() -> int:
     from raft_tpu_torch.ops import fine_scan as k4
     from raft_tpu_torch.ops import fused_l2_topk as k1
     from raft_tpu_torch.ops import histogram as k9
+    from raft_tpu_torch.ops import lap_jv as kjv
     from raft_tpu_torch.ops import pq_scan as k5
     from raft_tpu_torch.ops import select_slotted as k3
     from raft_tpu_torch.ops import unexpanded as k8
@@ -5419,7 +6022,8 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all(["fused_l2_packed_sm90", "fused_l2_topk", "fine_scan",
                       "pq_scan", "spmv",
-                      "sddmm", "unexpanded", "histogram", "select_slotted"])
+                      "sddmm", "unexpanded", "histogram", "select_slotted",
+                      "lap_jv"])
     k1._launcher()
     k1._launcher_q8()
     k1._launcher_dchunk()
@@ -5433,6 +6037,7 @@ def main() -> int:
     _build.load("sddmm")
     k8._launcher()
     k9._launcher()
+    kjv._launcher()
     print(f"build: {time.perf_counter() - t0:.1f} s "
           f"({_build.BUILD_SECONDS})", flush=True)
     for name, log in _build.BUILD_LOG.items():
@@ -5689,6 +6294,11 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end("svd")
 
+    # ---- phase 17: the rest of item 13 (primitives, RNG, LAP, models) ----
+    prims, lap_entry = prims_phase(res)
+    torch.cuda.empty_cache()
+    phase_end("prims")
+
     # ---- phase 14: the summary ----
     print(json.dumps({"nonfinite_k1_k2": nonfinite}), flush=True)
     print(json.dumps({"main_path": main_path}), flush=True)
@@ -5702,8 +6312,11 @@ def main() -> int:
     print(json.dumps({"select_k": select}), flush=True)
     print(json.dumps({"wide_knn": wide}), flush=True)
     print(json.dumps({"svd": svd}), flush=True)
+    for name in ("prims", "rng", "lap", "nn", "compat"):
+        print(json.dumps({name: prims[name]}), flush=True)
     kernels = [entry, k2_entry, slot_entry, k3_entry, *wide_entries,
-               *k4_entries, *k5_entries, *sparse_entries, *k89_entries]
+               *k4_entries, *k5_entries, *sparse_entries, *k89_entries,
+               lap_entry]
     speed_guard(card, kernels)
     print(json.dumps({"phase_s": phase_s}), flush=True)
     print(f"wall: {time.perf_counter() - t_start:.1f} s", flush=True)

@@ -57,6 +57,24 @@ def as_f32(a, device: torch.device) -> torch.Tensor:
     return torch.from_numpy(np.ascontiguousarray(a)).to(device)
 
 
+def as_tensor(a, device: torch.device):
+    """``a`` (numpy, list, scalar or tensor; None passes through) as a
+    tensor on ``device`` that keeps its dtype (numpy's included)."""
+    if a is None or isinstance(a, torch.Tensor):
+        return None if a is None else a.to(device)
+    a = np.asarray(a)
+    if not a.flags.writeable:      # e.g. a view of a JAX array
+        a = a.copy()
+    return torch.from_numpy(np.ascontiguousarray(a)).to(device)
+
+
+def as_tensors(res, *arrays, device=None):
+    """``arrays`` as tensors (:func:`as_tensor`) on the device
+    :func:`input_device` picks for them."""
+    dev = input_device(res, *arrays, device=device)
+    return tuple(as_tensor(a, dev) for a in arrays)
+
+
 def _is_f64(a) -> bool:
     if isinstance(a, torch.Tensor):
         return a.dtype == torch.float64

@@ -16,7 +16,7 @@ from typing import NamedTuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.error import expects, not_ported
 from raft_tpu_torch.core.resources import float_operands, input_device
 from raft_tpu_torch.linalg.eig import eig_dc, eig_jacobi
 from raft_tpu_torch.matrix.math_ops import sign_flip
@@ -49,12 +49,6 @@ class PCAModel(NamedTuple):
     singular_vals: torch.Tensor
     mu: torch.Tensor                   # [n_features]
     noise_vars: torch.Tensor           # scalar
-
-
-def not_ported(what: str):
-    raise NotImplementedError(
-        f"{what} needs the multi-device mesh, which is not ported to the GPU "
-        f"yet (ROADMAP queue 1, item 7)")
 
 
 def eig_descending(res, G, algorithm: Solver, tol: float, sweeps: int):

@@ -1,5 +1,14 @@
-"""raft_tpu_torch.matrix — batched top-k selection and elementwise matrix
-math of the port."""
+"""raft_tpu_torch.matrix — batched top-k selection, row gather and
+scatter, matrix manipulation and elementwise matrix math of the port."""
+
+from raft_tpu_torch.matrix.gather import (gather, gather_if, gather_inplace,
+                                          scatter)
+from raft_tpu_torch.matrix.manip import (col_reverse, eye, fill,
+                                         get_diagonal, invert_diagonal,
+                                         linewise_op, lower_triangular,
+                                         print_matrix, reverse, row_reverse,
+                                         set_diagonal, shift, slice,
+                                         upper_triangular)
 
 from raft_tpu_torch.matrix.math_ops import (argmax, argmin, power, ratio,
                                             reciprocal, sample_rows,
@@ -19,4 +28,8 @@ __all__ = ["select_k", "choose_select_k_algorithm", "SelectAlgo",
            "chunked_envelope", "f32_comparable_keys", "power",
            "weighted_power", "sqrt", "ratio", "reciprocal",
            "zero_small_values", "argmax", "argmin", "sign_flip",
-           "sample_rows", "sort_cols_per_row"]
+           "sample_rows", "sort_cols_per_row", "gather", "gather_if",
+           "gather_inplace", "scatter", "slice", "reverse", "col_reverse",
+           "row_reverse", "shift", "get_diagonal", "set_diagonal",
+           "invert_diagonal", "upper_triangular", "lower_triangular", "eye",
+           "fill", "linewise_op", "print_matrix"]

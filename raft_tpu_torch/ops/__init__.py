@@ -30,6 +30,7 @@ from raft_tpu_torch.ops.histogram import (
     histogram_blocked,
     histogram_blocked_ref,
 )
+from raft_tpu_torch.ops.lap_jv import lap_jv_solve, lap_jv_solve_ref
 from raft_tpu_torch.ops.pq_scan import (
     pq_scan_list_major,
     pq_scan_list_major_ref,
@@ -72,7 +73,8 @@ __all__ = ["fine_scan_list_major", "fine_scan_list_major_q8",
            "fused_l2_group_topk_packed", "fused_l2_group_topk_packed_q8",
            "fused_l2_group_topk_packed_q8_ref",
            "fused_l2_group_topk_packed_ref", "histogram_blocked",
-           "histogram_blocked_ref", "pq_scan_list_major",
+           "histogram_blocked_ref", "lap_jv_solve", "lap_jv_solve_ref",
+           "pq_scan_list_major",
            "pq_scan_list_major_ref",
            "sddmm_csr", "sddmm_csr_ref", "sddmm_entries",
            "sddmm_entries_ref", "sddmm_tiled",

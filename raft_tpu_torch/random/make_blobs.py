@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from raft_tpu_torch.core.resources import resolve_device
+from raft_tpu_torch.random.rng_state import as_generator, target_device
 
 
 def _imbalanced_counts(n_samples: int, proportions) -> np.ndarray:
@@ -50,20 +50,12 @@ def make_blobs(
     """Returns ``(X [n_samples, n_features], labels [n_samples])`` — or
     ``(X, labels, centers)`` with ``return_centers=True``.
 
-    ``state`` is an int seed, a ``torch.Generator`` on the target device,
-    or None for the handle's own generator; ``device`` defaults to the
+    ``state`` is an int seed, an ``RngState``, a ``torch.Generator`` on the
+    target device, or None for the handle's own generator; ``device`` defaults to the
     handle's (``res``) or ``cuda``. ``cluster_std`` may be per-center; ``proportions`` switches on the
     imbalanced-sizes mode (see the reference)."""
-    if device is None and res is not None:
-        device = res.device
-    dev = resolve_device(device)
-    if isinstance(state, torch.Generator):
-        gen = state
-    elif state is None:
-        gen = res.generator          # the handle's seeded stream
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(state))
+    dev = target_device(res, device)
+    gen = as_generator(state, res, dev)
     if centers is None:
         lo, hi = center_box
         centers = lo + (hi - lo) * torch.rand(

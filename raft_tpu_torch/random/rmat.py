@@ -20,7 +20,7 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.core.error import expects
-from raft_tpu_torch.core.resources import resolve_device
+from raft_tpu_torch.random.rng_state import as_generator, target_device
 
 #: edges drawn per step of :func:`rmat_rectangular_gen`
 EDGE_CHUNK = 1 << 23
@@ -68,20 +68,13 @@ def rmat_rectangular_gen(res, state, n_edges: int, r_scale: int,
     """``n_edges`` edges of a 2^r_scale × 2^c_scale R-MAT graph, (src,
     dst). ``theta``: a flat [4·max(r_scale, c_scale)] per-level quadrant
     probability array (the reference's layout) or None for (a, b, c, d)
-    at every level. ``state``: an int seed, a ``torch.Generator`` on the
-    target device, or None for the handle's generator; ``device`` defaults
+    at every level. ``state``: an int seed, an ``RngState``, a
+    ``torch.Generator`` on the target device, or None for the handle's
+    generator; ``device`` defaults
     to the handle's, else cuda. (ref: rmat_rectangular_generator.cuh
     ``rmat_rectangular_gen``)"""
-    if device is None and res is not None:
-        device = res.device
-    dev = resolve_device(device)
-    if isinstance(state, torch.Generator):
-        gen = state
-    elif state is None:
-        gen = res.generator
-    else:
-        gen = torch.Generator(device=dev)
-        gen.manual_seed(int(state))
+    dev = target_device(res, device)
+    gen = as_generator(state, res, dev)
     max_scale = max(r_scale, c_scale)
     th = _theta(theta, a, b, c, max_scale, dev)
     src = torch.empty(n_edges, dtype=dtype, device=dev)

@@ -13,6 +13,8 @@ from typing import NamedTuple
 import torch
 
 from raft_tpu_torch.core.resources import float_operands, input_device
+# one definition, the reference's re-export (raft_tpu/stats/metrics.py:13)
+from raft_tpu_torch.linalg.reduce import mean_squared_error  # noqa: F401
 
 
 def _pair(res, a, b):
@@ -59,10 +61,3 @@ def regression_metrics(res, predictions, ref_predictions
     return RegressionMetrics(float(err.abs().mean()),
                              float((err * err).mean()),
                              float(_median(err.abs())))
-
-
-def mean_squared_error(res, a, b, weight: float = 1.0):
-    """weight · mean((a − b)²), a 0-d tensor. (ref:
-    linalg/mean_squared_error.cuh)"""
-    a, b = _pair(res, a, b)
-    return ((a - b) ** 2).mean() * weight

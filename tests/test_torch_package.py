@@ -80,7 +80,23 @@ def test_import_pulls_in_no_jax_and_no_reference():
             "raft_tpu_torch.models.pca, raft_tpu_torch.models.tsvd, "
             "raft_tpu_torch.sparse.solver.cholesky_qr, "
             "raft_tpu_torch.sparse.solver.randomized_svds, "
-            "raft_tpu_torch.sparse.solver.mst; "
+            "raft_tpu_torch.sparse.solver.mst, "
+            "raft_tpu_torch.core.operators, raft_tpu_torch.linalg.map, "
+            "raft_tpu_torch.linalg.eltwise, "
+            "raft_tpu_torch.linalg.matrix_vector, raft_tpu_torch.linalg.norm, "
+            "raft_tpu_torch.linalg.reduce, "
+            "raft_tpu_torch.linalg.reduce_by_key, raft_tpu_torch.linalg.blas, "
+            "raft_tpu_torch.linalg.transpose, raft_tpu_torch.linalg.init, "
+            "raft_tpu_torch.linalg.contractions, raft_tpu_torch.matrix.gather, "
+            "raft_tpu_torch.matrix.manip, raft_tpu_torch.label, "
+            "raft_tpu_torch.label.classlabels, "
+            "raft_tpu_torch.label.merge_labels, "
+            "raft_tpu_torch.random.rng_state, raft_tpu_torch.random.rng, "
+            "raft_tpu_torch.random.make_regression, "
+            "raft_tpu_torch.random.multi_variable_gaussian, "
+            "raft_tpu_torch.solver, raft_tpu_torch.solver.linear_assignment, "
+            "raft_tpu_torch.ops.lap_jv, raft_tpu_torch.models.knn, "
+            "raft_tpu_torch.compat, raft_tpu_torch.compat.pylibraft; "
             "print(sorted(m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'raft_tpu')))")
     env = dict(os.environ, PYTHONPATH=REPO)
@@ -122,7 +138,7 @@ def test_ops_export_each_kernel_beside_its_twin():
             "fused_l2_group_topk_packed", "select_slot_topk_packed",
             "fine_scan_list_major", "pq_scan_list_major", "spmv_tiled",
             "sddmm_tiled", "unexpanded_pairwise_tiled",
-            "histogram_blocked"} <= kernels
+            "histogram_blocked", "lap_jv_solve"} <= kernels
     assert sorted(n for n in kernels if n + "_ref" not in names) == []
 
 
@@ -377,3 +393,66 @@ def test_dense_linalg_defaults_to_cuda():
     assert solver.randomized_svds(cpu, graph(), solver.SvdsConfig(1)
                                   )[1].device.type == "cpu"
     assert solver.mst(cpu, graph()).mst.weights.device.type == "cpu"
+
+
+def test_item13_entry_points_default_to_cuda():
+    """The primitive layer, RNG, labels, matrix ops, the LAP,
+    NearestNeighbors and the pylibraft surface run on the card unless
+    given CPU tensors or a CPU handle, and raise without one."""
+    from raft_tpu_torch import compat, label, linalg, matrix, models
+    from raft_tpu_torch import random as rnd
+    from raft_tpu_torch import solver
+
+    A = np.random.default_rng(3).normal(size=(64, 8)).astype(np.float32)
+    labels = np.array([3, 1, 3, 0])
+    cost = np.random.default_rng(4).random((6, 6)).astype(np.float32)
+    calls = {
+        "add": lambda r: linalg.add(r, A, A),
+        "reduce": lambda r: linalg.reduce(r, A),
+        "row_norm": lambda r: linalg.row_norm(r, A),
+        "gemm": lambda r: linalg.gemm(r, A, A.T),
+        "reduce_rows_by_key": lambda r: linalg.reduce_rows_by_key(
+            r, A, np.arange(64) % 4, 4),
+        "range_fill": lambda r: linalg.range_fill(r, 0, 5),
+        "tiled_contraction": lambda r: linalg.tiled_contraction(
+            r, A, A, lambda ip, x, y: ip),
+        "gather": lambda r: matrix.gather(r, A, np.array([1, 2])),
+        "eye": lambda r: matrix.eye(r, 3),
+        "make_monotonic": lambda r: label.make_monotonic(r, labels)[0],
+        "merge_labels": lambda r: label.merge_labels(r, labels % 4,
+                                                     labels % 4),
+        "uniform": lambda r: rnd.uniform(r, 0, (3,)),
+        "pcg_uniform": lambda r: rnd.uniform(
+            r, rnd.RngState(1, type=rnd.GeneratorType.PCG), (3,)),
+        "normal": lambda r: rnd.normal(r, rnd.RngState(1), (3,)),
+        "make_regression": lambda r: rnd.make_regression(r, 0, 20, 3)[0],
+        "multi_variable_gaussian": lambda r: rnd.multi_variable_gaussian(
+            r, 0, 5, np.zeros(2), np.eye(2)),
+        "solve_lap": lambda r: solver.solve_lap(r, cost)[0],
+        "nn_fit": lambda r: models.NearestNeighbors(
+            n_neighbors=2, res=r).fit(A).kneighbors(A[:2])[1],
+        "rmat": lambda r: compat.rmat(10, None, 3, 3, handle=r),
+    }
+    if torch.cuda.is_available():
+        for call in calls.values():
+            assert call(None).device.type == "cuda"
+        return
+    cpu = DeviceResources(device="cpu")
+    for name, call in calls.items():
+        with pytest.raises(DeviceError):
+            call(None)
+        assert call(cpu).device.type == "cpu", name
+    # CPU tensors stay on the CPU without a handle
+    t = torch.from_numpy(A)
+    assert linalg.add(None, t, t).device.type == "cpu"
+    assert linalg.reduce(None, t).device.type == "cpu"
+    assert matrix.gather(None, t, torch.tensor([0])).device.type == "cpu"
+    assert solver.solve_lap(None, torch.from_numpy(cost))[0].device.type \
+        == "cpu"
+    nn = models.NearestNeighbors(n_neighbors=2).fit(t)
+    assert nn.kneighbors(t[:2])[1].device.type == "cpu"
+    with pytest.raises(DeviceError):
+        compat.device_ndarray(A)
+    with pytest.raises(DeviceError):
+        compat.eigsh(compat.device_ndarray(A[:8] @ A[:8].T, device="cpu"),
+                     k=2)

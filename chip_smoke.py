@@ -297,7 +297,8 @@ Phases, each fatal on failure (non-zero exit, no result line):
    and K2's rows also carry each instance's ptxas registers and spill
    bytes and ``fold_issue_ms``, the fold's SASS issue time, which
    ``bound_ms`` leaves out), ``nonfinite_k1_k2``
-   (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``, ``ivf``, ``ivf_pq``,
+   (with the slot forms' cases), ``main_path``, ``k1_ladder``, ``serving``,
+   ``serving_ops``, ``ivf``, ``ivf_pq``,
    ``mutable``, ``spectral``, ``pairwise_stats``, ``select_k`` and ``wide_knn`` lines,
    the total wall time, the card's name and power limit, and the result
    line ``{"ok": true, "device": {...}}``.
@@ -396,6 +397,40 @@ Phases, each fatal on failure (non-zero exit, no result line):
    atomics), ``eigsh(k=6, which="LM")``'s top eigenvalue within 1e-4 of
    the port's Lanczos. Prints ``prims``, ``rng``, ``lap``, ``nn`` and
    ``compat`` lines; the ``kernels`` line gains ``lap_jv``.
+18. The serving engine's operations planes (``serving_ops_phase``), run
+   right after phase 10 on its recipe: one bf16 index over 1M × 128
+   N(0, 1) rows, k = 64, ladder (16, 64, 256), 2000 requests from 8
+   closed-loop clients, three loops each with K1's count zeroed before
+   and read after: (a) telemetry off (``observability.disable()`` and
+   ``disable_flight()``), (b) the defaults (registry, flight ring and
+   SLO engine on), (c) every plane on (``shadow_frac=0.05``,
+   ``explain_frac=0.02``, ``debug_port=0``, a blackbox in a temporary
+   directory, ``watchdog_s=0.5``) with every debugz route scraped from
+   another thread while it runs. (b) runs alone; (a) and (c), each on
+   an engine of its own, run as ``OPS_SEGMENTS`` interleaved segments of
+   500 requests (after 200 uncounted requests of (a)), so that the
+   host's speed, which drifts by tens of percent within a run, falls on
+   both alike. Each loop: no request fails, 0 builds after warm-up, p50
+   / p99 / requests/s printed. (b): the registry counts the requests
+   served. (c): the shadow's ≥ 20 samples (its
+   oracle ``knn_fused`` on the same index, its own thread and CUDA
+   stream) at recall exactly 1.0, no breach and no oracle error; ≥ 10
+   explain records of the brute plane with a finite margin for every
+   query of their bucket; every route answered 200; ``/metricsz``
+   counts the requests served; no SLO burn alert and no watchdog stall;
+   the blackbox reads ``clean`` after ``stop()``; (c)'s requests/s at
+   least half (a)'s. Then a child process (``CRASH_CHILD``: the port's
+   engine at this shape with a blackbox, four clients) killed with
+   SIGKILL mid-traffic leaves a file that reads ``crash``, and the next
+   engine on that path serves it at ``/crashz`` (``crash_case``); last
+   (``hang_case``), ``serving_flush:hang@call=6`` armed after
+   warm-up with ``watchdog_s=0.5`` gives a stall of the batcher's
+   heartbeat, ``/stackz`` read during the hang names the batcher in
+   ``execute_batch`` (and the fault's ``_hang``), and the hung batch
+   fails by its 4 s deadline while the rest are answered. Prints the
+   ``serving_ops`` lines; the ``kernels`` line's K1 row gains
+   ``serving_ops_launches`` (batcher, and in (c) the shadow's re-scores)
+   and ``serving_ops_shadow_samples``.
 
 Exits 2 without a CUDA device.
 """
@@ -1910,6 +1945,430 @@ def serving_phase(res, seed: int = 0):
             engine.stop()
         del engine, idx
         torch.cuda.empty_cache()
+    return report, launches
+
+
+#: phase 18's debugz routes, each scraped while the all-planes loop runs
+DEBUGZ_ROUTES = ("/healthz", "/statusz", "/metricsz", "/explainz",
+                 "/flightz", "/stackz", "/crashz")
+#: the child engine a SIGKILL takes down mid-traffic (phase 18): it
+#: serves phase 10's shape with a blackbox at argv[1], prints READY once
+#: its clients are sending, and serves until it is killed
+CRASH_CHILD = r"""
+import sys, threading, numpy as np, torch
+sys.path.insert(0, sys.argv[2])
+from raft_tpu_torch.distance import prepare_knn_index
+from raft_tpu_torch.serving import ServingEngine
+m, d, k = int(sys.argv[3]), int(sys.argv[4]), int(sys.argv[5])
+gen = torch.Generator(device="cuda")
+gen.manual_seed(1)
+Y = torch.randn(m, d, device="cuda", generator=gen)
+eng = ServingEngine(prepare_knn_index(Y), k=k, blackbox_path=sys.argv[1],
+                    watchdog_s=0.5).start()
+rng = np.random.default_rng(1)
+q = rng.normal(size=(64, 16, d)).astype(np.float32)
+def client(c):
+    i = c
+    while True:
+        eng.submit(q[i % 64]).result(60)
+        i += 1
+for c in range(4):
+    threading.Thread(target=client, args=(c,), daemon=True).start()
+while eng.stats().get("requests_ok", 0) < 200:
+    threading.Event().wait(0.01)
+print("READY", flush=True)
+threading.Event().wait(600)
+"""
+
+
+def http_get(port: int, route: str, timeout: float = 10.0):
+    """(status, body) of one GET on the debugz server at ``port``."""
+    import urllib.error
+    import urllib.request
+
+    try:
+        with urllib.request.urlopen(f"http://127.0.0.1:{port}{route}",
+                                    timeout=timeout) as resp:
+            return resp.status, resp.read().decode()
+    except urllib.error.HTTPError as e:
+        return e.code, e.read().decode()
+
+
+def prom_value(text: str, series: str) -> float:
+    """The value of one series line (``name{labels}``) of Prometheus text;
+    0 when the series is absent."""
+    for line in text.splitlines():
+        if line.startswith(series + " "):
+            return float(line.split()[-1])
+    return 0.0
+
+
+def crash_case(m: int, d: int, k: int, path: str,
+               ready_s: float = 240.0) -> dict:
+    """Phase 18's SIGKILL case: a child engine killed mid-traffic leaves a
+    blackbox that reads ``crash``; the next engine on that path serves
+    the reconstruction at ``/crashz`` and counts the unclean shutdown.
+    The child runs in a session of its own and its whole process group
+    is killed; its standard error goes to a file beside the blackbox."""
+    import select
+    import signal
+
+    import torch
+    from raft_tpu_torch.distance import prepare_knn_index
+    from raft_tpu_torch.observability import blackbox
+    from raft_tpu_torch.serving import ServingEngine
+
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    err_path = path + ".stderr"
+    with open(err_path, "w") as err:
+        child = subprocess.Popen(
+            [sys.executable, "-c", CRASH_CHILD, path, root, str(m), str(d),
+             str(k)], stdout=subprocess.PIPE, stderr=err, text=True,
+            start_new_session=True)
+    ready = False
+    try:
+        t_end = time.perf_counter() + ready_s
+        while not ready and time.perf_counter() < t_end:
+            if select.select([child.stdout], [], [], 1.0)[0]:
+                line = child.stdout.readline()
+                ready = "READY" in line
+                if not line and child.poll() is not None:
+                    break
+        t_ready = time.perf_counter()
+        if ready:
+            time.sleep(0.5)                  # traffic in flight
+    finally:
+        try:
+            os.killpg(child.pid, signal.SIGKILL)
+        except ProcessLookupError:
+            pass
+        child.wait(60)
+    with open(err_path) as f:
+        err_tail = f.read()[-800:]
+    check(ready, f"serving_ops crash: the child engine did not start in "
+          f"{ready_s} s (rc {child.returncode}): {err_tail}")
+    t_killed = time.perf_counter()
+    rec = blackbox.reconstruct(path)
+    check(rec is not None and rec["verdict"] == "crash",
+          f"serving_ops crash: the killed child's blackbox reads "
+          f"{None if rec is None else rec['verdict']}, not crash")
+    idx = prepare_knn_index(torch.randn(4096, d, device="cuda"))
+    eng = ServingEngine(idx, k=k, blackbox_path=path, debug_port=0).start()
+    try:
+        status, body = http_get(eng.debugz.port, "/crashz")
+        served = json.loads(body)
+        st = eng.stats()
+    finally:
+        eng.stop()
+    check(status == 200 and served.get("verdict") == "crash"
+          and served.get("records") == rec["records"],
+          f"serving_ops crash: /crashz served {status} "
+          f"{served.get('verdict')} ({served.get('records')} records, "
+          f"the file holds {rec['records']})")
+    check(st.get("prior_crash", {}).get("verdict") == "crash",
+          f"serving_ops crash: stats() prior_crash {st.get('prior_crash')}")
+    after = blackbox.reconstruct(path)
+    check(after is not None and after["verdict"] == "clean",
+          "serving_ops crash: the restarted engine's own file is not clean "
+          "after stop()")
+    return {"verdict": rec["verdict"], "records": rec["records"],
+            "torn_records": rec["torn_records"],
+            "snapshots": rec["snapshots"], "events": len(rec["events"]),
+            "crashz_verdict": served["verdict"],
+            "preserved_path": os.path.basename(
+                served.get("preserved_path") or ""),
+            "child_ready_s": t_ready - t0,
+            "kill_s": t_killed - t_ready,
+            "restart_s": time.perf_counter() - t_killed,
+            "child_stderr_bytes": os.path.getsize(err_path),
+            "wall_s": time.perf_counter() - t0}
+
+
+def hang_case(idx, k: int, d: int, path: str, nth: int = 6,
+              budget_s: float = 4.0) -> dict:
+    """Phase 18's hang case: ``serving_flush:hang@call=nth`` armed after
+    warm-up, ``watchdog_s=0.5``; the watchdog must report a ``hang``
+    stall of the batcher's heartbeat, ``/stackz`` must name the batcher
+    in ``execute_batch``, and the hung batch must fail by its deadline
+    while the rest are answered."""
+    import numpy as np
+    from raft_tpu_torch.core.error import DeadlineExceededError
+    from raft_tpu_torch.observability import blackbox, get_flight_recorder
+    from raft_tpu_torch.resilience import faults
+    from raft_tpu_torch.serving import ServingEngine
+
+    rng = np.random.default_rng(3)
+    eng = ServingEngine(idx, k=k, debug_port=0, blackbox_path=path,
+                        watchdog_s=0.5).start()
+    t0 = time.perf_counter()
+    try:
+        faults.configure(f"serving_flush:hang@call={nth}")
+        futs = []
+        for i in range(nth):
+            # one batch a request: the nth flush hangs
+            futs.append(eng.submit(rng.normal(size=(8, d)).astype(
+                np.float32), deadline_s=budget_s))
+            if i < nth - 1:
+                eng.flush(30)
+        # read /stackz while the batcher is still hung (the watchdog sees
+        # the stall after 4 silent ticks, 2 s; the deadline is 4 s)
+        t_end = time.time() + budget_s
+        while not eng.stats()["watchdog"]["stalls"] and time.time() < t_end:
+            time.sleep(0.05)
+        status, stackz = http_get(eng.debugz.port, "/stackz")
+        stalls = [e for e in get_flight_recorder().events()
+                  if e.get("kind") == "stall"]
+        outcomes = []
+        for f in futs:
+            err = f.exception(timeout=budget_s + 30)
+            outcomes.append("ok" if err is None else type(err).__name__)
+    finally:
+        faults.clear()
+        eng.stop()
+    batcher = stackz.split("== serving-batcher", 1)[-1].split("\n== ", 1)[0]
+    check(bool(stalls) and stalls[0]["name"] == "serving-batcher",
+          f"serving_ops hang: no stall of the batcher's heartbeat "
+          f"({stalls[:1]})")
+    check(status == 200 and "== serving-batcher" in stackz
+          and "in execute_batch" in batcher and "in _hang" in batcher,
+          "serving_ops hang: /stackz does not name the batcher's frame")
+    check(outcomes.count(DeadlineExceededError.__name__) == 1
+          and outcomes.count("ok") == len(outcomes) - 1,
+          f"serving_ops hang: outcomes {outcomes}")
+    rec = blackbox.reconstruct(path)
+    check(rec is not None and rec["stall_dumps"],
+          "serving_ops hang: the blackbox holds no stall dump")
+    return {"stall_source": stalls[0]["name"],
+            "stall_age_s": stalls[0].get("age_s"),
+            "outcomes": outcomes, "stackz_names_batcher": True,
+            "blackbox_stall_dumps": len(rec["stall_dumps"]),
+            "wall_s": time.perf_counter() - t0}
+
+
+#: seconds between two debugz scrapes in phase 18's loop (c), which reads
+#: the routes in turn across its segments
+SCRAPE_GAP_S = 0.2
+
+#: phase 18 runs loops (a) and (c) as this many interleaved segments each,
+#: so that a change in the host's speed during the phase (±40% between
+#: runs of one call has been seen) falls on both
+OPS_SEGMENTS = 4
+
+
+def serving_ops_loop(name: str, eng, request, n_requests: int, clients: int,
+                     seed: int, segments=None, scrape: bool = False,
+                     off: bool = False) -> dict:
+    """Drive ``eng`` through ``n_requests`` closed-loop requests (one
+    segment of a loop when ``segments`` accumulates several), K1's count
+    zeroed before and read after the shadow (if any) has drained; with
+    ``off`` the registry and the flight recorder are disabled for the
+    segment, with ``scrape`` every debugz route is fetched from another
+    thread while it runs. Returns the accumulated segment record."""
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+
+    acc = segments if segments is not None else {
+        "lat": [], "errors": [], "wall": 0.0, "launches": 0, "scrapes": {},
+        "next_route": 0}
+    stop_scrape = threading.Event()
+
+    def scraper(port):
+        # the route cycle carries on across segments
+        while not stop_scrape.is_set():
+            route = DEBUGZ_ROUTES[acc["next_route"] % len(DEBUGZ_ROUTES)]
+            acc["next_route"] += 1
+            status, _ = http_get(port, route)
+            acc["scrapes"].setdefault(route, []).append(status)
+            stop_scrape.wait(SCRAPE_GAP_S)
+
+    thread = None
+    if scrape:
+        thread = threading.Thread(target=scraper, args=(eng.debugz.port,))
+        thread.start()
+    if off:
+        obs.disable()
+        obs.disable_flight()
+    try:
+        k1.LAUNCHES = 0
+        lat, errors, wall, _ = closed_loop(eng, request, n_requests, clients,
+                                           SERVE_THINK_S, seed)
+        if eng.shadow is not None:
+            check(eng.shadow.flush(120), f"{name}: the shadow queue did "
+                  f"not drain")
+        acc["launches"] += k1.LAUNCHES
+    finally:
+        obs.enable()
+        obs.enable_flight()
+        stop_scrape.set()
+        if thread is not None:
+            thread.join(30)
+    acc["lat"] += lat
+    acc["errors"] += errors
+    acc["wall"] += wall
+    check(not errors and len(lat) == n_requests,
+          f"{name}: {len(errors)} requests failed: {errors[:3]}")
+    return acc
+
+
+def serving_ops_phase(res, seed: int = 0):
+    """Phase 18 (see the module doc): the engine with its operations
+    planes at phase 10's shape. Returns (the ``serving_ops`` report, K1's
+    launches by loop)."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raft_tpu_torch import observability as obs
+    from raft_tpu_torch.distance import prepare_knn_index
+    from raft_tpu_torch.observability import blackbox
+    from raft_tpu_torch.serving import ServingEngine
+
+    m, d, k, n_requests, clients = SERVE_SHAPE
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    Y = torch.randn(m, d, device="cuda", generator=gen)
+    rng = np.random.default_rng(seed)
+    ladder = (16, 64, 256)
+    sizes = np.clip(rng.poisson(max(2, ladder[0]), n_requests), 1,
+                    ladder[-1])
+    blocks = rng.normal(size=(64, ladder[-1], d)).astype(np.float32)
+
+    def request(i):
+        return blocks[i % 64, :int(sizes[i % n_requests])]
+
+    idx = prepare_knn_index(Y, db_dtype="bf16")
+    tmp = tempfile.mkdtemp(prefix="serving_ops_")
+    bb_path = os.path.join(tmp, "blackbox.bin")
+    report, acc, stats = {"loops": {}}, {}, {}
+    seg = n_requests // OPS_SEGMENTS
+    try:
+        # (b) the defaults, alone: the registry counts what it served
+        obs.reset()
+        eng = ServingEngine(idx, k=k).start()
+        try:
+            acc["b_defaults"] = serving_ops_loop(
+                "b_defaults", eng, request, n_requests, clients, seed)
+            stats["b_defaults"] = eng.stats()
+        finally:
+            eng.stop()
+        check(stats["b_defaults"].get("registry_requests")
+              == {"ok": n_requests}, f"b_defaults: the registry counted "
+              f"{stats['b_defaults'].get('registry_requests')}")
+        # (a) off and (c) every plane on, in interleaved segments
+        obs.reset()
+        eng_a = ServingEngine(idx, k=k).start()
+        eng_c = ServingEngine(idx, k=k, shadow_frac=0.05,
+                              explain_frac=0.02, debug_port=0,
+                              blackbox_path=bb_path,
+                              watchdog_s=0.5).start()
+        try:
+            serving_ops_loop("warm-up", eng_a, request, 200, clients,
+                             seed + 7, off=True)
+            for i in range(OPS_SEGMENTS):
+                acc["a_off"] = serving_ops_loop(
+                    "a_off", eng_a, request, seg, clients, seed + i,
+                    acc.get("a_off"), off=True)
+                acc["c_all_planes"] = serving_ops_loop(
+                    "c_all_planes", eng_c, request, seg, clients, seed + i,
+                    acc.get("c_all_planes"), scrape=True)
+            stats["a_off"], stats["c_all_planes"] = (eng_a.stats(),
+                                                     eng_c.stats())
+            metricsz = http_get(eng_c.debugz.port, "/metricsz")[1]
+        finally:
+            eng_a.stop()
+            eng_c.stop()
+        served = {"a_off": seg * OPS_SEGMENTS, "b_defaults": n_requests,
+                  "c_all_planes": seg * OPS_SEGMENTS}
+        launches = {}
+        for name in ("a_off", "b_defaults", "c_all_planes"):
+            st, rec = stats[name], acc[name]
+            launches[name] = rec["launches"]
+            check(st["builds_after_warmup"] == 0,
+                  f"{name}: {st['builds_after_warmup']} kernel builds or "
+                  f"loads after warm-up")
+            check(launches[name] > 0, f"{name}: serving launched K1 no "
+                  f"time")
+            lat_ms = np.asarray(rec["lat"]) * 1e3
+            report["loops"][name] = {
+                "p50_ms": float(np.percentile(lat_ms, 50)),
+                "p99_ms": float(np.percentile(lat_ms, 99)),
+                "throughput_rps": served[name] / rec["wall"],
+                "n_requests": served[name], "errors": len(rec["errors"]),
+                "segments": 1 if name == "b_defaults" else OPS_SEGMENTS,
+                "batches": st["batches"], "launches": {"K1": launches[name]},
+                "builds_after_warmup": st["builds_after_warmup"]}
+        st = stats["c_all_planes"]
+        scrapes = acc["c_all_planes"]["scrapes"]
+        alerts = st["slo"]["active_alerts"]
+        records = obs.explain_records(limit=256)
+        margined = [r for r in records
+                    if r.get("plane") == "brute" and r.get("outcome") == "ok"
+                    and r.get("margins", {}).get("runtime.knn_query",
+                                                 {}).get("n")
+                    == r.get("bucket")]
+        served_ok = prom_value(
+            metricsz, 'raft_tpu_serving_requests_total{status="ok"}')
+        bad_routes = {r: s for r, s in scrapes.items()
+                      if not s or set(s) != {200}}
+        check(st["shadow_samples"] >= 20 and st["shadow_recall"] == 1.0
+              and st["shadow_breaches"] == 0 and st["shadow_errors"] == 0,
+              f"c_all_planes: shadow {st['shadow_samples']} samples, "
+              f"recall {st['shadow_recall']}, breaches "
+              f"{st['shadow_breaches']}, errors {st['shadow_errors']}")
+        check(len(margined) >= 10, f"c_all_planes: {len(margined)} explain "
+              f"records with a finite margin per query (of {len(records)})")
+        check(not bad_routes and len(scrapes) == len(DEBUGZ_ROUTES),
+              f"c_all_planes: debugz routes answered {bad_routes}")
+        check(served_ok == served["c_all_planes"],
+              f"c_all_planes: /metricsz counts {served_ok} served requests, "
+              f"not {served['c_all_planes']}")
+        check(not alerts and prom_value(
+            metricsz, "raft_tpu_slo_burn_alerts_total") == 0,
+              f"c_all_planes: SLO burn alerts {alerts}")
+        check(st["watchdog"]["stalls"] == 0, f"c_all_planes: the watchdog "
+              f"saw {st['watchdog']['stalls']} stalls under healthy load")
+        verdict = blackbox.reconstruct(bb_path)
+        check(verdict is not None and verdict["verdict"] == "clean",
+              f"c_all_planes: the blackbox reads "
+              f"{None if verdict is None else verdict['verdict']} after "
+              f"stop()")
+        report["loops"]["b_defaults"]["registry_requests"] = \
+            stats["b_defaults"]["registry_requests"]
+        report["loops"]["c_all_planes"].update(
+            shadow_samples=st["shadow_samples"],
+            shadow_recall=st["shadow_recall"],
+            shadow_breaches=st["shadow_breaches"],
+            shadow_dropped=st["shadow_dropped"],
+            explain_records=len(records), explain_margined=len(margined),
+            margin_min=min(r["margins"]["runtime.knn_query"]["min"]
+                           for r in margined),
+            scrapes={r: len(v) for r, v in scrapes.items()},
+            metricsz_served=served_ok, slo_alerts=len(alerts),
+            blackbox_verdict=verdict["verdict"],
+            blackbox_records=verdict["records"],
+            blackbox_append_s=st.get("blackbox", {}).get("append_seconds"),
+            watchdog_ticks=st["watchdog"]["ticks"],
+            watchdog_stalls=st["watchdog"]["stalls"])
+        for name, row in report["loops"].items():
+            print(f"serving_ops {name}: {json.dumps(row)}", flush=True)
+        a, c = report["loops"]["a_off"], report["loops"]["c_all_planes"]
+        report["c_over_a_rps"] = c["throughput_rps"] / a["throughput_rps"]
+        check(report["c_over_a_rps"] >= 0.5,
+              f"serving_ops: every plane on serves "
+              f"{report['c_over_a_rps']:.3f}x the requests/s of telemetry "
+              f"off")
+        report["crash"] = crash_case(m, d, k, os.path.join(tmp, "crash.bin"))
+        print(f"serving_ops crash: {json.dumps(report['crash'])}", flush=True)
+        report["hang"] = hang_case(idx, k, d, os.path.join(tmp, "hang.bin"))
+        print(f"serving_ops hang: {json.dumps(report['hang'])}", flush=True)
+    finally:
+        obs.enable()
+        obs.enable_flight()
+        shutil.rmtree(tmp, ignore_errors=True)
+    del idx, Y
+    torch.cuda.empty_cache()
     return report, launches
 
 
@@ -6248,6 +6707,13 @@ def main() -> int:
     torch.cuda.empty_cache()
     phase_end("serving")
 
+    # ---- phase 18 (run here, on phase 10's recipe): serving_ops ----
+    serving_ops, ops_launches = serving_ops_phase(res)
+    entry["serving_ops_launches"] = ops_launches
+    entry["serving_ops_shadow_samples"] = serving_ops["loops"][
+        "c_all_planes"]["shadow_samples"]
+    phase_end("serving_ops")
+
     # ---- phases 4–6: K4 against its twin, IVF-Flat, then IVF-PQ ----
     data = ann_data(res, N_INDEX, N_QUERIES)
     kept = {}
@@ -6304,6 +6770,7 @@ def main() -> int:
     print(json.dumps({"main_path": main_path}), flush=True)
     print(json.dumps({"k1_ladder": ladder}), flush=True)
     print(json.dumps({"serving": serving}), flush=True)
+    print(json.dumps({"serving_ops": serving_ops}), flush=True)
     print(json.dumps({"ivf": ivf}), flush=True)
     print(json.dumps({"ivf_pq": ivf_pq}), flush=True)
     print(json.dumps({"mutable": mutable}), flush=True)

@@ -31,10 +31,12 @@ Search (:func:`search_ivf_flat`):
    degenerate-exact plane: the certified fused pipeline (K1) over the
    whole ragged slab, whose pads ride K1's never-wins sentinel.
 
-Left out of this slice: the sharded index (``ShardedIvfIndex``,
-``shard_ivf_lists``), ``warm_fine_scan`` (serving), the TPU tune table,
-and the explain / flight / fault-point / instrument telemetry. The
-reference's environment knobs are plain arguments here.
+The certificates feed the quality counters and, under an active explain
+capture, the explain record (plane, probes, schedule, margins, reruns);
+``RAFT_TPU_IVF_FINE_SCAN`` picks the schedule of callers that pass none.
+Left out: the sharded index (``ShardedIvfIndex``, ``shard_ivf_lists``),
+``warm_fine_scan`` (serving), the TPU tune table, and the reference's
+flight markers, fault sites and ``@instrument`` wrappers here.
 """
 
 from __future__ import annotations
@@ -45,10 +47,14 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch.core import env
 from raft_tpu_torch.core.error import LogicError, expects
 from raft_tpu_torch.core.kvp import order_key
 from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
                                            ensure_resources, resolve_device)
+from raft_tpu_torch.observability import explain
+from raft_tpu_torch.observability.quality import (record_certificate,
+                                                  record_pending)
 from raft_tpu_torch.ops.fine_scan import (
     LISTS_PER_CELL, MAX_D, fine_scan_list_major, fine_scan_list_major_q8,
     max_list_chunk, pad_window)
@@ -66,6 +72,9 @@ IVF_DB_DTYPES = ("f32", "int8")
 
 #: candidates exact-rescored per query beyond k by the int8 gather scan
 _IVF_RESCORE_PAD = 32
+
+#: certificate counters' and explain margins' call site
+_SITE = "ann.search_ivf_flat"
 
 #: fine-scan schedules; "auto" runs the cost-model crossover
 FINE_SCANS = ("auto", "query", "list")
@@ -321,7 +330,8 @@ def _fine_scan_q8(x, slab, slab_q, row_scale, ids, yy_slab, yy_q, eq_rows,
     """The int8 gather scan (reference ``:344``): approximate scores
     against the dequantized rows ŷ, the top ``C`` kept and exact-rescored
     from the f32 slab, and a per-query certificate that the true top-k
-    cannot hide outside the pool. Returns (vals, ids, certified)."""
+    cannot hide outside the pool. Returns (vals, ids, certified,
+    margin)."""
     rows, cid, valid = _probe_rows(slab_q, ids, starts, psizes, W)
     yc = slab_q[rows].float() * row_scale[rows][:, :, None]
     xx = (x * x).sum(1, keepdim=True)
@@ -347,7 +357,7 @@ def _fine_scan_q8(x, slab, slab_q, row_scale, ids, yy_slab, yy_q, eq_rows,
     n_valid = valid.sum(1)
     certified = (bound >= theta + widen) | (n_valid <= C) \
         | ~torch.isfinite(bound)
-    return vals, out, certified
+    return vals, out, certified, bound - (theta + widen)
 
 
 def _query_major_chunk(index: IvfFlatIndex, xs, st, ps, k: int, P: int,
@@ -359,12 +369,19 @@ def _query_major_chunk(index: IvfFlatIndex, xs, st, ps, k: int, P: int,
         return (*_fine_scan(xs, index.slab, index.ids, index.yy_slab, st, ps,
                             k, P, W), 0)
     C = min(k + _IVF_RESCORE_PAD, P * W)
-    vals, ids_c, ok = _fine_scan_q8(
+    vals, ids_c, ok, margin = _fine_scan_q8(
         xs, index.slab, index.slab_q, index.row_scale, index.ids,
         index.yy_slab, index.yy_q, index.eq_rows, st, ps, k, P, W, C)
+    explain.note_margin(_SITE, margin)
     bad = (~ok).nonzero().squeeze(1)
     n_fail = int(bad.numel())
+    # this path reads the failure count on the host anyway (it decides
+    # the rerun), so the certificate counters cost nothing more
+    record_certificate(_SITE, n_queries=int(xs.shape[0]), n_fail=n_fail,
+                       pool_width=C, fixup_rows=n_fail or None,
+                       rerun=bool(n_fail), db_dtype="int8", n_probes=P)
     if n_fail:
+        explain.note(rerun="q8_exact", rerun_rows=n_fail)
         vals[bad], ids_c[bad] = _fine_scan(
             xs[bad], index.slab, index.ids, index.yy_slab, st[bad], ps[bad],
             k, P, W)
@@ -498,7 +515,7 @@ def _fine_scan_list(x, sched, probes, slab, ids, yy_slab, starts_qm, psizes,
                     yy_lmax, k: int, P: int, W: int, Wk: int):
     """List-major fine scan over the f32 slab (reference ``:594``): K4
     pools → exact rescore in the query-major order → certificate. Returns
-    (vals, ids, certified)."""
+    (vals, ids, certified, margin)."""
     d = x.shape[1]
     xx, rows, bound = _pools(
         fine_scan_list_major,
@@ -512,7 +529,7 @@ def _fine_scan_list(x, sched, probes, slab, ids, yy_slab, starts_qm, psizes,
     yymax = yy_lmax[probes.long()].max(1).values
     span = (xx[:, 0].sqrt() + yymax.sqrt()) ** 2
     widen = (2.0 ** -13 + d * 2.0 ** -22) * span
-    return vals, out, bound >= theta + widen
+    return vals, out, bound >= theta + widen, bound - (theta + widen)
 
 
 def _fine_scan_list_q8(x, sched, scale_l, probes, slab_q, slab, ids,
@@ -535,7 +552,7 @@ def _fine_scan_list_q8(x, sched, scale_l, probes, slab_q, slab, ids,
     e_k = (2.0 ** -13 + d * 2.0 ** -22) * span
     sq_t = theta.clamp_min(0.0).sqrt()
     widen = 2.0 * sq_t * eq_w + eq_w * eq_w + e_k
-    return vals, out, bound >= theta + widen
+    return vals, out, bound >= theta + widen, bound - (theta + widen)
 
 
 def resolve_fine_scan(index: IvfFlatIndex, nq: int, k: int, P: int, W: int,
@@ -603,6 +620,26 @@ def resolve_fine_scan(index: IvfFlatIndex, nq: int, k: int, P: int, W: int,
     return choose_fine_scan(model)
 
 
+def exact_reason(P: int, L: int, k: int, W: int) -> str:
+    """Why a search runs the exact plane (the reference's wording)."""
+    if P >= L:
+        return f"n_probes={P} >= n_lists={L}"
+    return (f"k={k} exceeds the probed candidate capacity "
+            f"{P}x{W}={P * W}")
+
+
+def probe_notes(sizes_np, probes_np) -> dict:
+    """The explain record's probe fields (reference ``:1084-1095``): the
+    first query's probed lists, the rows probed and the probed lists'
+    size histogram."""
+    sz = np.asarray(sizes_np)[probes_np]
+    return {"probed_lists": probes_np[0].tolist(),
+            "probed_rows": int(sz.sum()),
+            "probed_size_hist": {"min": int(sz.min()),
+                                 "p50": float(np.percentile(sz, 50)),
+                                 "max": int(sz.max())}}
+
+
 def _coarse_probe(res, centroids, x, n_probes: int):
     """The ``n_probes`` nearest centroids per query (the streamed
     fused-L2 top-k sweep)."""
@@ -641,13 +678,18 @@ def _exact_search(index: IvfFlatIndex, x, k: int):
     if dpad:
         x = torch.cat([x, x.new_zeros((x.shape[0], dpad))], dim=1)
     vals, ids, n_fail = [], [], 0
+    margins = [] if explain.active() is not None else None
     for s in range(0, x.shape[0], _Q_CHUNK):
         v, pos, nf = _knn_fused_core(x[s:s + _Q_CHUNK], kidx, k, True,
-                                     "kernel")
+                                     "kernel", margins)
         g = torch.where(pos >= 0, fops.ids[pos.long().clamp_min(0)], -1)
         vals.append(v)
         ids.append(torch.where(torch.isfinite(v), g, -1))
         n_fail += nf
+    record_pending("ann.ivf_exact", n_fail, n_queries=x.shape[0],
+                   pool_width=k)
+    if margins:
+        explain.note_margin("ann.ivf_exact", torch.cat(margins))
     return torch.cat(vals), torch.cat(ids), n_fail
 
 
@@ -672,17 +714,23 @@ def _search_list_major(index: IvfFlatIndex, x, probes, probes_host, starts,
         sch = build_list_schedule(index, probes_host[s0:s1])
         sched = torch.from_numpy(sch.sched).to(dev)
         if quant:
-            vals, ids_c, ok = _fine_scan_list_q8(
+            vals, ids_c, ok, margin = _fine_scan_list_q8(
                 xs, sched, torch.from_numpy(sch.scale_l).to(dev), pr,
                 index.slab_q, index.slab, index.ids, index.yy_slab,
                 host["yy_lmax"], host["eq_list"], st, ps, k, P, W, Wk)
         else:
-            vals, ids_c, ok = _fine_scan_list(
+            vals, ids_c, ok, margin = _fine_scan_list(
                 xs, sched, pr, index.slab, index.ids, index.yy_slab, st, ps,
                 host["yy_lmax"], k, P, W, Wk)
+        explain.note_margin(_SITE, margin)
         bad = (~ok).nonzero().squeeze(1)
         n_fail = int(bad.numel())
+        record_certificate(_SITE, n_queries=int(xs.shape[0]), n_fail=n_fail,
+                           pool_width=256, fixup_rows=n_fail or None,
+                           rerun=bool(n_fail), db_dtype=index.db_dtype,
+                           fine_scan="list")
         if n_fail:
+            explain.note(rerun="list_query_major", rerun_rows=n_fail)
             # the pool certificate failed: the true top-k may hide outside
             # the 256 slots, so these queries rerun query-major
             fv, fi, _ = _query_major(index, xs[bad], st[bad], ps[bad], k, P,
@@ -702,7 +750,8 @@ def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
 
     Returns (d2 [nq, k] ascending, global ids [nq, k] int32); entries
     beyond the probed candidates are (+inf, −1). ``n_probes`` defaults to
-    the index's. ``fine_scan`` (:data:`FINE_SCANS`, ``None`` = ``"auto"``)
+    the index's. ``fine_scan`` (:data:`FINE_SCANS`, ``None`` reads
+    ``RAFT_TPU_IVF_FINE_SCAN``, default ``"auto"``)
     picks the schedule, see the module doc; f32 ids of the two schedules
     are identical, int8 id sets likewise. ``n_probes ≥ n_lists`` (or ``k``
     beyond the probed capacity) runs the exact plane. ``with_stats``
@@ -731,18 +780,29 @@ def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
     if P >= L or k > P * W:
         _log.info("search_ivf_flat: n_probes=%d of %d lists, k=%d: exact "
                   "search over the full index", P, L, k)
+        if explain.active() is not None:
+            explain.note(plane="ivf_flat", exact_degrade=exact_reason(
+                P, L, k, W), n_probes=P, n_lists=L, k=k)
         out = _exact_search(index, x, k)
         return out if with_stats else out[:2]
 
     probes = _coarse_probe(res, index.centroids, x, P)           # [nq, P]
+    if explain.active() is not None:
+        explain.note(plane="ivf_flat", n_probes=P, n_lists=L, k=k,
+                     db_dtype=index.db_dtype,
+                     **probe_notes(index._np_sizes, probes.cpu().numpy()),
+                     pool_width=(min(k + _IVF_RESCORE_PAD, P * W)
+                                 if index.db_dtype == "int8" else k))
     pl = probes.long()
     starts, psizes = index.offsets[:-1][pl], index.padded_sizes[pl]
     chunk = max(8, _FINE_TILE // max(1, P * W * x.shape[1]))
-    req = "auto" if fine_scan is None else fine_scan
+    req = env.get("RAFT_TPU_IVF_FINE_SCAN") if fine_scan is None \
+        else fine_scan
     list_chunk = min(nq, max_list_chunk(P))
     probes_host = probes.cpu().numpy() if req != "query" else None
     schedule = resolve_fine_scan(index, nq, k, P, W, req,
                                  probes_np=probes_host, chunk=list_chunk)
+    explain.note(fine_scan=schedule)
     if schedule == "list":
         out = _search_list_major(index, x, probes, probes_host, starts,
                                  psizes, k, P, W, chunk, list_chunk)

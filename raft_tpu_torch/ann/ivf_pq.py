@@ -44,9 +44,12 @@ ADC scan and of the widen rung and degrades to the flat scan
 (``ivf_pq.py:860-875, 938-955``); here a K5 build or launch failure
 raises to the caller.
 
+The ladder feeds the quality counters and, under an active explain
+capture, the explain record (plane, probes, schedule, margins, rungs).
 Left out of this slice: the sharded PQ index, the mutable plane's
-tombstoned codes, the TPU tune table's ``pq`` column, and the explain /
-instrument / marker / fault-point / profiler telemetry (ROADMAP queue 1).
+tombstoned codes, the TPU tune table's ``pq`` column, and the
+instrument / marker / fault-point / profiler telemetry (ROADMAP item
+14's remainder).
 The reference's ``RAFT_TPU_ANN_NPROBES`` knob is the plain ``n_probes``
 argument here, as in the port's IVF-Flat.
 """
@@ -64,11 +67,12 @@ from raft_tpu_torch.ann.ivf_flat import (
     _FINE_TILE, _LIST_K_MAX, DEFAULT_ROW_QUANTUM, IvfFlatIndex,
     _coarse_probe, _exact_search, _list_host, _pad_kernel_operands,
     _pool_finish, _query_major, build_ivf_flat, build_list_schedule,
-    require_finite_rows)
+    exact_reason, probe_notes, require_finite_rows)
 from raft_tpu_torch.core import env
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
                                            ensure_resources)
+from raft_tpu_torch.observability import explain
 from raft_tpu_torch.observability.quality import (record_certificate,
                                                   record_pq_rungs)
 from raft_tpu_torch.ops.fine_scan import LISTS_PER_CELL, pad_window
@@ -572,14 +576,14 @@ def _adc_chunk(nq: int, P: int, d: int, depth: int, S: int, K: int,
 def _adc(index: IvfPqIndex, x, probes, probes_host, starts, psizes, k: int,
          P: int, W: int, depth: int):
     """:func:`pq_scan_chunk` over a batch in budget-sized query chunks.
-    Returns (vals, ids, certified)."""
+    Returns (vals, ids, certified, margin)."""
     qc = _adc_chunk(x.shape[0], P, x.shape[1], depth, index.pq_dim,
                     index.pq_k, index.n_lists)
     outs = [pq_scan_chunk(index, x[s:s + qc], probes_host[s:s + qc],
                           probes[s:s + qc], starts[s:s + qc],
                           psizes[s:s + qc], k, P, W, pool_depth=depth)
             for s in range(0, x.shape[0], qc)]
-    return tuple(torch.cat([o[n] for o in outs]) for n in range(3))
+    return tuple(torch.cat([o[n] for o in outs]) for n in range(4))
 
 
 def expected_pq_rerun_frac(index: IvfPqIndex, probes_np=None
@@ -708,6 +712,9 @@ def search_ivf_pq(res, index: IvfPqIndex, queries, k: int,
     if P >= L or k > P * W:
         _log.info("search_ivf_pq: n_probes=%d of %d lists, k=%d: exact "
                   "search over the f32 slab", P, L, k)
+        if explain.active() is not None:
+            explain.note(plane="ivf_pq", exact_degrade=exact_reason(
+                P, L, k, W), n_probes=P, n_lists=L, k=k)
         out = _exact_search(index, x, k)
         return out if with_stats else out[:2]
     probes = _coarse_probe(res, index.centroids, x, P)           # [nq, P]
@@ -715,8 +722,15 @@ def search_ivf_pq(res, index: IvfPqIndex, queries, k: int,
     pl = probes.long()
     starts, psizes = index.offsets[:-1][pl], index.padded_sizes[pl]
     chunk = max(8, _FINE_TILE // max(1, P * W * x.shape[1]))
-    if resolve_pq_scan(index, nq, k, P, W, pq_scan,
-                       probes_np=probes_host) == "pq":
+    schedule = resolve_pq_scan(index, nq, k, P, W, pq_scan,
+                               probes_np=probes_host)
+    if explain.active() is not None:
+        explain.note(plane="ivf_pq", n_probes=P, n_lists=L, k=k,
+                     pq_bits=index.pq_bits, pq_dim=index.pq_dim,
+                     pq_scan=schedule,
+                     **probe_notes(index._np_sizes, probes_host),
+                     pool_width=256)
+    if schedule == "pq":
         out = _search_pq(index, x, probes, probes_host, starts, psizes, k, P,
                          W, chunk)
     else:
@@ -733,24 +747,34 @@ def _search_pq(index: IvfPqIndex, x, probes, probes_host, starts, psizes,
     certificates are per query, so re-running only the failing queries
     gives the reference's ids. Returns (vals, ids, exact reruns)."""
     nq = x.shape[0]
-    vals, ids, ok = _adc(index, x, probes, probes_host, starts, psizes, k,
-                         P, W, 2)
+    vals, ids, ok, margin = _adc(index, x, probes, probes_host, starts,
+                                 psizes, k, P, W, 2)
+    explain.note_margin(_SITE, margin)
     n_fail0 = n_fail = int((~ok).sum())
     widen_cap = int(env.get("RAFT_TPU_ANN_PQ_WIDEN"))
+    depth_used = 2
     for factor in (2, 4):
         if factor > widen_cap or not n_fail:
             break
         bad = (~ok).nonzero().squeeze(1)
-        wv, wi, wok = _adc(index, x[bad], probes[bad],
-                           probes_host[bad.cpu().numpy()], starts[bad],
-                           psizes[bad], k, P, W, 2 * factor)
+        wv, wi, wok, _ = _adc(index, x[bad], probes[bad],
+                              probes_host[bad.cpu().numpy()], starts[bad],
+                              psizes[bad], k, P, W, 2 * factor)
         vals[bad], ids[bad], ok[bad] = wv, wi, wok
         n_fail = int((~ok).sum())
+        depth_used = 2 * factor
     record_certificate(_SITE, n_queries=nq, n_fail=n_fail,
-                       rerun=bool(n_fail))
+                       pool_width=128 * depth_used,
+                       fixup_rows=n_fail or None, rerun=bool(n_fail),
+                       pq_bits=index.pq_bits, n_probes=P)
     record_pq_rungs(_SITE, certified=nq - n_fail0,
                     widened=n_fail0 - n_fail, exact_rerun=n_fail)
+    if explain.active() is not None:
+        explain.note(pq_rungs={"certified": nq - n_fail0,
+                               "widened": n_fail0 - n_fail,
+                               "exact_rerun": n_fail})
     if n_fail:
+        explain.note(rerun="pq_exact", rerun_rows=n_fail)
         # the true top-k (or a tie) may hide outside the pool: these
         # queries rerun through the exact f32 scan
         bad = (~ok).nonzero().squeeze(1)

@@ -50,6 +50,11 @@ _knob("RAFT_TPU_IVF_PQ_SCAN", "enum", "auto",
       "the uncompressed flat fine scan, or the cost-model crossover "
       "(read per call)",
       choices=("auto", "pq", "flat"))
+_knob("RAFT_TPU_IVF_FINE_SCAN", "enum", "auto",
+      "IVF-Flat fine-scan schedule for callers that pass none: the "
+      "list-major kernel, the query-major gather, or the cost-model "
+      "crossover (read per call)",
+      choices=("auto", "query", "list"))
 _knob("RAFT_TPU_ANN_PQ_BITS", "int", 8,
       "default code width for build_ivf_pq callers that pass none (4 or "
       "8 bits per subspace code)")
@@ -71,6 +76,29 @@ _knob("RAFT_TPU_ANN_PQ_WIDEN", "int", 4,
       "max widen factor for the PQ certificate middle rung (1 disables "
       "widening; >=2 allows the 512-slot re-ADC pool, >=4 the 1024-slot "
       "pool)")
+
+# -- operations planes ---------------------------------------------------
+_knob("RAFT_TPU_EXPLAIN_FRAC", "float", 0.0,
+      "per-query explain-capture sampling fraction of live searches "
+      "(0 = off; constructor explain_frac= wins)")
+_knob("RAFT_TPU_DEBUGZ_PORT", "int", None,
+      "start the debugz HTTP server on this localhost port at engine "
+      "start (0 = ephemeral; unset = no server)")
+_knob("RAFT_TPU_BLACKBOX_PATH", "path", None,
+      "crash-durable blackbox ring file mirroring flight events "
+      "(unset = forensics off)")
+_knob("RAFT_TPU_BLACKBOX_BYTES", "int", 1048576,
+      "blackbox ring size in bytes (min 16 KiB)")
+_knob("RAFT_TPU_WATCHDOG_S", "float", None,
+      "hang-watchdog tick interval in seconds (unset/0 = off)")
+_knob("RAFT_TPU_FAULTS", "str", None,
+      "fault-injection DSL: site:kind[@call=N][:p=F];...")
+_knob("RAFT_TPU_FAULTS_SEED", "int", None,
+      "seed for probabilistic fault triggers")
+_knob("RAFT_TPU_FAULT_HANG_MAX_S", "float", 30.0,
+      "safety cap on injected hang faults with no deadline armed")
+_knob("RAFT_TPU_RETRY_MAX", "int", None,
+      "global cap on per-site recovery retries (0 = fail fast)")
 
 
 def knob(name: str) -> Knob:

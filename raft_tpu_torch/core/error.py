@@ -9,7 +9,18 @@ expired is a :class:`DeadlineExceededError`.
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import List, Optional
+
+
+def _flight_tail() -> List[dict]:
+    """The newest flight-recorder events at error-construction time ([]
+    when the recorder is off; never raises)."""
+    try:
+        from raft_tpu_torch.observability.flight import error_tail
+
+        return error_tail()
+    except Exception:
+        return []
 
 
 class RaftException(Exception):
@@ -23,19 +34,32 @@ class LogicError(RaftException):
 
 class DeviceError(RaftException):
     """Accelerator-side failure: no CUDA device where one was asked for,
-    a kernel that did not build, or a launch that CUDA refused.
+    a kernel that did not build, or a launch that CUDA refused. Carries
+    ``flight_tail``, the newest timeline events when it was made.
     (ref: core/error.hpp ``raft::cuda_error``)"""
+
+    def __init__(self, *args):
+        super().__init__(*args)
+        self.flight_tail = _flight_tail()
+
+
+class OutOfMemoryError(DeviceError):
+    """Device memory exhausted."""
 
 
 class DeadlineExceededError(RaftException):
     """A :func:`raft_tpu_torch.resilience.deadline` scope expired before
-    the guarded work completed (reference ``raft_tpu/core/error.py:55``;
-    the flight-recorder tail it carries there is telemetry, not ported).
-    ``seconds`` is the scope's budget."""
+    the guarded work completed (reference ``raft_tpu/core/error.py:55``).
+    ``seconds`` is the scope's budget, ``span_stack`` the cancelled
+    thread's active ranges and ``flight_tail`` the newest timeline
+    events when it was raised."""
 
-    def __init__(self, message: str, seconds: Optional[float] = None):
+    def __init__(self, message: str, seconds: Optional[float] = None,
+                 span_stack: Optional[List[str]] = None):
         super().__init__(message)
         self.seconds = seconds
+        self.span_stack = list(span_stack or [])
+        self.flight_tail = _flight_tail()
 
 
 def expects(condition: bool, fmt: str, *args) -> None:

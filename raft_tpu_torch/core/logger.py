@@ -1,5 +1,6 @@
 """Logging of the port: the one call the mutation and durability planes
-make (``log_warn``), on Python :mod:`logging`.
+make (``log_warn``, and ``log_error`` for a malformed fault spec), on
+Python :mod:`logging`.
 
 Counterpart of ``raft_tpu/core/logger.py:86``. The reference's handler
 set-up (``RAFT_DEBUG_LOG_FILE``, ``RAFT_TPU_LOG_LEVEL``) and its other
@@ -21,3 +22,7 @@ def default_logger() -> logging.Logger:
 
 def log_warn(fmt: str, *args) -> None:
     default_logger().warning(fmt, *args)
+
+
+def log_error(fmt: str, *args) -> None:
+    default_logger().error(fmt, *args)

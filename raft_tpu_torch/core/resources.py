@@ -121,6 +121,15 @@ class DeviceResources:
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
 
+    @property
+    def metrics(self):
+        """The process-global metrics registry, read at each use (never
+        cached, so a registry swapped by ``observability.set_registry``
+        is the one this handle reports into)."""
+        from raft_tpu_torch.observability.metrics import get_registry
+
+        return get_registry()
+
     def sync(self, value=None):
         """Wait for the device's queued work; returns ``value``."""
         if self.device.type == "cuda":

@@ -60,6 +60,8 @@ import torch
 
 from raft_tpu_torch.core.kvp import flip_sign, order_key, select_smallest
 from raft_tpu_torch.core.resources import as_f32, resolve_device
+from raft_tpu_torch.observability import explain
+from raft_tpu_torch.observability.quality import record_pending
 from raft_tpu_torch.ops.fused_l2_topk import (
     _LANES, _PACK_BITS, _PACK_PAD, _PBITS_MAX, fused_l2_group_topk,
     fused_l2_group_topk_dchunk, fused_l2_group_topk_packed,
@@ -593,10 +595,12 @@ def _real_half(v):
 
 
 def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
-                    certify: str):
+                    certify: str, margins: Optional[list] = None):
     """Certified fused KNN on prepared operands; ``x`` [Q, stream_width]
     f32. Returns (scores [Q, k] ascending, ids [Q, k], n_fail): the score
-    is d2 for l2 and −x·y for ip."""
+    is d2 for l2 and −x·y for ip. A ``margins`` list receives the
+    per-query certificate margin [Q] (bound − θ − err, a device tensor;
+    negative = the query paid the exact fixup)."""
     wide = x.shape[1] > _D_SINGLE_SHOT
     xx = (x * x).sum(1)                                         # [Q]
     cand_p = None
@@ -621,7 +625,7 @@ def _knn_fused_core(x, idx: KnnIndex, k: int, rescore: bool,
         ids = cand_pid[:, :k]
         vals = vals.masked_fill(ids < 0, float("inf"))
     return _certify(x, xx, idx, k, vals, ids, C, cand_v_hat, a3_min, e_pack,
-                    certify)
+                    certify, margins)
 
 
 def _unpacked_pool(x, xx, idx: KnnIndex, k: int, wide: bool):
@@ -693,9 +697,10 @@ def _packed_pool(x, xx, idx: KnnIndex, k: int, wide: bool):
 
 
 def _certify(x, xx, idx: KnnIndex, k: int, vals, ids, C: int, cand_v_hat,
-             a3_min, e_pack, certify: str):
+             a3_min, e_pack, certify: str, margins: Optional[list] = None):
     """The per-query certificate and the exact fixup of the queries that
-    fail it. Returns (vals, ids, n_fail)."""
+    fail it. Returns (vals, ids, n_fail); appends the margin to
+    ``margins`` when given."""
     M, passes = idx.prepared_rows, idx.passes
     quant = idx.db_dtype == "int8"
     theta = vals[:, k - 1]
@@ -718,6 +723,8 @@ def _certify(x, xx, idx: KnnIndex, k: int, vals, ids, C: int, cand_v_hat,
             err = err + 2.0 * theta.clamp_min(0.0).sqrt() * eq_max \
                 + eq_max * eq_max
     failed = ~(bound >= theta + err)
+    if margins is not None:
+        margins.append(bound - (theta + err))
 
     # ---- fixup: failed queries re-solved exactly, in budgeted chunks ----
     n_fail = int(failed.sum())               # the one host read
@@ -792,10 +799,42 @@ def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
             f"knn_fused: k={k} too large for pool size {pool} "
             f"(shrink g or T, or use the streamed path)")
     rescore = resolve_rescore(idx, rescore, certify, "knn_fused")
-    vals, ids, n_fail = query_prepared(x, idx, k, rescore, certify)
+    margins = [] if explain.active() is not None else None
+    vals, ids, n_fail = query_prepared(x, idx, k, rescore, certify, margins)
+    record_telemetry("distance.knn_fused", idx, k, Q, n_fail, margins,
+                     certify=certify)
     if with_stats:
         return vals, ids, n_fail
     return vals, ids
+
+
+def rescore_pool_width(idx: KnnIndex, k: int) -> int:
+    """The exact-rescore candidate pool C of a query of ``idx``: k + 32
+    clamped to the kernel's pool (the packed twin pool is 2·Ca of the S
+    bucket minima, the unpacked pool 2S)."""
+    n_tiles = -(-max(idx.n_rows, idx.T) // idx.T)
+    S = -(-n_tiles // idx.g) * _LANES
+    if idx.g * (idx.T // _LANES) > (1 << idx.pbits):
+        return min(k + _POOL_PAD, 2 * S)
+    return min(k + _POOL_PAD, 2 * min(k + _POOL_PAD, S))
+
+
+def record_telemetry(site: str, idx: KnnIndex, k: int, n_queries: int,
+                     n_fail: int, margins: Optional[list], **meta) -> None:
+    """The quality and explain record of one certified call (reference
+    ``:1736-1755``): the failure count, already an int on the host, is
+    queued for the certificate counters, and under an active explain
+    capture the per-query margins (still on the card) are noted. Never
+    raises into the result path."""
+    try:
+        record_pending(site, n_fail, n_queries=n_queries,
+                       pool_width=rescore_pool_width(idx, k),
+                       db_dtype=idx.db_dtype, passes=idx.passes, **meta)
+        if margins:
+            explain.note_margin(site, margins[0] if len(margins) == 1
+                                else torch.cat(margins))
+    except Exception:
+        pass
 
 
 def resolve_rescore(idx: KnnIndex, rescore: Optional[bool], certify: str,
@@ -818,16 +857,19 @@ def resolve_rescore(idx: KnnIndex, rescore: Optional[bool], certify: str,
     return rescore
 
 
-def query_prepared(x, idx: KnnIndex, k: int, rescore: bool, certify: str):
+def query_prepared(x, idx: KnnIndex, k: int, rescore: bool, certify: str,
+                   margins: Optional[list] = None):
     """The certified pipeline on validated arguments: ``x`` [Q, d_orig]
     f32 on the index's device, padded here to the stream width and run in
     chunks of ``_Q_CHUNK`` queries. Returns (vals, ids, n_fail) in the
-    metric's own order (ip descending)."""
+    metric's own order (ip descending); a ``margins`` list receives each
+    chunk's certificate margins."""
     Q, d = x.shape
     dpad = idx.stream_width - d
     if dpad:
         x = torch.cat([x, x.new_zeros((Q, dpad))], dim=1)
-    outs = [_knn_fused_core(x[s:s + _Q_CHUNK], idx, k, rescore, certify)
+    outs = [_knn_fused_core(x[s:s + _Q_CHUNK], idx, k, rescore, certify,
+                            margins)
             for s in range(0, Q, _Q_CHUNK)]
     if outs:
         vals = torch.cat([o[0] for o in outs])

@@ -25,8 +25,9 @@ other.
 :func:`recover` loads the newest valid checkpoint and replays the WAL tail
 through ``apply_upsert`` / ``apply_delete``; the index it returns holds
 every acked write. The reference's metrics, flight events and statusz
-panel are telemetry (ROADMAP item 14) and are left out; ``last_recovery``
-keeps the stats of the process's last recovery.
+durability panel are still left out (ROADMAP item 14's remainder; the
+registry, the flight recorder and statusz itself are ported);
+``last_recovery`` keeps the stats of the process's last recovery.
 """
 
 from __future__ import annotations

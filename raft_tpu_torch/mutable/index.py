@@ -51,7 +51,8 @@ mutation is appended to the WAL before it is applied and fsynced (per
 commits a checkpoint at every swap, and a genesis checkpoint is written at
 attach.
 
-Left out (ROADMAP item 14): the reference's telemetry hooks — the
+Left out (ROADMAP item 14's remainder; the registry, spans and the
+flight recorder they feed are ported): the reference's telemetry hooks — the
 ``@instrument`` wrappers of ``apply_upsert`` / ``apply_delete`` /
 ``search_view``, ``record_pending`` at the ``mutable.search_base`` and
 ``mutable.search_delta`` sites, ``emit_mutation`` (upsert, delete,

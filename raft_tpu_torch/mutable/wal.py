@@ -34,7 +34,9 @@ Record frame (little-endian)::
 
 Fault sites ``wal_append`` and ``wal_fsync``
 (:func:`~raft_tpu_torch.resilience.fault_point`). The reference's WAL
-counters and gauges are telemetry (ROADMAP item 14) and are left out.
+counters and gauges are the mutable plane's telemetry, still left out
+(ROADMAP item 14's remainder; the registry and timeline they would feed
+are ported).
 Host-only: numpy and files, no tensor.
 """
 

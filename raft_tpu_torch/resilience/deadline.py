@@ -23,68 +23,22 @@ Scope semantics (the reference's):
   its own expiry record, and every arm, fire and consume holds the
   token's lock. Tokens are thread-local.
 
-Fault injection (``fault_point``) is telemetry of the reference and is not
-ported.
+The token and the cancellation points live in
+:mod:`raft_tpu_torch.core.interruptible`; an injected ``hang`` fault
+(:mod:`raft_tpu_torch.resilience.faults`) polls them too, so a scope
+converts it like a real stuck wait. An armed scope and a fired one are
+``deadline`` timeline events.
 """
 
 from __future__ import annotations
 
 import contextlib
 import threading
-import time
 from typing import Iterator, Optional
 
-from raft_tpu_torch.core.error import DeadlineExceededError, expects
-
-# seconds between two polls of a cancellable wait
-POLL_S = 1e-4
-
-
-class _Token:
-    __slots__ = ("lock", "cancelled", "fired")
-
-    def __init__(self):
-        self.lock = threading.Lock()
-        self.cancelled = False
-        # expiry records of fired scopes, in firing order
-        self.fired = []
-
-
-_tls = threading.local()
-
-
-def get_token() -> _Token:
-    """The calling thread's cancellation token (created on first use)."""
-    tok = getattr(_tls, "token", None)
-    if tok is None:
-        tok = _tls.token = _Token()
-    return tok
-
-
-def yield_() -> None:
-    """Cancellation point: raises :class:`DeadlineExceededError` for the
-    earliest expired scope of this thread, if any."""
-    tok = get_token()
-    with tok.lock:
-        if not tok.cancelled:
-            return
-        fired = tok.fired.pop(0) if tok.fired else None
-        tok.cancelled = bool(tok.fired)
-    if fired is not None:
-        raise DeadlineExceededError(
-            f"deadline {fired['label']!r} of {fired['seconds']}s exceeded",
-            seconds=fired["seconds"])
-
-
-def wait_event(event) -> None:
-    """Block until ``event`` (a ``torch.cuda.Event``, or anything with a
-    ``query()``) has completed, polling this thread's token: inside a
-    :func:`deadline` scope a hung dispatch becomes a
-    :class:`DeadlineExceededError` instead of a blocked thread."""
-    while not event.query():
-        yield_()
-        time.sleep(POLL_S)
-    yield_()
+from raft_tpu_torch.core.error import expects
+from raft_tpu_torch.core.interruptible import (get_token, wait_event,  # noqa: F401
+                                               yield_)
 
 
 @contextlib.contextmanager
@@ -95,6 +49,12 @@ def deadline(seconds: float, label: Optional[str] = None) -> Iterator[None]:
     tok = get_token()
     info = {"seconds": float(seconds), "label": label or "deadline"}
     fired = threading.Event()
+    try:
+        from raft_tpu_torch.observability.timeline import emit_deadline
+
+        emit_deadline(info["label"], info["seconds"], fired=False)
+    except Exception:
+        pass
 
     def _fire():
         with tok.lock:

@@ -8,7 +8,8 @@ warmed engine never traces on a live request. PyTorch is eager and has
 nothing to compile; the port's counterpart of that contract is the kernel
 libraries, which ``raft_tpu_torch.ops._build`` builds and loads once per
 process (the engine's warm-up loads them, and counts that nothing loads
-after it).
+after it). Each call feeds the certificate counters and, under an active
+explain capture, the explain record (the reference's ``:220-243``).
 """
 
 from __future__ import annotations
@@ -20,7 +21,8 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import as_f32
 from raft_tpu_torch.distance.knn_fused import (
-    _LANES, KnnIndex, query_prepared, resolve_rescore)
+    _LANES, KnnIndex, query_prepared, record_telemetry, resolve_rescore)
+from raft_tpu_torch.observability import explain
 
 
 def knn_query(res, index: KnnIndex, x, k: int,
@@ -60,7 +62,18 @@ def knn_query(res, index: KnnIndex, x, k: int,
         out = (x.new_zeros((0, k)),
                torch.zeros((0, k), dtype=torch.int32, device=x.device))
         return (*out, 0) if with_stats else out
-    vals, ids, n_fail = query_prepared(x, index, k, rescore, certify)
+    # the quality and explain record (reference ``:220-243``): the
+    # failure count is the int the certificate already read on the host,
+    # and the margins are computed and held only under an active capture
+    margins = [] if explain.active() is not None else None
+    vals, ids, n_fail = query_prepared(x, index, k, rescore, certify,
+                                       margins)
+    record_telemetry("runtime.knn_query", index, k, Q, n_fail, margins)
+    if margins is not None:
+        explain.note(plane="brute", db_dtype=index.db_dtype,
+                     passes=index.passes, certify=certify, k=k,
+                     kernel=("packed" if index.g * (index.T // _LANES)
+                             <= (1 << index.pbits) else "unpacked"))
     if with_stats:
         return vals, ids, n_fail
     return vals, ids

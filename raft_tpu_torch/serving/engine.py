@@ -53,23 +53,54 @@ write-ahead logged under ``durable_dir`` (or ``RAFT_TPU_DURABLE_DIR``)
 with ``wal_sync``, and an engine built over a directory that holds
 durable state recovers from it.
 
-Not in the port yet, each raising ``NotImplementedError`` when asked for:
-``mesh`` (ROADMAP item 7), and the shadow sampler, explain plane, SLO
-engine, debugz server, blackbox and watchdog (item 14).
+**Operations planes** (reference ``:31-56``, ``:455-494``): every
+admitted request, flush, shed and swap is a ``serving`` timeline event
+and every request a Perfetto flow (``enqueue`` → ``batch`` →
+``dispatch`` → ``response``); queue depth is a gauge, request latency a
+histogram and every batch, bucket and shed a labeled counter of the
+metrics registry (``stats()`` reads its p50/p99 from the engine's own
+window, the counters from the registry). The batch dispatch is the
+``serving.execute_batch`` span and carries the ``serving_flush`` fault
+site; admission carries ``serving_enqueue``. On by default, as in the
+reference: the registry, the timeline and the SLO burn-rate engine
+(``slo=`` injects one). Off by default, each an option or an env knob:
+
+- ``shadow_frac`` / ``shadow_floor`` — the recall shadow sampler
+  re-scores a hash-sampled fraction of served requests against the
+  exact oracle of the current snapshot (brute: ``knn_fused`` on the
+  same index; IVF-Flat / IVF-PQ: their search at ``n_probes =
+  n_lists``), on a thread and, on the card, a CUDA stream of its own,
+  up to 16 queued samples to one oracle call;
+- ``explain_frac`` — per-batch explain records (plane, parameters,
+  certificate margins per query) for hash-sampled requests;
+- ``debug_port`` — the debugz HTTP server
+  (:class:`raft_tpu_torch.tools.debugz.DebugzServer`);
+- ``blackbox_path`` — the crash-durable blackbox; an engine started over
+  a prior run's unclean file keeps it as ``<path>.prev`` and serves its
+  reconstruction at ``/crashz``;
+- ``watchdog_s`` — the hang watchdog, fed by a heartbeat per batcher
+  loop.
+
+Telemetry never raises into serving: each write sits in a ``try`` as in
+the reference. ``mesh`` (ROADMAP item 7) raises ``NotImplementedError``.
 
 Env knobs: ``RAFT_TPU_SERVING_BUCKETS``, ``RAFT_TPU_SERVING_FLUSH_MS``
 (default 2 ms), ``RAFT_TPU_SERVING_QUEUE_CAP`` (4096 rows),
 ``RAFT_TPU_SERVING_DEADLINE_S`` (none), ``RAFT_TPU_DB_DTYPE``,
-``RAFT_TPU_DURABLE_DIR``.
+``RAFT_TPU_DURABLE_DIR``, ``RAFT_TPU_SERVING_SHADOW_FRAC`` /
+``_FLOOR``, ``RAFT_TPU_EXPLAIN_FRAC``, ``RAFT_TPU_DEBUGZ_PORT``,
+``RAFT_TPU_BLACKBOX_PATH``, ``RAFT_TPU_WATCHDOG_S``, ``RAFT_TPU_FAULTS``
+and ``RAFT_TPU_DISABLE_TRACING``.
 """
 
 from __future__ import annotations
 
 import collections
 import contextlib
+import itertools
 import threading
 import time
-from typing import Optional, Sequence, Tuple, Union
+from typing import List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -77,12 +108,30 @@ import torch
 from raft_tpu_torch.core import env
 from raft_tpu_torch.core.error import (DeadlineExceededError, LogicError,
                                        RaftException, expects)
+from raft_tpu_torch.core.logger import log_warn
 from raft_tpu_torch.core.resources import DeviceResources, resolve_device
+from raft_tpu_torch.observability import explain as explain_mod
+from raft_tpu_torch.observability import instrument
+from raft_tpu_torch.observability.metrics import percentile
+from raft_tpu_torch.observability.quality import (ShadowSampler,
+                                                  shadow_floor_default,
+                                                  shadow_frac_default)
+from raft_tpu_torch.observability.timeline import emit_flow, emit_serving
 from raft_tpu_torch.ops import _build
 from raft_tpu_torch.resilience import deadline, wait_event
+from raft_tpu_torch.resilience.faults import fault_point
+from raft_tpu_torch.resilience.policy import record_degradation
 from raft_tpu_torch.serving.buckets import bucket_for, bucket_ladder
 from raft_tpu_torch.serving.snapshot import (IndexSnapshot, SnapshotStore,
                                              wait_built)
+
+# metric names (the serving slice of the registry vocabulary)
+REQUESTS = "raft_tpu_serving_requests_total"
+LATENCY = "raft_tpu_serving_latency_seconds"
+QUEUE_DEPTH = "raft_tpu_serving_queue_rows"
+BATCHES = "raft_tpu_serving_batches_total"
+BATCH_PAD_ROWS = "raft_tpu_serving_batch_pad_rows_total"
+SHED = "raft_tpu_serving_shed_total"
 
 FLUSH_MS_ENV = "RAFT_TPU_SERVING_FLUSH_MS"
 QUEUE_CAP_ENV = "RAFT_TPU_SERVING_QUEUE_CAP"
@@ -101,16 +150,7 @@ _PLANE_LIBS = {"brute": ("fused_l2_packed_sm90", "fused_l2_topk"),
 
 #: options of the reference engine not in the port yet: (ROADMAP item,
 #: what they are)
-_NOT_PORTED = {
-    "mesh": (7, "the query-sharded mesh plane"),
-    "shadow_frac": (14, "the recall shadow sampler"),
-    "shadow_floor": (14, "the recall shadow sampler"),
-    "explain_frac": (14, "the explain plane"),
-    "debug_port": (14, "the debugz server"),
-    "blackbox_path": (14, "the crash-durable blackbox"),
-    "watchdog_s": (14, "the hang watchdog"),
-    "slo": (14, "the SLO burn-rate engine"),
-}
+_NOT_PORTED = {"mesh": (7, "the query-sharded mesh plane")}
 
 
 def _not_ported(option: str):
@@ -173,20 +213,23 @@ class ServingFuture:
 
 class _Request:
     __slots__ = ("x", "n", "enqueued_at", "deadline_at", "future",
-                 "requeues", "kind", "ids")
+                 "requeues", "rid", "kind", "ids", "explain")
 
-    def __init__(self, x, n, enqueued_at, deadline_at, future,
-                 kind: str = "query", ids=None):
+    def __init__(self, x, n, enqueued_at, deadline_at, future, rid=0,
+                 kind: str = "query", ids=None, explain: bool = False):
         self.x = x
         self.n = n
         self.enqueued_at = enqueued_at
         self.deadline_at = deadline_at
         self.future = future
         self.requeues = 0
+        self.rid = rid          # monotonic flow-trace id (enqueue order)
         self.kind = kind        # "query" | "upsert" | "delete"
         self.ids = ids          # external row ids of a mutation
+        self.explain = explain  # capture an explain record for the batch
 
 
+@instrument("serving.execute_batch")
 def execute_batch(plane, snap: IndexSnapshot, x: np.ndarray, bucket: int,
                   n_valid: int, budget_s: Optional[float] = None,
                   stream=None):
@@ -197,13 +240,18 @@ def execute_batch(plane, snap: IndexSnapshot, x: np.ndarray, bucket: int,
     With a budget ``budget_s`` it runs inside a :func:`deadline` scope and
     the completion wait polls a CUDA event recorded after the dispatch, so
     a hung dispatch becomes the scope's error; without one, the copy of the
-    results to the host is the wait. Returns (vals [n_valid, k], ids
-    [n_valid, k]) as numpy, and n_fail."""
+    results to the host is the wait. Carries the ``serving_flush`` fault
+    site, inside the deadline scope, so an injected hang converts like a
+    stuck dispatch. Returns (vals [n_valid, k], ids [n_valid, k]) as
+    numpy, and n_fail."""
     from raft_tpu_torch.distance.knn_fused import pad_query_rows
 
+    emit_serving("flush", bucket=bucket, rows=n_valid,
+                 generation=snap.generation, budget_s=budget_s)
     dev = snap.device
 
     def _dispatch():
+        fault_point("serving_flush")
         xt = torch.from_numpy(np.ascontiguousarray(x)).to(dev)
         vals, ids, n_fail = plane(snap, pad_query_rows(xt, bucket))
         if budget_s is not None and dev.type == "cuda":
@@ -274,13 +322,8 @@ class ServingEngine:
         from raft_tpu_torch.ann import IvfFlatIndex, IvfPqIndex
         from raft_tpu_torch.distance.knn_fused import KnnIndex, fused_config
 
-        asked = dict(mesh=mesh, shadow_frac=shadow_frac,
-                     shadow_floor=shadow_floor, explain_frac=explain_frac,
-                     debug_port=debug_port, blackbox_path=blackbox_path,
-                     watchdog_s=watchdog_s, slo=slo)
-        for option, value in asked.items():
-            if value is not None:
-                _not_ported(option)
+        if mesh is not None:
+            _not_ported("mesh")
         if algorithm not in ("brute", "ivf_flat", "ivf_pq"):
             raise ValueError(f"ServingEngine: algorithm must be 'brute', "
                              f"'ivf_flat' or 'ivf_pq', got {algorithm!r}")
@@ -388,6 +431,44 @@ class ServingEngine:
         # kernel builds + loads when the last warm-up ended (None: not
         # warmed yet)
         self._builds_at_warmup: Optional[int] = None
+        self._rids = itertools.count(1)     # per-request flow-trace ids
+        # the recall shadow sampler: frac 0 = off; the constructor wins
+        # over RAFT_TPU_SERVING_SHADOW_FRAC / _FLOOR
+        self._shadow_frac = (shadow_frac_default() if shadow_frac is None
+                             else max(0.0, min(1.0, float(shadow_frac))))
+        self._shadow_floor = (shadow_floor_default() if shadow_floor is None
+                              else float(shadow_floor))
+        self._shadow: Optional[ShadowSampler] = None
+        # the shadow oracle's own stream, so its re-scores do not queue
+        # behind (or hold up) the batcher's dispatches
+        self._shadow_stream = (torch.cuda.Stream(device=self.device)
+                               if self.device.type == "cuda" else None)
+        # per-batch explain capture: frac 0 = off; the constructor wins
+        # over RAFT_TPU_EXPLAIN_FRAC; submit(explain=True) forces one
+        self._explain_frac = (explain_mod.explain_frac_default()
+                              if explain_frac is None
+                              else max(0.0, min(1.0, float(explain_frac))))
+        # the windowed SLO burn-rate engine: always on (one registry
+        # snapshot per window interval); injectable
+        if slo is None:
+            from raft_tpu_torch.observability.slo import SloEngine
+
+            slo = SloEngine(clock=self._clock)
+        self._slo = slo
+        # debugz server: the constructor wins over RAFT_TPU_DEBUGZ_PORT
+        # (0 = ephemeral port; None = no server)
+        if debug_port is None:
+            debug_port = env.get("RAFT_TPU_DEBUGZ_PORT")
+        self._debug_port = debug_port
+        self._debugz = None
+        # forensics: the crash-durable blackbox and the hang watchdog,
+        # both off by default (RAFT_TPU_BLACKBOX_PATH / RAFT_TPU_WATCHDOG_S)
+        self._blackbox_path = blackbox_path
+        self._watchdog_s = watchdog_s
+        self._blackbox = None
+        self._owns_blackbox = False
+        self._watchdog = None
+        self._crash_report: Optional[dict] = None
 
     # -- construction helpers --------------------------------------------
     def _mutable_index(self, index, prepared: bool, index_ids, durable_dir,
@@ -471,10 +552,64 @@ class ServingEngine:
                          rescore=self._rescore, certify=self._certify,
                          with_stats=True)
 
+    def _shadow_oracle(self, x):
+        """The exact plane the shadow sampler re-scores against, over the
+        current snapshot (reference ``:668``): brute ``knn_fused`` on the
+        same index, the IVF planes' search at ``n_probes = n_lists`` (the
+        certified exact search over the whole slab), a mutable engine's
+        exact view search. Runs on the shadow thread, inside the shadow
+        stream on the card; the snapshot is held until the ids are on the
+        host, so a swap cannot free its tensors under a running
+        re-score."""
+        ctx = (torch.cuda.stream(self._shadow_stream)
+               if self._shadow_stream is not None
+               else contextlib.nullcontext())
+        with ctx:
+            xt = torch.from_numpy(np.ascontiguousarray(x)).to(self.device)
+            if self._mutable is not None:
+                from raft_tpu_torch.mutable import search_view
+
+                vals, ids = search_view(self._mutable, xt, self.k,
+                                        exact=True, res=self.res)
+            else:
+                snap = self._store.current()
+                if self._algorithm == "ivf_pq":
+                    from raft_tpu_torch.ann import search_ivf_pq
+
+                    vals, ids = search_ivf_pq(self.res, snap.index, xt,
+                                              self.k,
+                                              n_probes=snap.index.n_lists)
+                elif self._algorithm == "ivf_flat":
+                    from raft_tpu_torch.ann import search_ivf_flat
+
+                    vals, ids = search_ivf_flat(self.res, snap.index, xt,
+                                                self.k,
+                                                n_probes=snap.index.n_lists)
+                else:
+                    from raft_tpu_torch.distance.knn_fused import knn_fused
+
+                    vals, ids = knn_fused(xt, snap.index, self.k)
+            return vals, ids.cpu().numpy()
+
     # -- lifecycle --------------------------------------------------------
     @property
     def buckets(self) -> Tuple[int, ...]:
         return self._ladder
+
+    @property
+    def slo(self):
+        """The attached :class:`~raft_tpu_torch.observability.slo.
+        SloEngine`, or None."""
+        return self._slo
+
+    @property
+    def shadow(self) -> Optional[ShadowSampler]:
+        return self._shadow
+
+    @property
+    def debugz(self):
+        """The running debugz server, or None."""
+        return self._debugz
 
     def start(self) -> "ServingEngine":
         """Warm every bucket against the current snapshot, then start the
@@ -484,11 +619,59 @@ class ServingEngine:
                 return self
             self._started = True
             self._stop = False
+        self._boot_forensics()
         self._warm_snapshot(self._store.current())
+        if self._shadow_frac > 0.0 and self._shadow is None:
+            self._shadow = ShadowSampler(
+                self._shadow_oracle, self.k, self._shadow_frac,
+                floor=self._shadow_floor).start()
         self._thread = threading.Thread(target=self._loop,
                                         name="serving-batcher", daemon=True)
         self._thread.start()
+        if self._debug_port is not None and self._debugz is None:
+            from raft_tpu_torch.tools.debugz import DebugzServer
+
+            self._debugz = DebugzServer(
+                engine=self, port=int(self._debug_port)).start()
+        if self._watchdog is not None:
+            self._watchdog.start()
         return self
+
+    def _boot_forensics(self) -> None:
+        """Open the blackbox, first reconstructing and preserving a prior
+        run's unclean file, and build the watchdog (reference ``:599``).
+        Never raises: forensics must not block serving."""
+        from raft_tpu_torch.observability import blackbox as blackbox_mod
+        from raft_tpu_torch.observability.watchdog import Watchdog
+
+        try:
+            booted = blackbox_mod.boot(path=self._blackbox_path)
+            self._blackbox = booted.recorder
+            self._owns_blackbox = booted.created
+            prior = booted.prior
+            if prior is not None and prior.get("verdict") != "clean":
+                # the previous run died violently: keep its evidence
+                # (reconstructed, preserved as <path>.prev), serve it at
+                # /crashz, and count it
+                self._crash_report = prior
+                self.res.metrics.counter(
+                    blackbox_mod.UNCLEAN_SHUTDOWNS,
+                    help="Prior-run blackboxes found without an "
+                         "epilogue at engine start").inc()
+                log_warn("serving: prior run died unclean (verdict %r, %d "
+                         "records) — postmortem at /crashz",
+                         prior.get("verdict"), prior.get("records"))
+            if self._blackbox is not None:
+                # the run-start snapshot: the floor a killed process is
+                # sure to leave behind
+                self._blackbox.snapshot()
+        except Exception:
+            self._blackbox, self._owns_blackbox = None, False
+        try:
+            wd = Watchdog(engine=self, interval_s=self._watchdog_s)
+            self._watchdog = wd if wd.enabled else None
+        except Exception:
+            self._watchdog = None
 
     def stop(self, timeout: float = 30.0) -> None:
         """Drain the queue, then stop the batcher (and wait for a
@@ -502,6 +685,20 @@ class ServingEngine:
         if t is not None:
             t.join(timeout)
         self._thread = None
+        if self._watchdog is not None:
+            self._watchdog.stop()
+        if self._blackbox is not None and self._owns_blackbox:
+            # the epilogue: what tells this stop apart from a kill
+            from raft_tpu_torch.observability import blackbox as blackbox_mod
+
+            blackbox_mod.shutdown(reason="clean")
+            self._blackbox, self._owns_blackbox = None, False
+        if self._debugz is not None:
+            self._debugz.stop()
+            self._debugz = None
+        if self._shadow is not None:
+            self._shadow.flush(timeout=min(10.0, timeout))
+            self._shadow.stop()
         self._store.wait_for_builds(timeout)
         if self._mutable is not None:
             self._mutable.wait_for_compaction(timeout=min(30.0, timeout))
@@ -530,17 +727,24 @@ class ServingEngine:
 
                 warm_pq_scan(self.res, snap.index, b, self.k,
                              self._n_probes or snap.index.n_probes_default)
+            emit_serving("warmup", bucket=b, generation=snap.generation)
         with self._cond:
             self._stats["warmed_buckets"] = len(self._ladder)
             self._stats["warmup_builds"] += _build.BUILDS + _build.LOADS - b0
             self._builds_at_warmup = _build.BUILDS + _build.LOADS
 
     # -- admission --------------------------------------------------------
-    def submit(self, x, deadline_s: Optional[float] = None) -> ServingFuture:
+    def submit(self, x, deadline_s: Optional[float] = None,
+               explain: bool = False) -> ServingFuture:
         """Enqueue one request of [n, d] (or [d]) query rows; returns a
         :class:`ServingFuture`. Oversized requests raise
         :class:`RequestTooLargeError`, a full queue
-        :class:`OverloadShedError`."""
+        :class:`OverloadShedError` (the ``shed:overload`` degradation).
+        Carries the ``serving_enqueue`` fault site. ``explain=True``
+        forces an explain record for the batch this request rides
+        (otherwise the hash of its id against ``explain_frac``
+        decides)."""
+        fault_point("serving_enqueue")
         x = np.asarray(x, np.float32)
         if x.ndim == 1:
             x = x[None]
@@ -553,8 +757,13 @@ class ServingEngine:
             fut._complete(np.zeros((0, self.k), np.float32),
                           np.zeros((0, self.k), np.int32))
             return fut
+        rid = self._new_rid()
+        emit_flow("enqueue", rid, ph="s", rows=n)
         if n > self._ladder[-1]:
             self._count_request("rejected")
+            emit_serving("reject", rows=n, top_bucket=self._ladder[-1],
+                         rid=rid)
+            emit_flow("reject", rid, ph="f", outcome="reject")
             raise RequestTooLargeError(
                 f"serving: request of {n} rows exceeds the largest bucket "
                 f"{self._ladder[-1]} — split it client-side or raise the "
@@ -563,19 +772,46 @@ class ServingEngine:
         budget = (deadline_s if deadline_s is not None
                   else self._default_deadline_s)
         req = _Request(x, n, now, now + budget if budget else None,
-                       ServingFuture())
-        with self._cond:
-            if self._depth_rows + n > self._max_queue_rows:
-                self._stats["requests_shed"] += 1
-                self._stats["shed"] += 1
-                raise OverloadShedError(
-                    f"serving: queue at capacity ({self._depth_rows}/"
-                    f"{self._max_queue_rows} rows) — request shed; back "
-                    f"off and retry")
-            self._queue.append(req)
-            self._depth_rows += n
-            self._cond.notify_all()
+                       ServingFuture(), rid=rid,
+                       explain=(bool(explain) or explain_mod.want(
+                           rid, self._explain_frac)))
+        self._admit(req, budget, "request")
         return req.future
+
+    def _new_rid(self) -> int:
+        return next(self._rids)      # atomic: one C call under the GIL
+
+    def _admit(self, req: _Request, budget, what: str) -> None:
+        """Queue ``req`` or shed it (the queue at its row cap)."""
+        op = {} if req.kind == "query" else {"op": req.kind}
+        with self._cond:
+            depth = self._depth_rows
+            shed = depth + req.n > self._max_queue_rows
+            if shed:
+                self._stats["shed"] += 1
+            else:
+                self._queue.append(req)
+                self._depth_rows = depth = depth + req.n
+                self._cond.notify_all()
+        if not shed:
+            # the telemetry of an admission runs outside the engine's lock
+            self._gauge_depth(depth)
+            emit_serving("enqueue", rows=req.n, queue_rows=depth,
+                         deadline_s=budget, rid=req.rid, **op)
+            return
+        self._count_request("shed")
+        try:
+            self.res.metrics.counter(
+                SHED, help="Requests shed by admission control "
+                           "(queue at its row cap)").inc()
+        except Exception:
+            pass
+        record_degradation("serving.engine", "shed:overload")
+        emit_serving("shed", rows=req.n, queue_rows=depth, rid=req.rid, **op)
+        emit_flow("shed", req.rid, ph="f", outcome="shed")
+        raise OverloadShedError(
+            f"serving: queue at capacity ({depth}/{self._max_queue_rows} "
+            f"rows) — {what} shed; back off and retry")
 
     def query(self, x, deadline_s: Optional[float] = None,
               timeout: Optional[float] = 60.0
@@ -593,6 +829,7 @@ class ServingEngine:
         expects(self._mutable is not None,
                 "serving: %s() needs a mutable engine "
                 "(ServingEngine(..., mutable=True))", kind)
+        fault_point("serving_enqueue")
         ids = np.atleast_1d(np.asarray(ids, np.int32))
         if rows is not None:
             rows = np.asarray(rows, np.float32)
@@ -608,8 +845,13 @@ class ServingEngine:
             fut = ServingFuture()
             fut._complete({"applied": 0, "kind": kind}, None)
             return fut
+        rid = self._new_rid()
+        emit_flow("enqueue", rid, ph="s", rows=n, op=kind)
         if rows is not None and n > self._mutable.delta_cap:
             self._count_request("rejected")
+            emit_serving("reject", rows=n, op=kind, rid=rid,
+                         delta_cap=self._mutable.delta_cap)
+            emit_flow("reject", rid, ph="f", outcome="reject")
             raise RequestTooLargeError(
                 f"serving: upsert of {n} rows exceeds the delta capacity "
                 f"{self._mutable.delta_cap} — split it or raise "
@@ -618,18 +860,8 @@ class ServingEngine:
         budget = (deadline_s if deadline_s is not None
                   else self._default_deadline_s)
         req = _Request(rows, n, now, now + budget if budget else None,
-                       ServingFuture(), kind=kind, ids=ids)
-        with self._cond:
-            if self._depth_rows + n > self._max_queue_rows:
-                self._stats["requests_shed"] += 1
-                self._stats["shed"] += 1
-                raise OverloadShedError(
-                    f"serving: queue at capacity ({self._depth_rows}/"
-                    f"{self._max_queue_rows} rows) — {kind} shed; back off "
-                    f"and retry")
-            self._queue.append(req)
-            self._depth_rows += n
-            self._cond.notify_all()
+                       ServingFuture(), rid=rid, kind=kind, ids=ids)
+        self._admit(req, budget, kind)
         return req.future
 
     def upsert(self, ids, rows, deadline_s: Optional[float] = None
@@ -709,23 +941,57 @@ class ServingEngine:
     def _count_request(self, status: str) -> None:
         with self._cond:
             self._stats[f"requests_{status}"] += 1
+        try:
+            self.res.metrics.counter(
+                REQUESTS, {"status": status},
+                help="Serving requests by terminal status").inc()
+        except Exception:
+            pass
+
+    def _gauge_depth(self, rows: Optional[int] = None) -> None:
+        try:
+            self.res.metrics.gauge(
+                QUEUE_DEPTH, help="Query rows currently queued"
+            ).set(self._depth_rows if rows is None else rows)
+        except Exception:
+            pass
+
+    def _observe_latency(self, seconds: float) -> None:
+        with self._cond:
+            self._latencies.append(seconds)
+        try:
+            self.res.metrics.histogram(
+                LATENCY, help="End-to-end request latency (enqueue → "
+                              "completion)").observe(seconds)
+        except Exception:
+            pass
 
     def stats(self) -> dict:
-        """Live counters, latency percentiles (engine-side, interpolated),
-        the snapshot store's counters, and ``builds_after_warmup``: kernel
-        builds and loads since the last warm-up ended (0 is the
-        contract)."""
+        """Live counters, latency percentiles (engine-side, interpolated
+        by :func:`~raft_tpu_torch.observability.metrics.percentile`), the
+        snapshot store's counters, ``builds_after_warmup`` (kernel builds
+        and loads since the last warm-up ended; 0 is the contract), the
+        registry's request counts by status (``registry_requests``), and
+        the state of each operations plane: shadow, SLO, explain, debugz,
+        blackbox, watchdog, a prior run's crash."""
         with self._cond:
             out = dict(self._stats)
             out["queue_rows"] = self._depth_rows
             lat = list(self._latencies)
             at = self._builds_at_warmup
         if lat:
-            out["p50_ms"] = 1e3 * float(np.percentile(lat, 50))
-            out["p99_ms"] = 1e3 * float(np.percentile(lat, 99))
+            out["p50_ms"] = 1e3 * percentile(lat, 50)
+            out["p99_ms"] = 1e3 * percentile(lat, 99)
         out["generation"] = self._store.generation
         out["snapshot"] = self._store.stats()
         out["buckets"] = self._ladder
+        try:
+            out["registry_requests"] = {
+                m.labels.get("status", "?"): int(m.value)
+                for m in self.res.metrics.collect()
+                if getattr(m, "name", None) == REQUESTS}
+        except Exception:
+            pass
         if self._mutable is not None:
             out["mutable"] = self._mutable.stats()
             if self._mutable.durability is not None:
@@ -734,6 +1000,60 @@ class ServingEngine:
             out["recovery"] = dict(self._recovery)
         out["builds_after_warmup"] = (None if at is None else
                                       _build.BUILDS + _build.LOADS - at)
+        if self._shadow is not None:
+            out.update(self._shadow.snapshot())
+        if self._slo is not None:
+            try:
+                out["slo"] = self._slo.status()
+            except Exception:
+                pass
+        out["explain"] = {"frac": self._explain_frac,
+                          "records": len(explain_mod.explain_records())}
+        if self._debugz is not None:
+            out["debugz_port"] = self._debugz.port
+        if self._blackbox is not None:
+            out["blackbox"] = self._blackbox.stats()
+        if self._watchdog is not None:
+            out["watchdog"] = self._watchdog.stats()
+        if self._crash_report is not None:
+            out["prior_crash"] = {
+                "verdict": self._crash_report.get("verdict"),
+                "records": self._crash_report.get("records"),
+                "preserved_path": self._crash_report.get("preserved_path")}
+        return out
+
+    # the name statusz reads; the same snapshot
+    snapshot_stats = stats
+
+    @property
+    def crash_report(self) -> Optional[dict]:
+        """The prior run's postmortem reconstruction when :meth:`start`
+        found an epilogue-less blackbox (else None): the ``/crashz``
+        body."""
+        return self._crash_report
+
+    @property
+    def blackbox(self):
+        """The installed crash-durable recorder, or None."""
+        return self._blackbox
+
+    def inflight_requests(self) -> List[dict]:
+        """The queued requests (age, remaining deadline), plus a
+        ``dispatch`` row while a batch runs: the watchdog's stall
+        evidence and the blackbox's in-flight table. Holds the lock only
+        to copy the queue."""
+        with self._cond:
+            reqs = list(self._queue)
+            busy = self._busy
+        now = self._clock()
+        out = [{"rid": r.rid, "kind": r.kind, "rows": r.n,
+                "age_s": round(now - r.enqueued_at, 6),
+                "deadline_in_s": (round(r.deadline_at - now, 6)
+                                  if r.deadline_at is not None else None)}
+               for r in reqs]
+        if busy:
+            out.append({"rid": None, "kind": "dispatch", "rows": 0,
+                        "age_s": 0.0, "deadline_in_s": None})
         return out
 
     # -- the batcher ------------------------------------------------------
@@ -777,6 +1097,7 @@ class ServingEngine:
             self._depth_rows -= req.n
             batch.append(req)
             total += req.n
+        self._gauge_depth()
         return batch, total, expired, mutation
 
     def _fail_expired(self, expired) -> None:
@@ -784,6 +1105,7 @@ class ServingEngine:
             self._count_request("deadline")
             with self._cond:
                 self._stats["expired_in_queue"] += 1
+            emit_flow("expire", req.rid, ph="f", outcome="expired")
             req.future._fail(DeadlineExceededError(
                 "serving: request deadline expired while queued",
                 seconds=(req.deadline_at - req.enqueued_at
@@ -802,13 +1124,24 @@ class ServingEngine:
                             break
                         self._cond.wait(self._flush_interval_s / 2)
                     else:
+                        # an idle tick: with an SLO engine, leave the
+                        # lock so its tick (a registry snapshot) runs
+                        # outside it
                         self._cond.wait(self._flush_interval_s)
+                        if self._slo is not None:
+                            break
                 if self._stop and not self._queue:
                     self._busy = False
                     self._cond.notify_all()
                     return
                 batch, total, expired, mutation = self._pop_batch_locked()
                 self._busy = bool(batch) or mutation is not None
+            wd = self._watchdog
+            if wd is not None:
+                wd.beat()           # liveness heartbeat, outside the lock
+            bb = self._blackbox
+            if bb is not None:
+                bb.maybe_snapshot()  # rate-limited: mostly a clock read
             self._fail_expired(expired)
             if batch or mutation is not None:
                 try:
@@ -820,6 +1153,8 @@ class ServingEngine:
                     with self._cond:
                         self._busy = False
                         self._cond.notify_all()
+            if self._slo is not None:
+                self._slo.tick()     # rate-limited by its window; no raise
 
     def _run_batch(self, batch, total: int) -> None:
         # one snapshot (or mutable view) per batch: every rider sees one
@@ -845,28 +1180,63 @@ class ServingEngine:
         with self._cond:
             self._stats["batches"] += 1
             self._stats["padded_rows"] += bucket - total
+        # flow trace: each rider steps onto the batcher thread, then
+        # through the dispatch
+        for req in batch:
+            emit_flow("batch", req.rid, ph="t", bucket=bucket,
+                      riders=len(batch))
         try:
-            vals, ids, n_fail = execute_batch(
-                self._plane, snap, x, bucket, total, budget,
-                stream=self.res.stream)
+            self.res.metrics.counter(
+                BATCHES, {"bucket": str(bucket)},
+                help="Dispatched micro-batches by bucket").inc()
+            self.res.metrics.counter(
+                BATCH_PAD_ROWS,
+                help="Pad rows dispatched (bucket − real rows)"
+            ).inc(bucket - total)
+        except Exception:
+            pass
+        for req in batch:
+            emit_flow("dispatch", req.rid, ph="t",
+                      generation=snap.generation)
+        # explain capture spans the dispatch: a flagged rider opens one
+        # record for the whole batch, which the search path annotates
+        cap = (explain_mod.begin_capture([r.rid for r in batch])
+               if any(r.explain for r in batch) else None)
+        try:
+            with explain_mod.stage("execute_batch"):
+                vals, ids, n_fail = execute_batch(
+                    self._plane, snap, x, bucket, total, budget,
+                    stream=self.res.stream)
         except DeadlineExceededError as e:
+            explain_mod.end_capture(cap, outcome="deadline", bucket=bucket,
+                                    riders=len(batch))
             self._on_batch_deadline(batch, e)
             return
         except Exception as e:
+            explain_mod.end_capture(cap, outcome="error", bucket=bucket,
+                                    riders=len(batch))
             for req in batch:
                 self._count_request("error")
+                emit_flow("fail", req.rid, ph="f", outcome="error")
                 req.future._fail(e)
             return
         done = self._clock()
         with self._cond:
             self._stats["fixups"] += int(n_fail)
-        off = 0
-        for req in batch:
+        # every rider is answered before any telemetry of the batch runs
+        offs = np.cumsum([0] + [req.n for req in batch])
+        for req, off in zip(batch, offs):
             req.future._complete(vals[off:off + req.n], ids[off:off + req.n])
-            off += req.n
+        for req, off in zip(batch, offs):
+            emit_flow("response", req.rid, ph="f", outcome="ok")
+            if self._shadow is not None and self._shadow.want(req.rid):
+                # off the hot path: the oracle re-scores on the shadow
+                # thread; a full shadow queue drops the sample
+                self._shadow.submit(req.rid, req.x, ids[off:off + req.n])
             self._count_request("ok")
-            with self._cond:
-                self._latencies.append(max(0.0, done - req.enqueued_at))
+            self._observe_latency(max(0.0, done - req.enqueued_at))
+        explain_mod.end_capture(cap, outcome="ok", bucket=bucket, rows=total,
+                                riders=len(batch), generation=snap.generation)
 
     def _run_mutation(self, req) -> None:
         """Apply one mutation on the batcher thread inside its own deadline
@@ -880,6 +1250,9 @@ class ServingEngine:
         if budget is not None and budget <= 0:
             self._fail_expired([req])
             return
+        emit_flow("dispatch", req.rid, ph="t", op=req.kind)
+        emit_serving("mutate", op=req.kind, rows=req.n, rid=req.rid,
+                     budget_s=budget)
         with self._cond:
             self._stats[f"{req.kind}s"] += 1
 
@@ -896,16 +1269,18 @@ class ServingEngine:
                 applied = _apply()
         except DeadlineExceededError as e:
             self._count_request("deadline")
+            emit_flow("fail", req.rid, ph="f", outcome="deadline")
             req.future._fail(e)
             return
         except Exception as e:
             self._count_request("error")
+            emit_flow("fail", req.rid, ph="f", outcome="error")
             req.future._fail(e)
             return
         done = self._clock()
+        emit_flow("response", req.rid, ph="f", outcome="ok")
         self._count_request("ok")
-        with self._cond:
-            self._latencies.append(max(0.0, done - req.enqueued_at))
+        self._observe_latency(max(0.0, done - req.enqueued_at))
         req.future._complete({"kind": req.kind, "applied": int(applied),
                               "seq": self._mutable.seq,
                               "generation": self._mutable.generation}, None)
@@ -919,12 +1294,16 @@ class ServingEngine:
         for req in batch:
             if req.deadline_at is not None and req.deadline_at <= now:
                 self._count_request("deadline")
+                emit_flow("fail", req.rid, ph="f", outcome="deadline")
                 req.future._fail(err)
             elif req.requeues >= _MAX_REQUEUES:
                 self._count_request("error")
+                emit_flow("fail", req.rid, ph="f", outcome="error")
                 req.future._fail(err)
             else:
                 req.requeues += 1
+                emit_flow("requeue", req.rid, ph="t", outcome="requeue",
+                          attempt=req.requeues)
                 requeue.append(req)
         if requeue:
             with self._cond:
@@ -932,4 +1311,5 @@ class ServingEngine:
                 for req in reversed(requeue):
                     self._queue.appendleft(req)
                     self._depth_rows += req.n
+                self._gauge_depth()
                 self._cond.notify_all()

@@ -15,8 +15,11 @@ index even while an update is in flight.
   the build's stream records an event that is synchronized before the
   swap, so a batch on another stream never reads a half-written index.
 
-The reference's gauges and counters of the metrics registry are plain
-counters here, read through :meth:`SnapshotStore.stats`.
+Swaps, failed and coalesced rebuilds and the rebuilds in flight are
+plain counters (:meth:`SnapshotStore.stats`) and also the reference's
+registry metrics; a swap is a ``serving`` timeline event. A rebuild runs
+in the ``serving.build_snapshot`` span and carries the
+``serving_snapshot`` fault site.
 """
 
 from __future__ import annotations
@@ -28,7 +31,34 @@ from typing import Callable, Optional
 
 import torch
 
+from raft_tpu_torch.observability import instrument
+from raft_tpu_torch.resilience.faults import fault_point
+
 _log = logging.getLogger(__name__)
+
+SNAPSHOT_SWAPS = "raft_tpu_serving_snapshot_swaps_total"
+SNAPSHOT_FAILURES = "raft_tpu_serving_snapshot_failures_total"
+#: the generation being served, as a gauge
+SNAPSHOT_GENERATION = "raft_tpu_serving_snapshot_generation"
+#: background rebuilds in flight
+REBUILD_INFLIGHT = "raft_tpu_serving_snapshot_rebuild_inflight"
+#: builds whose swap a newer generation won
+SNAPSHOT_COALESCED = "raft_tpu_serving_snapshot_coalesced_total"
+
+
+def _metric(kind: str, name: str, help: str, value: float = 1.0) -> None:
+    """One registry write (counter ``inc`` or gauge ``set``); never
+    raises into the rebuild path."""
+    try:
+        from raft_tpu_torch.observability.metrics import get_registry
+
+        reg = get_registry()
+        if kind == "gauge":
+            reg.gauge(name, help=help).set(value)
+        else:
+            reg.counter(name, help=help).inc(value)
+    except Exception:
+        pass
 
 
 class IndexSnapshot:
@@ -61,13 +91,30 @@ def wait_built(index) -> None:
         done.synchronize()
 
 
+@instrument("serving.build_snapshot")
 def build_snapshot(y, build: Callable, generation: int,
                    **build_kw) -> IndexSnapshot:
     """One snapshot: ``build(y, **build_kw)`` (the engine passes the index
-    build of its data plane), complete on the card before it returns."""
+    build of its data plane), complete on the card before it returns.
+    Carries the ``serving_snapshot`` fault site."""
+    fault_point("serving_snapshot")
     index = build(y, **build_kw)
     wait_built(index)
     return IndexSnapshot(index, generation)
+
+
+def _swapped(snap: IndexSnapshot) -> None:
+    """Registry and timeline record of one installed snapshot."""
+    _metric("counter", SNAPSHOT_SWAPS, "Index snapshot swaps installed")
+    _metric("gauge", SNAPSHOT_GENERATION, "Generation of the "
+            "currently-serving index snapshot", snap.generation)
+    try:
+        from raft_tpu_torch.observability.timeline import emit_serving
+
+        emit_serving("swap", generation=snap.generation, n_rows=snap.n_rows,
+                     db_dtype=getattr(snap.index, "db_dtype", None))
+    except Exception:
+        pass
 
 
 class SnapshotStore:
@@ -124,12 +171,18 @@ class SnapshotStore:
         def _run():
             with self._lock:
                 self._counts["rebuild_inflight"] += 1
+                inflight = self._counts["rebuild_inflight"]
+            _metric("gauge", REBUILD_INFLIGHT, "Background snapshot "
+                    "rebuilds currently in flight", inflight)
             try:
                 snap = build_snapshot(y, self._build, gen, **build_kw)
             except Exception as e:
                 self._last_error = e
                 with self._lock:
                     self._counts["failures"] += 1
+                _metric("counter", SNAPSHOT_FAILURES,
+                        "Index snapshot rebuilds that failed (old "
+                        "snapshot kept serving)")
                 _log.warning("serving: snapshot rebuild (gen %d) failed "
                              "(%s: %s) — keeping the current snapshot",
                              gen, type(e).__name__, str(e)[:200])
@@ -137,17 +190,27 @@ class SnapshotStore:
             finally:
                 with self._lock:
                     self._counts["rebuild_inflight"] -= 1
+                    inflight = self._counts["rebuild_inflight"]
+                _metric("gauge", REBUILD_INFLIGHT, "Background snapshot "
+                        "rebuilds currently in flight", inflight)
             with self._lock:
                 # last requested wins: a build older than the installed
                 # generation is coalesced away, counted (checked and
                 # swapped under one lock, so two racing builds cannot
                 # install out of order)
                 cur = self._current
-                if cur is not None and cur.generation > gen:
+                coalesced = cur is not None and cur.generation > gen
+                if coalesced:
                     self._counts["coalesced"] += 1
-                    return
-                self._current = snap
-                self._counts["swaps"] += 1
+                else:
+                    self._current = snap
+                    self._counts["swaps"] += 1
+            if coalesced:
+                _metric("counter", SNAPSHOT_COALESCED,
+                        "Snapshot rebuilds coalesced away by a newer "
+                        "generation winning the race")
+                return
+            _swapped(snap)
 
         if block:
             _run()

@@ -20,7 +20,8 @@ column is the first maximal one (``torch.max``, as ``jnp.argmax``). The
 exact tail is one hand-written CUDA kernel on the card
 (``ops.lap_jv``), its twin on the CPU.
 
-``@instrument`` and the ``solve_lap`` fault site wait for ROADMAP item 14.
+``@instrument`` and the ``solve_lap`` fault site are item 14's remainder
+(ROADMAP): the span and fault machinery is ported, these sites are not.
 """
 
 from __future__ import annotations

@@ -397,6 +397,44 @@ Phases, each fatal on failure (non-zero exit, no result line):
    atomics), ``eigsh(k=6, which="LM")``'s top eigenvalue within 1e-4 of
    the port's Lanczos. Prints ``prims``, ``rng``, ``lap``, ``nn`` and
    ``compat`` lines; the ``kernels`` line gains ``lap_jv``.
+19. The mesh, the comms layer and the sharded KNN (``sharded_phase``,
+   run right after phase 3 on its data; ``sharded_ivf_cell`` after phase
+   5; ``sharded_sparse_cell`` after phase 7), over ``SHARDS`` = 4
+   in-process ranks on the one card (``parallel.make_mesh({"x": 4})``;
+   one controller takes the ranks' shards in turn and merges their
+   candidates itself). (a) ``knn_fused_sharded`` (database-sharded) at 2048 × 1M ×
+   128, k = 64: p3 (K1) for the allgather, tournament and host merges,
+   p1 with ``certify="f32"`` (K1) for the allgather and int8 p3 (K2) for
+   the tournament, the K1
+   (K2) count zeroed before each call and read after (4 launches a rank
+   at the default 4 micro-batches): values bit for bit and ids equal to
+   the single-device ``distance.knn`` on the same data (an id may differ
+   only at an exact tie); host medians of 3 (p3) or one timed call (the
+   others, whose every query pays a fixup) beside the single-device
+   time, the merge alone on the call's own per-rank candidates and its
+   share, and the call at one micro-batch. (e) ``merge_permute:timeout`` and
+   ``merge_allgather:error`` armed: the tournament request walks the
+   ladder to the host merge, same answer, both degradations recorded. (b)
+   ``ServingEngine(mesh=...)`` (query-sharded) over phase 3's p3 index,
+   300 requests of Poisson(16) rows from 4 closed-loop clients: none
+   fails, 0 builds after warm-up, K1 launched, every answer bit for bit
+   ``knn_query``'s on the same rows. (d) the comms battery over the 4
+   in-process ranks (``parallel.spmd``: a thread a rank, their
+   collectives device copies on the card), then the process-group
+   transport: one process
+   joins a ``torch.distributed`` group at world size 1 over a TCPStore on
+   127.0.0.1 (``cpu:gloo,cuda:nccl``), the comms battery passes over NCCL
+   on the card, and ``knn_fused_shard`` (the rank-local sharded KNN) gives
+   the single-device answer. (c) phase 5's f32 IVF-Flat index
+   list-sharded (``shard_ivf_lists``) at P = 32, both merges: ids and
+   values equal to the unsharded query-major scan's, timed beside it.
+   (f) a scale-20 R-MAT normalized Laplacian row-sharded
+   (``shard_spmv_operand``): ``spmv_sharded`` (K6a a block) and
+   ``spmm_sharded`` at V = 16 (K6c a block) against ``spmv_tiled`` /
+   ``spmm_tiled`` within twice the f32 bound, timed beside them; then
+   ``fit_embedding(mesh=)`` at scale 18, its eigenvalues within 1e-5 of
+   the unsharded tiled fit's. Prints the ``sharded`` line; the
+   ``kernels`` line's K1, K2, K6a and K6c rows gain ``sharded_launches``.
 18. The serving engine's operations planes (``serving_ops_phase``), run
    right after phase 10 on its recipe: one bf16 index over 1M × 128
    N(0, 1) rows, k = 64, ladder (16, 64, 256), 2000 requests from 8
@@ -5562,6 +5600,334 @@ def mutable_phase(res, ivf_index, pq_index, data, seed: int = 0):
     return report, launches
 
 
+#: phase 19's rank count: p in-process ranks share the one card
+SHARDS = 4
+SHARD_SERVE = (300, 4)          # requests, clients
+
+
+def same_answer(tag: str, vals, ids, want_v, want_i) -> int:
+    """Values bit for bit and ids equal to ``(want_v, want_i)``; an id may
+    differ only where the two answers' values are equal (an exact tie at
+    the same rank, which both sides break by their own candidates).
+    Returns the tied slots."""
+    import torch
+
+    check(tuple(vals.shape) == tuple(want_v.shape),
+          f"{tag}: shape {tuple(vals.shape)} != {tuple(want_v.shape)}")
+    check(torch.equal(vals.view(torch.int32), want_v.view(torch.int32)),
+          f"{tag}: values differ from the single-device answer (max "
+          f"{(vals - want_v).abs().max().item()})")
+    diff = ids != want_i
+    n = int(diff.sum())
+    if n:
+        check(bool((vals[diff] == want_v[diff]).all()),
+              f"{tag}: {n} ids differ outside ties")
+    return n
+
+
+def sharded_phase(res, X, Qx, idx1, idx3) -> tuple:
+    """Phase 19 (a, b, d, e) on the main path's data (see the module
+    doc). Returns (the ``sharded`` report, {K1, K2: launches})."""
+    import socket
+
+    import numpy as np
+    import torch
+    from raft_tpu_torch import comms, distance
+    from raft_tpu_torch.comms import test_battery
+    from raft_tpu_torch.distance import knn_sharded as ks
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch.resilience import degradation_reasons, faults
+    from raft_tpu_torch.runtime import knn_query
+    from raft_tpu_torch.serving import ServingEngine
+
+    mesh = make_mesh({"x": SHARDS})
+    check(mesh.device_list() == [torch.device("cuda", 0)] * SHARDS
+          or torch.cuda.device_count() > 1, f"mesh {mesh}")
+    report, launches = {"mesh": repr(mesh)}, {"K1": 0, "K2": 0}
+
+    # ---- (a) the database-sharded KNN, each merge ----
+    cells = (("p3", idx3, 3, "kernel", "bf16"),
+             ("p1_f32", idx1, 1, "f32", "bf16"),
+             ("int8_p3", None, 3, "kernel", "int8"))
+    for cell, single, passes, certify, dtype in cells:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        sidx = ks.prepare_knn_index_sharded(X, mesh=mesh, passes=passes,
+                                            db_dtype=dtype)
+        torch.cuda.synchronize()
+        prep_s = time.perf_counter() - t0
+        if single is None:
+            single = distance.prepare_knn_index(X, passes=passes,
+                                                db_dtype=dtype)
+        kname = "K2" if dtype == "int8" else "K1"
+        # p3 is timed with every merge; the cells that pay every query's
+        # fixup once (their calls take ~10× longer)
+        reps = 3 if cell == "p3" else 1
+        want_v, want_i = distance.knn(res, single, Qx, k=K,
+                                      certify=certify)
+        single_ms, _ = host_median_ms(lambda: distance.knn(
+            res, single, Qx, k=K, certify=certify), reps)
+        row = {"prepare_s": prep_s, "rows_per": sidx.rows_per, "T": sidx.T,
+               "g": sidx.g, "single_ms": single_ms}
+        merges = {"p3": ("allgather", "tournament", "host"),
+                  "p1_f32": ("allgather",)}.get(cell, ("tournament",))
+        for merge in merges:
+            def call():
+                return ks.knn_fused_sharded(Qx, sidx, K, mesh=mesh,
+                                            merge=merge, certify=certify,
+                                            with_stats=True)
+            k1.LAUNCHES = k1.LAUNCHES_Q8 = 0
+            vals, ids, n_fail = call()
+            torch.cuda.synchronize()
+            n_l = k1.LAUNCHES_Q8 if dtype == "int8" else k1.LAUNCHES
+            check(n_l > 0, f"sharded {cell} {merge}: {kname} launched no "
+                  f"time")
+            launches[kname] += n_l
+            ties = same_answer(f"sharded {cell} {merge}", vals, ids,
+                               want_v, want_i)
+            ms, _ = host_median_ms(call, reps)
+            row[merge] = {"ms": ms, "n_fail": n_fail, "tie_slots": ties,
+                          "launches": n_l,
+                          "launches_per_shard": n_l / SHARDS}
+        # one query block a rank: the micro-batches' host cost
+        row["nb1_ms"], _ = host_median_ms(lambda: ks.knn_fused_sharded(
+            Qx, sidx, K, mesh=mesh, merge=merges[0], certify=certify,
+            micro_batches=1), reps)
+        # the merge alone on this call's per-shard candidates: its share
+        # of the sharded call
+        cands = [ks._shard_candidates(Qx, sh, r * sidx.rows_per, K, True,
+                                      certify)
+                 for r, sh in enumerate(sidx.shards)]
+        vs, is_ = [c[0] for c in cands], [c[1] for c in cands]
+        for merge in [m for m in ("allgather", "tournament") if m in row]:
+            fn = ks._MERGES[merge]
+            m_ms, _ = host_median_ms(lambda: fn(vs, is_, K, "x"), 3)
+            row[merge]["merge_ms"] = m_ms
+            row[merge]["merge_share"] = m_ms / row[merge]["ms"]
+        report[cell] = row
+        print(f"sharded {cell}: {json.dumps(row)}", flush=True)
+        del sidx, cands, vs, is_
+        torch.cuda.empty_cache()
+
+    # ---- (e) the ladder: an injected merge_allgather fault walks to
+    # the host merge with the same answer ----
+    sidx = ks.prepare_knn_index_sharded(X, mesh=mesh, passes=3)
+    want_v, want_i = distance.knn(res, idx3, Qx, k=K)
+    faults.configure("merge_permute:timeout;merge_allgather:error")
+    try:
+        k1.LAUNCHES = 0
+        vals, ids = ks.knn_fused_sharded(Qx, sidx, K, mesh=mesh,
+                                         merge="tournament")
+        n_l = k1.LAUNCHES
+    finally:
+        faults.clear()
+    reasons = degradation_reasons()
+    check(any("merge:allgather->host" in r for r in reasons),
+          f"ladder: no host rung in {reasons}")
+    launches["K1"] += n_l
+    report["ladder"] = {"degradations": reasons, "launches": n_l,
+                        "tie_slots": same_answer("ladder", vals, ids,
+                                                 want_v, want_i)}
+    print(f"sharded ladder: {json.dumps(report['ladder'])}", flush=True)
+    del sidx
+    torch.cuda.empty_cache()
+
+    # ---- (b) query mode through the engine ----
+    n_requests, clients = SHARD_SERVE
+    rng = np.random.default_rng(19)
+    sizes = np.clip(rng.poisson(16, n_requests), 1, 256)
+    blocks = rng.normal(size=(16, 256, DIM)).astype(np.float32)
+
+    def request(i):
+        return blocks[i % 16, :int(sizes[i])]
+
+    engine = ServingEngine(idx3, k=K, mesh=mesh)
+    engine.start()
+    try:
+        k1.LAUNCHES = 0
+        s0 = engine.stats()
+        lat, errors, wall, answers = closed_loop(
+            engine, request, n_requests, clients, SERVE_THINK_S, 19,
+            keep=True)
+        n_l = k1.LAUNCHES
+        s1 = engine.stats()
+    finally:
+        engine.stop()
+    check(not errors and len(lat) == n_requests,
+          f"sharded serving: {len(errors)} requests failed: {errors[:3]}")
+    check(n_l > 0, "sharded serving launched K1 no time")
+    check(s1["builds_after_warmup"] == 0, "sharded serving: kernel builds "
+          "after warm-up")
+    launches["K1"] += n_l
+    parity = 0
+    for i in range(n_requests):
+        v, ids = answers[i]
+        wv, wi = knn_query(res, idx3, torch.from_numpy(request(i)).cuda(), K)
+        check(np.array_equal(np.asarray(ids), wi.cpu().numpy())
+              and np.array_equal(np.asarray(v), wv.cpu().numpy()),
+              f"sharded serving: request {i} differs from knn_query")
+        parity += 1
+    lat_ms = sorted(1e3 * t for t in lat)
+    report["serving"] = {
+        "requests": n_requests, "clients": clients, "parity_probes": parity,
+        "p50_ms": lat_ms[len(lat_ms) // 2],
+        "p99_ms": lat_ms[min(len(lat_ms) - 1, int(0.99 * len(lat_ms)))],
+        "requests_per_s": n_requests / wall, "launches": n_l,
+        "batches": s1["batches"] - s0.get("batches", 0)}
+    print(f"sharded serving: {json.dumps(report['serving'])}", flush=True)
+
+    # ---- (d) the battery over the in-process ranks, then the
+    # process-group transport: NCCL at world size 1 ----
+    t0 = time.perf_counter()
+    local_battery = test_battery.run_battery(mesh)
+    check(all(local_battery.values()),
+          f"in-process battery: {local_battery}")
+    report["local_battery"] = {"s": time.perf_counter() - t0,
+                               "passed": sum(local_battery.values())}
+    print(f"sharded local battery: {json.dumps(report['local_battery'])}",
+          flush=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    comms.initialize_distributed(f"127.0.0.1:{port}", 1, 0, timeout_s=60)
+    try:
+        c = comms.process_comms()
+        check(c.device.type == "cuda", f"process comms on {c.device}")
+        battery = test_battery.run_battery(c)
+        check(all(battery.values()), f"NCCL battery: {battery}")
+        shard, off = ks.prepare_knn_index_shard(X, 0, 1, passes=3)
+        k1.LAUNCHES = 0
+        vals, ids = ks.knn_fused_shard(c, Qx, shard, off, K,
+                                       merge="allgather")
+        n_l = k1.LAUNCHES
+        ties = same_answer("process group", vals, ids, want_v, want_i)
+        import torch.distributed as dist
+        backend = str(dist.get_backend())
+    finally:
+        comms.shutdown_distributed()
+    launches["K1"] += n_l
+    report["process_group"] = {"backend": backend, "world_size": 1,
+                               "battery": battery, "launches": n_l,
+                               "tie_slots": ties}
+    print(f"sharded process group: {json.dumps(report['process_group'])}",
+          flush=True)
+    return report, launches
+
+
+def sharded_ivf_cell(res, index, data, P: int = 32) -> dict:
+    """Phase 19 (c): the IVF phase's f32 index list-sharded over
+    ``SHARDS`` ranks, each merge at ``P`` probes, ids and values equal to
+    the unsharded query-major scan's."""
+    import torch
+    from raft_tpu_torch.ann import search_ivf_flat, shard_ivf_lists
+    from raft_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"x": SHARDS})
+    Q = data["Q"]
+    t0 = time.perf_counter()
+    sh = shard_ivf_lists(index, mesh)
+    torch.cuda.synchronize()
+    row = {"shard_s": time.perf_counter() - t0, "lists_per": sh.lists_per,
+           "rows_per": sh.rows_per}
+    want_v, want_i = search_ivf_flat(res, index, Q, IVF_K, n_probes=P,
+                                     fine_scan="query")
+    row["unsharded_ms"], _ = host_median_ms(lambda: search_ivf_flat(
+        res, index, Q, IVF_K, n_probes=P, fine_scan="query"), 1)
+    for merge in ("allgather", "tournament"):
+        vals, ids = search_ivf_flat(res, sh, Q, IVF_K, n_probes=P,
+                                    merge=merge)
+        ties = same_answer(f"sharded ivf {merge}", vals, ids, want_v,
+                           want_i)
+        ms, _ = host_median_ms(lambda: search_ivf_flat(
+            res, sh, Q, IVF_K, n_probes=P, merge=merge), 1)
+        row[merge] = {"ms": ms, "tie_slots": ties}
+    print(f"sharded ivf_p{P}: {json.dumps(row)}", flush=True)
+    return row
+
+
+def sharded_sparse_cell(res, scale: int = 20, fit_scale: int = 18,
+                        V: int = 16) -> tuple:
+    """Phase 19 (f): a scale-``scale`` R-MAT normalized Laplacian
+    row-sharded over ``SHARDS`` ranks: ``spmv_sharded`` (K6a a block) and
+    ``spmm_sharded`` at V = ``V`` (K6c a block) against the unsharded
+    ``spmv_tiled`` / ``spmm_tiled`` on the same layout recipe, each within
+    twice the f32 bound (nnz_i + 2)·2⁻²⁴·Σ|a||x| (both sides carry one),
+    timed beside them; then ``fit_embedding(mesh=)`` at scale
+    ``fit_scale``, its eigenvalues within 1e-5 of the unsharded tiled
+    fit's. Returns (report, {K6a, K6c: launches})."""
+    import torch
+    from raft_tpu_torch.core.sparse_types import COOMatrix
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch.sparse import linalg as sl
+    from raft_tpu_torch.sparse import sharded as ssh
+    from raft_tpu_torch.spectral import fit_embedding
+
+    mesh = make_mesh({"x": SHARDS})
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(19)
+    L, _ = sl.laplacian_normalized(res, rmat_adjacency(res, 19, scale))
+    T = sl.prepare_spmv(L)
+    t0 = time.perf_counter()
+    S = ssh.shard_spmv_operand(L, mesh)
+    torch.cuda.synchronize()
+    row = {"scale": scale, "n": L.shape[0], "nnz": int(L.nnz),
+           "shard_s": time.perf_counter() - t0, "rb": S.rb}
+    deg = row_degrees(L)
+    rows, cols, vals, _ = sl._as_coo_parts(L)
+    absL = COOMatrix(rows, cols, vals.abs(), L.shape)
+    launches = {}
+    x = torch.randn(L.shape[0], device="cuda", generator=gen)
+    k6.LAUNCHES_SPMV = 0
+    y = ssh.spmv_sharded(S, x)
+    torch.cuda.synchronize()
+    launches["K6a"] = k6.LAUNCHES_SPMV
+    check(launches["K6a"] == SHARDS, f"spmv_sharded launched K6a "
+          f"{launches['K6a']} times")
+    bound = 2 * (deg + 2) * 2.0 ** -24 * sl.spmv(res, absL, x.abs())
+    row["spmv_max_abs_err"] = check_bound("spmv_sharded", y,
+                                          k6.spmv_tiled(T, x), bound)
+    row["spmv_ms"], _ = host_median_ms(lambda: ssh.spmv_sharded(S, x), 5)
+    row["spmv_tiled_ms"], _ = host_median_ms(lambda: k6.spmv_tiled(T, x),
+                                             5)
+    B = torch.randn(L.shape[1], V, device="cuda", generator=gen)
+    k6.LAUNCHES_SPMM = 0
+    Y = ssh.spmm_sharded(S, B)
+    torch.cuda.synchronize()
+    launches["K6c"] = k6.LAUNCHES_SPMM
+    check(launches["K6c"] == SHARDS, f"spmm_sharded launched K6c "
+          f"{launches['K6c']} times")
+    bound = 2 * (deg[:, None] + 2) * 2.0 ** -24 * sl.spmm(res, absL,
+                                                          B.abs())
+    row["spmm_max_abs_err"] = check_bound("spmm_sharded", Y,
+                                          k6.spmm_tiled(T, B), bound)
+    row["spmm_ms"], _ = host_median_ms(lambda: ssh.spmm_sharded(S, B), 5)
+    row["spmm_tiled_ms"], _ = host_median_ms(lambda: k6.spmm_tiled(T, B),
+                                             5)
+    del L, T, S, absL, Y, B
+    A = rmat_adjacency(res, 19, fit_scale)
+    kw = dict(n_components=4, max_iterations=400, tolerance=1e-5, seed=42)
+    k6.LAUNCHES_SPMV = 0
+    t0 = time.perf_counter()
+    ev, _ = fit_embedding(res, A, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    row["fit_sharded_s"] = time.perf_counter() - t0
+    launches["K6a"] += k6.LAUNCHES_SPMV
+    check(k6.LAUNCHES_SPMV > 0, "fit_embedding(mesh=) launched K6a no time")
+    t0 = time.perf_counter()
+    ev1, _ = fit_embedding(res, A, tiled=True, **kw)
+    torch.cuda.synchronize()
+    row["fit_tiled_s"] = time.perf_counter() - t0
+    row["fit_eig_max_abs_diff"] = (ev - ev1).abs().max().item()
+    check(row["fit_eig_max_abs_diff"] <= 1e-5,
+          f"fit_embedding(mesh=) eigenvalues {ev.tolist()} differ from the "
+          f"unsharded fit's {ev1.tolist()}")
+    row["launches"] = dict(launches)
+    print(f"sharded sparse: {json.dumps(row)}", flush=True)
+    return row, launches
+
+
 SVD_SHAPE = (100_000, 1000, 16, 20, 18)   # rows, cols, k, svds/mst scales
 
 
@@ -6696,9 +7062,15 @@ def main() -> int:
     torch.cuda.empty_cache()
     # ---- the reference's K1 stage ladder on these operands ----
     ladder, slot_entry = k1_ladder(idx1, idx3, Qx)
+    phase_end("main_path")
+
+    # ---- phase 19 (a, b, d, e) on the main path's data: sharded ----
+    sharded, shard_launches = sharded_phase(res, X, Qx, idx1, idx3)
+    entry["sharded_launches"] = shard_launches["K1"]
+    k2_entry["sharded_launches"] = shard_launches["K2"]
     del X, Qx, idx1, idx3, o_vals, o_ids
     torch.cuda.empty_cache()
-    phase_end("main_path")
+    phase_end("sharded")
 
     # ---- phase 10 (run here, on a fresh index): serving ----
     serving, serve_launches = serving_phase(res)
@@ -6721,6 +7093,10 @@ def main() -> int:
                                 data=data, keep=kept)
     torch.cuda.empty_cache()
     phase_end("ivf")
+    # ---- phase 19 (c): the IVF-Flat index list-sharded ----
+    sharded["ivf_p32"] = sharded_ivf_cell(res, kept["ivf_flat"], data)
+    torch.cuda.empty_cache()
+    phase_end("sharded_ivf")
     ivf_pq, k5_entries = pq_phase(res, data, IVF_LISTS, keep=kept)
     torch.cuda.empty_cache()
     phase_end("ivf_pq")
@@ -6739,6 +7115,14 @@ def main() -> int:
     spectral, sparse_entries = spectral_phase(res)
     torch.cuda.empty_cache()
     phase_end("spectral")
+    # ---- phase 19 (f): the row-sharded sparse operand ----
+    sharded["sparse"], sparse_launches = sharded_sparse_cell(res)
+    for e in sparse_entries:
+        key = {"spmv_tiled": "K6a", "spmm_tiled": "K6c"}.get(e["name"])
+        if key:
+            e["sharded_launches"] = sparse_launches[key]
+    torch.cuda.empty_cache()
+    phase_end("sharded_sparse")
 
     # ---- phase 11: pairwise distances and stats ----
     pairwise_stats, k89_entries = pairwise_stats_phase(res)
@@ -6779,6 +7163,7 @@ def main() -> int:
     print(json.dumps({"select_k": select}), flush=True)
     print(json.dumps({"wide_knn": wide}), flush=True)
     print(json.dumps({"svd": svd}), flush=True)
+    print(json.dumps({"sharded": sharded}), flush=True)
     for name in ("prims", "rng", "lap", "nn", "compat"):
         print(json.dumps({name: prims[name]}), flush=True)
     kernels = [entry, k2_entry, slot_entry, k3_entry, *wide_entries,

@@ -34,7 +34,10 @@ Search (:func:`search_ivf_flat`):
 The certificates feed the quality counters and, under an active explain
 capture, the explain record (plane, probes, schedule, margins, reruns);
 ``RAFT_TPU_IVF_FINE_SCAN`` picks the schedule of callers that pass none.
-Left out: the sharded index (``ShardedIvfIndex``, ``shard_ivf_lists``),
+The sharded index (:class:`ShardedIvfIndex`, :func:`shard_ivf_lists`,
+reference ``:1168-1424``) spreads whole lists over a mesh axis; its search
+scans query-major on every rank (each rank its own probed lists) and the
+ranks' top-k merge as the sharded KNN's do (``merge``). Left out:
 ``warm_fine_scan`` (serving), the TPU tune table, and the reference's
 flight markers, fault sites and ``@instrument`` wrappers here.
 """
@@ -742,10 +745,10 @@ def _search_list_major(index: IvfFlatIndex, x, probes, probes_host, starts,
     return torch.cat(vals_out), torch.cat(ids_out), n_rerun
 
 
-def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
+def search_ivf_flat(res, index, queries, k: int,
                     n_probes: Optional[int] = None,
                     fine_scan: Optional[str] = None,
-                    with_stats: bool = False):
+                    with_stats: bool = False, merge: str = "auto"):
     """Approximate top-k against an IVF-Flat index (reference ``:1006``).
 
     Returns (d2 [nq, k] ascending, global ids [nq, k] int32); entries
@@ -757,7 +760,16 @@ def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
     beyond the probed capacity) runs the exact plane. ``with_stats``
     appends the number of queries whose certificate failed and were
     re-solved (list-major reruns, int8 gather reruns, or exact-plane
-    fixups). Runs on the index's device."""
+    fixups). Runs on the index's device.
+
+    ``index`` may be a :class:`ShardedIvfIndex`: the fine scan then runs
+    query-major on every rank over the probed lists it owns and the
+    ranks' top-k merge by ``merge`` (``"auto"``, ``"allgather"`` or
+    ``"tournament"``; see :mod:`raft_tpu_torch.distance.knn_sharded`);
+    ``fine_scan`` is unused there."""
+    sharded = isinstance(index, ShardedIvfIndex)
+    if sharded:
+        sh, index = index, index.base
     if res is None and index.device.type == "cpu":
         res = DeviceResources(device="cpu")
     res = ensure_resources(res)
@@ -793,9 +805,12 @@ def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
                      **probe_notes(index._np_sizes, probes.cpu().numpy()),
                      pool_width=(min(k + _IVF_RESCORE_PAD, P * W)
                                  if index.db_dtype == "int8" else k))
+    chunk = max(8, _FINE_TILE // max(1, P * W * x.shape[1]))
+    if sharded:
+        out = _search_sharded(sh, x, probes, k, P, W, merge, chunk)
+        return out if with_stats else out[:2]
     pl = probes.long()
     starts, psizes = index.offsets[:-1][pl], index.padded_sizes[pl]
-    chunk = max(8, _FINE_TILE // max(1, P * W * x.shape[1]))
     req = env.get("RAFT_TPU_IVF_FINE_SCAN") if fine_scan is None \
         else fine_scan
     list_chunk = min(nq, max_list_chunk(P))
@@ -809,3 +824,196 @@ def search_ivf_flat(res, index: IvfFlatIndex, queries, k: int,
     else:
         out = _query_major(index, x, starts, psizes, k, P, W, chunk)
     return out if with_stats else out[:2]
+
+
+# ----------------------------------------------------------------- sharded
+class ShardedIvfIndex:
+    """Whole inverted lists spread over a mesh axis (reference ``:1168``):
+    rank r owns the list block [r·Ll, (r+1)·Ll) laid out in its own slab
+    of ``rows_per`` rows on its device (``shards[r]``: slab, ids, yy_slab
+    and, for int8, slab_q, row_scale, yy_q, eq_rows), ``starts_g`` the
+    local start row and ``psizes_g`` the padded size of every list
+    (lists padded to p equal blocks, the virtual ones empty). Global ids
+    ride in the local slabs. Build with :func:`shard_ivf_lists`; query
+    with :func:`search_ivf_flat`."""
+
+    def __init__(self, base: IvfFlatIndex, mesh, axis: str, shards,
+                 starts_g, psizes_g, lists_per: int, rows_per: int):
+        self.base = base
+        self.mesh, self.axis = mesh, axis
+        self.shards = shards
+        self.starts_g, self.psizes_g = starts_g, psizes_g
+        self.lists_per = lists_per
+        self.rows_per = rows_per
+
+    @property
+    def n_shards(self) -> int:
+        return int(self.mesh.shape[self.axis])
+
+    @property
+    def probe_window(self) -> int:
+        return self.base.probe_window
+
+    @property
+    def device(self) -> torch.device:
+        return self.base.device
+
+    @property
+    def n_rows(self) -> int:
+        return self.base.n_rows
+
+    @property
+    def d_orig(self) -> int:
+        return self.base.d_orig
+
+
+_SHARD_FIELDS = (("slab", 0.0), ("ids", -1), ("yy_slab", 0.0))
+_SHARD_FIELDS_Q8 = (("slab_q", 0), ("row_scale", 1.0), ("yy_q", 0.0),
+                    ("eq_rows", 0.0))
+
+
+def shard_ivf_lists(index: IvfFlatIndex, mesh,
+                    axis: str = "x") -> ShardedIvfIndex:
+    """Lay ``index`` out list-sharded over ``mesh[axis]`` (reference
+    ``:1208``): lists pad to p equal blocks, every rank's slab pads to the
+    largest rank's rows, and each rank's rows are gathered from the base
+    slab on its device (norms and int8 sidecar gathered too, never
+    recomputed, so the sharded and unsharded scans score the same bits)."""
+    from raft_tpu_torch.parallel.mesh import axis_devices
+
+    expects(axis in mesh.axis_names,
+            "shard_ivf_lists: axis %r not in mesh axes %s", axis,
+            tuple(mesh.axis_names))
+    devs = axis_devices(mesh, axis)
+    p = len(devs)
+    L = index.n_lists
+    Lg = -(-L // p) * p
+    Ll = Lg // p
+    offsets, padded = index._np_offsets, index._np_padded
+    shard_rows = [int(padded[r * Ll:min((r + 1) * Ll, L)].sum())
+                  for r in range(p)]
+    S = max(max(shard_rows), index.row_quantum)
+    starts_g = np.zeros(Lg, np.int32)
+    psizes_g = np.zeros(Lg, np.int32)
+    psizes_g[:L] = padded
+    fields = _SHARD_FIELDS + (_SHARD_FIELDS_Q8 if index.db_dtype == "int8"
+                              else ())
+    shards = []
+    for r, dev in enumerate(devs):
+        src, cursor = [], 0
+        for gl in range(r * Ll, min((r + 1) * Ll, L)):
+            w = int(padded[gl])
+            starts_g[gl] = cursor
+            src.append(np.arange(offsets[gl], offsets[gl] + w))
+            cursor += w
+        src = torch.from_numpy(np.concatenate(src) if src else
+                               np.zeros(0, np.int64)).to(index.device)
+        shard = {}
+        for name, fill in fields:
+            base = getattr(index, name)
+            out = torch.full((S,) + tuple(base.shape[1:]), fill,
+                             dtype=base.dtype, device=index.device)
+            out[:cursor] = base[src]
+            shard[name] = out.to(dev)
+        shards.append(shard)
+    return ShardedIvfIndex(index, mesh, axis, shards,
+                           torch.from_numpy(starts_g).to(index.device),
+                           torch.from_numpy(psizes_g).to(index.device),
+                           Ll, S)
+
+
+def _search_sharded(index: ShardedIvfIndex, x, probes, k: int, P: int,
+                    W: int, merge: str, chunk: int):
+    """List-sharded fine scan and rank-ordered merge (reference
+    ``:1287``): for each chunk of queries, every rank scans the probed
+    lists it owns (compacted to the front, so it gathers only those
+    windows) and keeps its top-k with global ids, and the controller
+    merges the ranks' candidates rank-major
+    (:data:`~raft_tpu_torch.distance.knn_sharded._MERGES`). An int8 index
+    scans its codes with the certified pool; a query any rank could not
+    certify reruns the chunk in f32. Returns (vals, ids, reruns)."""
+    from raft_tpu_torch.comms.comms import Op, reduce_parts
+    from raft_tpu_torch.distance.knn_sharded import (
+        _MERGES, resolve_merge_strategy)
+    from raft_tpu_torch.parallel.mesh import for_each_rank, line_mesh
+    from raft_tpu_torch.resilience import fault_point
+
+    expects(merge in ("auto", "allgather", "tournament"),
+            "search_ivf_flat: merge must be 'auto', 'allgather' or "
+            "'tournament', got %r", merge)
+    line = line_mesh(index.mesh, index.axis)
+    devs = line.device_list()
+    p = len(devs)
+    nq = x.shape[0]
+    merge_eff = resolve_merge_strategy(merge, p, min(nq, chunk), k)
+    fault_point("merge_permute" if merge_eff == "tournament"
+                else "merge_allgather")
+    merge_fn = _MERGES[merge_eff]
+    Ll = index.lists_per
+    quant = index.base.db_dtype == "int8"
+    C = min(k + _IVF_RESCORE_PAD, P * W)
+    pl = probes.long()
+    starts_q = index.starts_g[pl]
+    psz_q = index.psizes_g[pl]
+    xs = {dv: x.to(dv) for dv in set(devs)}
+
+    def owned_probes(r: int, s: int, e: int):
+        """Rank r's probes of queries [s, e) moved to the front, in slot
+        order (the others zero-length), cut to the most any of them owns
+        (at least k/W slots): the gather reads ~P/p windows a query, not
+        P, and the candidates keep the unsharded scan's relative order."""
+        owned = (pl[s:e] >= r * Ll) & (pl[s:e] < (r + 1) * Ll)
+        order = torch.sort((~owned).to(torch.int8), dim=1,
+                           stable=True).indices
+        P_r = min(P, max(int(owned.sum(1).max()), -(-k // W)))
+        sel = order[:, :P_r]
+        ps = torch.where(torch.gather(owned, 1, sel),
+                         torch.gather(psz_q[s:e], 1, sel), 0)
+        return torch.gather(starts_q[s:e], 1, sel), ps, P_r
+
+    def scan(r, sh, s, e, exact):
+        """Rank r's top-k of queries [s, e) over the lists it owns (the
+        int8 codes' certified scan unless ``exact``), and the int8 scan's
+        per-query certificate (None for f32)."""
+        dev = devs[r]
+        st, ps, P_r = owned_probes(r, s, e)
+        st, ps = st.to(dev), ps.to(dev)
+        xr = xs[dev][s:e]
+        if quant and not exact:
+            v, i, ok, _ = _fine_scan_q8(
+                xr, sh["slab"], sh["slab_q"], sh["row_scale"], sh["ids"],
+                sh["yy_slab"], sh["yy_q"], sh["eq_rows"], st, ps, k, P_r,
+                W, min(C, P_r * W))
+            return v, i, ok
+        v, i = _fine_scan(xr, sh["slab"], sh["ids"], sh["yy_slab"], st,
+                          ps, k, P_r, W)
+        return v, i, None
+
+    def merged(s, e, exact):
+        outs = for_each_rank(line, scan, [(r, sh, s, e, exact) for r, sh
+                                          in enumerate(index.shards)])
+        v, i = merge_fn([o[0] for o in outs], [o[1] for o in outs], k,
+                        index.axis)
+        return v, i, [o[2] for o in outs]
+
+    out_v, out_i, n_fail = [], [], 0
+    for s in range(0, nq, chunk):
+        e = min(s + chunk, nq)
+        v, i, oks = merged(s, e, False)
+        if quant:
+            ok = reduce_parts([o.to(torch.int32) for o in oks], Op.MIN,
+                              index.axis) > 0
+            if not bool(ok.all()):
+                fv, fi, _ = merged(s, e, True)
+                v = torch.where(ok[:, None], v, fv)
+                i = torch.where(ok[:, None], i, fi)
+            n_fail += int((~ok).sum())
+        out_v.append(v)
+        out_i.append(i)
+    vals, ids = torch.cat(out_v), torch.cat(out_i)
+    if quant:
+        record_certificate(_SITE, n_queries=nq, n_fail=n_fail,
+                           pool_width=C, fixup_rows=n_fail or None,
+                           rerun=bool(n_fail), db_dtype="int8",
+                           sharded=True)
+    return vals, ids, n_fail

@@ -46,9 +46,10 @@ raises to the caller.
 
 The ladder feeds the quality counters and, under an active explain
 capture, the explain record (plane, probes, schedule, margins, rungs).
-Left out of this slice: the sharded PQ index, the mutable plane's
-tombstoned codes, the TPU tune table's ``pq`` column, and the
-instrument / marker / fault-point / profiler telemetry (ROADMAP item
+The reference has no sharded IVF-PQ index (its ``ShardedIvfIndex`` is
+IVF-Flat only), so neither has the port. Left out of this slice: the
+mutable plane's tombstoned codes, the TPU tune table's ``pq`` column, and
+the instrument / marker / fault-point / profiler telemetry (ROADMAP item
 14's remainder).
 The reference's ``RAFT_TPU_ANN_NPROBES`` knob is the plain ``n_probes``
 argument here, as in the port's IVF-Flat.

@@ -67,10 +67,3 @@ def expects(condition: bool, fmt: str, *args) -> None:
     (ref: core/error.hpp ``RAFT_EXPECTS``)"""
     if not condition:
         raise LogicError(fmt % args if args else fmt)
-
-
-def not_ported(what: str):
-    """Raise for an option that needs the multi-device mesh."""
-    raise NotImplementedError(
-        f"{what} needs the multi-device mesh, which is not ported to the GPU "
-        f"yet (ROADMAP queue 1, item 7)")

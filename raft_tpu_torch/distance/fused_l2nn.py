@@ -293,3 +293,156 @@ def knn(res, index, queries, k: int, metric: str = "sqeuclidean",
     if metric in ("euclidean", "l2"):
         dists = dists.clamp_min(0.0).sqrt()
     return dists, idx
+
+
+# ------------------------------------------------------------- sharded
+def _local_res(res, dev: torch.device):
+    """A handle on rank device ``dev`` with ``res``'s workspace budget,
+    so each rank sizes its sweep tile as the caller's handle would."""
+    from raft_tpu_torch.core.resources import DeviceResources
+
+    return DeviceResources(device=dev,
+                           workspace_limit=res.allocation_limit)
+
+
+def knn_sharded(res, index, queries, k: int, mesh=None, axis: str = "x",
+                metric: str = "sqeuclidean", algo: str = "auto"
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Data-parallel brute-force KNN over a mesh (reference ``:389``): the
+    queries split into ⌈nq/p⌉-row blocks over ``mesh[axis]``, the index
+    replicated, each rank running :func:`knn` on its block; no
+    cross-rank traffic. Returns (distances, indices) on the first rank's
+    device."""
+    from raft_tpu_torch.parallel.mesh import for_each_rank, line_mesh
+
+    res = ensure_resources(res)
+    mesh = getattr(res, "mesh", None) if mesh is None else mesh
+    expects(mesh is not None, "knn_sharded: pass mesh= or set it on res")
+    expects(axis in mesh.axis_names,
+            "knn_sharded: axis %r not in mesh axes %s", axis,
+            tuple(mesh.axis_names))
+    line = line_mesh(mesh, axis)
+    devs = line.device_list()
+    p = len(devs)
+    index = as_f32(index, devs[0])
+    queries = as_f32(queries, devs[0])
+    nq = queries.shape[0]
+    qs = -(-nq // p)
+    replicas = {d: index.to(d) for d in set(devs)}
+
+    def rank_fn(r):
+        dev = devs[r]
+        q = queries[r * qs:(r + 1) * qs].to(dev)
+        if q.shape[0] == 0:
+            return (q.new_zeros((0, k)),
+                    torch.zeros((0, k), dtype=torch.int32, device=dev))
+        return knn(_local_res(res, dev), replicas[dev], q, k,
+                   metric=metric, algo=algo)
+
+    outs = for_each_rank(line, rank_fn, [(r,) for r in range(p)])
+    return (torch.cat([o[0].to(devs[0]) for o in outs]),
+            torch.cat([o[1].to(devs[0]) for o in outs]))
+
+
+class ShardedKnnIndex:
+    """A row-sharded index prepared once (reference ``:465``):
+    ``shards[r]`` is rank r's block of ``rows_per`` rows on its device
+    (the pad rows, all in the trailing shards, are zeros), ``n`` the true
+    row count."""
+
+    def __init__(self, shards, n: int, rows_per: int, mesh, axis: str):
+        self.shards, self.n, self.rows_per = shards, n, rows_per
+        self.mesh, self.axis = mesh, axis
+
+    def rows(self) -> torch.Tensor:
+        """The index's true rows, gathered on the first shard's device."""
+        dev = self.shards[0].device
+        return torch.cat([s.to(dev) for s in self.shards])[:self.n]
+
+
+def prepare_index_sharded(res, index, mesh=None, axis: str = "x"
+                          ) -> ShardedKnnIndex:
+    """Pad the index rows to a multiple of p and place one block on each
+    rank's device (reference ``:479``)."""
+    from raft_tpu_torch.parallel.mesh import axis_devices
+
+    res_mesh = getattr(res, "mesh", None) if res is not None else None
+    mesh = res_mesh if mesh is None else mesh
+    expects(mesh is not None,
+            "prepare_index_sharded: pass mesh= or set it on res")
+    expects(axis in mesh.axis_names,
+            "prepare_index_sharded: axis %r not in mesh axes %s", axis,
+            tuple(mesh.axis_names))
+    devs = axis_devices(mesh, axis)
+    src = index.device if isinstance(index, torch.Tensor) else devs[0]
+    arr = as_f32(index, src)
+    n = arr.shape[0]
+    p = len(devs)
+    arr, n_pad = _pad_rows(arr, p)
+    rows_per = n_pad // p
+    shards = [arr[r * rows_per:(r + 1) * rows_per].to(d)
+              for r, d in enumerate(devs)]
+    return ShardedKnnIndex(shards, n, rows_per, mesh, axis)
+
+
+def knn_index_sharded(res, index, queries, k: int, mesh=None,
+                      axis: str = "x", metric: str = "sqeuclidean",
+                      algo: str = "auto"
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Model-parallel brute-force KNN (reference ``:509``): the index rows
+    sharded over ``mesh[axis]``, the queries replicated. Each rank selects
+    its local top-k + n_pads (the zero pad rows can rank inside a local
+    top-k, so over-selecting by their count leaves ≥ k real candidates),
+    shifts its ids by its row offset; the controller gathers the
+    candidates (the reference's one allgather), masks the pads by global
+    id and selects k, in ``jax.lax.top_k``'s order."""
+    from raft_tpu_torch.comms.comms import _count
+    from raft_tpu_torch.matrix.select_k_slotted import _smallest, lax_top_k
+    from raft_tpu_torch.parallel.mesh import for_each_rank, line_mesh
+
+    res = ensure_resources(res)
+    if isinstance(index, ShardedKnnIndex):
+        mesh = index.mesh if mesh is None else mesh
+        expects(index.axis == axis,
+                "knn_index_sharded: index prepared for axis %r, got %r",
+                index.axis, axis)
+        expects(index.mesh == mesh,
+                "knn_index_sharded: index prepared for a different mesh — "
+                "re-prepare or pass its mesh")
+    else:
+        mesh = getattr(res, "mesh", None) if mesh is None else mesh
+        expects(mesh is not None,
+                "knn_index_sharded: pass mesh= or set it on res")
+        index = prepare_index_sharded(res, index, mesh, axis)
+    line = line_mesh(mesh, axis)
+    devs = line.device_list()
+    p = len(devs)
+    n, rows_per = index.n, index.rows_per
+    expects(k <= n, "knn_index_sharded: k larger than index size")
+    n_pads = p * rows_per - n
+    k_loc = k + n_pads
+    expects(k_loc <= rows_per,
+            "knn_index_sharded: k=%d (+%d pad slots) exceeds the per-shard "
+            "row count %d — use fewer shards or the query-sharded mode", k,
+            n_pads, rows_per)
+    queries = as_f32(queries, devs[0])
+
+    def rank_fn(r, shard):
+        dev = devs[r]
+        d_loc, i_loc = knn(_local_res(res, dev), shard, queries.to(dev),
+                           k_loc, metric=metric, algo=algo)
+        return d_loc, (i_loc + r * rows_per).to(torch.int32)
+
+    outs = for_each_rank(line, rank_fn,
+                         [(r, s) for r, s in enumerate(index.shards)])
+    _count("allgather", outs[0][0], axis)
+    _count("allgather", outs[0][1], axis)
+    nq = outs[0][0].shape[0]
+    dg = torch.stack([o[0].to(devs[0]) for o in outs]).permute(
+        1, 0, 2).reshape(nq, -1)
+    ig = torch.stack([o[1].to(devs[0]) for o in outs]).permute(
+        1, 0, 2).reshape(nq, -1)
+    ip = metric == "inner_product"
+    dg = torch.where(ig < n, dg, float("-inf") if ip else float("inf"))
+    top, pos = lax_top_k(dg, k) if ip else _smallest(dg, k)
+    return top, torch.gather(ig, 1, pos)

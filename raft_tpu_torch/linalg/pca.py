@@ -4,8 +4,11 @@ cpp/include/raft/linalg/pca.cuh:41 ``pca_fit`` / ``pca_transform`` /
 pipeline of linalg/detail/pca.cuh: center, covariance, eigDC or
 eigJacobi, descending order, sign flip, variance bookkeeping).
 
-The multi-device fit (``pca_fit_distributed``, ``pad_mask_shard``) waits
-for ROADMAP item 7 and raises.
+The multi-device fit (``pca_fit_distributed``, reference ``:107``) runs
+one rank a row block of ``pad_mask_shard``'s split in turn
+(:func:`raft_tpu_torch.parallel.for_each_rank`): the mean and covariance
+partials are folded in rank order (the reference's two allreduces), the
+eig tail runs once.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from typing import NamedTuple
 
 import torch
 
-from raft_tpu_torch.core.error import expects, not_ported
+from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import float_operands, input_device
 from raft_tpu_torch.linalg.eig import eig_dc, eig_jacobi
 from raft_tpu_torch.matrix.math_ops import sign_flip
@@ -88,14 +91,60 @@ def pca_fit(res, X, prms: ParamsPCA) -> PCAModel:
 
 
 def pad_mask_shard(X, mesh, axis: str = "x"):
-    """The distributed fits' row sharding: not in the port yet."""
-    not_ported("pad_mask_shard")
+    """Zero-pad the rows to a multiple of ``mesh[axis]`` and place the
+    array and its validity mask (1 on real rows, 0 on pads) row-sharded
+    over the mesh (reference ``:88``): the preamble of the distributed
+    fits, whose statistics mask the pads out. Returns two
+    :class:`~raft_tpu_torch.parallel.ShardedArray`."""
+    from raft_tpu_torch.parallel.mesh import shard_array
+
+    X, = float_operands(input_device(None, X, device=mesh.device_list()[0]),
+                        X)
+    n = X.shape[0]
+    npad = (-n) % int(mesh.shape[axis])
+    valid = torch.cat([torch.ones(n, dtype=X.dtype, device=X.device),
+                       torch.zeros(npad, dtype=X.dtype, device=X.device)])
+    if npad:
+        X = torch.cat([X, X.new_zeros((npad,) + tuple(X.shape[1:]))])
+    return shard_array(X, mesh, axis), shard_array(valid, mesh, axis)
+
+
+def row_blocks(X, mesh, axis: str = "x"):
+    """The 1-d mesh of ``mesh[axis]`` and each of its ranks' (row block,
+    mask) of :func:`pad_mask_shard`'s split, for
+    :func:`raft_tpu_torch.parallel.for_each_rank`."""
+    from raft_tpu_torch.parallel.mesh import line_mesh
+
+    line = line_mesh(mesh, axis)
+    Xs, vs = pad_mask_shard(X, line, axis)
+    return line, list(zip(Xs.shards, vs.shards))
 
 
 def pca_fit_distributed(res, X, prms: ParamsPCA, mesh,
                         axis: str = "x") -> PCAModel:
-    """The rows-sharded fit: not in the port yet."""
-    not_ported("pca_fit_distributed")
+    """The rows-sharded PCA fit (reference ``:107``): each rank sums its
+    masked rows; the mean and then the covariance of the centered rows
+    are folded in rank order (the reference's allreduces); the eig tail
+    runs once on the result."""
+    n, p = X.shape
+    expects(0 < prms.n_components <= p,
+            "pca_fit_distributed: bad n_components")
+
+    from raft_tpu_torch.comms.comms import reduce_parts
+    from raft_tpu_torch.parallel.mesh import for_each_rank
+
+    line, blocks = row_blocks(X, mesh, axis)
+    mu = reduce_parts(for_each_rank(
+        line, lambda x, v: (x * v[:, None]).sum(0), blocks),
+        axis_name=axis) / n
+
+    def centred(x, v):
+        xc = (x - mu.to(x.device)[None, :]) * v[:, None]
+        return xc.T @ xc
+
+    cov = reduce_parts(for_each_rank(line, centred, blocks),
+                       axis_name=axis) / (n - 1)
+    return _model_from_cov(res, cov, mu, n, p, prms)
 
 
 def _whiten_scale(model: PCAModel):

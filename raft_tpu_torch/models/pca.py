@@ -8,26 +8,29 @@ from typing import Optional
 
 from raft_tpu_torch.core.resources import DeviceResources
 from raft_tpu_torch.linalg.pca import (ParamsPCA, PCAModel, Solver,
-                                       not_ported, pca_fit,
+                                       pca_fit, pca_fit_distributed,
                                        pca_inverse_transform, pca_transform)
 
 
 class PCA:
     """``res`` fixes the device of numpy inputs; without it a fit runs
-    where X's tensor lies, or on cuda. ``mesh`` (the rows-sharded fit)
-    is not in the port yet and raises."""
+    where X's tensor lies, or on cuda. ``mesh`` makes ``fit`` the
+    rows-sharded fit over ``mesh[mesh_axis]`` (``pca_fit_distributed``)."""
 
     def __init__(self, n_components: int, whiten: bool = False,
                  solver: Solver = Solver.COV_EIG_DC, mesh=None,
                  mesh_axis: str = "x", res: Optional[DeviceResources] = None):
-        if mesh is not None:
-            not_ported("PCA: mesh=")
+        self.mesh, self.mesh_axis = mesh, mesh_axis
         self.res = res
         self.prms = ParamsPCA(n_components=n_components, whiten=whiten,
                               algorithm=solver)
         self.model: Optional[PCAModel] = None
 
     def fit(self, X) -> "PCA":
+        if self.mesh is not None:
+            self.model = pca_fit_distributed(self.res, X, self.prms,
+                                             self.mesh, self.mesh_axis)
+            return self
         self.model = pca_fit(self.res, X, self.prms)
         return self
 

@@ -14,8 +14,9 @@ from raft_tpu_torch.spectral.analysis import fit_embedding
 class SpectralEmbedding:
     """``res`` (optional) fixes the device; without it a fit runs where
     the adjacency's tensors lie, or on cuda. ``tiled`` and ``jit_loop``
-    as in :func:`raft_tpu_torch.spectral.fit_embedding`; ``mesh`` (the
-    sharded fit) is not ported yet and raises at ``fit``."""
+    as in :func:`raft_tpu_torch.spectral.fit_embedding`; ``mesh`` shards
+    the Laplacian's rows over ``mesh[mesh_axis]`` (the multi-device
+    fit)."""
 
     def __init__(self, n_components: int = 2, normalized: bool = True,
                  drop_first: bool = True, ncv: Optional[int] = None,

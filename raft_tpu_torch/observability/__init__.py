@@ -62,9 +62,13 @@ from raft_tpu_torch.observability.exporters import (
 from raft_tpu_torch.observability.costmodel import (
     DB_DTYPE_BYTES,
     FINE_SCAN_MARGIN,
+    MERGE_STRATEGIES,
     PQ_SCAN_MARGIN,
     choose_fine_scan,
+    choose_merge_strategy,
     choose_pq_scan,
+    ici_time_model,
+    ici_traffic_model,
     ivf_traffic_model,
     pq_bytes_ratio,
     pq_index_bytes,
@@ -123,7 +127,9 @@ __all__ = [
     "bench_results", "export_jsonl", "export_perfetto", "export_prometheus",
     "summary_table",
     "DB_DTYPE_BYTES", "FINE_SCAN_MARGIN", "PQ_SCAN_MARGIN",
-    "choose_fine_scan", "choose_pq_scan", "ivf_traffic_model",
+    "MERGE_STRATEGIES", "choose_fine_scan", "choose_merge_strategy",
+    "choose_pq_scan", "ici_time_model", "ici_traffic_model",
+    "ivf_traffic_model",
     "pq_bytes_ratio", "pq_index_bytes",
     "ShadowSampler", "certificate_counts", "measured_rerun_frac",
     "quality_block", "quality_enabled", "recall_at_k", "record_certificate",

@@ -1,11 +1,15 @@
-"""IVF traffic model and the fine-scan and PQ-scan crossovers.
+"""IVF traffic model, the fine-scan and PQ-scan crossovers, and the
+sharded KNN's merge model.
 
 Counterpart of the functions of ``raft_tpu/observability/costmodel.py``
 that the IVF choosers read: ``ivf_traffic_model`` (``:436``, with its
 IVF-PQ keys), ``choose_fine_scan`` (``:425``) for ``fine_scan="auto"``,
 ``choose_pq_scan`` (``:395``) for ``pq_scan="auto"``, ``pq_bytes_ratio``
 (``:346``) and ``pq_index_bytes`` (``:360``), with ``FINE_SCAN_MARGIN``,
-``PQ_SCAN_MARGIN`` and ``DB_DTYPE_BYTES``. Pure arithmetic on shapes.
+``PQ_SCAN_MARGIN`` and ``DB_DTYPE_BYTES``; and the merge half
+(``:599-683``): ``MERGE_STRATEGIES``, ``ici_traffic_model``,
+``ici_time_model`` and ``choose_merge_strategy``, priced on a
+:class:`~raft_tpu_torch.utils.arch.ChipSpec`. Pure arithmetic on shapes.
 """
 
 from __future__ import annotations
@@ -202,3 +206,71 @@ def ivf_traffic_model(nq: int, m: int, d: int, k: int, n_lists: int,
         "quantized_gather_ratio": (fine_gather_bytes
                                    / max(fine_gather_f32, 1.0)),
     }
+
+
+# ------------------------------------------------- merge traffic model
+#: the sharded KNN's collective merges (reference ``:599``)
+MERGE_STRATEGIES = ("allgather", "tournament")
+
+
+def ici_traffic_model(p: int, nq: int, k: int, strategy: str,
+                      cand_bytes: int = 8) -> Dict:
+    """Bytes of one sharded-KNN merge over ``p`` shards for ``nq`` queries
+    selecting ``k`` (reference ``:602``); a candidate is ``cand_bytes`` (an
+    f32 value and an int32 id). Wire bytes are per-device egress:
+    ``allgather`` forwards p−1 blocks of [nq, k] and selects once over
+    p·k; ``tournament`` runs log₂(p) pair exchanges of one block, each
+    followed by a select over 2k."""
+    if strategy not in MERGE_STRATEGIES:
+        raise ValueError(f"ici_traffic_model: strategy must be one of "
+                         f"{MERGE_STRATEGIES}, got {strategy!r}")
+    block = float(nq) * k * cand_bytes
+    if strategy == "allgather":
+        rounds, wire, width = 1, (p - 1) * block, p * k
+    else:
+        if p & (p - 1):
+            raise ValueError(f"ici_traffic_model: tournament needs a "
+                             f"power-of-two shard count, got p={p}")
+        rounds = max(1, p.bit_length() - 1) if p > 1 else 0
+        wire, width = rounds * block, 2 * k
+    return {
+        "strategy": strategy,
+        "p": p,
+        "rounds": rounds,
+        "wire_bytes_per_device": wire,
+        "bytes_per_round": block if strategy == "tournament"
+        else (p - 1) * block,
+        "select_width": width,
+        "select_bytes": float(nq) * (width + k) * cand_bytes,
+    }
+
+
+def ici_time_model(p: int, nq: int, k: int, strategy: str, spec=None,
+                   cand_bytes: int = 8) -> Dict:
+    """Modelled merge seconds on ``spec`` (default
+    :func:`raft_tpu_torch.utils.arch.chip_spec`; reference ``:650``): wire
+    bytes over ``ici_bw``, plus a latency and a select over ``hbm_bw`` a
+    round."""
+    from raft_tpu_torch.utils.arch import chip_spec
+
+    spec = spec if spec is not None else chip_spec()
+    m = ici_traffic_model(p, nq, k, strategy, cand_bytes)
+    ici_bw = spec.ici_bw or spec.hbm_bw
+    wire_s = m["wire_bytes_per_device"] / ici_bw
+    select_s = m["rounds"] * (m["select_bytes"] / spec.hbm_bw)
+    lat_s = m["rounds"] * spec.ici_latency
+    m.update({"wire_seconds": wire_s, "select_seconds": select_s,
+              "latency_seconds": lat_s,
+              "merge_seconds": wire_s + select_s + lat_s})
+    return m
+
+
+def choose_merge_strategy(p: int, nq: int, k: int, spec=None) -> str:
+    """``merge="auto"`` (reference ``:672``): the strategy of the smaller
+    modelled time; a non-power-of-two ``p`` and p ≤ 2 take the
+    allgather."""
+    if p <= 2 or (p & (p - 1)):
+        return "allgather"
+    t_ag = ici_time_model(p, nq, k, "allgather", spec)["merge_seconds"]
+    t_tr = ici_time_model(p, nq, k, "tournament", spec)["merge_seconds"]
+    return "allgather" if t_ag <= t_tr else "tournament"

@@ -6,8 +6,8 @@ retry and degradation records.
   DeadlineExceededError` through the thread's cancellation token.
 - :mod:`~raft_tpu_torch.resilience.faults` — named injection sites armed
   by ``RAFT_TPU_FAULTS`` (the reference's DSL and kinds).
-- :mod:`~raft_tpu_torch.resilience.policy` — bounded retry and the
-  degradation records.
+- :mod:`~raft_tpu_torch.resilience.policy` — bounded retry, the
+  degradation records and the sharded merge's ladder.
 """
 
 from raft_tpu_torch.core.error import DeadlineExceededError
@@ -31,11 +31,14 @@ from raft_tpu_torch.resilience.faults import (
 from raft_tpu_torch.resilience.policy import (
     DEGRADATIONS,
     EXHAUSTED,
+    MERGE_LADDER,
     RETRIES,
+    PoisonedOutputError,
     PolicyTable,
     RetryPolicy,
     degradation_count,
     degradation_reasons,
+    degrade_merge,
     get_policy_table,
     record_degradation,
     record_exhausted,
@@ -49,8 +52,10 @@ __all__ = [
     "InjectedDeviceError", "InjectedFault", "InjectedOutOfMemory",
     "InjectedTimeout", "faults_active", "clear_faults", "configure_faults",
     "fault_point", "parse_faults",
-    "DEGRADATIONS", "EXHAUSTED", "RETRIES", "PolicyTable", "RetryPolicy",
-    "degradation_count", "degradation_reasons", "get_policy_table",
+    "DEGRADATIONS", "EXHAUSTED", "MERGE_LADDER", "RETRIES",
+    "PoisonedOutputError", "PolicyTable", "RetryPolicy",
+    "degradation_count", "degradation_reasons", "degrade_merge",
+    "get_policy_table",
     "record_degradation", "record_exhausted", "record_retry",
     "run_with_policy",
 ]

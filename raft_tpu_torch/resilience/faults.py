@@ -69,6 +69,11 @@ KNOWN_SITES: Dict[str, Tuple[str, ...]] = {
     "wal_fsync": ("error",),
     "checkpoint_write": ("error",),
     "manifest_commit": ("error",),
+    # sharded KNN: the per-call dispatch of the rank programs, and the
+    # two collective merges (a failure walks the merge ladder)
+    "sharded_dispatch": ("oom", "error", "nan"),
+    "merge_permute": ("oom", "error", "timeout", "hang"),
+    "merge_allgather": ("oom", "error", "timeout", "hang"),
 }
 
 

@@ -17,9 +17,11 @@ Counterpart of the retry and record half of
   ``degradation`` event; :func:`degradation_count` and
   :func:`degradation_reasons` read them back.
 
+- **Merge ladder** (:func:`degrade_merge`): the sharded KNN's merge
+  walks tournament → allgather → host merge on a collective failure.
+
 The reference's fused OOM ladder (``fused_degradation_ladder``) walks
-TPU grid orders, and its merge ladder (``degrade_merge``) belongs to the
-sharded merge; neither is ported (ROADMAP items 15 and 7).
+TPU grid orders and is not ported (ROADMAP item 15).
 """
 
 from __future__ import annotations
@@ -207,3 +209,22 @@ def run_with_policy(site: str, fn: Callable[[int], object],
             if delay > 0:
                 time.sleep(delay)
                 delay *= policy.backoff_mult
+
+
+class PoisonedOutputError(DeviceError):
+    """Output validation found non-finite values where the contract
+    promises finite ones (reference ``:58``; an injected ``nan`` fault
+    makes one). Recovered by bounded retry, not by degradation."""
+
+
+#: the sharded merge's rungs, cheapest give-up first (reference ``:249``)
+MERGE_LADDER = ("tournament", "allgather", "host")
+
+
+def degrade_merge(strategy: str) -> Optional[str]:
+    """Next rung down :data:`MERGE_LADDER`, or None at the bottom."""
+    try:
+        i = MERGE_LADDER.index(strategy)
+    except ValueError:
+        return None
+    return MERGE_LADDER[i + 1] if i + 1 < len(MERGE_LADDER) else None

@@ -82,7 +82,13 @@ reference: the registry, the timeline and the SLO burn-rate engine
   loop.
 
 Telemetry never raises into serving: each write sits in a ``try`` as in
-the reference. ``mesh`` (ROADMAP item 7) raises ``NotImplementedError``.
+the reference.
+
+``mesh`` (with ``axis``) switches the brute plane to the query-sharded
+mode of :func:`~raft_tpu_torch.distance.knn_sharded.knn_fused_sharded`
+(reference ``:543``): the snapshot's index replicated on the mesh's
+devices, each batch's queries split over the ranks, no merge. The IVF and
+mutable planes stay single-device, as in the reference.
 
 Env knobs: ``RAFT_TPU_SERVING_BUCKETS``, ``RAFT_TPU_SERVING_FLUSH_MS``
 (default 2 ms), ``RAFT_TPU_SERVING_QUEUE_CAP`` (4096 rows),
@@ -147,18 +153,6 @@ _PLANE_LIBS = {"brute": ("fused_l2_packed_sm90", "fused_l2_topk"),
                             "fused_l2_topk"),
                "ivf_pq": ("pq_scan", "fused_l2_packed_sm90",
                           "fused_l2_topk")}
-
-#: options of the reference engine not in the port yet: (ROADMAP item,
-#: what they are)
-_NOT_PORTED = {"mesh": (7, "the query-sharded mesh plane")}
-
-
-def _not_ported(option: str):
-    item, what = _NOT_PORTED[option]
-    raise NotImplementedError(
-        f"ServingEngine: {option}= needs {what}, which is not ported to "
-        f"the GPU yet (ROADMAP queue 1, item {item})")
-
 
 class RequestTooLargeError(LogicError):
     """The request exceeds the largest bucket of the ladder: rejected at
@@ -293,6 +287,7 @@ class ServingEngine:
     """
 
     def __init__(self, index, k: int, *, res=None, mesh=None,
+                 axis: str = "x",
                  buckets: Union[str, Sequence[int], None] = None,
                  flush_interval_s: Optional[float] = None,
                  max_queue_rows: Optional[int] = None,
@@ -322,14 +317,25 @@ class ServingEngine:
         from raft_tpu_torch.ann import IvfFlatIndex, IvfPqIndex
         from raft_tpu_torch.distance.knn_fused import KnnIndex, fused_config
 
-        if mesh is not None:
-            _not_ported("mesh")
         if algorithm not in ("brute", "ivf_flat", "ivf_pq"):
             raise ValueError(f"ServingEngine: algorithm must be 'brute', "
                              f"'ivf_flat' or 'ivf_pq', got {algorithm!r}")
         if algorithm != "brute":
+            expects(mesh is None,
+                    "ServingEngine: algorithm=%r serves single-device "
+                    "planes (shard the lists via ann.shard_ivf_lists "
+                    "outside the engine)" % (algorithm,))
             expects(metric == "l2", "ServingEngine: algorithm=%r serves "
                     "metric='l2' only" % (algorithm,))
+        if mesh is not None:
+            from raft_tpu_torch.parallel import Mesh
+
+            expects(isinstance(mesh, Mesh), "ServingEngine: mesh must be a "
+                    "raft_tpu_torch.parallel.Mesh, got %r" % (type(mesh),))
+        expects(not (mutable or durable) or mesh is None,
+                "ServingEngine: the mutable plane is single-device "
+                "(shard outside the engine)")
+        self._mesh, self._axis = mesh, axis
         self._algorithm = algorithm
         self._n_lists, self._n_probes = n_lists, n_probes
         self._pq_dim, self._pq_bits = pq_dim, pq_bits
@@ -546,6 +552,14 @@ class ServingEngine:
 
             return search_ivf_flat(self.res, snap.index, xb, self.k,
                                    n_probes=self._n_probes, with_stats=True)
+        if self._mesh is not None:
+            from raft_tpu_torch.distance.knn_sharded import \
+                knn_fused_sharded
+
+            return knn_fused_sharded(
+                xb, snap.index, self.k, mesh=self._mesh, axis=self._axis,
+                shard_mode="query", rescore=self._rescore,
+                certify=self._certify, with_stats=True)
         from raft_tpu_torch.runtime import knn_query
 
         return knn_query(self.res, snap.index, xb, self.k,

@@ -10,10 +10,8 @@ reference's segment sums), except SDDMM, whose kernel K7 takes an f32
 COO/CSR structure on the card as it is. The prepared layouts of
 ``sparse/tiled.py`` take the kernels: ``TiledELL`` → K6a/K6c,
 ``TiledPairsSpmv`` → K6b, ``TiledPairs`` → K7 (``ops/spmv.py``,
-``ops/sddmm.py``). The reference's
-sharded operand (``sparse/sharded.py``, ``ShardedTiledELL``) waits for the
-port's sharded slice: the ``mesh=`` entry points raise
-``NotImplementedError``.
+``ops/sddmm.py``); the row-sharded ``ShardedTiledELL``
+(``sparse/sharded.py``) → K6a/K6c on every block.
 
 Every function moves a COO/CSR operand that is not on a device yet onto
 the device of its tensors, or ``cuda`` (``core/sparse_types.to_device``).
@@ -60,10 +58,14 @@ def spmv(res, A, x) -> torch.Tensor:
     matvec — sparse/solver/detail/lanczos.cuh:263-271.)
 
     ``A`` may be COO/CSR (gather + ``index_add_``), a :class:`TiledELL`
-    (K6a) or a :class:`TiledPairsSpmv` (K6b); prepare the layouts once
-    with :func:`prepare_spmv` for repeated matvecs."""
+    (K6a), a :class:`TiledPairsSpmv` (K6b) or a ``ShardedTiledELL`` (K6a
+    a row block); prepare the layouts once with :func:`prepare_spmv` (or
+    ``sparse.sharded.shard_spmv_operand``) for repeated matvecs."""
     from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse.sharded import ShardedTiledELL, spmv_sharded
 
+    if isinstance(A, ShardedTiledELL):
+        return spmv_sharded(A, x)
     if isinstance(A, TiledPairsSpmv):
         return k6.spmv_pair_tiled(A, x)
     if isinstance(A, TiledELL):
@@ -94,14 +96,17 @@ def prepare_spmv(A: Sparse, C: int = 512, R: int = 256, E: int = 2048,
 def spmm(res, A, B, alpha=1.0, beta=0.0, C=None) -> torch.Tensor:
     """C = alpha A @ B + beta C for dense B. (ref: sparse/linalg/
     spmm.hpp:42.) A COO/CSR ``A`` keeps its dtype; a :class:`TiledELL`
-    runs K6c in f32."""
+    runs K6c in f32, a ``ShardedTiledELL`` K6c on every row block."""
     from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.sparse.sharded import ShardedTiledELL, spmm_sharded
 
     if isinstance(A, TiledPairsSpmv):
         raise TypeError(
             "spmm: got a pair-tiled SpMV operand; prepare with "
             "prepare_spmv(A, layout='ell') for multi-vector products")
-    if isinstance(A, TiledELL):
+    if isinstance(A, ShardedTiledELL):
+        out = alpha * spmm_sharded(A, B)
+    elif isinstance(A, TiledELL):
         out = alpha * k6.spmm_tiled(A, B)
     else:
         rows, cols, vals, shape = _as_coo_parts(A)

@@ -43,7 +43,10 @@ _log = logging.getLogger(__name__)
 
 
 def _matvec(A, x):
-    if isinstance(A, (COOMatrix, CSRMatrix, TiledELL, TiledPairsSpmv)):
+    from raft_tpu_torch.sparse.sharded import ShardedTiledELL
+
+    if isinstance(A, (COOMatrix, CSRMatrix, TiledELL, TiledPairsSpmv,
+                      ShardedTiledELL)):
         from raft_tpu_torch.sparse.linalg import spmv
 
         return spmv(None, A, x)
@@ -130,11 +133,13 @@ def _extract_eigvecs(S, V, idx, ncv: int):
 def _operand(res, A):
     """(A on its device, n, dtype, device). The device is the handle's
     when one is given, else the operand's, else cuda."""
+    from raft_tpu_torch.sparse.sharded import ShardedTiledELL
+
     hint = res.device if res is not None else None
     if isinstance(A, (COOMatrix, CSRMatrix)):
         A = to_device(A, hint)
         return A, A.shape[0], A.values.dtype, A.values.device
-    if isinstance(A, (TiledELL, TiledPairsSpmv)):
+    if isinstance(A, (TiledELL, TiledPairsSpmv, ShardedTiledELL)):
         return A, A.shape[0], A.vals.dtype, A.device
     if not isinstance(A, torch.Tensor) and callable(getattr(A, "mv", None)):
         return A, A.shape[0], A.dtype, A.device       # an operator wrapper

@@ -8,8 +8,9 @@ detail/svds_sign_correction.cuh).
 The products go through :func:`raft_tpu_torch.sparse.linalg.spmm` (the
 segment-sum product over COO/CSR, as the reference's). The sketch is drawn
 from a ``torch.Generator`` seeded with ``config.seed``;
-:func:`_svds_from_sketch` is the rest, given the sketch. A sharded operand
-waits for ROADMAP item 7.
+:func:`_svds_from_sketch` is the rest, given the sketch. A row-sharded
+operand (``sparse.sharded.ShardedTiledELL``) runs every product as K6c
+on its row blocks.
 """
 
 from __future__ import annotations
@@ -69,29 +70,43 @@ def randomized_svds(res, A: Sparse, config: SvdsConfig, At=None
     descending, V [n, k]). ``At`` is A's [n, m] transpose, made with
     :func:`~raft_tpu_torch.sparse.linalg.transpose` when not given. Runs
     on A's device, or the handle's when A holds no tensor. (ref:
-    sparse/solver/randomized_svds.cuh)"""
-    expects(isinstance(A, (COOMatrix, CSRMatrix)),
-            "randomized_svds: A must be a COO or CSR matrix (a sharded "
-            "operand needs ROADMAP queue 1, item 7)")
+    sparse/solver/randomized_svds.cuh)
+
+    ``A`` may be a ``ShardedTiledELL`` (reference ``:52``): ``At`` must
+    then be the transposed matrix's sharded operand
+    (``shard_spmv_operand(transpose(A), mesh)``; a sharded layout has no
+    cheap transpose), and every product is K6c over the row blocks."""
+    from raft_tpu_torch.sparse.sharded import ShardedTiledELL
+
+    expects(isinstance(A, (COOMatrix, CSRMatrix, ShardedTiledELL)),
+            "randomized_svds: A must be a COO, CSR or sharded tiled "
+            "matrix")
     k = config.n_components
     m, n = A.shape
     expects(0 < k <= min(m, n), "randomized_svds: bad n_components")
     ell = min(k + config.n_oversamples, min(m, n))
-    A = to_device(A, input_device(res, *sparse_arrays(A)))
-    if isinstance(A, COOMatrix):
-        from raft_tpu_torch.sparse.convert import coo_to_csr
-
-        A = coo_to_csr(A)
-    if At is None:
-        At = sp_transpose(res, A)
+    if isinstance(A, ShardedTiledELL):
+        expects(isinstance(At, ShardedTiledELL)
+                and tuple(At.shape) == (n, m),
+                "randomized_svds: a sharded operand needs At, the [n, m] "
+                "sharded transpose (shard_spmv_operand of the transposed "
+                "matrix)")
+        dtype, dev = A.vals.dtype, A.device
     else:
-        # a wrong-shaped At would index out of range or answer garbage
-        expects(tuple(At.shape) == (n, m),
-                "randomized_svds: At must be [n, m], got %r",
-                tuple(At.shape))
-    dev = A.values.device
+        A = to_device(A, input_device(res, *sparse_arrays(A)))
+        if isinstance(A, COOMatrix):
+            from raft_tpu_torch.sparse.convert import coo_to_csr
+
+            A = coo_to_csr(A)
+        if At is None:
+            At = sp_transpose(res, A)
+        else:
+            # a wrong-shaped At would index out of range or answer garbage
+            expects(tuple(At.shape) == (n, m),
+                    "randomized_svds: At must be [n, m], got %r",
+                    tuple(At.shape))
+        dtype, dev = A.values.dtype, A.values.device
     gen = torch.Generator(device=dev)
     gen.manual_seed(config.seed)
-    omega = torch.randn((n, ell), generator=gen, dtype=A.values.dtype,
-                        device=dev)
+    omega = torch.randn((n, ell), generator=gen, dtype=dtype, device=dev)
     return _svds_from_sketch(res, A, At, omega, k, config.n_power_iters)

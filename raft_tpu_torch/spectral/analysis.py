@@ -72,8 +72,10 @@ def fit_embedding(res, A: Sparse, n_components: int, ncv=None,
     adjacency's, else on cuda. ``tiled``: "auto" lays the Laplacian out as
     a ``TiledELL`` (K6a runs every Lanczos matvec) on cuda for f32
     matrices of ≥ :data:`TILED_MIN_NNZ` nonzeros; True/False force
-    either path. ``mesh`` (the reference's sharded solve) waits for the
-    port's sharded slice and raises."""
+    either path. ``mesh`` makes the solve multi-device (reference
+    ``:93-104``): the Laplacian's rows shard over ``mesh[mesh_axis]``
+    (``sparse.sharded.shard_spmv_operand``) and every matvec runs K6a on
+    each row block; f32 only, and ``tiled=False`` conflicts with it."""
     from raft_tpu_torch.sparse.linalg import (compute_graph_laplacian,
                                               laplacian_normalized,
                                               prepare_spmv)
@@ -85,21 +87,31 @@ def fit_embedding(res, A: Sparse, n_components: int, ncv=None,
     if tiled not in ("auto", True, False):
         raise ValueError(f"fit_embedding: tiled must be 'auto', True or "
                          f"False, got {tiled!r}")
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_embedding: mesh= (the sharded solve over raft_tpu/sparse/"
-            "sharded.py) is not ported yet")
+    if mesh is not None and tiled is False:
+        raise ValueError(
+            "fit_embedding: tiled=False conflicts with mesh= — the "
+            "multi-device path is the sharded tiled-ELL operand")
     A = to_device(A, res.device if res is not None else None)
     k = n_components + (1 if drop_first else 0)
     if normalized:
         L, _ = laplacian_normalized(res, A)
     else:
         L = compute_graph_laplacian(res, A)
-    if tiled == "auto":
-        tiled = (L.values.device.type == "cuda" and L.nnz >= TILED_MIN_NNZ
-                 and L.values.dtype == torch.float32)
-    if tiled:
-        L = prepare_spmv(L)
+    if mesh is not None:
+        from raft_tpu_torch.sparse.sharded import shard_spmv_operand
+
+        if L.values.dtype == torch.float64:
+            raise ValueError(
+                "fit_embedding: mesh= computes in f32 (tiled kernels); "
+                "cast the input or drop mesh for the f64 CSR path")
+        L = shard_spmv_operand(L, mesh, axis=mesh_axis)
+    else:
+        if tiled == "auto":
+            tiled = (L.values.device.type == "cuda"
+                     and L.nnz >= TILED_MIN_NNZ
+                     and L.values.dtype == torch.float32)
+        if tiled:
+            L = prepare_spmv(L)
     config = LanczosSolverConfig(
         n_components=k, max_iterations=max_iterations, ncv=ncv,
         tolerance=tolerance, which=LANCZOS_WHICH.SA, seed=seed,

@@ -299,6 +299,7 @@ def test_engine_watchdog_reports_a_hang_fault(tmp_path):
         ok.result(timeout=30)
         faults.clear()
         eng.query(rng.normal(size=(1, 16)).astype(np.float32), timeout=30)
+        assert eng.flush(30)
         st = eng.stats()["watchdog"]
     finally:
         faults.clear()

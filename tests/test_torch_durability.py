@@ -536,15 +536,17 @@ def test_wal_append_fault_leaves_index_unchanged(tmp_path):
 
 def test_fault_seam_nth_call_and_sites():
     """The seam's ``error@call=N`` fires on exactly the Nth call, passes
-    through unarmed, and names the reference's seven durability sites
-    and its three serving sites, with the reference's kinds."""
+    through unarmed, and names the reference's seven durability sites,
+    its three serving sites and its three sharded-KNN sites, with the
+    reference's kinds."""
     from raft_tpu.resilience import KNOWN_SITES as J_SITES
 
     assert set(faults.KNOWN_SITES) <= set(J_SITES)
     assert set(faults.KNOWN_SITES) == {
         "wal_append", "wal_fsync", "checkpoint_write", "manifest_commit",
         "compact_fold", "mutate_ingest", "tombstone_apply",
-        "serving_enqueue", "serving_flush", "serving_snapshot"}
+        "serving_enqueue", "serving_flush", "serving_snapshot",
+        "sharded_dispatch", "merge_allgather", "merge_permute"}
     assert all(faults.KNOWN_SITES[s] == J_SITES[s]
                for s in faults.KNOWN_SITES)
     faults.fault_point("tombstone_apply")              # unarmed

@@ -131,12 +131,62 @@ def test_ivf_probed_on_the_reference_index(algorithm, metric):
                  squared=metric == "sqeuclidean")
 
 
+def _meshes(p):
+    import jax
+
+    from raft_tpu.parallel import make_mesh as jmake_mesh
+    from raft_tpu_torch.parallel import make_mesh
+
+    return (make_mesh({"x": p}, devices=[torch.device("cpu")] * p),
+            jmake_mesh({"x": p}, devices=jax.devices()[:p]))
+
+
 @pytest.mark.parametrize("case", ["mesh", "n_shards", "mesh_ivf"])
 def test_sharded_options_raise_naming_item_7(case):
-    kw = {"mesh": dict(mesh=object()), "n_shards": dict(n_shards=2),
-          "mesh_ivf": dict(mesh=object(), algorithm="ivf_flat")}[case]
-    with pytest.raises(NotImplementedError, match="item 7"):
-        NearestNeighbors(res=RES, **kw)
+    """The sharded planes, once raising naming ROADMAP item 7, now held to
+    the reference's: ``mesh`` alone (the model-parallel streamed sweep),
+    ``n_shards`` (the database-sharded certified KNN) and ``mesh`` with
+    ``ivf_flat`` (the list-sharded index: the port's own fit held bit for
+    bit to its unsharded scan, then the reference's IVF index carried
+    across so both shard the same lists). Ids identical, values within
+    :func:`_same_values`'s tolerance."""
+    from raft_tpu_torch.ann import ShardedIvfIndex, shard_ivf_lists
+    from raft_tpu_torch.distance import ShardedFusedIndex, ShardedKnnIndex
+
+    mesh, jmesh = _meshes(4)
+    kw = {"mesh": (dict(mesh=mesh), dict(mesh=jmesh)),
+          "n_shards": (dict(n_shards=2), dict(n_shards=2)),
+          "mesh_ivf": (dict(mesh=mesh, algorithm="ivf_flat", n_lists=16,
+                            n_probes=3),
+                       dict(mesh=jmesh, algorithm="ivf_flat", n_lists=16,
+                            n_probes=3))}[case]
+    nn = NearestNeighbors(n_neighbors=5, res=RES, **kw[0]).fit(X)
+    jnn = JNN(n_neighbors=5, res=JRES, **kw[1]).fit(X)
+    want = {"mesh": ShardedKnnIndex, "n_shards": ShardedFusedIndex,
+            "mesh_ivf": ShardedIvfIndex}[case]
+    assert isinstance(nn._index, want)
+    if case == "mesh_ivf":
+        # the port's own sharded fit against the port's unsharded
+        # query-major scan of the same lists: the same bits
+        from raft_tpu_torch.ann import search_ivf_flat
+
+        d, i = nn.kneighbors(torch.from_numpy(Q))
+        uv, ui = search_ivf_flat(RES, nn._index.base, torch.from_numpy(Q),
+                                 5, n_probes=3, fine_scan="query")
+        assert nn.metric == "sqeuclidean"
+        np.testing.assert_array_equal(i.numpy(), ui.numpy())
+        assert torch.equal(d, uv)
+        # then the reference's index carried across, against the
+        # reference's sharded search
+        base = IvfFlatIndex.from_numpy(_export(jnn._index.base, _FLAT),
+                                       device="cpu")
+        nn._index = shard_ivf_lists(base, mesh)
+    d, i = nn.kneighbors(torch.from_numpy(Q))
+    jd, ji = jnn.kneighbors(Q)
+    np.testing.assert_array_equal(i.numpy(), np.asarray(ji))
+    _same_values(d, jd)
+    if case != "mesh_ivf":
+        np.testing.assert_array_equal(nn._index_matrix.numpy(), X)
 
 
 def test_argument_checks_match_reference():

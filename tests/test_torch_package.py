@@ -4,6 +4,7 @@ the CPU, and the CPU path never launches a kernel."""
 
 import ast
 import os
+import socket
 import subprocess
 import sys
 import tempfile
@@ -13,7 +14,7 @@ import pytest
 import torch
 
 import raft_tpu_torch
-from raft_tpu_torch import distance
+from raft_tpu_torch import comms, distance
 from raft_tpu_torch.ann import (IvfFlatIndex, IvfPqIndex, build_ivf_flat,
                                 build_ivf_pq, search_ivf_flat, search_ivf_pq)
 from raft_tpu_torch.cluster import kmeans_fit, kmeans_predict
@@ -175,6 +176,10 @@ def test_entry_points_default_to_cuda():
         MutableIndex(y)
     with pytest.raises(DeviceError):
         ServingEngine(y, k=4, mutable=True)
+    with pytest.raises(DeviceError):
+        distance.prepare_knn_index_shard(y, 0, 2)
+    with pytest.raises(DeviceError):
+        comms.process_comms()
     with tempfile.TemporaryDirectory() as d:
         MutableIndex(y[:256], device="cpu", durable_dir=d, T=256, g=2,
                      auto_compact=False).close()
@@ -207,6 +212,18 @@ def test_entry_points_default_to_cuda():
         assert eng.query(y[:3], timeout=30)[1].shape == (3, 4)
     finally:
         eng.stop()
+    shard, off = distance.prepare_knn_index_shard(y, 1, 2, device="cpu")
+    assert shard.device.type == "cpu" and off > 0
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    comms.initialize_distributed(f"127.0.0.1:{port}", 1, 0, timeout_s=30)
+    try:
+        with pytest.raises(DeviceError):
+            comms.process_comms()
+        assert comms.process_comms(device="cpu").device.type == "cpu"
+    finally:
+        comms.shutdown_distributed()
 
 
 def test_mutable_entry_points_default_to_cuda(tmp_path):
@@ -338,24 +355,62 @@ def test_version():
     assert raft_tpu_torch.__version__
 
 
-def _mesh_calls():
+def _mesh_case(case):
+    """(port, reference) results of mesh case ``case`` on the same seeded
+    rows (1003 × 12, a large mean, not a multiple of the 4 ranks)."""
+    import jax
+    from raft_tpu import linalg as jl
+    from raft_tpu import models as jmodels
+    from raft_tpu.parallel import make_mesh as jmake_mesh
     from raft_tpu_torch import linalg, models
+    from raft_tpu_torch.parallel import make_mesh
 
-    return [lambda: models.PCA(2, mesh=object()),
-            lambda: models.TruncatedSVD(2, mesh=object()),
-            lambda: linalg.pca_fit_distributed(None, None, None, object()),
-            lambda: linalg.tsvd_fit_distributed(None, None, None, object()),
-            lambda: linalg.pca.pad_mask_shard(None, object())]
+    rng = np.random.default_rng(7)
+    X = (rng.normal(size=(1003, 12)) * np.linspace(4.0, 0.5, 12)
+         + 5.0).astype(np.float32)
+    mesh = make_mesh({"x": 4}, devices=["cpu"] * 4)
+    jmesh = jmake_mesh({"x": 4}, devices=jax.devices()[:4])
+    res = DeviceResources(device="cpu")
+    if case == 0:
+        return (models.PCA(3, mesh=mesh, res=res).fit(X).model,
+                jmodels.PCA(3, mesh=jmesh).fit(X).model)
+    if case == 1:
+        return (models.TruncatedSVD(3, mesh=mesh, res=res).fit(X).model,
+                jmodels.TruncatedSVD(3, mesh=jmesh).fit(X).model)
+    if case == 2:
+        return (linalg.pca_fit_distributed(res, X, linalg.ParamsPCA(3),
+                                           mesh),
+                jl.pca_fit_distributed(None, X, jl.ParamsPCA(n_components=3),
+                                       jmesh))
+    if case == 3:
+        return (linalg.tsvd_fit_distributed(res, X, linalg.ParamsTSVD(3),
+                                            mesh),
+                jl.tsvd_fit_distributed(None, X,
+                                        jl.ParamsTSVD(n_components=3),
+                                        jmesh))
+    return (linalg.pca.pad_mask_shard(X, mesh),
+            jl.pca.pad_mask_shard(X, jmesh))
 
 
 @pytest.mark.parametrize("case", range(5))
 def test_mesh_options_raise_naming_item_7(case):
-    """The multi-device fits are not in the port yet: PCA's and
-    TruncatedSVD's ``mesh``, the two distributed fits and the row
-    sharding each raise NotImplementedError naming ROADMAP item 7, before
-    touching a device."""
-    with pytest.raises(NotImplementedError, match="item 7"):
-        _mesh_calls()[case]()
+    """The multi-device fits, which raised naming ROADMAP item 7 until
+    the mesh was ported: PCA's and TruncatedSVD's ``mesh``, the two
+    distributed fits and the row sharding, over 4 in-process CPU ranks
+    against the reference over 4 virtual devices. Components to 1e-4
+    (both sign-flip them), the variances and singular values to 1e-5
+    relative (tests/test_torch_linalg_svd.py's tolerances), the padded
+    rows and mask equal."""
+    port, ref = _mesh_case(case)
+    if case == 4:
+        for a, b in zip(port, ref):
+            np.testing.assert_array_equal(np.asarray(a), np.asarray(b))
+        return
+    np.testing.assert_allclose(port.components.numpy(),
+                               np.asarray(ref.components), atol=1e-4)
+    for f in ("explained_var", "explained_var_ratio", "singular_vals"):
+        np.testing.assert_allclose(getattr(port, f).numpy(),
+                                   np.asarray(getattr(ref, f)), rtol=1e-5)
 
 
 def test_dense_linalg_defaults_to_cuda():

@@ -398,6 +398,7 @@ def test_failed_dispatch_fails_batch_engine_survives(data):
             eng.submit(np.ones((2, D), np.float32)).result(timeout=WAIT)
         v, _ = eng.query(np.ones((2, D), np.float32), timeout=WAIT)
         assert v.shape == (2, K)
+        assert eng.flush(WAIT)
         assert eng.stats()["requests_error"] == 1
     finally:
         eng.stop()
@@ -590,9 +591,25 @@ def test_ivf_pq_plane_matches_reference_engine(monkeypatch):
 
 @pytest.mark.parametrize("option,value,item", [("mesh", object(), 7)])
 def test_left_out_options_raise(data, option, value, item):
+    """The engine's options once left out (ROADMAP item ``item``): ``mesh``
+    came with item 7. A value that is not a mesh is refused at
+    construction; a two-rank CPU mesh (the query-sharded plane) answers
+    every request as the single-shot ``knn_fused`` does, bit for bit."""
+    from raft_tpu_torch.core import LogicError
+    from raft_tpu_torch.parallel import make_mesh
+
     _, idx = data
-    with pytest.raises(NotImplementedError, match=f"item {item}"):
+    with pytest.raises(LogicError, match=option):
         ServingEngine(idx, k=K, **{option: value})
+    eng = _engine(idx, mesh=make_mesh({"x": 2}, devices=["cpu"] * 2))
+    eng.start()
+    try:
+        for x in _queries(19, (1, 7, 30)):
+            v, i = eng.query(x, timeout=WAIT)
+            ov, oi = _oracle(x, idx)
+            assert np.array_equal(v, ov) and np.array_equal(i, oi)
+    finally:
+        eng.stop()
 
 
 # ------------------------------------------------------------------
@@ -693,6 +710,7 @@ def test_mutable_engine_ordered_with_queries_against_jax_engine():
             else:
                 assert a[0]["applied"] == b[0]["applied"]
         assert not {0, 1, 700} & set(eng._res[-1][1].ravel().tolist())
+        assert eng.flush(WAIT) and jeng.flush(WAIT)
         st, jst = eng.stats(), jeng.stats()
         assert st["mutable"] == jst["mutable"]
         assert st["upserts"] == 1 and st["deletes"] == 2
@@ -839,6 +857,7 @@ def test_closed_loop_clients(data):
         for (v, i), x in zip(results, xs):
             ov, oi = _oracle(x, idx)
             assert np.array_equal(v, ov) and np.array_equal(i, oi)
+        assert eng.flush(WAIT)
         s = eng.stats()
         assert s["requests_ok"] == len(xs) and s["batches"] <= len(xs)
         assert s["p99_ms"] >= s["p50_ms"] > 0

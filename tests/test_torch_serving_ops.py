@@ -203,6 +203,8 @@ def test_every_debugz_route_answers_with_the_reference_keys(small, tmp_path):
         try:
             for x in xs[:3]:
                 eng.query(x, timeout=WAIT)
+            # the batcher counts a request after answering it
+            assert eng.flush(WAIT)
             port = eng.stats()["debugz_port"]
             bodies[name] = {r: _get(port, r) for r in (
                 "/healthz", "/statusz", "/metricsz", "/explainz",
@@ -247,6 +249,7 @@ def test_options_each_do_their_part(small, tmp_path):
         assert eng.slo is slo and eng.debugz is not None
         for x in xs:
             eng.query(x, timeout=WAIT)
+        assert eng.flush(WAIT)
         assert eng.shadow.flush(WAIT)
         st = eng.stats()
     finally:
@@ -267,8 +270,45 @@ def test_options_each_do_their_part(small, tmp_path):
     drift = [e for e in obs.get_flight_recorder().events()
              if e["kind"] == "drift"]
     assert drift and drift[0]["name"] == "serving.shadow"
-    with pytest.raises(NotImplementedError, match="item 7"):
-        ServingEngine(idx, k=K, mesh=object())
+    _mesh_plane_matches(y, xs, idx)
+
+
+def _mesh_plane_matches(y, xs, idx):
+    """The query-sharded mesh plane: a two-rank engine answers as
+    ``knn_query`` does on one device, bit for bit, and with the ids of
+    the reference's mesh engine (values there within 1e-5 relative: the
+    packages' f32 rescores sum in different orders)."""
+    import jax
+    import torch
+
+    from raft_tpu.distance.knn_fused import prepare_knn_index as jprepare
+    from raft_tpu.parallel import make_mesh as jmake_mesh
+    from raft_tpu.serving import ServingEngine as JaxEngine
+    from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch.runtime import knn_query
+
+    outs = {}
+    for name, make in (
+            ("port", lambda: ServingEngine(
+                idx, k=K, buckets=(8,), flush_interval_s=0.005,
+                mesh=make_mesh({"x": 2}, devices=["cpu"] * 2))),
+            ("ref", lambda: JaxEngine(
+                jprepare(y, **CFG), k=K, buckets=(8,),
+                flush_interval_s=0.005,
+                mesh=jmake_mesh({"x": 2}, devices=jax.devices()[:2])))):
+        eng = make().start()
+        try:
+            outs[name] = [eng.query(x, timeout=WAIT) for x in xs[:3]]
+        finally:
+            eng.stop()
+    res = DeviceResources(device="cpu")
+    for x, (v, i), (jv, ji) in zip(xs[:3], outs["port"], outs["ref"]):
+        wv, wi = knn_query(res, idx, torch.from_numpy(x), K)
+        np.testing.assert_array_equal(np.asarray(i), wi.numpy())
+        np.testing.assert_array_equal(np.asarray(v), wv.numpy())
+        np.testing.assert_array_equal(np.asarray(i), np.asarray(ji))
+        np.testing.assert_allclose(np.asarray(v), np.asarray(jv),
+                                   rtol=1e-5)
 
 
 def test_env_knobs_turn_the_planes_on(small, tmp_path, monkeypatch):
@@ -283,6 +323,7 @@ def test_env_knobs_turn_the_planes_on(small, tmp_path, monkeypatch):
                         flush_interval_s=0.005).start()
     try:
         eng.query(xs[0], timeout=WAIT)
+        assert eng.flush(WAIT)
         assert eng.shadow.flush(WAIT)
         st = eng.stats()
     finally:
@@ -335,6 +376,7 @@ def test_telemetry_off_serves_and_records_nothing(small):
                             flush_interval_s=0.005).start()
         try:
             v, i = eng.query(xs[0], timeout=WAIT)
+            assert eng.flush(WAIT)
             st = eng.stats()
         finally:
             eng.stop()
@@ -398,6 +440,7 @@ def test_ivf_pq_and_mutable_shadow_oracles(small):
         try:
             for x in xs[:4]:
                 eng.query(x, timeout=WAIT)
+            assert eng.flush(WAIT)
             assert eng.shadow.flush(WAIT)
             st = eng.stats()
         finally:

@@ -138,7 +138,8 @@ def test_randomized_svds_as_reference_test(fmt):
 
 def test_randomized_svds_validates_as_reference():
     """A wrong-shaped At raises, as the reference's does; so does a bad
-    rank and an operand that is not COO/CSR."""
+    rank and an operand that is not COO/CSR or sharded. The sharded
+    operand matches (``_sharded_svds_matches``)."""
     dense = _sparse_dense(30, 20, 0.4, 3)
     A = CSRMatrix.from_dense(torch.from_numpy(dense))
     cfg = ts.SvdsConfig(n_components=3)
@@ -150,10 +151,45 @@ def test_randomized_svds_validates_as_reference():
                            At=JCSR.from_dense(dense))
     with pytest.raises(LogicError):
         ts.randomized_svds(RES, A, ts.SvdsConfig(n_components=21))
-    with pytest.raises(LogicError, match="item 7"):
+    with pytest.raises(LogicError, match="COO, CSR or sharded"):
         ts.randomized_svds(RES, torch.from_numpy(dense), cfg)
     u, s, v = ts.randomized_svds(RES, A, cfg, At=tsl.transpose(RES, A))
     assert u.shape == (30, 3) and s.shape == (3,) and v.shape == (20, 3)
+    _sharded_svds_matches(dense, A)
+
+
+def _sharded_svds_matches(dense, A):
+    """The row-sharded operand (once refused, naming ROADMAP item 7):
+    over two ranks, from the reference's sketch, S within 1e-5 relative
+    of the port's CSR solve on the same sketch (K6c's twin sums in
+    another order than the segment sum) and within 1e-3 of the
+    reference's sharded solve (its SpMM's bf16×3 selects, ≈ 2⁻¹⁶
+    relative, as test_torch_spmv.py states); a sharded A without its
+    sharded transpose raises, as the reference's does."""
+    from raft_tpu.parallel import make_mesh as jmake_mesh
+    from raft_tpu.sparse.sharded import shard_spmv_operand as jshard
+    from raft_tpu_torch.parallel import make_mesh
+    from raft_tpu_torch.sparse.sharded import shard_spmv_operand
+
+    k, iters = 3, 2
+    jcfg = js.SvdsConfig(n_components=k, n_power_iters=iters)
+    m, n = dense.shape
+    jmesh = jmake_mesh({"x": 2}, devices=jax.devices()[:2])
+    jA = JCSR.from_dense(dense)
+    jS, jSt = jshard(jA, jmesh), jshard(JCSR.from_dense(dense.T.copy()),
+                                        jmesh)
+    _, jsv, _ = js.randomized_svds(JRES, jS, jcfg, At=jSt)
+    mesh = make_mesh({"x": 2}, devices=["cpu"] * 2)
+    S = shard_spmv_operand(A, mesh)
+    St = shard_spmv_operand(tsl.transpose(RES, A), mesh)
+    omega = torch.from_numpy(_reference_sketch(n, jcfg, m))
+    _, s_sh, _ = trs._svds_from_sketch(RES, S, St, omega, k, iters)
+    _, s_one, _ = trs._svds_from_sketch(RES, A, tsl.transpose(RES, A),
+                                        omega, k, iters)
+    np.testing.assert_allclose(s_sh.numpy(), s_one.numpy(), rtol=1e-5)
+    np.testing.assert_allclose(s_sh.numpy(), np.asarray(jsv), rtol=1e-3)
+    with pytest.raises(LogicError, match="sharded transpose"):
+        ts.randomized_svds(RES, S, js.SvdsConfig(n_components=k))
 
 
 def test_sign_correction_matches_reference():

@@ -287,7 +287,14 @@ def test_fit_embedding_two_blocks_matches_reference():
                                    atol=1e-4)
         f = e[:, 0].numpy()
         assert (f[:10] > 0).all() != (f[10:] > 0).all()
-    with pytest.raises(NotImplementedError):
-        fit_embedding(None, T, 2, mesh=object())
+    # the row-sharded solve (once raising, ROADMAP item 7): the same
+    # tolerance over three ranks, K6a's twin on every row block
+    from raft_tpu_torch.parallel import make_mesh
+
+    mesh = make_mesh({"x": 3}, devices=["cpu"] * 3)
+    v, e = fit_embedding(None, T, 2, ncv=16, tolerance=1e-7, mesh=mesh)
+    np.testing.assert_allclose(v.numpy(), np.asarray(jv), rtol=0, atol=1e-4)
+    with pytest.raises(ValueError, match="conflicts"):
+        fit_embedding(None, T, 2, mesh=mesh, tiled=False)
     with pytest.raises(ValueError):
         fit_embedding(None, T, 2, tiled="yes")

@@ -469,6 +469,42 @@ Phases, each fatal on failure (non-zero exit, no result line):
    ``serving_ops`` lines; the ``kernels`` line's K1 row gains
    ``serving_ops_launches`` (batcher, and in (c) the shadow's re-scores)
    and ``serving_ops_shadow_samples``.
+20. The measurement plane (``measurement_phase``), run after phase 15 on
+   phase 5's and 6's indexes, in a registry and a drift ledger of its
+   own (``build/phase20/drift_ledger.json``). (d) ``ResourceMonitor``
+   samples across ``prepare_knn_index`` of the main path's 1M × 128
+   blobs: the bytes it attributes to ``distance.prepare_knn_index`` over
+   the allocator's baseline are at least the index's 256 MB of bf16 rows.
+   (a) ``benchmark.Fixture.run`` with ``res.profiler`` over
+   ``distance.knn`` at 2048 × 1M × 128, k = 64, p1 and p3 (K1) and int8
+   p1 (K2), ``search_ivf_flat`` at P = 32 (K4) and ``search_ivf_pq``
+   8-bit at P = 32 (K5) on the IVF phases' 1M-row indexes, and
+   ``select_k`` on [256, 1M] (K3): each entry's cost is its kernel's
+   ``costmodel.kernel_cost`` record (K4's and K5's streamed rows and
+   scored pairs from this batch), and one ``roofline`` line an entry
+   prints its seconds, operations, bytes, bound and the raw roofline
+   fraction, fatal past ``ROOF_FRAC_MAX`` (a count above the card's
+   peak is a wrong count); the main path's records must give phase 3's
+   K1/K2 bounds. (b) The registry holds one span count for each call of
+   each entry, its Prometheus text parses, and the drift ledger, loaded
+   back from its file, holds a predicted and a measured entry of each.
+   (c) ``profiler.trace`` over one ``distance.knn`` call writes a trace
+   (``build/phase20/trace/trace.json``) in which K1's kernel lies under
+   the ``distance.knn`` range. (e) A durable mutable engine at
+   mutable_bf16's shape (1M × 128, 8 write batches, one explicit
+   ``compact()``, one more batch): its gauges and counters equal the
+   index's own counts (delta rows, tombstones, mutations, compactions,
+   WAL appends, fsyncs and durable LSN, checkpoints), the recovery
+   metrics equal ``recover``'s stats, and statusz renders the
+   durability panel. (f) Each of the 20 fault sites of the hot paths
+   beyond serving, mutation and the sharded merge
+   (``NEW_FAULT_SITES``) armed once (``error`` at its first call) on a
+   small call raises ``InjectedDeviceError`` and adds one to the
+   injection counter; disarmed, the call answers as before it was armed
+   (``aot_compile`` on a fresh build of ``lap_jv.cu``; ``pq_widen`` with
+   the certificate forced to fail). Prints the ``measurement`` lines and
+   the phase's wall seconds under ``phase_s``; the ``kernels`` line is
+   unchanged.
 
 Exits 2 without a CUDA device.
 """
@@ -483,7 +519,8 @@ import sys
 import threading
 import time
 
-H100_BF16_FLOPS = 989e12        # dense bf16 tensor-core peak (SXM)
+# the H100 SXM's spec-sheet rates (utils/arch.H100_SPEC) for the bounds
+# that are not one kernel's work; kernels' bounds are kernel_bound_ms's
 H100_BYTES_PER_S = 3.35e12      # HBM3
 H100_F32_FLOPS = 67e12          # f32 off the tensor cores (SXM)
 #: what the K1/K2 rows' ``library_ms`` is
@@ -813,27 +850,30 @@ def compare_k1(kern, twin, x, y_hi, pbits: int, pair: bool):
     return err
 
 
+def kernel_bound_ms(kernel: str, **shape):
+    """(ms, "operations" or "bytes"): a kernel's least time on the H100 at
+    ``shape``, from the one place the port counts a kernel's work,
+    ``costmodel.kernel_cost`` (its operations at the peak of their type
+    and its bytes, each input read once and each output written once, at
+    the HBM rate)."""
+    from raft_tpu_torch.observability.costmodel import bound_ms, kernel_cost
+
+    return bound_ms(kernel_cost(kernel, **shape))
+
+
 def k1_bound_ms(Q: int, M: int, d: int, S: int, passes: int):
-    """Least time for K1's work: bf16 products at the tensor-core peak, or
-    each input read and each output written once at the HBM rate."""
-    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
-    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
-              + Q * 4 + 3 * Q * S * 4)
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for K1's work (``kernel_cost("K1")``): bf16 products at
+    the tensor-core peak, or each input read and each output written once
+    at the HBM rate."""
+    return kernel_bound_ms("K1", Q=Q, M=M, d=d, S=S, passes=passes)
 
 
 def k2_bound_ms(Q: int, M: int, d: int, S: int, passes: int):
-    """Least time for K2's work: the bf16 products (x hi, and x lo at
-    passes=3, against exact codes) at the tensor-core peak, or the
-    queries, the int8 rows, their norms, the group scales and the query
-    norms read once and the three pools written once at the HBM rate."""
-    ops = 2.0 * Q * M * d * (2 if passes == 3 else 1)
-    nbytes = Q * d * 4 + M * d + M * 4 + S // 128 * 4 + Q * 4 + 3 * Q * S * 4
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for K2's work (``kernel_cost("K2")``): the bf16 products
+    (x hi, and x lo at passes=3, against exact codes), or the queries, the
+    int8 rows, their norms, the group scales and the query norms read once
+    and the three pools written once."""
+    return kernel_bound_ms("K2", Q=Q, M=M, d=d, S=S, passes=passes)
 
 
 def compare_k2(kern, twin, x, y_q, scales, yyh, xxh, T: int, g: int,
@@ -895,18 +935,12 @@ def compare_k2(kern, twin, x, y_q, scales, yyh, xxh, T: int, g: int,
 
 def k4_bound_ms(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
                 q8: bool):
-    """Least time for K4's work on one batch: each probed list read once
-    (its padded rows at 4 or 1 bytes a feature), the queries, their norms
-    and probe table read once and the five [nq, 128] pools written once;
-    or ``passes × 2 × d`` operations per scored (query, row) pair at the
-    bf16 tensor-core peak (passes 3 for f32: hi·hi, hi·lo, lo·hi; 2 for
-    int8: x hi and x lo against exact codes)."""
-    nbytes = (stream_rows * d * (1 if q8 else 4) + nq * d * 4 + nq * 4
-              + nq * P * 4 + 5 * nq * 128 * 4)
-    ops = (2 if q8 else 3) * 2.0 * d * pair_rows
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for K4's work on one batch (``kernel_cost("K4")`` /
+    ``"K4_q8"``): each probed list read once, the queries, their norms and
+    probe table read once and the five [nq, 128] pools written once; or
+    ``passes × 2 × d`` bf16 operations per scored (query, row) pair."""
+    return kernel_bound_ms("K4_q8" if q8 else "K4", nq=nq, d=d, P=P,
+                           stream_rows=stream_rows, pair_rows=pair_rows)
 
 
 def compare_k4(kern, twin, x, ymax: float, q8: bool):
@@ -1365,19 +1399,13 @@ PQ_SITE = "ann.search_ivf_pq"
 
 def k5_bound_ms(nq: int, S: int, bits: int, P: int, depth: int,
                 stream_rows: int, pair_rows: int):
-    """Least time for K5's work on one batch: each probed list's codes and
-    its two 4-byte sidecars (‖ŷ‖², Eq) read once, the queries' norms,
-    probe table, needed centroid dots (nq·P) and tables (nq·S·2^bits f32)
-    read once and the (2·depth + 1) [nq, 128] pools written once; or S +
-    10 f32 operations per scored (query, row) pair (the table sum and the
-    bound's arithmetic) at the f32 rate off the tensor cores."""
-    cb = S if bits == 8 else S // 2
-    nbytes = (stream_rows * (cb + 8) + nq * 4 + 2 * nq * P * 4
-              + nq * S * (1 << bits) * 4 + (2 * depth + 1) * nq * 128 * 4)
-    t_ops = float(S + 10) * pair_rows / H100_F32_FLOPS
-    t_bytes = nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for K5's work on one batch (``kernel_cost("K5")``):
+    each probed list's codes and two 4-byte sidecars read once, the query
+    norms, probe table, centroid dots and tables read once and the
+    (2·depth + 1) [nq, 128] pools written once; or S + 10 f32 operations
+    per scored (query, row) pair."""
+    return kernel_bound_ms("K5", nq=nq, S=S, bits=bits, P=P, depth=depth,
+                           stream_rows=stream_rows, pair_rows=pair_rows)
 
 
 #: 4-byte shared-memory reads the card serves a second: one a lane a
@@ -2478,23 +2506,18 @@ def swap_under_load(engine, idx0, request, blocks, sizes, k: int,
 
 # ---------------------------------------------------------------- spectral
 def spmv_bound_ms(nnz: int, n_rows: int, n_cols: int, V: int = 1):
-    """Least time for Y = A·B with B [n_cols, V]: the CSR form read once
-    (nnz·8 + (n_rows + 1)·4 bytes), B read and Y written once
-    (V·(n_cols + n_rows)·4 bytes), against 2·nnz·V f32 operations."""
-    nbytes = nnz * 8 + (n_rows + 1) * 4 + V * (n_cols + n_rows) * 4
-    t_ops, t_bytes = 2.0 * nnz * V / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for Y = A·B with B [n_cols, V] (``kernel_cost("K6a")``,
+    ``"K6c"`` where V > 1): the CSR form read once, B read and Y written
+    once, against 2·nnz·V f32 operations."""
+    return kernel_bound_ms("K6c" if V > 1 else "K6a", nnz=nnz,
+                           n_rows=n_rows, n_cols=n_cols, V=V)
 
 
 def sddmm_bound_ms(nnz: int, m: int, n: int, d: int):
-    """Least time for SDDMM: the structure in CSR form read and the values
-    written once (nnz·8 + (m + 1)·4 bytes), A and B read once
-    ((m + n)·d·4 bytes), against 2·nnz·d f32 flops."""
-    nbytes = nnz * 8 + (m + 1) * 4 + (m + n) * d * 4
-    t_ops, t_bytes = 2.0 * nnz * d / H100_F32_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for SDDMM (``kernel_cost("K7")``): the structure in CSR
+    form read and the values written once, A and B read once, against
+    2·nnz·d f32 operations."""
+    return kernel_bound_ms("K7", nnz=nnz, m=m, n=n, d=d)
 
 
 def k7_gather_floor_ms(nnz: int, d: int) -> float:
@@ -2736,11 +2759,13 @@ def k6c_case(tag: str, T, deg, B, reps: int, Lt=None, res=None):
     del hold, bound, T_abs, Y_nan
     ms = cuda_ms(lambda: k6.spmm_tiled(T, B), reps)
     lib = library_ms(lambda: Lt @ B, reps) if Lt is not None else None
-    b_ms, b_by = spmv_bound_ms(int(deg.sum().item()), T.shape[0],
-                               T.shape[1], V)
+    shape = {"nnz": int(deg.sum().item()), "n_rows": T.shape[0],
+             "n_cols": T.shape[1], "V": V}
+    b_ms, b_by = spmv_bound_ms(**shape)
     k6.LAUNCHES_SPMM = n0 + launches    # timing launches do not count
     VC, W, QP = k6.spmm_geometry(T.R, V, B.data_ptr() % 16 == 0)
     row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "cost_shape": shape,
            "library_ms": lib, "max_abs_err": err, "launches": launches,
            "V": V, "VC": VC, "W": W, "items": T.n_items,
            "split_items": int(T.item_split.sum().item()),
@@ -2799,10 +2824,12 @@ def k6a_case(tag: str, T, deg, x, reps: int, Lt=None):
     k6.LAUNCHES_SPMV = n0
     lib = library_ms(lambda: Lt @ x[:, None], reps) if Lt is not None \
         else None
-    b_ms, b_by = spmv_bound_ms(int(deg.sum().item()), T.shape[0],
-                               T.shape[1])
+    shape = {"nnz": int(deg.sum().item()), "n_rows": T.shape[0],
+             "n_cols": T.shape[1]}
+    b_ms, b_by = spmv_bound_ms(**shape)
     lay_ms, real_slots = k6a_layout_bound_ms(T)
     row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "cost_shape": shape,
            "library_ms": lib, "max_abs_err": err,
            "layout_bound_ms": lay_ms, "scatter_slots": T.m_chunks * T.E,
            "real_slots": real_slots, "items": T.n_items,
@@ -2842,9 +2869,11 @@ def k6b_case(tag: str, A, x, reps: int):
     k6.LAUNCHES_PAIR = n0
     At = csr_tensor(Acsr)
     lib = library_ms(lambda: At @ x[:, None], reps)
-    b_ms, b_by = spmv_bound_ms(A.nnz, A.shape[0], A.shape[1])
+    shape = {"nnz": A.nnz, "n_rows": A.shape[0], "n_cols": A.shape[1]}
+    b_ms, b_by = spmv_bound_ms(**shape)
     slots = TP.pairs.m_chunks * TP.pairs.E
     row = {"ms": ms, "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by,
+           "cost_shape": shape,
            "library_ms": lib, "max_abs_err": err, "nnz": A.nnz,
            "slots": slots, "slots_per_nnz": slots / max(1, A.nnz),
            "layout_s": layout_s}
@@ -3141,6 +3170,7 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
     b_ms, b_by = sddmm_bound_ms(S.nnz, n, n, d)
     rows_k["K7"] = {"ms": ms, "kernel_ms": k7_alone, "plain_ms": plain,
                     "bound_ms": b_ms, "bound_by": b_by, "library_ms": lib,
+                    "cost_shape": {"nnz": S.nnz, "m": n, "n": n, "d": d},
                     "max_abs_err": err, "launches": launches, "d": d,
                     "b_layout": "column-major (Bᵀ [n, d] contiguous)",
                     "entry_form_ms": entries_ms,
@@ -3262,10 +3292,6 @@ def spectral_phase(res, scale: int = 22, band_n: int = 1 << 20,
 
 
 # ---------------------------------------------------- pairwise and stats
-#: FP32 instruction issue rate of the card: 132 SMs × 128 lanes × 1.98 GHz
-H100_FP32_RATE = 132 * 128 * 1.98e9
-#: the SFU's reciprocal rate, an eighth of the FP32 issue rate
-H100_SFU_RATE = H100_FP32_RATE / 8
 #: phase 11a/b: bench_unexpanded.py:48-55's shape, and its four metrics
 K8_FULL = (2048, 1_000_000, 128)
 K8_TIMED = ("l1", "linf", "canberra", "hamming")
@@ -3274,25 +3300,18 @@ STATS_SHAPE = (100_000, 128, 16)
 
 
 def k8_bound_ms(name: str, n: int, m: int, d: int):
-    """Least time for an [n, m] unexpanded distance matrix: the x and y
-    rows read and the output written once, against the FP32 instructions
-    each of the n·m·d terms needs at the least (l1: FSUB, FADD with |·|;
-    linf: FSUB, a NaN-propagating max; hamming: a compare, a predicated
-    add) or, for canberra, the one SFU reciprocal of its quotient."""
-    terms = n * m * d
-    if name == "canberra":
-        t_ops = terms / H100_SFU_RATE
-    else:
-        t_ops = 2.0 * terms / H100_FP32_RATE
-    t_bytes = ((n + m) * d * 4 + n * m * 4) / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for an [n, m] unexpanded distance matrix
+    (``kernel_cost("K8")``): the x and y rows read and the output written
+    once, against the FP32 instructions each of the n·m·d terms needs at
+    the least (two) or, for canberra, the one SFU reciprocal of its
+    quotient (the ChipSpec's ``issue_f32`` and ``sfu`` rates)."""
+    return kernel_bound_ms("K8", metric=name, n=n, m=m, d=d)
 
 
 def k9_bound_ms(n: int, batch: int, n_bins: int):
-    """Least time for K9: the bins read and the counts written once."""
-    return 1e3 * (n * batch + n_bins * batch) * 4 / H100_BYTES_PER_S, \
-        "bytes"
+    """Least time for K9 (``kernel_cost("K9")``): the bins read and the
+    counts written once."""
+    return kernel_bound_ms("K9", n=n, batch=batch, n_bins=n_bins)
 
 
 def k9_inputs(gen, Y, Xs, truth, k_s: int) -> dict:
@@ -4054,12 +4073,10 @@ def zero_k1_counts():
 
 
 def k3_bound_ms(B: int, L: int, T: int, tpg: int):
-    """Least time for K3's work: the rows read once and the three pools
-    written once at the HBM rate (its ~10 operations a value are some 30×
-    below that)."""
-    G = -(-(-(-L // T)) // tpg)
-    return 1e3 * (B * L * 4 + 3 * B * G * 128 * 4) / H100_BYTES_PER_S, \
-        "bytes"
+    """Least time for K3's work (``kernel_cost("K3")``): the rows read
+    once and the three pools written once (its ~10 operations a value are
+    some 30× below that)."""
+    return kernel_bound_ms("K3", B=B, L=L, T=T, tpg=tpg)
 
 
 def compare_k3(out, ref, tag: str):
@@ -4546,17 +4563,15 @@ def unpacked_kernel_row(index, Qx, reps: int = 3):
     ms = cuda_ms(lambda: kern(*args, **kw), reps)
     ms_one = cuda_ms(lambda: kern(*args, **kw, segments=1), reps)
     nq = x.shape[0]
-    ops = 2.0 * nq * M * index.d_orig * (3 if index.passes == 3 else 1)
-    nbytes = (nq * index.d_orig * 4 + M * index.d_orig * 2
-              * (2 if index.passes == 3 else 1) + M * 4 + 5 * nq * S * 4)
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
+    bound, bound_by = kernel_bound_ms("K1_unpacked", Q=nq, M=M,
+                                      d=index.d_orig, S=S,
+                                      passes=index.passes)
     xb = x.to(torch.bfloat16)
     library_ms = cuda_ms(lambda: torch.matmul(xb, index.y_hi.T), 5)
     (k1.LAUNCHES, k1.LAUNCHES_DCHUNK, k1.LAUNCHES_GROUP,
      k1.LAUNCHES_GROUP_DCHUNK) = counts.values()
     return {"ms": ms, "plain_ms": plain_ms,
-            "bound_ms": 1e3 * max(t_ops, t_bytes),
-            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "bound_ms": bound, "bound_by": bound_by,
             "library_ms": library_ms, "max_abs_err": err,
             "tie_slots": n_diff, "shape": [nq, M, index.d_orig],
             "passes": index.passes, "segments": segs,
@@ -4571,16 +4586,10 @@ LADDER_T = 2048
 
 
 def slot_bound_ms(Q: int, M: int, d: int, T: int, passes: int):
-    """Least time for a slot form's work: the bf16 products at the
-    tensor-core peak, or x, the index rows, both norms read once and m1,
-    i1 (8 bytes a slot) and m2min written once at the HBM rate."""
-    S = M // T * 128
-    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
-    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
-              + Q * 4 + 2 * Q * S * 4 + Q * 128 * 4)
-    t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
-    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
-                                       else "bytes")
+    """Least time for a slot form's work (``kernel_cost("K1_slot")``):
+    the bf16 products, or x, the index rows, both norms read once and m1,
+    i1 (8 bytes a slot) and m2min written once."""
+    return kernel_bound_ms("K1_slot", Q=Q, M=M, d=d, T=T, passes=passes)
 
 
 def compare_slot(out, ref, x, y_hi, y_lo, xx, yy, passes: int, track: bool,
@@ -4768,15 +4777,11 @@ def k1_ladder(idx1, idx3, Qx, reps: int = 10):
             k1_bound_ms(nq, M, d, -(-(M // idx1.T) // idx1.g) * 128, 3))}
     S_grp = -(-(M // T) // idx1.g) * 128
     for p in (1, 3):
-        ops = 2.0 * nq * M * d * (3 if p == 3 else 1)
-        nbytes = (nq * d * 4 + M * d * 2 * (2 if p == 3 else 1) + M * 4
-                  + 5 * nq * S_grp * 4)
-        t_ops, t_bytes = ops / H100_BF16_FLOPS, nbytes / H100_BYTES_PER_S
         rows[f"kernel_grp_p{p}"] = (
             lambda p=p: k1.fused_l2_group_topk(x, y_hi, y_lo, yyh_inf, T=T,
                                                g=idx1.g, passes=p),
-            (1e3 * max(t_ops, t_bytes),
-             "operations" if t_ops >= t_bytes else "bytes"))
+            kernel_bound_ms("K1_unpacked", Q=nq, M=M, d=d, S=S_grp,
+                            passes=p))
     for name, p, track in (("kernel_slot_p1", 1, True),
                            ("kernel_slot_p3", 3, True),
                            ("kernel_slot_minonly", 1, False)):
@@ -6545,14 +6550,11 @@ def lap_phase(res, sizes=LAP_SIZES, jv_sizes=JV_SIZES, twin_n=JV_TWIN_N,
 
 
 def jv_bound_ms(batch: int, n: int, steps: int):
-    """The JV tail's least time on this card: its cost matrices read once
-    and the outputs written once, or its f32 work (four operations a
-    column a step: two subtracts, a compare, an update), whichever is
-    larger."""
-    nbytes = batch * (4.0 * n * n + 8.0 * n)
-    ops = 4.0 * n * steps
-    b, o = bytes_ms(nbytes), ops / H100_F32_FLOPS * 1e3
-    return (b, "bytes") if b >= o else (o, "operations")
+    """The JV tail's least time on this card (``kernel_cost("JV")``): its
+    cost matrices read once and the outputs written once, or its f32 work
+    (four operations a column a step: two subtracts, a compare, an
+    update), whichever is larger."""
+    return kernel_bound_ms("JV", batch=batch, n=n, steps=steps)
 
 
 def nn_phase(res) -> dict:
@@ -6804,6 +6806,588 @@ def speed_guard(card: str, entries) -> dict:
         check(not slow, f"kernels slower than their recorded times by more "
               f"than {GUARD_SLACK}x: {slow}")
     return out
+
+
+# ------------------------------------------ phase 20: the measurement plane
+#: phase 20's temporary files (the drift ledger, the trace) under build/
+PHASE20_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           "build", "phase20")
+#: (a): a raw roofline fraction past this means the count is wrong
+ROOF_FRAC_MAX = 1.05
+#: (e): the mutable cell, phase 15's mutable_bf16 shape cut to 8 write
+#: batches and one explicit fold
+MEAS_WRITE_BATCHES = 8
+#: (d): the index's bf16 rows, 1M × 128 × 2 bytes
+MEAS_MIN_PREPARE_BYTES = N_INDEX * DIM * 2
+#: (f): the fault sites of the hot paths beyond serving, mutation and
+#: the sharded merge
+NEW_FAULT_SITES = (
+    "aot_compile", "aot_dispatch", "knn_fused", "quantize_index",
+    "select_k", "select_k_chunked", "select_k_slotted", "pairwise_distance",
+    "fused_l2nn", "tile_csr", "solve_lap", "kmeans_fit", "kmeans_iteration",
+    "ivf_build", "ivf_search", "fine_scan_list", "pq_train", "pq_scan",
+    "opq_train", "pq_widen")
+
+
+def meas_counts() -> dict:
+    """The launch counts of the kernels phase 20 (a) runs."""
+    from raft_tpu_torch.ops import fine_scan as k4
+    from raft_tpu_torch.ops import fused_l2_topk as k1
+    from raft_tpu_torch.ops import pq_scan as k5
+    from raft_tpu_torch.ops import select_slotted as k3
+
+    return {"K1": k1.LAUNCHES, "K2": k1.LAUNCHES_Q8, "K3": k3.LAUNCHES,
+            "K4": k4.LAUNCHES, "K5": k5.LAUNCHES_8BIT}
+
+
+def prom_parses(text: str) -> int:
+    """The sample lines of a Prometheus exposition, each checked to be
+    ``name{labels} value`` with a float value; fails the phase on a line
+    that is not."""
+    import re
+
+    pat = re.compile(r'^[a-zA-Z_:][a-zA-Z0-9_:]*(\{.*\})? '
+                     r'([-+]?[0-9.eE+-]+|[-+]?Inf|NaN)$')
+    n = 0
+    for line in text.splitlines():
+        if not line or line.startswith("#"):
+            continue
+        check(bool(pat.match(line)), f"20b: Prometheus line does not "
+              f"parse: {line[:160]}")
+        n += 1
+    return n
+
+
+def span_calls(reg, span: str) -> int:
+    """``raft_tpu_span_calls_total`` of ``span`` entered at the top level
+    (no enclosing range): the calls a caller made, not the ones other
+    spans made inside (an IVF search's coarse probe is a
+    ``distance.knn``)."""
+    return int(sum(m.value for m in reg.collect()
+                   if m.name == "raft_tpu_span_calls_total"
+                   and m.labels.get("span") == span
+                   and m.labels.get("range") == ""))
+
+
+def metric_value(reg, name: str, **labels):
+    """The value of the one series of ``name`` with ``labels`` (None
+    where there is none)."""
+    for m in reg.collect():
+        if m.name == name and all(m.labels.get(k) == v
+                                  for k, v in labels.items()):
+            return m.value
+    return None
+
+
+def k1_under_range(trace: dict, kernel: str, span: str) -> str:
+    """How the Chrome trace places a ``kernel`` launch under the ``span``
+    range: ``"device"`` (the kernel inside the range's GPU annotation),
+    ``"launch"`` (its launch call, found by correlation id, inside the
+    range on the host), or ``""``."""
+    ev = trace.get("traceEvents", [])
+    kern = [e for e in ev if e.get("cat") == "kernel"
+            and kernel in e.get("name", "")]
+    ranges = [e for e in ev if e.get("name") == span
+              and e.get("cat") in ("user_annotation", "gpu_user_annotation")]
+
+    def inside(t, r):
+        return r["ts"] <= t <= r["ts"] + r.get("dur", 0)
+
+    for k in kern:
+        if any(r["cat"] == "gpu_user_annotation" and inside(k["ts"], r)
+               for r in ranges):
+            return "device"
+    corr = {e.get("args", {}).get("correlation"): e for e in ev
+            if e.get("cat") in ("cuda_runtime", "cuda_driver")}
+    for k in kern:
+        launch = corr.get(k.get("args", {}).get("correlation"))
+        if launch is not None and any(
+                r["cat"] == "user_annotation" and inside(launch["ts"], r)
+                and r.get("tid") == launch.get("tid") for r in ranges):
+            return "launch"
+    return ""
+
+
+def mutable_metrics_cell(res, seed: int = 20) -> dict:
+    """20e: a durable mutable engine at mutable_bf16's shape, its metrics
+    held to the index's own counts, then recovery and statusz."""
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    from raft_tpu_torch.mutable import recover
+    from raft_tpu_torch.observability.metrics import get_registry
+    from raft_tpu_torch.serving import ServingEngine
+    from raft_tpu_torch.tools.statusz import render_statusz
+
+    m, d, k = MUT_SHAPE[:3]
+    wbatch = MUT_SHAPE[6]
+    threshold = (MUT_SHAPE[5] * wbatch) // 2
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    Y = torch.randn(m, d, device="cuda", generator=gen)
+    rng = np.random.default_rng(seed)
+    root = tempfile.mkdtemp(prefix="chip_smoke_meas_")
+    ddir = os.path.join(root, "durable")
+    reg = get_registry()
+    t0 = time.perf_counter()
+    engine = ServingEngine(Y, k=k, mutable=True, durable=True,
+                           durable_dir=ddir, compact_threshold=threshold,
+                           delta_cap=2 * threshold)
+    report = {"rows": m, "write_batches": MEAS_WRITE_BATCHES}
+    try:
+        engine.start()
+        mi = engine.mutable
+        upserted, deleted, nxt = 0, 0, m
+
+        def write_batch():
+            nonlocal upserted, deleted, nxt
+            n_over = wbatch // 4
+            pick = rng.choice(m, n_over + wbatch // 8, replace=False)
+            ids = np.concatenate([pick[:n_over], np.arange(
+                nxt, nxt + wbatch - n_over)]).astype(np.int32)
+            nxt += wbatch - n_over
+            rows = rng.normal(size=(wbatch, d)).astype(np.float32)
+            upserted += engine.upsert(ids, rows).result(
+                timeout=120)[0]["applied"]
+            deleted += engine.delete(pick[n_over:].astype(
+                np.int32)).result(timeout=120)[0]["applied"]
+
+        for _ in range(MEAS_WRITE_BATCHES):
+            write_batch()
+        engine.query(rng.normal(size=(4, d)).astype(np.float32), timeout=120)
+        check(mi.compact(block=True), "20e: the explicit compact() ran no "
+              "fold")
+        write_batch()                 # a WAL tail past the fold's checkpoint
+        engine.flush(timeout=60)
+        st = mi.stats()
+        wal = mi.durability.stats()
+        held = {
+            "delta_rows": (metric_value(reg, "raft_tpu_mutable_delta_rows"),
+                           st["delta_rows"]),
+            "tombstone_frac": (
+                metric_value(reg, "raft_tpu_mutable_tombstone_frac"),
+                st["tombstones"] / max(1, st["base_rows"])),
+            "mutations_upsert": (metric_value(
+                reg, "raft_tpu_mutable_mutations_total", kind="upsert"),
+                upserted),
+            "mutations_delete": (metric_value(
+                reg, "raft_tpu_mutable_mutations_total", kind="delete"),
+                deleted),
+            "compactions": (metric_value(
+                reg, "raft_tpu_mutable_compactions_total", status="ok"),
+                st["compactions"]),
+            "wal_appends": (sum(s.value for s in reg.collect()
+                                if s.name == "raft_tpu_wal_appends_total"),
+                            wal["last_lsn"]),
+            "wal_fsyncs": (metric_value(reg, "raft_tpu_wal_fsyncs_total"),
+                           wal["fsyncs"]),
+            "wal_durable_lsn": (metric_value(reg, "raft_tpu_wal_durable_lsn"),
+                                wal["durable_lsn"]),
+            "checkpoints": (metric_value(reg, "raft_tpu_checkpoints_total",
+                                         status="ok"),
+                            wal["checkpoints_written"]),
+            "checkpoint_lsn": (metric_value(reg, "raft_tpu_checkpoint_lsn"),
+                               wal.get("checkpoint_lsn")),
+        }
+        for name, (got, want) in held.items():
+            check(got is not None and abs(float(got) - float(want))
+                  <= 1e-9 * max(1.0, abs(float(want))),
+                  f"20e: {name} reads {got} in the registry, the index "
+                  f"counts {want}")
+        report["held"] = {k_: [float(a), float(b)]
+                          for k_, (a, b) in held.items()}
+        panel = render_statusz(engine=engine)
+        check("wal sync=" in panel and "checkpoints " in panel,
+              "20e: statusz has no durability panel")
+        report["statusz_lines"] = len(panel.splitlines())
+    finally:
+        engine.stop()
+        if engine.mutable is not None:
+            engine.mutable.close()
+    try:
+        ridx, rst = recover(ddir, attach=False,
+                            compact_threshold=threshold,
+                            delta_cap=2 * threshold)
+        torch.cuda.synchronize()
+        rec = {"total": metric_value(reg, "raft_tpu_recovery_total",
+                                     status="ok"),
+               "seconds": metric_value(reg, "raft_tpu_recovery_seconds"),
+               "replayed": metric_value(
+                   reg, "raft_tpu_recovery_replayed_records"),
+               "truncated": metric_value(
+                   reg, "raft_tpu_recovery_truncated_bytes")}
+        check(rec["total"] == 1 and rec["seconds"] == rst["seconds"]
+              and rec["replayed"] == rst["replayed_records"] >= 1
+              and rec["truncated"] == rst["truncated_bytes"],
+              f"20e: recovery metrics {rec} against its stats {rst}")
+        check("last recovery   " in render_statusz()
+              and "(none this process)" not in render_statusz(),
+              "20e: statusz shows no recovery")
+        report["recovery"] = {**rec, "wall_s": time.perf_counter() - t0}
+        del ridx
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    del Y
+    torch.cuda.empty_cache()
+    return report
+
+
+def fault_sites_cell(res, seed: int = 21) -> dict:
+    """20f: each of ``NEW_FAULT_SITES`` armed once (``error`` at its
+    first call) over a small call on the card raises
+    ``InjectedDeviceError`` and adds one to the injection counter;
+    disarmed, the same call answers as it did before it was armed."""
+    import numpy as np
+    import torch
+    from raft_tpu_torch import distance
+    from raft_tpu_torch.ann import (build_ivf_flat, build_ivf_pq, ivf_pq,
+                                    search_ivf_flat, search_ivf_pq)
+    from raft_tpu_torch.cluster import kmeans_fit
+    from raft_tpu_torch.core.sparse_types import CSRMatrix
+    from raft_tpu_torch.distance.knn_fused import knn_fused
+    from raft_tpu_torch.matrix import select_k
+    from raft_tpu_torch.matrix.select_k_chunked import select_k_chunked
+    from raft_tpu_torch.matrix.select_k_slotted import select_k_slotted
+    from raft_tpu_torch.observability.metrics import get_registry
+    from raft_tpu_torch.ops import _build
+    from raft_tpu_torch.ops import lap_jv as kjv
+    from raft_tpu_torch.ops import spmv as k6
+    from raft_tpu_torch.resilience import faults
+    from raft_tpu_torch.runtime.entry_points import knn_query
+    from raft_tpu_torch.solver import solve_lap
+    from raft_tpu_torch.sparse.tiled import tile_csr
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    Y = torch.randn(20_000, 64, device="cuda", generator=gen)
+    Q = Y[:64] + 0.01 * torch.randn(64, 64, device="cuda", generator=gen)
+    V = torch.randn(64, 65_536, device="cuda", generator=gen)
+    C = torch.rand(256, 256, device="cuda", generator=gen)
+    rng = np.random.default_rng(seed)
+    dense = (rng.random((4096, 4096)) < 0.002) * rng.normal(
+        size=(4096, 4096))
+    A = CSRMatrix.from_dense(dense.astype(np.float32), device="cuda")
+    x6 = torch.randn(4096, device="cuda", generator=gen)
+    idx = distance.prepare_knn_index(Y, passes=3)
+    ivf = build_ivf_flat(res, Y, n_lists=64)
+    pq = build_ivf_pq(res, Y, n_lists=64, pq_bits=8)
+    jv_cost = torch.rand(1, 64, 64, device="cuda", generator=gen)
+
+    def ids(out):
+        return out[1] if isinstance(out, tuple) else out
+
+    def widen_forced():
+        # every query fails the depth-2 certificate, so the widen rung runs
+        real = ivf_pq._pq_certify
+        ivf_pq._pq_certify = lambda bound, theta, widen: torch.zeros_like(
+            bound >= theta + widen)
+        try:
+            return search_ivf_pq(res, pq, Q, 10, n_probes=8, pq_scan="pq")
+        finally:
+            ivf_pq._pq_certify = real
+
+    lap_calls = [0]
+
+    def fresh_lap_build():
+        # the first call runs the loaded library; the next ones miss the
+        # library cache: lap_jv.cu built anew under build/phase20 (the
+        # armed call raises before nvcc runs, the one after builds)
+        lap_calls[0] += 1
+        if lap_calls[0] == 1:
+            return kjv.lap_jv_solve(jv_cost)[::-1]       # (u, assignment)
+        saved = (_build.BUILD_DIR, _build._libs.pop("lap_jv", None),
+                 kjv._FN)
+        _build.BUILD_DIR = os.path.join(PHASE20_DIR, "kernels")
+        kjv._FN = None
+        try:
+            return kjv.lap_jv_solve(jv_cost)[::-1]
+        finally:
+            _build.BUILD_DIR = saved[0]
+            if saved[1] is not None:
+                _build._libs["lap_jv"] = saved[1]
+            kjv._FN = saved[2]
+
+    def tiled_spmv():
+        # the layout is the site's answer (K6a's sums take atomics in
+        # shared memory, so its last bits may differ run to run)
+        T = tile_csr(A)
+        y = k6.spmv_tiled(T, x6)
+        check(bool(torch.isfinite(y).all()), "20f: K6a gave non-finite y")
+        return y, T.vals
+
+    calls = {
+        "aot_compile": fresh_lap_build,
+        "aot_dispatch": lambda: knn_query(res, idx, Q, 10),
+        "knn_fused": lambda: knn_fused(Q, idx, 10),
+        "quantize_index": lambda: knn_fused(Q, distance.prepare_knn_index(
+            Y, passes=1, db_dtype="int8"), 10),
+        "select_k": lambda: select_k(res, V, k=16),
+        "select_k_chunked": lambda: select_k_chunked(V, None, 16, True),
+        "select_k_slotted": lambda: select_k_slotted(V, None, 16, True),
+        "pairwise_distance": lambda: distance.pairwise_distance(
+            res, Q, Y[:4096], metric="l1"),
+        "fused_l2nn": lambda: distance.fused_l2_nn_argmin(res, Q, Y),
+        "tile_csr": tiled_spmv,
+        "solve_lap": lambda: solve_lap(res, C)[::-1],     # (cost, rows)
+        "kmeans_fit": lambda: kmeans_fit(res, Y[:4096], 8, seed=0).labels,
+        "kmeans_iteration": lambda: kmeans_fit(res, Y[:4096], 8,
+                                               seed=0).labels,
+        "ivf_build": lambda: search_ivf_flat(
+            res, build_ivf_flat(res, Y, n_lists=64), Q, 10, n_probes=8),
+        "ivf_search": lambda: search_ivf_flat(res, ivf, Q, 10, n_probes=8),
+        "fine_scan_list": lambda: search_ivf_flat(res, ivf, Q, 10,
+                                                  n_probes=8,
+                                                  fine_scan="list"),
+        "pq_train": lambda: search_ivf_pq(
+            res, build_ivf_pq(res, Y, n_lists=64, pq_bits=8), Q, 10,
+            n_probes=8),
+        "pq_scan": lambda: search_ivf_pq(res, pq, Q, 10, n_probes=8,
+                                         pq_scan="pq"),
+        "opq_train": lambda: search_ivf_pq(
+            res, build_ivf_pq(res, Y, n_lists=64, pq_bits=8,
+                              pq_mode="opq"), Q, 10, n_probes=8),
+        "pq_widen": widen_forced,
+    }
+    check(tuple(calls) == NEW_FAULT_SITES, "20f: the sites' calls are "
+          "not NEW_FAULT_SITES")
+    reg = get_registry()
+    report = {}
+    for site, call in calls.items():
+        check(site in faults.KNOWN_SITES, f"20f: {site} is not a known site")
+        before = ids(call())
+        torch.cuda.synchronize()
+        n0 = metric_value(reg, faults.INJECTIONS, site=site,
+                          kind="error") or 0
+        faults.configure(f"{site}:error@call=1")
+        try:
+            call()
+            raised = False
+        except faults.InjectedDeviceError:
+            raised = True
+        finally:
+            faults.clear()
+        n1 = metric_value(reg, faults.INJECTIONS, site=site,
+                          kind="error") or 0
+        after = ids(call())
+        torch.cuda.synchronize()
+        same = bool(torch.equal(before, after))
+        check(raised, f"20f: {site} armed did not raise")
+        check(n1 - n0 == 1, f"20f: {site}: the injection counter rose by "
+              f"{n1 - n0}")
+        check(same, f"20f: {site} disarmed answers otherwise than before")
+        report[site] = {"raised": raised, "injections": n1 - n0,
+                        "same_answer": same}
+    return report
+
+
+def measurement_phase(res, kept: dict, data: dict, bounds: dict) -> dict:
+    """Phase 20 (see the module doc): (d) memory across the main path's
+    prepare, (a) the Fixture and the profiler over the main path's
+    entries and the IVF/PQ/select_k entries, (b) spans, Prometheus text
+    and the drift ledger, (c) a profiler trace, (e) the mutable plane's
+    metrics, (f) the ``NEW_FAULT_SITES``. ``bounds`` holds the main path
+    K1/K2 bounds of phase 3 ({p1, p3, int8_p1} → ms)."""
+    import shutil
+
+    import torch
+    from raft_tpu_torch import distance
+    from raft_tpu_torch.ann import search_ivf_flat, search_ivf_pq
+    from raft_tpu_torch.benchmark import Fixture
+    from raft_tpu_torch.core.memory import ResourceMonitor
+    from raft_tpu_torch.core.resources import DeviceResources
+    from raft_tpu_torch.matrix import SelectAlgo, select_k
+    from raft_tpu_torch.matrix.select_k_slotted import _T_SEL, _TPG_SEL
+    from raft_tpu_torch.observability import costmodel, exporters
+    from raft_tpu_torch.observability import metrics, timeline
+    from raft_tpu_torch.observability.profiler import Profiler
+    from raft_tpu_torch.random import make_blobs
+
+    shutil.rmtree(PHASE20_DIR, ignore_errors=True)
+    os.makedirs(PHASE20_DIR)
+    reg = metrics.MetricsRegistry()
+    prev_reg = metrics.set_registry(reg)
+    ledger_path = os.path.join(PHASE20_DIR, "drift_ledger.json")
+    prev_ledger = timeline.set_drift_ledger(
+        timeline.DriftLedger(path=ledger_path))
+    report = {}
+    try:
+        r20 = DeviceResources(device="cuda", seed=20)
+        prof = Profiler()
+        r20.set_profiler(prof)
+        spec = prof.spec
+
+        # ---- (d) memory across prepare_knn_index of the 1M × 128 index ----
+        X, _ = make_blobs(r20, 0, N_INDEX, DIM, n_clusters=64,
+                          cluster_std=2.0)
+        Qx = X[:N_QUERIES].clone()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        with ResourceMonitor(None, period_s=0.001) as mon:
+            idx1 = distance.prepare_knn_index(X, passes=1)
+            torch.cuda.synchronize()
+        peak = mon.peak_by_range().get("distance.prepare_knn_index", 0)
+        report["memory"] = {"samples": len(mon.samples),
+                            "baseline_bytes": base,
+                            "prepare_peak_bytes": peak,
+                            "attributed_bytes": peak - base}
+        check(peak - base >= MEAS_MIN_PREPARE_BYTES,
+              f"20d: {peak - base} bytes attributed to "
+              f"distance.prepare_knn_index, under the index's "
+              f"{MEAS_MIN_PREPARE_BYTES} bytes of bf16 rows")
+        print(f"measurement memory: {json.dumps(report['memory'])}",
+              flush=True)
+        idx3 = distance.prepare_knn_index(X, passes=3)
+        idx8 = distance.prepare_knn_index(X, passes=1, db_dtype="int8")
+
+        # ---- (a) the Fixture and the profiler over the entries ----
+        n_calls = {}
+
+        def counted(span, fn):
+            def run(*args):
+                n_calls[span] = n_calls.get(span, 0) + 1
+                return fn(*args)
+            return run
+
+        ivf, pq = kept["ivf_flat"], kept["ivf_pq"]
+        Qi = data["Q"]
+        P = 32
+        k4 = k4_inputs(r20, ivf, Qi, P)
+        k5 = k5_inputs(r20, pq, Qi, P)
+        nq = Qi.shape[0]
+        # this batch's streamed rows and scored pairs: K4's, and K5's at
+        # the first rung's depth
+        k4_rec = costmodel.kernel_cost(
+            "K4", entry="ann.search_ivf_flat", nq=nq, d=DIM, P=P,
+            stream_rows=k4["stream_rows"], pair_rows=k4["pair_rows"])
+        k5_rec = costmodel.kernel_cost(
+            "K5", entry="ann.search_ivf_pq", nq=nq, S=pq.pq_dim,
+            bits=pq.pq_bits, P=P, depth=2, stream_rows=k5["stream_rows"],
+            pair_rows=k5["pair_rows"])
+        del k4, k5
+        prof.register_cost("ann.search_ivf_flat", lambda *a: k4_rec)
+        prof.register_cost("ann.search_ivf_pq", lambda *a: k5_rec)
+        sel_v = torch.randn(256, 1 << 20, device="cuda",
+                            generator=r20.generator)
+        prof.register_cost("matrix.select_k", lambda r, v, k: (
+            costmodel.kernel_cost("K3", entry="matrix.select_k",
+                                  B=v.shape[0], L=v.shape[1], T=_T_SEL,
+                                  tpg=_TPG_SEL if k <= 64 else 1)))
+        knn = counted("distance.knn",
+                      lambda r, i, q, k: distance.knn(r, i, q, k=k))
+        flat = counted("ann.search_ivf_flat", lambda r, i, q, k: (
+            search_ivf_flat(r, i, q, k, n_probes=P, fine_scan="list")))
+        pqs = counted("ann.search_ivf_pq", lambda r, i, q, k: (
+            search_ivf_pq(r, i, q, k, n_probes=P, pq_scan="pq")))
+        sel = counted("matrix.select_k", lambda r, v, k: (
+            select_k(r, v, k=k, algo=SelectAlgo.SLOTTED)))
+        benches = [
+            ("distance.knn/p1", knn, (r20, idx1, Qx, K), 5, "p1"),
+            ("distance.knn/p3", knn, (r20, idx3, Qx, K), 5, "p3"),
+            ("distance.knn/int8_p1", knn, (r20, idx8, Qx, K), 3,
+             "int8_p1"),
+            ("ann.search_ivf_flat/p32", flat, (r20, ivf, Qi, IVF_K), 3,
+             None),
+            ("ann.search_ivf_pq/pq8_p32", pqs, (r20, pq, Qi, IVF_K), 2,
+             None),
+            ("matrix.select_k/256x1M", sel, (r20, sel_v, K), 5, None),
+        ]
+        rows = {}
+        spans = {}
+        for name, fn, args, reps, main_key in benches:
+            span = name.split("/")[0]
+            c0, calls0, s0 = meas_counts(), dict(n_calls), span_calls(reg,
+                                                                      span)
+            res_b = Fixture(r20, reps=reps).run(fn, *args, name=name)
+            c1 = meas_counts()
+            spans[name] = [span_calls(reg, span) - s0,
+                           n_calls[span] - calls0.get(span, 0)]
+            rec = prof.capture_fn(name, fn, *args)     # the memoised record
+            est = costmodel.roofline(rec, spec, seconds=res_b["seconds"])
+            raw = est.roof_seconds / res_b["seconds"]
+            row = {"seconds": res_b["seconds"], "flops": rec.flops,
+                   "bytes": rec.bytes_accessed, "bound": est.bound,
+                   "bound_ms": 1e3 * est.roof_seconds,
+                   "roofline_frac": raw,
+                   "fixture_roofline_frac": res_b.get("roofline_frac"),
+                   "peak_hbm_bytes": rec.peak_hbm_bytes,
+                   "arithmetic_intensity": rec.arithmetic_intensity,
+                   "calls": spans[name][1],
+                   "launches": {k_: c1[k_] - c0[k_] for k_ in c0
+                                if c1[k_] != c0[k_]}}
+            rows[name] = row
+            print(f"roofline {name}: {json.dumps(row)}", flush=True)
+            check(raw <= ROOF_FRAC_MAX, f"20a: {name}: roofline fraction "
+                  f"{raw:.4f} > {ROOF_FRAC_MAX}: its count is wrong")
+            if main_key is not None:
+                want = bounds[main_key]
+                check(abs(row["bound_ms"] - want) <= 1e-9 * want,
+                      f"20a: {name}'s record bounds {row['bound_ms']} ms, "
+                      f"phase 3's K1/K2 row {want} ms")
+        report["roofline"] = rows
+        print(prof.report(), flush=True)
+        del sel_v
+
+        # ---- (b) spans, the Prometheus text and the drift ledger ----
+        for s_, (got, want) in spans.items():
+            check(got == want, f"20b: {s_}: {got} span counts for {want} "
+                  f"calls")
+        report["spans"] = spans
+        report["prometheus_lines"] = prom_parses(
+            exporters.export_prometheus(reg))
+        loaded = timeline.DriftLedger.load(ledger_path)
+        ledger = {}
+        for name in rows:
+            hist = loaded.entries().get(name, [])
+            kinds = sorted({bool(e.get("measured")) for e in hist})
+            ledger[name] = {"entries": len(hist), "measured": kinds,
+                            "ratio": (hist[-1].get("drift_seconds_ratio")
+                                      if hist else None)}
+            check(kinds == [False, True], f"20b: the drift ledger holds "
+                  f"{kinds} entries of {name}, not a predicted and a "
+                  f"measured one")
+        report["drift_ledger"] = ledger
+        print(f"measurement spans: {json.dumps(spans)}; drift ledger: "
+              f"{json.dumps(ledger)}", flush=True)
+
+        # ---- (c) the profiler trace ----
+        # late in a run a trace can drop its device records (kernel_ms's
+        # note): pad the window, and redo it with longer pads on a miss
+        log_dir = os.path.join(PHASE20_DIR, "trace")
+        how, pad = "", 0.05
+        for attempt in range(KERNEL_MS_TRIES):
+            with prof.trace(log_dir=log_dir):
+                time.sleep(pad)
+                distance.knn(r20, idx1, Qx, k=K)
+                torch.cuda.synchronize()
+                time.sleep(pad)
+            with open(os.path.join(log_dir, "trace.json")) as f:
+                how = k1_under_range(json.load(f), "packed_sm90_kernel",
+                                     "distance.knn")
+            if how:
+                break
+            pad = min(4 * pad, TRACE_PAD_MAX_S)
+        check(how != "", "20c: the trace holds no K1 kernel under the "
+              "distance.knn range")
+        report["trace"] = {"k1_under_distance_knn": how,
+                           "attempts": attempt + 1}
+        del X, Qx, idx1, idx3, idx8
+        torch.cuda.empty_cache()
+
+        # ---- (e) the mutable plane's metrics ----
+        report["mutable"] = mutable_metrics_cell(r20)
+        print(f"measurement mutable: {json.dumps(report['mutable'])}",
+              flush=True)
+
+        # ---- (f) the NEW_FAULT_SITES ----
+        report["fault_sites"] = fault_sites_cell(r20)
+        print(f"measurement fault sites: "
+              f"{json.dumps(report['fault_sites'])}", flush=True)
+    finally:
+        metrics.set_registry(prev_reg)
+        timeline.set_drift_ledger(prev_ledger)
+    return report
 
 
 def main() -> int:
@@ -7107,9 +7691,16 @@ def main() -> int:
     entry["mutable_launches"] = mut_launches["K1"]
     k2_entry["mutable_launches"] = mut_launches["K2"]
     k5_entries[0]["mutable_launches"] = mut_launches["K5"]
-    del data, kept
     torch.cuda.empty_cache()
     phase_end("mutable")
+
+    # ---- phase 20 (run here, on phase 5's and 6's indexes): measurement --
+    measurement = measurement_phase(res, kept, data, {
+        "p1": entry["bound_ms"], "p3": entry["p3"]["bound_ms"],
+        "int8_p1": k2_entry["bound_ms"]})
+    del data, kept
+    torch.cuda.empty_cache()
+    phase_end("measurement")
 
     # ---- phases 7–9: the spectral path ----
     spectral, sparse_entries = spectral_phase(res)
@@ -7164,6 +7755,7 @@ def main() -> int:
     print(json.dumps({"wide_knn": wide}), flush=True)
     print(json.dumps({"svd": svd}), flush=True)
     print(json.dumps({"sharded": sharded}), flush=True)
+    print(json.dumps({"measurement": measurement}), flush=True)
     for name in ("prims", "rng", "lap", "nn", "compat"):
         print(json.dumps({name: prims[name]}), flush=True)
     kernels = [entry, k2_entry, slot_entry, k3_entry, *wide_entries,

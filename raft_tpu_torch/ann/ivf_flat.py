@@ -37,9 +37,12 @@ capture, the explain record (plane, probes, schedule, margins, reruns);
 The sharded index (:class:`ShardedIvfIndex`, :func:`shard_ivf_lists`,
 reference ``:1168-1424``) spreads whole lists over a mesh axis; its search
 scans query-major on every rank (each rank its own probed lists) and the
-ranks' top-k merge as the sharded KNN's do (``merge``). Left out:
-``warm_fine_scan`` (serving), the TPU tune table, and the reference's
-flight markers, fault sites and ``@instrument`` wrappers here.
+ranks' top-k merge as the sharded KNN's do (``merge``). Build and search
+are spans with the reference's fault sites (``ivf_build``,
+``quantize_index``, ``ivf_search``, ``fine_scan_list``); a failure at
+``fine_scan_list`` raises, where the reference degrades to the
+query-major scan. Left out: ``warm_fine_scan`` (serving), the TPU tune
+table, and the reference's flight markers.
 """
 
 from __future__ import annotations
@@ -61,6 +64,8 @@ from raft_tpu_torch.observability.quality import (record_certificate,
 from raft_tpu_torch.ops.fine_scan import (
     LISTS_PER_CELL, MAX_D, fine_scan_list_major, fine_scan_list_major_q8,
     max_list_chunk, pad_window)
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _log = logging.getLogger(__name__)
 
@@ -202,6 +207,7 @@ def require_finite_rows(y, who: str) -> None:
                          f"list")
 
 
+@instrument("ann.build_ivf_flat")
 def build_ivf_flat(res, y, n_lists: int, n_probes: Optional[int] = None,
                    max_iter: int = 10, seed: int = 0, balanced: bool = True,
                    row_quantum: int = DEFAULT_ROW_QUANTUM,
@@ -215,6 +221,7 @@ def build_ivf_flat(res, y, n_lists: int, n_probes: Optional[int] = None,
     ``default_rng(seed)`` as the reference draws them), every row is
     assigned by the argmin sweep, and the lists are laid out as the padded
     ragged slab. ``db_dtype="int8"`` adds the per-list int8 slab."""
+    fault_point("ivf_build")
     from raft_tpu_torch.cluster import kmeans_fit, kmeans_predict
     from raft_tpu_torch.mutable.layout import (quantize_layout,
                                                ragged_layout_from_lists)
@@ -245,6 +252,7 @@ def build_ivf_flat(res, y, n_lists: int, n_probes: Optional[int] = None,
         1, min(L, 1 + L // 8))
     q8_kw = {}
     if db_dtype == "int8":
+        fault_point("quantize_index")
         lay = quantize_layout(lay)
         deq = lay.slab_q.float() * lay.row_scale[:, None]
         q8_kw = dict(db_dtype="int8", slab_q=lay.slab_q,
@@ -745,6 +753,7 @@ def _search_list_major(index: IvfFlatIndex, x, probes, probes_host, starts,
     return torch.cat(vals_out), torch.cat(ids_out), n_rerun
 
 
+@instrument("ann.search_ivf_flat")
 def search_ivf_flat(res, index, queries, k: int,
                     n_probes: Optional[int] = None,
                     fine_scan: Optional[str] = None,
@@ -767,6 +776,7 @@ def search_ivf_flat(res, index, queries, k: int,
     ranks' top-k merge by ``merge`` (``"auto"``, ``"allgather"`` or
     ``"tournament"``; see :mod:`raft_tpu_torch.distance.knn_sharded`);
     ``fine_scan`` is unused there."""
+    fault_point("ivf_search")
     sharded = isinstance(index, ShardedIvfIndex)
     if sharded:
         sh, index = index, index.base
@@ -819,6 +829,9 @@ def search_ivf_flat(res, index, queries, k: int,
                                  probes_np=probes_host, chunk=list_chunk)
     explain.note(fine_scan=schedule)
     if schedule == "list":
+        # the reference degrades a failure here to the query-major scan;
+        # the port raises it (no fallback hides K4)
+        fault_point("fine_scan_list")
         out = _search_list_major(index, x, probes, probes_host, starts,
                                  psizes, k, P, W, chunk, list_chunk)
     else:

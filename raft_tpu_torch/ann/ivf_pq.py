@@ -47,10 +47,12 @@ raises to the caller.
 The ladder feeds the quality counters and, under an active explain
 capture, the explain record (plane, probes, schedule, margins, rungs).
 The reference has no sharded IVF-PQ index (its ``ShardedIvfIndex`` is
-IVF-Flat only), so neither has the port. Left out of this slice: the
-mutable plane's tombstoned codes, the TPU tune table's ``pq`` column, and
-the instrument / marker / fault-point / profiler telemetry (ROADMAP item
-14's remainder).
+IVF-Flat only), so neither has the port. ``build_ivf_pq`` and
+``search_ivf_pq`` are spans, and the reference's fault sites
+``pq_train``, ``opq_train``, ``ivf_search``, ``pq_scan`` and ``pq_widen``
+sit where the reference has them; the last two raise where the
+reference degrades. Left out of this slice: the mutable plane's
+tombstoned codes and the TPU tune table's ``pq`` column.
 The reference's ``RAFT_TPU_ANN_NPROBES`` knob is the plain ``n_probes``
 argument here, as in the port's IVF-Flat.
 """
@@ -80,6 +82,8 @@ from raft_tpu_torch.ops.fine_scan import LISTS_PER_CELL, pad_window
 from raft_tpu_torch.ops.pq_scan import (MAX_SMEM_BYTES, decode_codes,
                                         pq_scan_list_major,
                                         pq_scan_smem_bytes)
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _log = logging.getLogger(__name__)
 
@@ -292,6 +296,7 @@ def _train_codebooks(res, flat: IvfFlatIndex, S: int, K: int,
 
     dev, d = flat.device, flat.d_orig
     dsub = d // S
+    fault_point("pq_train")
     vrows = np.nonzero((flat.ids >= 0).cpu().numpy())[0]
     n_valid = int(vrows.size)
     cap = pq_train_rows or max(32 * K, 4096)
@@ -305,6 +310,7 @@ def _train_codebooks(res, flat: IvfFlatIndex, S: int, K: int,
     train = flat.slab[sel] - flat.centroids[gid[sel]]
     rot, warm = None, [None] * S
     if pq_mode != "plain":
+        fault_point("opq_train")
         rot, warm = _opq_rotation(res, train, S, dsub, K, seed,
                                   n_iters=opq_iters,
                                   train_iters=max(1, pq_max_iter // 2))
@@ -414,6 +420,7 @@ def _pq_encode(res, flat: IvfFlatIndex, codebooks, rot, pq_bits: int,
         pq_resid_med=resid_med)
 
 
+@instrument("ann.build_ivf_pq")
 def build_ivf_pq(res, y, n_lists: int, pq_dim: Optional[int] = None,
                  pq_bits: Optional[int] = None,
                  n_probes: Optional[int] = None, max_iter: int = 10,
@@ -672,6 +679,7 @@ def resolve_pq_scan(index: IvfPqIndex, nq: int, k: int, P: int, W: int,
     return pick
 
 
+@instrument("ann.search_ivf_pq")
 def search_ivf_pq(res, index: IvfPqIndex, queries, k: int,
                   n_probes: Optional[int] = None,
                   pq_scan: Optional[str] = None, with_stats: bool = False):
@@ -688,6 +696,7 @@ def search_ivf_pq(res, index: IvfPqIndex, queries, k: int,
     exact plane. ``with_stats`` appends the number of queries that paid
     the exact rerun (or the exact plane's fixup). Runs on the index's
     device."""
+    fault_point("ivf_search")
     expects(isinstance(index, IvfPqIndex),
             "search_ivf_pq: index must be an IvfPqIndex (got %s)",
             type(index).__name__)
@@ -732,6 +741,9 @@ def search_ivf_pq(res, index: IvfPqIndex, queries, k: int,
                      **probe_notes(index._np_sizes, probes_host),
                      pool_width=256)
     if schedule == "pq":
+        # the reference degrades a failure here to the flat scan; the
+        # port raises it (no fallback hides K5)
+        fault_point("pq_scan")
         out = _search_pq(index, x, probes, probes_host, starts, psizes, k, P,
                          W, chunk)
     else:
@@ -758,6 +770,9 @@ def _search_pq(index: IvfPqIndex, x, probes, probes_host, starts, psizes,
         if factor > widen_cap or not n_fail:
             break
         bad = (~ok).nonzero().squeeze(1)
+        # the reference degrades a failure here to the exact rerun; the
+        # port raises it
+        fault_point("pq_widen")
         wv, wi, wok, _ = _adc(index, x[bad], probes[bad],
                               probes_host[bad.cpu().numpy()], starts[bad],
                               psizes[bad], k, P, W, 2 * factor)

@@ -28,6 +28,8 @@ import torch
 
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import as_f32, ensure_resources
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 #: balanced-penalty exponent: scores are multiplied by
 #: ((size + 1) / (mean_size + 1)) ** alpha
@@ -117,6 +119,7 @@ def _assign_sweep(X, centroids, weights, k: int):
     return torch.cat(labels_out), inertia, sums, counts
 
 
+@instrument("cluster.kmeans_fit")
 def kmeans_fit(res, X, n_clusters: int, max_iter: int = 20,
                tol: float = 1e-4, seed: int = 0, balanced: bool = False,
                balance_alpha: float = DEFAULT_BALANCE_ALPHA,
@@ -137,6 +140,7 @@ def kmeans_fit(res, X, n_clusters: int, max_iter: int = 20,
 
     ``X`` is numpy or a tensor; the fit runs on ``X``'s device (a tensor)
     or on the handle's."""
+    fault_point("kmeans_fit")
     if n_init > 1 and init_centroids is None:
         best = None
         for i in range(int(n_init)):
@@ -180,6 +184,7 @@ def kmeans_fit(res, X, n_clusters: int, max_iter: int = 20,
     inertia = float("inf")
     it = 0
     for it in range(1, max_iter + 1):
+        fault_point("kmeans_iteration")
         if balanced and balance_alpha > 0.0:
             weights = _balance_weights(counts, balance_alpha)
         labels, ine, sums, counts = _assign_sweep(X, centroids, weights, k)
@@ -195,6 +200,7 @@ def kmeans_fit(res, X, n_clusters: int, max_iter: int = 20,
                         counts.to(torch.int32))
 
 
+@instrument("cluster.kmeans_predict")
 def kmeans_predict(res, centroids, X):
     """Nearest-centroid labels (the ``fused_l2_nn_argmin`` sweep; balance
     weights are a training bias only)."""

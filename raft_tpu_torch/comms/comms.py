@@ -49,9 +49,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from raft_tpu_torch.core.error import DeviceError, expects
-
-COMMS_CALLS = "raft_tpu_comms_calls_total"
-COMMS_BYTES = "raft_tpu_comms_bytes_total"
+from raft_tpu_torch.observability.hooks import (COMMS_BYTES, COMMS_CALLS,
+                                                record_collective)
 
 #: seconds a rank waits at a rendezvous for its peers
 DEFAULT_TIMEOUT_S = 300.0
@@ -111,18 +110,9 @@ def status_from_exception(exc: BaseException) -> Status:
 
 
 def _count(collective: str, x, axis_name: str) -> None:
-    """One collective call and its payload into the metrics registry."""
-    from raft_tpu_torch.observability.metrics import get_registry
-
-    reg = get_registry()
-    if not reg.enabled:
-        return
-    labels = {"collective": collective, "axis": str(axis_name)}
-    reg.counter(COMMS_CALLS, labels, help="Collective calls").inc()
-    if isinstance(x, torch.Tensor):
-        reg.counter(COMMS_BYTES, labels,
-                    help="Per-rank payload bytes entering collectives"
-                    ).inc(x.numel() * x.element_size())
+    """One collective call and its payload into the metrics registry and
+    the flight ring (``observability.hooks.record_collective``)."""
+    record_collective(collective, x, axis_name)
 
 
 def _fold(parts: Sequence[torch.Tensor], op: Op) -> torch.Tensor:

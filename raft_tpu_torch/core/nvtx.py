@@ -18,11 +18,21 @@ from __future__ import annotations
 import contextlib
 import os
 import threading
-from typing import Iterator, List, Optional
+from typing import Callable, Dict, Iterator, List, Optional
 
 _ENABLED = not os.environ.get("RAFT_TPU_DISABLE_TRACING")
 
 _tls = threading.local()
+# each thread's stack by thread id, so a sampler on another thread can
+# attribute to it (core.memory.ResourceMonitor)
+_stacks: Dict[int, List[str]] = {}
+
+# open profiler windows (profiling()); ranges are record_functions in one
+_profiling = 0
+
+# callables told of every push and pop, on the pushing thread, with the
+# range entered or about to be left (core.memory.ResourceMonitor)
+_range_hooks: List[Callable[[str], None]] = []
 
 # None: not probed yet; then True when torch has a CUDA build with NVTX
 _nvtx_ok: Optional[bool] = None
@@ -32,6 +42,7 @@ def _stack() -> List[str]:
     st = getattr(_tls, "stack", None)
     if st is None:
         st = _tls.stack = []
+        _stacks[threading.get_ident()] = st
     return st
 
 
@@ -53,10 +64,14 @@ def _cuda_nvtx():
     return torch.cuda.nvtx
 
 
-def current_range() -> Optional[str]:
-    """Innermost active range on this thread, or None."""
-    st = _stack()
-    return st[-1] if st else None
+def current_range(thread_id: Optional[int] = None) -> Optional[str]:
+    """Innermost active range on this thread (or on the thread of
+    ``thread_id``), or None."""
+    st = _stack() if thread_id is None else _stacks.get(thread_id)
+    try:
+        return st[-1] if st else None
+    except IndexError:          # popped by its thread since the test
+        return None
 
 
 def range_stack() -> List[str]:
@@ -70,6 +85,8 @@ def push_range(fmt: str, *args) -> None:
         return
     name = fmt % args if args else fmt
     _stack().append(name)
+    for hook in _range_hooks:
+        hook(name)
     nv = _cuda_nvtx()
     if nv is not None:
         nv.range_push(name)
@@ -86,6 +103,8 @@ def pop_range() -> None:
 
         log_warn("nvtx: range stack imbalance — pop on an empty stack")
         return
+    for hook in _range_hooks:
+        hook(st[-1])
     st.pop()
     nv = _cuda_nvtx()
     if nv is not None:
@@ -94,12 +113,34 @@ def pop_range() -> None:
 
 @contextlib.contextmanager
 def annotate(fmt: str, *args) -> Iterator[None]:
-    """Scoped range. (ref: core/nvtx.hpp:121 ``range``)"""
+    """Scoped range. (ref: core/nvtx.hpp:121 ``range``) Inside a
+    profiler window (:func:`profiling`) it is also a
+    ``torch.profiler.record_function``, so the trace nests the range's
+    work under its name."""
     push_range(fmt, *args)
+    try:
+        if _profiling and _ENABLED:
+            from torch.profiler import record_function
+
+            with record_function(current_range() or ""):
+                yield
+        else:
+            yield
+    finally:
+        pop_range()
+
+
+@contextlib.contextmanager
+def profiling() -> Iterator[None]:
+    """A profiler window: ranges opened inside it are also
+    ``record_function`` ranges
+    (``observability.profiler.Profiler.trace``)."""
+    global _profiling
+    _profiling += 1
     try:
         yield
     finally:
-        pop_range()
+        _profiling -= 1
 
 
 # alias matching the reference class name

@@ -4,8 +4,9 @@
 ``device_resources()`` at ``:413``; ref: core/device_resources.hpp.) PyTorch
 owns allocation, so the handle holds only what the algorithms read: the
 device, a seeded ``torch.Generator`` on it, the workspace budget that sizes
-the streamed KNN tile, and (on a card) a CUDA stream of its own, the one a
-serving engine's batcher dispatches on.
+the streamed KNN tile, (on a card) a CUDA stream of its own, the one a
+serving engine's batcher dispatches on, and the ``metrics`` and
+``profiler`` planes it reports into.
 
 Device rule for every entry point of the port: ``device=None`` means the
 device of the tensors passed in, or ``cuda`` when none is a tensor. Without
@@ -120,6 +121,7 @@ class DeviceResources:
         # caller's current stream, a server enters this one to dispatch
         self.stream = (torch.cuda.Stream(device=self.device)
                        if self.device.type == "cuda" else None)
+        self._profiler = None
 
     @property
     def metrics(self):
@@ -129,6 +131,23 @@ class DeviceResources:
         from raft_tpu_torch.observability.metrics import get_registry
 
         return get_registry()
+
+    @property
+    def profiler(self):
+        """The handle's cost-model profiler: the one set by
+        :meth:`set_profiler`, else the process-global
+        :func:`raft_tpu_torch.observability.profiler.get_profiler`
+        (reference ``resources.py:224-241``)."""
+        if self._profiler is None:
+            from raft_tpu_torch.observability.profiler import get_profiler
+
+            return get_profiler()
+        return self._profiler
+
+    def set_profiler(self, profiler) -> None:
+        """Install a handle-scoped Profiler (e.g. to keep one tenant's
+        records apart, or to price on another ``ChipSpec``)."""
+        self._profiler = profiler
 
     def sync(self, value=None):
         """Wait for the device's queued work; returns ``value``."""

@@ -24,6 +24,8 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.kvp import (KeyValuePair, flip_sign, ranked_head,
                                      smallest_by_key)
 from raft_tpu_torch.core.resources import as_f32, ensure_resources
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _INT32_MAX = 2 ** 31 - 1
 #: entries the streamed sweeps keep past the k (see _sweep)
@@ -78,11 +80,13 @@ def _stream_tile(res, n_queries: int, n_rows: int, tile: Optional[int]):
     return int(tile)
 
 
+@instrument("distance.fused_l2_nn_argmin")
 def fused_l2_nn_argmin(res, x, y, sqrt: bool = False,
                        tile: Optional[int] = None
                        ) -> Tuple[torch.Tensor, torch.Tensor]:
     """For each row of x, the nearest row of y under (squared) L2.
     Returns (min_dist [n], argmin [n] int32); ties go to the lower row."""
+    fault_point("fused_l2nn")
     res = ensure_resources(res)
     dev = x.device if isinstance(x, torch.Tensor) else res.device
     x, y = as_f32(x, dev), as_f32(y, dev)
@@ -204,6 +208,7 @@ def _unit(a):
     return a / n.clamp_min(1e-30)
 
 
+@instrument("distance.knn")
 def knn(res, index, queries, k: int, metric: str = "sqeuclidean",
         tile: Optional[int] = None, algo: str = "auto",
         certify: str = "kernel") -> Tuple[torch.Tensor, torch.Tensor]:
@@ -305,6 +310,7 @@ def _local_res(res, dev: torch.device):
                            workspace_limit=res.allocation_limit)
 
 
+@instrument("distance.knn_sharded")
 def knn_sharded(res, index, queries, k: int, mesh=None, axis: str = "x",
                 metric: str = "sqeuclidean", algo: str = "auto"
                 ) -> Tuple[torch.Tensor, torch.Tensor]:

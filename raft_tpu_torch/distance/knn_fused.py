@@ -67,6 +67,8 @@ from raft_tpu_torch.ops.fused_l2_topk import (
     fused_l2_group_topk_dchunk, fused_l2_group_topk_packed,
     fused_l2_group_topk_packed_dchunk, fused_l2_group_topk_packed_q8,
     split_hi_lo)
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _log = logging.getLogger(__name__)
 
@@ -410,6 +412,7 @@ class KnnIndex:
             Qb=None if qb is None else int(qb), db_dtype=db_dtype, **kw)
 
 
+@instrument("distance.prepare_knn_index")
 def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
                       T: Optional[int] = None, g: Optional[int] = None,
                       store_yp: bool = True, device=None,
@@ -475,6 +478,7 @@ def prepare_knn_index(y, passes: int = 3, metric: str = "l2",
             raise ValueError(f"prepare_knn_index: rows_valid has "
                              f"{rows_valid.shape[0]} entries for {m} rows")
     if db_dtype == "int8":
+        fault_point("quantize_index")
         yp, y_q, scales, yyh_k, yy_raw, eq = _prepare_ops_q8(
             y, T, g, metric, rows_valid)
         if rows_valid is not None:
@@ -738,6 +742,7 @@ def _certify(x, xx, idx: KnnIndex, k: int, vals, ids, C: int, cand_v_hat,
     return vals, ids, n_fail
 
 
+@instrument("distance.knn_fused")
 def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
               g: Optional[int] = None, metric: str = "l2",
               rescore: Optional[bool] = None, certify: str = "kernel",
@@ -757,6 +762,7 @@ def knn_fused(x, y, k: int, passes: int = 3, T: Optional[int] = None,
     False returns lite results. ``with_stats`` appends the number of
     queries that failed the certificate (and were re-solved exactly).
     An int8 index is always rescored (``rescore=False`` is an error)."""
+    fault_point("knn_fused")
     idx = y if isinstance(y, KnnIndex) else None
     if idx is not None:
         passes, metric = idx.passes, idx.metric

@@ -72,6 +72,7 @@ from raft_tpu_torch.resilience import (PoisonedOutputError, degrade_merge,
                                        fault_point, faults_active,
                                        get_policy_table, record_degradation,
                                        record_exhausted, record_retry)
+from raft_tpu_torch.observability.spans import instrument
 
 SHARD_MODES = ("db", "query")
 
@@ -261,6 +262,8 @@ def prepare_knn_index_sharded(y, mesh=None, axis: str = "x",
     p = len(devs)
     T, Qb, g, pbits, _, grid_order, db_dtype, rows_per = _shard_geometry(
         m, d, p, passes, T, Qb, g, grid_order, db_dtype, store_yp)
+    if db_dtype == "int8":
+        fault_point("quantize_index")
     shards = [_rank_block(y, r, rows_per, dev, T, g, passes, metric, pbits,
                           store_yp, db_dtype, Qb)
               for r, dev in enumerate(devs)]
@@ -479,6 +482,7 @@ def _block_geometry(nq: int, nb, Qb_base: int):
 
 
 # ------------------------------------------------------------ the entry
+@instrument("distance.knn_fused_sharded")
 def knn_fused_sharded(x, y, k: int, mesh=None, axis: str = "x",
                       shard_mode: str = "db", merge: str = "auto",
                       micro_batches: Optional[int] = None,

@@ -27,6 +27,8 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import (DeviceResources, float_operands,
                                            input_device)
 from raft_tpu_torch.distance.types import METRIC_NAMES, DistanceType
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 
 def _as_type(metric: Union[str, DistanceType]) -> DistanceType:
@@ -69,6 +71,7 @@ def _expanded(x, y, t: DistanceType):
     return 1.0 - 2.0 * inter / (nx + ny).clamp_min(1e-30)       # Dice
 
 
+@instrument("distance.pairwise_distance")
 def pairwise_distance(res, x, y=None,
                       metric: Union[str, DistanceType] = "euclidean",
                       p: float = 2.0, precision=None,
@@ -88,6 +91,7 @@ def pairwise_distance(res, x, y=None,
     directly, so non-finite inputs follow IEEE in the kernel as in the
     twin without the reference's finiteness guard.
     """
+    fault_point("pairwise_distance")
     dev = input_device(res, x, y, device=device)
     x, y = float_operands(dev, x, y)
     y = x if y is None else y

@@ -36,6 +36,8 @@ from raft_tpu_torch.matrix.select_k_slotted import (select_k_slotted,
                                                     slotted_envelope)
 from raft_tpu_torch.matrix.select_k_types import (SelectAlgo,
                                                   f32_comparable_keys)
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 
 def _algo_in_envelope(algo: SelectAlgo, length: int, k: int,
@@ -87,6 +89,7 @@ def _topk_select(in_val, in_idx, k: int, select_min: bool):
     return out_val, torch.gather(in_idx, 1, pos)
 
 
+@instrument("matrix.select_k")
 def select_k(res, in_val, in_idx=None, k: int = 1, select_min: bool = True,
              sorted: bool = True,  # noqa: A002
              algo: SelectAlgo = SelectAlgo.AUTO,
@@ -96,6 +99,7 @@ def select_k(res, in_val, in_idx=None, k: int = 1, select_min: bool = True,
 
     Returns ``(out_val [batch, k], out_idx [batch, k])``. ``in_val`` runs
     where it lies when it is a tensor, else on the handle's device."""
+    fault_point("select_k")
     if isinstance(in_val, torch.Tensor):
         dev = in_val.device
     else:

@@ -11,6 +11,8 @@ from typing import Tuple
 import torch
 
 from raft_tpu_torch.matrix.select_k_slotted import lax_top_k
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 
 def _chunked_select_min(vals, k: int, nc: int):
@@ -37,12 +39,14 @@ def chunked_envelope(length: int, nc: int = 8) -> bool:
     return length >= 2 * nc
 
 
+@instrument("matrix.select_k_chunked")
 def select_k_chunked(in_val, in_idx, k: int, select_min: bool,
                      nc: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:
     """Exact chunked-merge select_k. Keys are compared in f32 — exact for
     f32/bf16/f16; wider or integer keys raise ``NotImplementedError``, as
     does a row shorter than 2·nc. Values are gathered from the input,
     keeping its dtype; ``in_idx`` None returns positions."""
+    fault_point("select_k_chunked")
     from raft_tpu_torch.matrix.select_k_types import f32_comparable_keys
 
     if not f32_comparable_keys(in_val.dtype):

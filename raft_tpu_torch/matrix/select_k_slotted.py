@@ -29,6 +29,8 @@ import torch
 from raft_tpu_torch.core.kvp import flip_sign, order_key
 from raft_tpu_torch.ops.folds import fold_group_top2
 from raft_tpu_torch.ops.select_slotted import select_slot_topk_packed
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _POOL_PAD = 32
 # the streaming path's geometry (reference :127-131)
@@ -165,6 +167,7 @@ def slotted_envelope(L: int, k: int = None) -> Tuple[int, int, int]:
     return slot, g, 2 * (S // min(g, S))
 
 
+@instrument("matrix.select_k_slotted")
 def select_k_slotted(in_val, in_idx, k: int, select_min: bool,
                      with_stats: bool = False):
     """select_k by certified slot folding.
@@ -175,6 +178,7 @@ def select_k_slotted(in_val, in_idx, k: int, select_min: bool,
     gathered from the input, keeping its dtype; ``in_idx`` None returns
     positions. ``with_stats`` appends the number of rows that failed the
     certificate and were re-solved exactly."""
+    fault_point("select_k_slotted")
     from raft_tpu_torch.matrix.select_k_types import f32_comparable_keys
 
     if not f32_comparable_keys(in_val.dtype):

@@ -24,10 +24,12 @@ other.
 
 :func:`recover` loads the newest valid checkpoint and replays the WAL tail
 through ``apply_upsert`` / ``apply_delete``; the index it returns holds
-every acked write. The reference's metrics, flight events and statusz
-durability panel are still left out (ROADMAP item 14's remainder; the
-registry, the flight recorder and statusz itself are ported);
-``last_recovery`` keeps the stats of the process's last recovery.
+every acked write. As the reference's, each committed checkpoint and
+each recovery counts in the registry (``raft_tpu_checkpoints_total``,
+``raft_tpu_checkpoint_lsn``, ``raft_tpu_recovery_*``) and is a
+``mutation`` flight event (``checkpoint``, ``recovery``);
+``last_recovery`` keeps the stats of the process's last recovery, which
+statusz's durability panel shows.
 """
 
 from __future__ import annotations
@@ -47,6 +49,7 @@ from raft_tpu_torch.core.diskio import (atomic_write_bytes,
                                         read_bytes)
 from raft_tpu_torch.core.serialize import mdspan_from_bytes, mdspan_to_bytes
 from raft_tpu_torch.mutable import wal as _wal
+from raft_tpu_torch.observability.timeline import emit_mutation
 from raft_tpu_torch.resilience.faults import fault_point
 
 CKPT_SCHEMA = 1
@@ -58,8 +61,41 @@ KEEP_CHECKPOINTS = 2
 
 DURABLE_DIR_ENV = "RAFT_TPU_DURABLE_DIR"
 
+# the durability slice of the metric vocabulary
+CHECKPOINTS = "raft_tpu_checkpoints_total"
+CHECKPOINT_LSN = "raft_tpu_checkpoint_lsn"
+RECOVERIES = "raft_tpu_recovery_total"
+RECOVERY_SECONDS = "raft_tpu_recovery_seconds"
+RECOVERY_REPLAYED = "raft_tpu_recovery_replayed_records"
+RECOVERY_TRUNCATED = "raft_tpu_recovery_truncated_bytes"
+
+#: the recovery stats the ``recovery`` flight event carries (the
+#: reference's; the port's stage seconds stay in the returned stats)
+_RECOVERY_EVENT_KEYS = ("checkpoint_lsn", "checkpoint_generation",
+                        "checkpoint_path", "checkpoint_rows",
+                        "replayed_records", "truncated_bytes",
+                        "wal_last_lsn", "stopped_early", "seconds")
+
 #: the last completed recovery's stats in this process (None until one)
 _LAST_RECOVERY: Optional[Dict] = None
+
+
+def _count(name: str, help: str, **labels) -> None:
+    try:
+        from raft_tpu_torch.observability.metrics import get_registry
+
+        get_registry().counter(name, labels or None, help=help).inc()
+    except Exception:
+        pass
+
+
+def _gauge(name: str, value: float, help: str) -> None:
+    try:
+        from raft_tpu_torch.observability.metrics import get_registry
+
+        get_registry().gauge(name, help=help).set(value)
+    except Exception:
+        pass
 
 
 class CheckpointData(NamedTuple):
@@ -116,6 +152,12 @@ class CheckpointStore:
         fault_point("manifest_commit")
         atomic_write_text(os.path.join(self.directory, _CURRENT),
                           name + "\n")
+        _count(CHECKPOINTS, "Mutation-plane checkpoints committed",
+               status="ok")
+        _gauge(CHECKPOINT_LSN, lsn,
+               "LSN watermark of the newest committed checkpoint")
+        emit_mutation("checkpoint", lsn=int(lsn), generation=int(generation),
+                      rows=int(rows.shape[0]))
         return d
 
     def _manifest_of(self, d: str) -> Optional[Dict]:
@@ -213,6 +255,7 @@ class DurabilityPlane:
         self.wal = _wal.WalWriter(os.path.join(directory, "wal"), sync=sync,
                                   next_lsn=next_lsn,
                                   segment_bytes=segment_bytes)
+        self.checkpoints_written = 0
 
     def log_upsert(self, ids, rows) -> int:
         return self.wal.append(_wal.OP_UPSERT, _wal.encode_upsert(ids, rows))
@@ -229,6 +272,7 @@ class DurabilityPlane:
         rotate the active segment and retire the segments the kept
         checkpoints no longer need."""
         path = self.checkpoints.write(rows, exts, lsn, generation)
+        self.checkpoints_written += 1
         self.wal.append(_wal.OP_CHECKPOINT, _wal.encode_checkpoint_mark(
             lsn, generation, os.path.basename(path)))
         self.wal.commit()
@@ -243,6 +287,7 @@ class DurabilityPlane:
         out.update(self.wal.stats())
         manifests = self.checkpoints.manifests()
         out["checkpoints"] = len(manifests)
+        out["checkpoints_written"] = self.checkpoints_written
         if manifests:
             out["checkpoint_lsn"] = manifests[0][1]["lsn"]
             out["checkpoint_generation"] = manifests[0][1]["generation"]
@@ -293,6 +338,8 @@ def recover(directory: str, *, res=None, device=None,
     store = CheckpointStore(directory)
     ck = store.load()
     if ck is None:
+        _count(RECOVERIES, "Mutation-plane recoveries by outcome",
+               status="empty")
         return None
     t_load = time.perf_counter()
     idx = MutableIndex(ck.rows, ids=ck.exts, res=res, device=device,
@@ -342,5 +389,13 @@ def recover(directory: str, *, res=None, device=None,
                                                next_lsn=next_lsn))
         if replayed:
             idx.checkpoint()        # the next recovery replays from here
+    _count(RECOVERIES, "Mutation-plane recoveries by outcome", status="ok")
+    _gauge(RECOVERY_SECONDS, stats["seconds"],
+           "Wall time of the last crash recovery")
+    _gauge(RECOVERY_REPLAYED, replayed,
+           "WAL records replayed by the last recovery")
+    _gauge(RECOVERY_TRUNCATED, stats["truncated_bytes"],
+           "Torn-tail bytes truncated by the last recovery")
+    emit_mutation("recovery", **{k: stats[k] for k in _RECOVERY_EVENT_KEYS})
     _LAST_RECOVERY = dict(stats)
     return idx, stats

@@ -51,14 +51,14 @@ mutation is appended to the WAL before it is applied and fsynced (per
 commits a checkpoint at every swap, and a genesis checkpoint is written at
 attach.
 
-Left out (ROADMAP item 14's remainder; the registry, spans and the
-flight recorder they feed are ported): the reference's telemetry hooks — the
-``@instrument`` wrappers of ``apply_upsert`` / ``apply_delete`` /
-``search_view``, ``record_pending`` at the ``mutable.search_base`` and
-``mutable.search_delta`` sites, ``emit_mutation`` (upsert, delete,
-compact_start, compact_swap, compact_abort) and the metrics gauges and
-counters (delta rows, tombstone fraction, compaction debt, mutations,
-compactions).
+Telemetry, as the reference's: ``apply_upsert`` / ``apply_delete`` /
+``search_view`` are spans; each search queues its certificate stats at
+the ``mutable.search_base`` (certified base scan) and
+``mutable.search_delta`` sites; every write and fold step is a
+``mutation`` flight event (``emit_mutation``: upsert, delete,
+compact_start, compact_swap, compact_abort); and the registry holds the
+delta rows, tombstone fraction and compaction debt gauges and the
+mutation and compaction counters (the ``raft_tpu_mutable_*`` names).
 
 Env knobs: ``RAFT_TPU_COMPACT_THRESHOLD`` (default 1024),
 ``RAFT_TPU_DELTA_CAP`` (default twice the threshold, 8-row quantum).
@@ -80,12 +80,22 @@ from raft_tpu_torch.core.resources import (DeviceResources, as_f32,
 from raft_tpu_torch.mutable.layout import (FusedOps, dense_layout,
                                            fused_ops_for_layout,
                                            run_fused_ops)
+from raft_tpu_torch.observability.quality import record_pending
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.observability.timeline import emit_mutation
 from raft_tpu_torch.resilience.faults import fault_point
 from raft_tpu_torch.serving.snapshot import SnapshotStore, wait_built
 
 COMPACT_THRESHOLD_ENV = "RAFT_TPU_COMPACT_THRESHOLD"
 DELTA_CAP_ENV = "RAFT_TPU_DELTA_CAP"
 DEFAULT_COMPACT_THRESHOLD = 1024
+
+# the mutation slice of the metric vocabulary
+DELTA_ROWS = "raft_tpu_mutable_delta_rows"
+TOMBSTONE_FRAC = "raft_tpu_mutable_tombstone_frac"
+COMPACTION_DEBT = "raft_tpu_mutable_compaction_debt"
+MUTATIONS = "raft_tpu_mutable_mutations_total"
+COMPACTIONS = "raft_tpu_mutable_compactions_total"
 
 #: delta-plane tiling (see the module doc)
 _DELTA_T = 256
@@ -102,6 +112,26 @@ def delta_cap_default(threshold: int) -> int:
         cap = 2 * threshold
     cap = max(cap, threshold, 8)
     return -(-cap // 8) * 8                       # 8-row quantum
+
+
+def _gauges(registry, delta_rows: int, tombs: int, base_rows: int,
+            threshold: int) -> None:
+    try:
+        registry.gauge(
+            DELTA_ROWS, help="Delta-slab slots written (live + "
+                             "tombstoned) awaiting compaction"
+        ).set(delta_rows)
+        registry.gauge(
+            TOMBSTONE_FRAC,
+            help="Tombstoned fraction of the base snapshot's rows"
+        ).set(tombs / max(1, base_rows))
+        registry.gauge(
+            COMPACTION_DEBT,
+            help="Delta occupancy over the compaction watermark "
+                 "(>= 1.0 means a fold is due)"
+        ).set(delta_rows / max(1, threshold))
+    except Exception:
+        pass
 
 
 def _publish_ready(device: torch.device) -> None:
@@ -531,10 +561,22 @@ class MutableIndex:
             finally:
                 self._cond.acquire()
 
-    def _mutation_epilogue_locked(self) -> None:
+    def _mutation_epilogue_locked(self, kind: str, n: int) -> None:
         self._seq += 1
         self._refresh_delta()
         self._publish_locked()
+        try:
+            self.res.metrics.counter(
+                MUTATIONS, {"kind": kind},
+                help="Mutable-index mutations applied").inc(n)
+        except Exception:
+            pass
+        _gauges(self.res.metrics, self._d_count, self._tomb_count,
+                self._plane.n_rows, self._threshold)
+        emit_mutation(kind, rows=n, seq=self._seq,
+                      delta_rows=self._d_count, delta_live=self._d_live,
+                      tombstones=self._tomb_count,
+                      generation=self._store.generation)
 
     def _upsert(self, exts: np.ndarray, rows: np.ndarray) -> int:
         n = rows.shape[0]
@@ -553,7 +595,7 @@ class MutableIndex:
             for i, e in enumerate(exts.tolist()):
                 self._lookup[e] = ~(c + i)
             self._d_count = c + n
-            self._mutation_epilogue_locked()
+            self._mutation_epilogue_locked("upsert", n)
         if self._dur is not None:
             self._dur.commit()       # the fsync horizon: ack after it
         self._maybe_compact()
@@ -564,7 +606,7 @@ class MutableIndex:
             if self._dur is not None:
                 self._dur.log_delete(exts)
             found = self._tombstone_locked(exts)
-            self._mutation_epilogue_locked()
+            self._mutation_epilogue_locked("delete", found)
         if self._dur is not None:
             self._dur.commit()
         self._maybe_compact()
@@ -655,6 +697,14 @@ class MutableIndex:
                      "keeping the current snapshot", type(e).__name__,
                      str(e)[:200])
 
+    def _count_compaction(self, status: str) -> None:
+        try:
+            self.res.metrics.counter(
+                COMPACTIONS, {"status": status},
+                help="Mutable-index compaction folds by outcome").inc()
+        except Exception:
+            pass
+
     def _fold(self, upto: int) -> None:
         """One compaction cycle: materialize the live rows as of entry,
         rebuild through ``SnapshotStore.update``, then rebase the retained
@@ -664,6 +714,9 @@ class MutableIndex:
         try:
             fault_point("compact_fold")
             with self._cond:
+                emit_mutation("compact_start",
+                              generation=self._store.generation,
+                              delta_rows=upto, tombstones=self._tomb_count)
                 rows, exts = self._materialize_locked(upto)
             # the expensive part, outside the lock: readers keep the old
             # view, writers keep appending past `upto`
@@ -676,6 +729,12 @@ class MutableIndex:
             with self._cond:
                 self._rebase_locked(plane, upto)
                 self._compactions += 1
+                _gauges(self.res.metrics, self._d_count, self._tomb_count,
+                        self._plane.n_rows, self._threshold)
+                emit_mutation("compact_swap",
+                              generation=self._store.generation,
+                              folded_rows=int(rows.shape[0]),
+                              retained_delta=self._d_count)
             if self._dur is not None:
                 try:
                     # bound the next recovery's tail at the swap; a failed
@@ -687,6 +746,13 @@ class MutableIndex:
                     log_warn("mutable: post-fold checkpoint failed (%s: %s)"
                              " — WAL tail keeps covering the delta",
                              type(e).__name__, str(e)[:200])
+            self._count_compaction("ok")
+        except Exception:
+            self._count_compaction("failed")
+            with self._cond:
+                emit_mutation("compact_abort",
+                              generation=self._store.generation)
+            raise
         finally:
             with self._cond:
                 self._folding = False
@@ -755,6 +821,7 @@ class MutableIndex:
 
 
 # ------------------------------------------------------- module entry ops
+@instrument("mutable.apply_upsert")
 def apply_upsert(index: MutableIndex, ids, rows) -> int:
     """Upsert ``rows`` [n, d] under external ``ids`` [n]: existing copies
     are tombstoned, the new rows land in the delta slab (quantized on
@@ -783,6 +850,7 @@ def apply_upsert(index: MutableIndex, ids, rows) -> int:
     return index._upsert(ids, rows)
 
 
+@instrument("mutable.apply_delete")
 def apply_delete(index: MutableIndex, ids) -> int:
     """Delete the rows under external ``ids``: a live-bit flip and a
     never-wins sentinel in the carrier; the slab is untouched and the
@@ -885,10 +953,23 @@ def _search_base(view: MutableView, x, k: int, exact: bool,
     vals, pos, n_fail = run_fused_ops(plane.fops, x, k,
                                       rows_valid=view.base_rv,
                                       yyh_k=view.base_yyh)
+    _pending("mutable.search_base", plane.fops, n_fail, x.shape[0], k,
+             view.generation)
     ext = torch.where(pos >= 0, plane.ext_slab[pos.long().clamp_min(0)], -1)
     return vals, ext, n_fail
 
 
+def _pending(site: str, fops: FusedOps, n_fail, nq: int, k: int,
+             generation: int) -> None:
+    """One certified plane scan's stats for the certificate counters."""
+    from raft_tpu_torch.distance.knn_fused import rescore_pool_width
+
+    record_pending(site, n_fail, n_queries=nq,
+                   pool_width=rescore_pool_width(fops.index, k),
+                   db_dtype=fops.index.db_dtype, generation=generation)
+
+
+@instrument("mutable.search_view")
 def search_view(index, x, k: int, view: Optional[MutableView] = None,
                 n_probes: Optional[int] = None, exact: bool = False,
                 res=None, with_stats: bool = False) -> Tuple:
@@ -923,6 +1004,8 @@ def search_view(index, x, k: int, view: Optional[MutableView] = None,
     if nq and view.delta_live > 0:
         kd = min(k, view.delta_live)
         dv, dpos, nf = run_fused_ops(view.delta_fops, x, kd)
+        _pending("mutable.search_delta", view.delta_fops, nf, nq, kd,
+                 view.generation)
         di = torch.where(dpos >= 0,
                          view.delta_fops.ids[dpos.long().clamp_min(0)], -1)
         pools.append(_pad_pool(dv, di, k))

@@ -33,10 +33,9 @@ Record frame (little-endian)::
   whole non-active segment, :meth:`WalWriter.retire_through` deletes it.
 
 Fault sites ``wal_append`` and ``wal_fsync``
-(:func:`~raft_tpu_torch.resilience.fault_point`). The reference's WAL
-counters and gauges are the mutable plane's telemetry, still left out
-(ROADMAP item 14's remainder; the registry and timeline they would feed
-are ported).
+(:func:`~raft_tpu_torch.resilience.fault_point`). The registry holds the
+reference's WAL counters and gauges: appends (by op), fsyncs, bytes, the
+durable LSN and the live segment count (``raft_tpu_wal_*``).
 Host-only: numpy and files, no tensor.
 """
 
@@ -59,6 +58,15 @@ from raft_tpu_torch.resilience.faults import fault_point
 WAL_MAGIC = b"RWL1"
 WAL_VERSION = 1
 OP_UPSERT, OP_DELETE, OP_CHECKPOINT = 1, 2, 3
+_OP_NAMES = {OP_UPSERT: "upsert", OP_DELETE: "delete",
+             OP_CHECKPOINT: "checkpoint-mark"}
+
+# the WAL slice of the metric vocabulary
+WAL_APPENDS = "raft_tpu_wal_appends_total"
+WAL_FSYNCS = "raft_tpu_wal_fsyncs_total"
+WAL_BYTES = "raft_tpu_wal_bytes_total"
+WAL_DURABLE_LSN = "raft_tpu_wal_durable_lsn"
+WAL_SEGMENTS = "raft_tpu_wal_segments"
 
 _HEADER = struct.Struct("<4sHBBQI")
 _CRC = struct.Struct("<I")
@@ -183,6 +191,7 @@ class WalWriter:
         self._dirty = False
         self._f = None
         self._seg_written = 0
+        self._fsyncs = 0
         os.makedirs(directory, exist_ok=True)
         self._open_segment_locked()
 
@@ -203,8 +212,32 @@ class WalWriter:
         if self.sync != "none" or force:
             fault_point("wal_fsync")
             os.fsync(self._f.fileno())
+            self._fsyncs += 1
+            self._count(WAL_FSYNCS, 1)
         self._dirty = False
         self._durable_lsn = self._next_lsn - 1
+        self._gauge(WAL_DURABLE_LSN, self._durable_lsn,
+                    "Highest fsynced WAL log sequence number")
+
+    @staticmethod
+    def _count(name: str, n: int, **labels) -> None:
+        try:
+            from raft_tpu_torch.observability.metrics import get_registry
+
+            get_registry().counter(
+                name, labels or None,
+                help="Write-ahead-log activity").inc(n)
+        except Exception:
+            pass
+
+    @staticmethod
+    def _gauge(name: str, value: float, help: str) -> None:
+        try:
+            from raft_tpu_torch.observability.metrics import get_registry
+
+            get_registry().gauge(name, help=help).set(value)
+        except Exception:
+            pass
 
     @property
     def last_lsn(self) -> int:
@@ -230,6 +263,8 @@ class WalWriter:
             self._next_lsn = lsn + 1
             self._dirty = True
             self._seg_written += len(frame)
+            self._count(WAL_APPENDS, 1, op=_OP_NAMES.get(op, str(op)))
+            self._count(WAL_BYTES, len(frame))
             if self.sync == "always":
                 self._fsync_locked()
             if self._seg_written >= self.segment_bytes:
@@ -278,6 +313,16 @@ class WalWriter:
                 removed += 1
             except OSError:
                 break
+        self._gauge(WAL_SEGMENTS, len(_segment_paths(self.directory)),
+                    "Live WAL segment files")
+        if removed:
+            try:
+                from raft_tpu_torch.observability.timeline import emit_marker
+
+                emit_marker("wal_retire", segments=removed,
+                            watermark_lsn=int(watermark_lsn))
+            except Exception:
+                pass
         return removed
 
     def close(self) -> None:
@@ -294,7 +339,8 @@ class WalWriter:
         with self._lock:
             return {"sync": self.sync, "last_lsn": self._next_lsn - 1,
                     "durable_lsn": self._durable_lsn, "segments": segments,
-                    "segment_bytes": self.segment_bytes}
+                    "segment_bytes": self.segment_bytes,
+                    "fsyncs": self._fsyncs}
 
 
 # -------------------------------------------------------------- replay

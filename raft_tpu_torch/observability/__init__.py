@@ -10,14 +10,23 @@ Counterpart of ``raft_tpu/observability``:
   :mod:`raft_tpu_torch.core.nvtx` range stack (NVTX ranges on the card).
 - the flight recorder (:mod:`~raft_tpu_torch.observability.flight`) and
   its typed emitters (:mod:`~raft_tpu_torch.observability.timeline`),
-  exported as Perfetto JSON.
+  exported as Perfetto JSON, and the model-vs-measured
+  :class:`DriftLedger` (``RAFT_TPU_DRIFT_LEDGER``).
+- hooks (:mod:`~raft_tpu_torch.observability.hooks`) — comms
+  collectives, the kernel library cache, ``core.memory.MemoryTracker``
+  and ``benchmark.Fixture`` results report in under the reference's
+  names.
 - exporters — Prometheus text, JSON lines, a summary table.
 - the quality plane (certificate counters, :class:`ShadowSampler`), the
   per-query explain plane, windowed aggregation and the SLO burn-rate
   engine, the crash-durable blackbox and the hang watchdog — all served
   live by :class:`raft_tpu_torch.tools.debugz.DebugzServer`.
-- the cost model the IVF choosers read
-  (:mod:`~raft_tpu_torch.observability.costmodel`).
+- the cost model (:mod:`~raft_tpu_torch.observability.costmodel`):
+  cost records, the roofline and its report, each kernel's analytic
+  work (``kernel_cost``), and the models the IVF choosers and the
+  sharded merge read; :class:`Profiler` is the ``res.profiler`` slot
+  (:mod:`~raft_tpu_torch.observability.profiler`, with a
+  ``torch.profiler`` trace window).
 
 ``RAFT_TPU_DISABLE_TRACING`` disables ranges, spans, metrics and the
 flight recorder; :func:`disable` does so at run time.
@@ -50,8 +59,22 @@ from raft_tpu_torch.observability.flight import (
     post_mortem,
     set_flight_recorder,
 )
-from raft_tpu_torch.observability.timeline import emit_marker
+from raft_tpu_torch.observability.timeline import (
+    DRIFT_BAND,
+    DriftLedger,
+    emit_marker,
+    get_drift_ledger,
+    record_drift,
+    set_drift_ledger,
+)
 from raft_tpu_torch.observability.spans import instrument, span, tree_nbytes
+from raft_tpu_torch.observability.hooks import (
+    record_alloc,
+    record_benchmark,
+    record_cache,
+    record_collective,
+    record_free,
+)
 from raft_tpu_torch.observability.exporters import (
     bench_results,
     export_jsonl,
@@ -60,6 +83,12 @@ from raft_tpu_torch.observability.exporters import (
     summary_table,
 )
 from raft_tpu_torch.observability.costmodel import (
+    CostRecord,
+    RooflineEstimate,
+    classify,
+    kernel_cost,
+    roofline,
+    roofline_report,
     DB_DTYPE_BYTES,
     FINE_SCAN_MARGIN,
     MERGE_STRATEGIES,
@@ -72,6 +101,11 @@ from raft_tpu_torch.observability.costmodel import (
     ivf_traffic_model,
     pq_bytes_ratio,
     pq_index_bytes,
+)
+from raft_tpu_torch.observability.profiler import (
+    Profiler,
+    get_profiler,
+    set_profiler,
 )
 from raft_tpu_torch.observability.quality import (
     ShadowSampler,
@@ -123,6 +157,12 @@ __all__ = [
     "KNOWN_EVENT_KINDS", "NULL_FLIGHT", "FlightRecorder", "disable_flight",
     "enable_flight", "flight_enabled", "get_flight_recorder", "post_mortem",
     "set_flight_recorder", "emit_marker",
+    "DRIFT_BAND", "DriftLedger", "get_drift_ledger", "record_drift",
+    "set_drift_ledger",
+    "record_alloc", "record_benchmark", "record_cache", "record_collective",
+    "record_free",
+    "CostRecord", "RooflineEstimate", "classify", "kernel_cost", "roofline",
+    "roofline_report", "Profiler", "get_profiler", "set_profiler",
     "instrument", "span", "tree_nbytes",
     "bench_results", "export_jsonl", "export_perfetto", "export_prometheus",
     "summary_table",

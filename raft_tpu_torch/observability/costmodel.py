@@ -1,20 +1,41 @@
-"""IVF traffic model, the fine-scan and PQ-scan crossovers, and the
-sharded KNN's merge model.
+"""Cost records and the roofline, the kernels' own cost records, the IVF
+traffic model and crossovers, and the sharded KNN's merge model.
 
-Counterpart of the functions of ``raft_tpu/observability/costmodel.py``
-that the IVF choosers read: ``ivf_traffic_model`` (``:436``, with its
-IVF-PQ keys), ``choose_fine_scan`` (``:425``) for ``fine_scan="auto"``,
-``choose_pq_scan`` (``:395``) for ``pq_scan="auto"``, ``pq_bytes_ratio``
-(``:346``) and ``pq_index_bytes`` (``:360``), with ``FINE_SCAN_MARGIN``,
-``PQ_SCAN_MARGIN`` and ``DB_DTYPE_BYTES``; and the merge half
-(``:599-683``): ``MERGE_STRATEGIES``, ``ici_traffic_model``,
-``ici_time_model`` and ``choose_merge_strategy``, priced on a
-:class:`~raft_tpu_torch.utils.arch.ChipSpec`. Pure arithmetic on shapes.
+Counterpart of ``raft_tpu/observability/costmodel.py``, priced on a
+:class:`~raft_tpu_torch.utils.arch.ChipSpec`; pure arithmetic on shapes.
+
+- The roofline half (reference ``:39-345, 685-757``): :class:`CostRecord`,
+  :func:`publish` (the ``raft_tpu_cost_*`` names), :func:`classify`,
+  :class:`RooflineEstimate`, :func:`roofline`, :func:`roofline_report`,
+  and the fused pipeline's traffic model (:func:`db_stream_bytes_per_el`,
+  :func:`fused_traffic_model`, :func:`quantized_bytes_ratio`,
+  :func:`fused_traffic_record`), computed as the reference computes them.
+  The reference fills a record from XLA's cost analysis of a compiled
+  executable; the port has none to ask, so :func:`kernel_cost` counts
+  each hand-written kernel's work analytically: the operations it must
+  do and the bytes it must move (each input read once, each output
+  written once). A record's ``rate`` names the peak its operations run
+  at: ``""`` the bf16 tensor-core peak (or the f32 one under
+  ``roofline(..., f32=True)``, as in the reference), ``"f32"``,
+  ``"fp32_issue"`` (FP32 instructions) or ``"sfu"`` (reciprocals).
+- The IVF choosers' half: ``ivf_traffic_model`` (``:436``, with its
+  IVF-PQ keys), ``choose_fine_scan`` (``:425``), ``choose_pq_scan``
+  (``:395``), ``pq_bytes_ratio`` (``:346``) and ``pq_index_bytes``
+  (``:360``), with ``FINE_SCAN_MARGIN``, ``PQ_SCAN_MARGIN`` and
+  ``DB_DTYPE_BYTES``.
+- The merge half (``:599-683``): ``MERGE_STRATEGIES``,
+  ``ici_traffic_model``, ``ici_time_model`` and
+  ``choose_merge_strategy``.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+import math
+from typing import Callable, Dict, List, Optional
+
+from raft_tpu_torch.observability.metrics import MetricsRegistry, get_registry
+from raft_tpu_torch.utils.arch import ChipSpec, chip_spec
 
 #: bytes per stored element of each index dtype
 DB_DTYPE_BYTES = {"f32": 4, "bf16": 2, "int8": 1}
@@ -36,6 +57,420 @@ _LIST_POOL = 256
 #: queries per certified-fused pass (knn_fused._Q_CHUNK); the brute-force
 #: bytes the IVF tier displaces stream the database once per such chunk
 _Q_CHUNK = 2048
+#: the fused pipeline's widest single-shot feature width and the wide
+#: kernel's d-chunk (the reference's knn_fused._D_SINGLE_SHOT and _DC)
+_D_SINGLE_SHOT = 512
+_DC = 256
+
+COST_FLOPS = "raft_tpu_cost_flops"
+COST_BYTES = "raft_tpu_cost_bytes_accessed"
+COST_PEAK_HBM = "raft_tpu_cost_peak_hbm_bytes"
+COST_TEMP_BYTES = "raft_tpu_cost_temp_bytes"
+COST_CAPTURES = "raft_tpu_cost_captures_total"
+
+
+@dataclasses.dataclass
+class CostRecord:
+    """Cost of one entry at one shape signature (reference ``:39``).
+
+    ``flops`` / ``bytes_accessed`` are the work counted for the entry:
+    a kernel's analytic count (:func:`kernel_cost`) or, for a plain
+    callable, ``torch.utils.flop_counter``'s operations and the bytes of
+    its inputs and outputs. ``peak_hbm_bytes`` is the allocator's
+    high-water mark during one run above what was allocated before it
+    (0 on the CPU). ``rate`` names the
+    peak the operations are priced at (see the module doc)."""
+
+    entry: str
+    key: str = ""
+    flops: float = 0.0
+    bytes_accessed: float = 0.0
+    transcendentals: float = 0.0
+    argument_bytes: int = 0
+    output_bytes: int = 0
+    temp_bytes: int = 0
+    peak_hbm_bytes: int = 0
+    generated_code_bytes: int = 0
+    platform: str = ""
+    rate: str = ""
+
+    @property
+    def arithmetic_intensity(self) -> float:
+        """Operations per device-memory byte; inf for byte-free work."""
+        if self.bytes_accessed <= 0:
+            return math.inf if self.flops > 0 else 0.0
+        return self.flops / self.bytes_accessed
+
+    def to_event(self) -> Dict:
+        ev = dataclasses.asdict(self)
+        ev["type"] = "cost"
+        ev["arithmetic_intensity"] = self.arithmetic_intensity
+        return ev
+
+
+def publish(rec: CostRecord,
+            registry: Optional[MetricsRegistry] = None) -> None:
+    """Cost record → registry (reference ``:120``): gauges a entry (the
+    latest capture wins) and a ``cost`` event carrying the whole
+    record."""
+    reg = registry if registry is not None else get_registry()
+    if not reg.enabled:
+        return
+    labels = {"entry": rec.entry}
+    reg.counter(COST_CAPTURES, labels,
+                help="XLA cost/memory analyses captured").inc()
+    reg.gauge(COST_FLOPS, labels,
+              help="XLA cost_analysis FLOPs of the latest compiled "
+                   "executable").set(rec.flops)
+    reg.gauge(COST_BYTES, labels,
+              help="XLA cost_analysis bytes accessed (HBM traffic)"
+              ).set(rec.bytes_accessed)
+    reg.gauge(COST_PEAK_HBM, labels,
+              help="args+outputs+temps of the compiled executable"
+              ).set(rec.peak_hbm_bytes)
+    reg.gauge(COST_TEMP_BYTES, labels,
+              help="XLA temp (scratch) bytes of the compiled executable"
+              ).set(rec.temp_bytes)
+    reg.emit(rec.to_event())
+
+
+# ---------------------------------------------------------------- roofline
+COMPUTE_BOUND = "compute-bound"
+MEMORY_BOUND = "memory-bound"
+
+
+def classify(arithmetic_intensity: float, spec: Optional[ChipSpec] = None,
+             f32: bool = False) -> str:
+    """Compute- vs memory-bound at the chip's ridge point
+    (peak FLOP/s ÷ HBM bytes/s)."""
+    spec = spec if spec is not None else chip_spec()
+    ridge = spec.ridge_f32 if f32 else spec.ridge
+    return COMPUTE_BOUND if arithmetic_intensity >= ridge else MEMORY_BOUND
+
+
+@dataclasses.dataclass
+class RooflineEstimate:
+    """One entry placed on the roofline (reference ``:166``).
+
+    ``roof_flops`` is the attainable rate at this arithmetic intensity,
+    ``min(peak, AI · hbm_bw)``; ``roof_seconds`` the time a
+    roofline-perfect run would take. With a measured ``seconds``,
+    ``utilization`` = roof_seconds / seconds, clamped at 1.0 as the
+    reference clamps it (a caller checking its count reads the raw
+    ratio, ``roof_seconds / seconds``)."""
+
+    entry: str
+    flops: float
+    bytes_accessed: float
+    arithmetic_intensity: float
+    bound: str
+    roof_flops: float
+    roof_seconds: float
+    seconds: Optional[float] = None
+    achieved_flops: Optional[float] = None
+    achieved_bw: Optional[float] = None
+    utilization: Optional[float] = None
+    spec_name: str = ""
+
+
+def _peak(rec: CostRecord, spec: ChipSpec, f32: bool) -> float:
+    """The operations rate ``rec`` is priced at on ``spec``."""
+    rate = rec.rate or ("f32" if f32 else "")
+    if rate == "":
+        return spec.peak_flops
+    if rate == "f32":
+        return spec.peak_flops_f32
+    if rate == "fp32_issue":
+        return spec.issue_f32 or spec.peak_flops_f32
+    if rate == "sfu":
+        return spec.sfu or spec.peak_flops_f32
+    raise ValueError(f"roofline: unknown rate {rec.rate!r}")
+
+
+def roofline(rec: CostRecord, spec: Optional[ChipSpec] = None,
+             seconds: Optional[float] = None,
+             f32: bool = False) -> RooflineEstimate:
+    """Place one cost record on the roofline, optionally with a measured
+    time (``benchmark.Fixture.run`` seconds). For a record with no
+    ``rate`` this is the reference's computation."""
+    spec = spec if spec is not None else chip_spec()
+    ai = rec.arithmetic_intensity
+    peak = _peak(rec, spec, f32)
+    if rec.rate:
+        bound = (COMPUTE_BOUND if ai >= peak / spec.hbm_bw
+                 else MEMORY_BOUND)
+    else:
+        bound = classify(ai, spec, f32=f32)
+    roof_flops = peak if bound == COMPUTE_BOUND else ai * spec.hbm_bw
+    roof_seconds = max(rec.flops / peak if peak else 0.0,
+                       rec.bytes_accessed / spec.hbm_bw if spec.hbm_bw
+                       else 0.0)
+    est = RooflineEstimate(
+        entry=rec.entry, flops=rec.flops,
+        bytes_accessed=rec.bytes_accessed, arithmetic_intensity=ai,
+        bound=bound, roof_flops=roof_flops, roof_seconds=roof_seconds,
+        seconds=seconds, spec_name=spec.name)
+    if seconds and seconds > 0:
+        est.achieved_flops = rec.flops / seconds
+        est.achieved_bw = rec.bytes_accessed / seconds
+        est.utilization = min(roof_seconds / seconds, 1.0) \
+            if roof_seconds else None
+    return est
+
+
+# ------------------------------------------------- fused traffic model
+def db_stream_bytes_per_el(db_dtype: str, passes: int) -> int:
+    """Streamed bytes per database element of the fused pipeline
+    (reference ``:225``): bf16 streams the hi (and, at passes=3, lo)
+    split; int8 streams one byte whatever the passes."""
+    if db_dtype == "int8":
+        return 1
+    return DB_DTYPE_BYTES["bf16"] * (2 if passes == 3 else 1)
+
+
+def fused_traffic_model(Q: int, m: int, d: int, k: int,
+                        T: int, Qb: int, g: int, passes: int,
+                        grid_order: str = "query",
+                        db_dtype: str = "bf16") -> Dict:
+    """The reference's analytic HBM traffic of its packed fused L2 top-k
+    pipeline for one query batch (``:235``): feature padding, row
+    padding to tiles (or whole groups for the db orders), query chunks
+    of ``_Q_CHUNK`` (y re-streams a chunk), the database bytes at each
+    pass count, and the three packed [Q, G·128] outputs. The grid orders
+    are the TPU kernel's; the port's kernels pick their own schedule, and
+    their own work is :func:`kernel_cost`'s."""
+    lanes = 128
+    d_eff = d + (-d) % (_DC if d > _D_SINGLE_SHOT else lanes)
+    row_mult = g * T if grid_order in ("db", "dbuf") else T
+    M = -(-max(m, 1) // row_mult) * row_mult
+    n_tiles = M // T
+    G = -(-n_tiles // g)
+    bpe = db_stream_bytes_per_el(db_dtype, passes)
+    y_stream = M * d_eff * bpe
+    yy_stream = 8 * M * 4
+    if db_dtype == "int8":
+        yy_stream += G * 8 * lanes * 4      # per-group scale tiles
+    y_streams = 0.0
+    x_bytes = 0.0
+    out_bytes = 0.0
+    q_left = Q
+    while q_left > 0:
+        qc = min(q_left, _Q_CHUNK)
+        q_left -= qc
+        qb_eff = min(Qb, -(-qc // 8) * 8)
+        qp = -(-qc // qb_eff) * qb_eff
+        nq = qp // qb_eff
+        if grid_order == "query":
+            y_streams += nq                 # y re-fetched per query block
+            x_bytes += qp * d_eff * 4       # x fetched once per block
+        elif grid_order == "db":
+            y_streams += 1                  # super-block resident
+            x_bytes += (M // (g * T)) * qp * d_eff * 4   # x per group
+        else:                               # dbuf: both single-stream
+            y_streams += 1
+            x_bytes += qp * d_eff * 4
+        out_bytes += 3 * qp * G * lanes * 4
+    return {
+        "grid_order": grid_order,
+        "db_dtype": db_dtype,
+        "y_bytes_per_el": bpe,
+        "y_bytes": y_streams * y_stream,
+        "y_stream_bytes": float(y_stream),
+        "y_stream_factor": y_streams,
+        "x_bytes": x_bytes,
+        "yy_bytes": y_streams * yy_stream,
+        "out_bytes": out_bytes,
+        "total_bytes": (y_streams * (y_stream + yy_stream)
+                        + x_bytes + out_bytes),
+    }
+
+
+def quantized_bytes_ratio(Q: int, m: int, d: int, k: int,
+                          T: int, Qb: int, g: int, passes: int,
+                          grid_order: str = "db") -> float:
+    """Streamed database bytes of the int8 path over the bf16 one for the
+    same geometry (reference ``:315``): 1/2 at passes=1, 1/4 at
+    passes=3, before the scale tiles."""
+    q8 = fused_traffic_model(Q, m, d, k, T, Qb, g, passes, grid_order,
+                             "int8")
+    bf = fused_traffic_model(Q, m, d, k, T, Qb, g, passes, grid_order,
+                             "bf16")
+    return q8["y_bytes"] / max(bf["y_bytes"], 1.0)
+
+
+def fused_traffic_record(Q: int, m: int, d: int, k: int,
+                         T: int, Qb: int, g: int, passes: int,
+                         grid_order: str = "query",
+                         db_dtype: str = "bf16") -> CostRecord:
+    """The traffic model as a :class:`CostRecord` (entry
+    ``fused_traffic_model``; reference ``:330``)."""
+    model = fused_traffic_model(Q, m, d, k, T, Qb, g, passes,
+                                grid_order, db_dtype)
+    lanes = 128
+    d_eff = d + (-d) % lanes if d <= 512 else d + (-d) % 256
+    # int8 folds at most two passes (x hi + lo); bf16x3 runs three
+    n_mm = ((2 if passes == 3 else 1) if db_dtype == "int8"
+            else (3 if passes == 3 else 1))
+    flops = 2.0 * Q * (-(-m // T) * T) * d_eff * n_mm
+    return CostRecord(
+        entry="fused_traffic_model",
+        key=f"{grid_order};T={T};Qb={Qb};g={g};p={passes};"
+            f"{db_dtype};{Q}x{m}x{d}",
+        flops=flops,
+        bytes_accessed=model["total_bytes"])
+
+
+# ------------------------------------------------ the kernels' own work
+def _k1(Q: int, M: int, d: int, S: int, passes: int):
+    """K1 packed (and its d-chunked form): the bf16 products (three at
+    passes=3), x, the rows (hi, and lo at passes=3), their norms and
+    the query norms read once, the three [Q, S] pools written once."""
+    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
+    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
+              + Q * 4 + 3 * Q * S * 4)
+    return ops, nbytes, ""
+
+
+def _k1_unpacked(Q: int, M: int, d: int, S: int, passes: int):
+    """K1's unpacked group forms: K1's products and inputs (no query
+    norms), five [Q, S] outputs (a1, a2, a3 and two ids)."""
+    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
+    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
+              + 5 * Q * S * 4)
+    return ops, nbytes, ""
+
+
+def _k1_slot(Q: int, M: int, d: int, T: int, passes: int):
+    """K1's slot forms: K1's products and inputs, m1 and i1 (8 bytes a
+    slot, M / T · 128 slots a query) and m2min ([Q, 128]) written once."""
+    S = M // T * 128
+    ops = 2.0 * Q * M * d * (3 if passes == 3 else 1)
+    nbytes = (Q * d * 4 + M * d * 2 * (2 if passes == 3 else 1) + M * 4
+              + Q * 4 + 2 * Q * S * 4 + Q * 128 * 4)
+    return ops, nbytes, ""
+
+
+def _k2(Q: int, M: int, d: int, S: int, passes: int):
+    """K2: x hi (and lo at passes=3) against exact codes on the tensor
+    cores; the queries, the int8 rows, their norms, the group scales and
+    the query norms read once, the three pools written once."""
+    ops = 2.0 * Q * M * d * (2 if passes == 3 else 1)
+    nbytes = (Q * d * 4 + M * d + M * 4 + S // 128 * 4 + Q * 4
+              + 3 * Q * S * 4)
+    return ops, nbytes, ""
+
+
+def _k3(B: int, L: int, T: int, tpg: int):
+    """K3: the rows read once and the three pools written once (its ~10
+    operations a value are some 30× below that)."""
+    G = -(-(-(-L // T)) // tpg)
+    return 0.0, B * L * 4 + 3 * B * G * 128 * 4, ""
+
+
+def _k4(nq: int, d: int, P: int, stream_rows: int, pair_rows: int,
+        q8: bool = False):
+    """K4 on one batch: each probed list read once (its padded rows at 4,
+    or for int8 1, bytes a feature), the queries, their norms and probe
+    table read once, the five [nq, 128] pools written once; passes × 2 ×
+    d bf16 operations a scored (query, row) pair (3 for f32, 2 for
+    int8)."""
+    nbytes = (stream_rows * d * (1 if q8 else 4) + nq * d * 4 + nq * 4
+              + nq * P * 4 + 5 * nq * 128 * 4)
+    ops = (2 if q8 else 3) * 2.0 * d * pair_rows
+    return ops, nbytes, ""
+
+
+def _k4_q8(nq: int, d: int, P: int, stream_rows: int, pair_rows: int):
+    return _k4(nq, d, P, stream_rows, pair_rows, q8=True)
+
+
+def _k5(nq: int, S: int, bits: int, P: int, depth: int, stream_rows: int,
+        pair_rows: int):
+    """K5 on one batch: each probed list's codes and two 4-byte sidecars
+    read once, the query norms, probe table, centroid dots (nq·P) and
+    tables (nq·S·2^bits f32) read once, (2·depth + 1) [nq, 128] pools
+    written once; S + 10 f32 operations a scored pair."""
+    cb = S if bits == 8 else S // 2
+    nbytes = (stream_rows * (cb + 8) + nq * 4 + 2 * nq * P * 4
+              + nq * S * (1 << bits) * 4 + (2 * depth + 1) * nq * 128 * 4)
+    return float(S + 10) * pair_rows, nbytes, "f32"
+
+
+def _spmv(nnz: int, n_rows: int, n_cols: int, V: int = 1):
+    """K6a/b/c, Y = A·B with B [n_cols, V]: the CSR form read once
+    (nnz·8 + (n_rows + 1)·4 bytes), B read and Y written once, 2·nnz·V
+    f32 operations."""
+    nbytes = nnz * 8 + (n_rows + 1) * 4 + V * (n_cols + n_rows) * 4
+    return 2.0 * nnz * V, nbytes, "f32"
+
+
+def _k7(nnz: int, m: int, n: int, d: int):
+    """K7: the structure in CSR form read and the values written once, A
+    and B read once; 2·nnz·d f32 operations."""
+    nbytes = nnz * 8 + (m + 1) * 4 + (m + n) * d * 4
+    return 2.0 * nnz * d, nbytes, "f32"
+
+
+def _k8(metric: str, n: int, m: int, d: int):
+    """K8's [n, m] matrix: x and y read and the output written once; the
+    FP32 instructions each of the n·m·d terms needs at the least (two:
+    l1's FSUB and |·|-FADD, linf's FSUB and max, hamming's compare and
+    predicated add) or, for canberra, its one SFU reciprocal."""
+    terms = float(n) * m * d
+    nbytes = (n + m) * d * 4 + n * m * 4
+    if metric == "canberra":
+        return terms, nbytes, "sfu"
+    return 2.0 * terms, nbytes, "fp32_issue"
+
+
+def _k9(n: int, batch: int, n_bins: int):
+    """K9: the bins read and the counts written once."""
+    return 0.0, (n * batch + n_bins * batch) * 4, ""
+
+
+def _jv(batch: int, n: int, steps: int):
+    """The LAP's JV tail: the cost matrices read and the outputs written
+    once; four f32 operations a column a step."""
+    return 4.0 * n * steps, batch * (4.0 * n * n + 8.0 * n), "f32"
+
+
+#: kernel → its work counter; each returns (operations, bytes, rate)
+KERNELS: Dict[str, Callable] = {
+    "K1": _k1, "K1_dchunk": _k1, "K1_unpacked": _k1_unpacked,
+    "K1_slot": _k1_slot, "K2": _k2, "K3": _k3, "K4": _k4, "K4_q8": _k4_q8,
+    "K5": _k5, "K6a": _spmv, "K6b": _spmv, "K6c": _spmv, "K7": _k7,
+    "K8": _k8, "K9": _k9, "JV": _jv,
+}
+
+
+def kernel_cost(name: str, entry: Optional[str] = None,
+                **shape) -> CostRecord:
+    """The :class:`CostRecord` of one launch of kernel ``name`` (a key of
+    :data:`KERNELS`) at ``shape``: the least work it must do. Its
+    ``roofline(rec, H100_SPEC).roof_seconds`` is the kernel's bound, the
+    ``bound_ms`` that ``chip_smoke.py`` prints. ``entry`` names the
+    record (default ``name``), so an entry point can carry its kernel's
+    work."""
+    if name not in KERNELS:
+        raise ValueError(f"kernel_cost: unknown kernel {name!r}; one of "
+                         f"{sorted(KERNELS)}")
+    ops, nbytes, rate = KERNELS[name](**shape)
+    key = ";".join(f"{k}={v}" for k, v in sorted(shape.items()))
+    return CostRecord(entry=entry or name, key=f"{name};{key}",
+                      flops=float(ops), bytes_accessed=float(nbytes),
+                      platform="cuda", rate=rate)
+
+
+def bound_ms(rec: CostRecord, spec: Optional[ChipSpec] = None):
+    """(ms, "operations" or "bytes"): a record's least time on ``spec``
+    (default the H100's) and what sets it."""
+    if spec is None:
+        from raft_tpu_torch.utils.arch import H100_SPEC
+
+        spec = H100_SPEC
+    est = roofline(rec, spec)
+    return 1e3 * est.roof_seconds, ("operations" if est.bound
+                                    == COMPUTE_BOUND else "bytes")
 
 
 def choose_fine_scan(model: Dict) -> str:
@@ -274,3 +709,73 @@ def choose_merge_strategy(p: int, nq: int, k: int, spec=None) -> str:
     t_ag = ici_time_model(p, nq, k, "allgather", spec)["merge_seconds"]
     t_tr = ici_time_model(p, nq, k, "tournament", spec)["merge_seconds"]
     return "allgather" if t_ag <= t_tr else "tournament"
+
+
+def _fmt_count(v: float) -> str:
+    for unit, scale in (("G", 1e9), ("M", 1e6), ("K", 1e3)):
+        if abs(v) >= scale:
+            return f"{v / scale:.3g}{unit}"
+    return f"{v:.3g}"
+
+
+def _cost_records_from_registry(reg: MetricsRegistry) -> List[CostRecord]:
+    """Latest ``cost`` event per entry → CostRecords."""
+    latest: Dict[str, CostRecord] = {}
+    for ev in reg.events:
+        if ev.get("type") != "cost":
+            continue
+        fields = {f.name: ev[f.name] for f in dataclasses.fields(CostRecord)
+                  if f.name in ev}
+        latest[ev.get("entry", "?")] = CostRecord(**fields)
+    return list(latest.values())
+
+
+def roofline_report(registry: Optional[MetricsRegistry] = None,
+                    spec: Optional[ChipSpec] = None,
+                    records: Optional[List[CostRecord]] = None,
+                    timings: Optional[Dict[str, float]] = None) -> str:
+    """An entry-by-entry roofline table, worst utilization first
+    (reference ``:685``). Rows come from ``records`` (e.g.
+    ``res.profiler.records()``) or the latest ``cost`` event an entry in
+    the registry; times from ``timings`` (entry → seconds) or the
+    matching benchmark events. An entry with no time still ranks and
+    shows ``-`` in the measured columns."""
+    from raft_tpu_torch.observability.exporters import bench_results
+
+    reg = registry if registry is not None else get_registry()
+    spec = spec if spec is not None else chip_spec()
+    if records is None:
+        records = _cost_records_from_registry(reg)
+    if timings is None:
+        timings = {name: r["seconds"]
+                   for name, r in bench_results(reg).items()
+                   if isinstance(r.get("seconds"), (int, float))}
+    ests = [roofline(r, spec, seconds=timings.get(r.entry))
+            for r in records]
+    ests.sort(key=lambda e: (e.utilization is None,
+                             e.utilization if e.utilization is not None
+                             else 0.0))
+    header = (f"roofline: {spec.name} — peak {spec.peak_flops / 1e12:.3g} "
+              f"TFLOP/s, HBM {spec.hbm_bw / 1e9:.4g} GB/s, ridge "
+              f"{spec.ridge:.3g} FLOP/B")
+    cols = ("entry", "flops", "bytes", "AI", "bound", "time", "GB/s",
+            "%roof")
+    rows = []
+    for e in ests:
+        rows.append((
+            e.entry, _fmt_count(e.flops), _fmt_count(e.bytes_accessed),
+            f"{e.arithmetic_intensity:.3g}", e.bound,
+            f"{e.seconds * 1e3:.3g}ms" if e.seconds else "-",
+            f"{e.achieved_bw / 1e9:.3g}" if e.achieved_bw else "-",
+            f"{e.utilization * 100:.1f}" if e.utilization is not None
+            else "-"))
+    if not rows:
+        return header + "\n(no cost records captured)\n"
+    widths = [max(len(c), *(len(r[i]) for r in rows))
+              for i, c in enumerate(cols)]
+    lines = [header,
+             "  ".join(c.ljust(w) for c, w in zip(cols, widths)),
+             "  ".join("-" * w for w in widths)]
+    for r in rows:
+        lines.append("  ".join(v.ljust(w) for v, w in zip(r, widths)))
+    return "\n".join(lines) + "\n"

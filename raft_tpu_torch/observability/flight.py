@@ -46,8 +46,8 @@ from typing import Dict, List, Optional
 KNOWN_EVENT_KINDS = (
     "span",          # instrumented-call complete events (begin+dur)
     "collective",    # collectives with per-shard payload bytes
-    "compile",       # reference only: compile-cache events
-    "dispatch",      # reference only: executable dispatch
+    "compile",       # kernel-library cache hits/misses, builds
+    "dispatch",      # runtime-entry dispatch
     "fault",         # injected faults (resilience.faults)
     "retry",         # bounded-retry attempts (resilience.policy)
     "degradation",   # graceful-degradation ladder rungs
@@ -59,8 +59,9 @@ KNOWN_EVENT_KINDS = (
     "serving",       # serving engine: enqueue/flush/shed/swap/warmup
     "quality",       # certificate failures / fixups / q8 reruns
     "flow",          # per-request Perfetto flow points (ph s/t/f)
-    "mutation",      # mutable-index write-ahead stream: upsert/delete/
-    #                  compact_start/compact_swap
+    "mutation",      # mutable-index stream: upsert/delete/
+    #                  compact_start/compact_swap/compact_abort/
+    #                  checkpoint/recovery
     "explain",       # per-query explain records (observability.explain)
     "alert",         # SLO burn-rate alerts firing/resolving
     #                  (observability.slo)

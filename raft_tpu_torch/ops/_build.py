@@ -60,13 +60,29 @@ def library_path(name: str) -> str:
     return os.path.join(BUILD_DIR, f"{name}-{h.hexdigest()[:16]}.so")
 
 
+def _record_cache(name: str, hit: bool, seconds: float = 0.0) -> None:
+    """The library cache's hit or miss into the metrics registry, and a
+    build's wall time into the flight ring."""
+    from raft_tpu_torch.observability.hooks import record_cache
+    from raft_tpu_torch.observability.timeline import emit_compile
+
+    record_cache(hit)
+    if seconds:
+        emit_compile(name, seconds, hit=False)
+
+
 def build(name: str) -> str:
-    """Compile ``csrc/<name>.cu`` unless its hashed library exists."""
+    """Compile ``csrc/<name>.cu`` unless its hashed library exists (a
+    cache hit); a miss passes the ``aot_compile`` fault site first."""
     global BUILDS
     out = library_path(name)
     if os.path.exists(out):
         BUILD_SECONDS.setdefault(name, 0.0)
+        _record_cache(name, True)
         return out
+    from raft_tpu_torch.resilience.faults import fault_point
+
+    fault_point("aot_compile")
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
     t0 = time.perf_counter()
@@ -80,6 +96,7 @@ def build(name: str) -> str:
         BUILDS += 1
     BUILD_SECONDS[name] = time.perf_counter() - t0
     BUILD_LOG[name] = proc.stderr
+    _record_cache(name, False, BUILD_SECONDS[name])
     return out
 
 
@@ -96,11 +113,14 @@ def build_all(names: Iterable[str]) -> None:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu`` (built on first use)."""
+    """The loaded library of ``csrc/<name>.cu`` (built on first use); a
+    library already loaded counts as a cache hit."""
     global LOADS
     with _load_lock:
         lib = _libs.get(name)
-        if lib is None:
+        if lib is not None:
+            _record_cache(name, True)
+        else:
             lib = ctypes.CDLL(build(name))
             _libs[name] = lib
             LOADS += 1

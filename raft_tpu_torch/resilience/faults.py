@@ -51,9 +51,54 @@ DATA_KINDS = ("corrupt", "nan")
 
 INJECTIONS = "raft_tpu_fault_injections_total"
 
-#: site name → kinds that are meaningful there (the reference's entries
-#: for the sites the port arms; ``fault_point`` accepts any name)
+#: site name → kinds that are meaningful there: the reference's sites
+#: and kinds, less the five that belong to unported modules
+#: (``autotune_fused``, ``autotune_sharded``, ``autotune_fine_scan`` and
+#: ``tune_table_read``: the TPU tuners and their tables, ``tune/*``;
+#: ``plan_cache_read``: the sparse layout plan cache). ``fault_point``
+#: accepts any name; ``tests/test_torch_instrumented.py`` holds every
+#: site the port calls to this table.
 KNOWN_SITES: Dict[str, Tuple[str, ...]] = {
+    # runtime: a kernel library build on a cache miss (ops/_build.py)
+    # and the serving entry's dispatch (runtime.knn_query)
+    "aot_compile": ("oom", "error"),
+    "aot_dispatch": ("oom", "error", "nan"),
+    # fused KNN, single-device and sharded
+    "knn_fused": ("oom", "error"),
+    # int8 quantization at build time: a failing quantize surfaces at
+    # build, never as a silently-bf16 index
+    "quantize_index": ("error",),
+    "sharded_dispatch": ("oom", "error", "nan"),
+    "merge_permute": ("oom", "error", "timeout", "hang"),
+    "merge_allgather": ("oom", "error", "timeout", "hang"),
+    # select / distance / sparse / solver hot paths
+    "select_k": ("oom", "error"),
+    "select_k_chunked": ("oom", "error"),
+    "select_k_slotted": ("oom", "error"),
+    "pairwise_distance": ("oom", "error"),
+    "fused_l2nn": ("oom", "error"),
+    "tile_csr": ("oom", "error"),
+    "spmv_sharded": ("oom", "error"),
+    "solve_lap": ("oom", "error"),
+    # clustering and the IVF tier: the fit and each Lloyd iteration, the
+    # IVF build and search
+    "kmeans_fit": ("oom", "error"),
+    "kmeans_iteration": ("error",),
+    "ivf_build": ("oom", "error"),
+    "ivf_search": ("oom", "error"),
+    # the list-major fine scan (K4), the PQ codebook and OPQ trains, the
+    # ADC scan (K5) and its widen rung: the reference degrades a failure
+    # at fine_scan_list, pq_scan or pq_widen to another schedule; the
+    # port raises it (no fallback hides a kernel)
+    "fine_scan_list": ("error", "oom"),
+    "pq_train": ("error",),
+    "pq_scan": ("error", "oom"),
+    "opq_train": ("error",),
+    "pq_widen": ("error", "oom"),
+    # host-side comms
+    "host_collective": ("oom", "error", "timeout", "hang"),
+    "host_barrier": ("error", "timeout", "hang"),
+    "host_sync": ("error", "hang"),
     # serving engine: admission at enqueue, the batch flush (dispatch of
     # a coalesced micro-batch), and the background snapshot rebuild
     "serving_enqueue": ("error",),
@@ -69,11 +114,6 @@ KNOWN_SITES: Dict[str, Tuple[str, ...]] = {
     "wal_fsync": ("error",),
     "checkpoint_write": ("error",),
     "manifest_commit": ("error",),
-    # sharded KNN: the per-call dispatch of the rank programs, and the
-    # two collective merges (a failure walks the merge ladder)
-    "sharded_dispatch": ("oom", "error", "nan"),
-    "merge_permute": ("oom", "error", "timeout", "hang"),
-    "merge_allgather": ("oom", "error", "timeout", "hang"),
 }
 
 

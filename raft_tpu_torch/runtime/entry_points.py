@@ -8,8 +8,11 @@ warmed engine never traces on a live request. PyTorch is eager and has
 nothing to compile; the port's counterpart of that contract is the kernel
 libraries, which ``raft_tpu_torch.ops._build`` builds and loads once per
 process (the engine's warm-up loads them, and counts that nothing loads
-after it). Each call feeds the certificate counters and, under an active
-explain capture, the explain record (the reference's ``:220-243``).
+after it); the ``aot_compile`` fault site sits at a library build there.
+Each call passes the ``aot_dispatch`` fault site and records a
+``dispatch`` flight event before it queues its work, and feeds the
+certificate counters and, under an active explain capture, the explain
+record (the reference's ``:220-243``).
 """
 
 from __future__ import annotations
@@ -23,6 +26,8 @@ from raft_tpu_torch.core.resources import as_f32
 from raft_tpu_torch.distance.knn_fused import (
     _LANES, KnnIndex, query_prepared, record_telemetry, resolve_rescore)
 from raft_tpu_torch.observability import explain
+from raft_tpu_torch.observability.timeline import emit_dispatch
+from raft_tpu_torch.resilience.faults import fault_point
 
 
 def knn_query(res, index: KnnIndex, x, k: int,
@@ -66,6 +71,8 @@ def knn_query(res, index: KnnIndex, x, k: int,
     # failure count is the int the certificate already read on the host,
     # and the margins are computed and held only under an active capture
     margins = [] if explain.active() is not None else None
+    fault_point("aot_dispatch")
+    emit_dispatch("knn_query")
     vals, ids, n_fail = query_prepared(x, index, k, rescore, certify,
                                        margins)
     record_telemetry("runtime.knn_query", index, k, Q, n_fail, margins)

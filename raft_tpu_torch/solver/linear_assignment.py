@@ -20,8 +20,8 @@ column is the first maximal one (``torch.max``, as ``jnp.argmax``). The
 exact tail is one hand-written CUDA kernel on the card
 (``ops.lap_jv``), its twin on the CPU.
 
-``@instrument`` and the ``solve_lap`` fault site are item 14's remainder
-(ROADMAP): the span and fault machinery is ported, these sites are not.
+``solve_lap`` is the ``solver.solve_lap`` span and carries the
+``solve_lap`` fault site, as the reference's does.
 """
 
 from __future__ import annotations
@@ -34,6 +34,8 @@ import torch
 from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.resources import as_tensors
 from raft_tpu_torch.ops.lap_jv import MAX_N, lap_jv_solve
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 #: bids between two host reads of the auction's stop condition
 CHECK_EVERY = 32
@@ -246,7 +248,9 @@ class LinearAssignmentProblem:
         return self._gap_bound
 
 
+@instrument("solver.solve_lap")
 def solve_lap(res, cost, tol: float = None):
     """Functional wrapper; see :meth:`LinearAssignmentProblem.solve`."""
+    fault_point("solve_lap")
     cost, = as_tensors(res, cost)
     return LinearAssignmentProblem(res, cost.shape[-1]).solve(cost, tol=tol)

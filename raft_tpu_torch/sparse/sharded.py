@@ -26,6 +26,7 @@ from raft_tpu_torch.core.error import expects
 from raft_tpu_torch.core.sparse_types import COOMatrix, CSRMatrix, to_device
 from raft_tpu_torch.resilience import fault_point
 from raft_tpu_torch.sparse.tiled import TiledELL, tile_csr
+from raft_tpu_torch.observability.spans import instrument
 
 
 class ShardedTiledELL:
@@ -106,6 +107,7 @@ def _per_block(S: ShardedTiledELL, fn, operand):
     return torch.cat([o.to(dev) for o in outs])[:S.shape[0]]
 
 
+@instrument("sparse.spmv_sharded")
 def spmv_sharded(S: ShardedTiledELL, x) -> torch.Tensor:
     """y = A @ x: K6a on every row block, the blocks concatenated on the
     first rank's device (reference ``:207``)."""
@@ -116,6 +118,7 @@ def spmv_sharded(S: ShardedTiledELL, x) -> torch.Tensor:
     return _per_block(S, spmv_tiled, x)
 
 
+@instrument("sparse.spmm_sharded")
 def spmm_sharded(S: ShardedTiledELL, B) -> torch.Tensor:
     """C = A @ B for dense ``B`` [n_cols, kB]: K6c on every row block
     (reference ``:220``)."""

@@ -60,6 +60,8 @@ import torch
 
 from raft_tpu_torch.core.resources import resolve_device
 from raft_tpu_torch.core.sparse_types import COOMatrix, CSRMatrix, to_device
+from raft_tpu_torch.observability.spans import instrument
+from raft_tpu_torch.resilience.faults import fault_point
 
 _log = logging.getLogger(__name__)
 
@@ -300,12 +302,14 @@ def _ids(counts: torch.Tensor, total: int) -> torch.Tensor:
         output_size=total)
 
 
+@instrument("sparse.tile_csr")
 def tile_csr(A, C: int = 512, R: int = 256, E: int = 2048,
              impl: str = "auto", device=None) -> TiledELL:
     """Convert a CSR/COO matrix to the tiled-ELL layout, on the device
     that holds it (see the module doc). ``impl``: "auto", "device" and
     "numpy" all run the one torch pass; "native" (the reference's legacy
     scalar-perm C++ layout) is not ported."""
+    fault_point("tile_csr")
     if impl not in ("auto", "device", "numpy", "native"):
         raise ValueError(f"tile_csr: impl must be 'auto', 'device', "
                          f"'numpy' or 'native', got {impl!r}")
@@ -483,6 +487,7 @@ def _tile_pairs_torch(r64, c64, shape, R: int, C: int, E: int) -> TiledPairs:
         n_row_tiles=n_rt, n_col_tiles=n_ct)
 
 
+@instrument("sparse.tile_csr_pairs")
 def tile_csr_pairs(A, R: int = 256, C: int = 512, E: int = 2048,
                    impl: str = "auto", device=None) -> TiledPairsSpmv:
     """One-time conversion of a sparse matrix (values included) to the

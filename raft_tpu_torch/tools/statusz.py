@@ -11,13 +11,15 @@ in-process observability surfaces, with the reference's sections:
   (bucket-interpolated), serving request latency included;
 - **serving engine**: queue, batch and latency counters and
   ``builds_after_warmup``;
+- **durability**: the WAL's sync mode, last and durable LSN and
+  segments, the checkpoints (count, newest LSN and generation) of a
+  durable engine's mutable index, and the process's last recovery;
 - **SLO burn state**, the newest **explain** records, **forensics**
   (flight-ring drops, blackbox write stats, watchdog ticks and stalls,
   the prior run's crash verdict), **degradations**, the full registry
   summary table and the **flight tail**.
 
-The reference's durability panel (WAL and checkpoint state) is not
-ported yet. Served at debugz ``/statusz``.
+Served at debugz ``/statusz``.
 """
 
 from __future__ import annotations
@@ -120,6 +122,41 @@ def render_statusz(registry=None, recorder=None, engine=None,
                               else f"  {key:<18} {v}\n")
         except Exception as e:
             out.write(f"(engine stats unavailable: {e})\n")
+    # ---- durability & recovery ----------------------------------------
+    out.write("\ndurability (WAL / checkpoints / recovery)\n")
+    out.write("-----------------------------------------\n")
+    try:
+        plane = None
+        if engine is not None:
+            mut = getattr(engine, "mutable", None)
+            plane = getattr(mut, "durability", None) if mut else None
+        if plane is not None:
+            st = plane.stats()
+            out.write(f"wal sync={st.get('sync')}  "
+                      f"last_lsn={st.get('last_lsn')}  "
+                      f"durable_lsn={st.get('durable_lsn')}  "
+                      f"segments={st.get('segments')}\n")
+            out.write(f"checkpoints {st.get('checkpoints', 0)} "
+                      f"(newest lsn={st.get('checkpoint_lsn', '-')}, "
+                      f"gen={st.get('checkpoint_generation', '-')})\n")
+        else:
+            out.write("(no durability plane attached — "
+                      "durable=False)\n")
+        from raft_tpu_torch.mutable.checkpoint import last_recovery
+
+        rec_info = last_recovery()
+        if rec_info is not None:
+            out.write(f"last recovery   {rec_info['seconds'] * 1e3:.1f}"
+                      f" ms: {rec_info['replayed_records']} record(s) "
+                      f"replayed over checkpoint "
+                      f"lsn={rec_info['checkpoint_lsn']}, "
+                      f"{rec_info['truncated_bytes']} torn byte(s) "
+                      f"truncated\n")
+        else:
+            out.write("last recovery   (none this process)\n")
+    except Exception as e:
+        out.write(f"(durability section unavailable: {e})\n")
+
     # ---- SLO burn state ------------------------------------------------
     out.write("\nSLO burn state\n--------------\n")
     try:
